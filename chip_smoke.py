@@ -7,18 +7,26 @@
 Phases, each raising on failure:
 
 1. Device: the card's name and power limit; TF32 off for matmuls.
-2. Build: the hand-written kernels of ``dotsocp_tpu_torch/csrc/`` with nvcc.
+2. Build: the hand-written kernels of ``dotsocp_tpu_torch/csrc/`` with nvcc,
+   one process per source, in parallel.
 3. Kernels against their plain PyTorch versions on the card, on seeded
    inputs, at 129^2 x 33 and 513^2 x 65 (2D) and 1025 x 33 (1D), within
-   rtol 2e-5 / atol 2e-6; and a 4-iteration CA segment against 4 plain
-   steps within rtol 2e-6 / atol 2e-6.
+   rtol 2e-5 / atol 2e-6 (the sGS sweep: one sweep, two in one call and
+   two chained calls, its input phi unchanged); and a 4-iteration CA
+   segment against 4 plain steps within rtol 2e-6 / atol 2e-6.
 4. The headline solve: DOTmark-4stitch 129^2 x 33, 3 levels, inPALM, tol
    1e-4, float32, through ``solve_dot(..., device="cuda")``: mass
    conservation, stop residuals, 470-574 iterations (522 is the anchor),
-   and every kernel launched.
+   and every x-carry kernel launched.
+4b. The sGS path at the same size: ``sGS-inPALM``, levels 1-2 inPALM on the
+   x-carry kernels, level 3 sGS on the sweep kernel; held to the JAX
+   package's own runs of this configuration (``SGS_ANCHOR``).
+4c. example2 65^2 x 17, 2 levels, tol 1e-4, float32: acc-sGS-ADMM, acc-ADMM
+   and PALM, each within +-10% of its JAX float64 iteration count, with
+   mass conservation and stop residuals.
 5. Times at 513^2 x 65 with CUDA events: each kernel against its plain
    version, the phi-step, one CA iteration with the kernels against the
-   plain step. Nothing about speed is asserted.
+   plain step, one sGS iteration. Nothing about speed is asserted.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -36,6 +44,21 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HEADLINE_ANCHOR = 522
+# DOTmark-4stitch 129^2 x 33, 3 levels, sGS-inPALM, tol 1e-4, the JAX
+# package's host driver on the CPU: levels 1-2 (inPALM) converge in 214 +
+# 189 iterations and level 3 stops at SGS_MAXIT, short of the tolerance,
+# both in float64 and in float32. Where it stops, the iterate depends on
+# the precision: float64 ends with stop residual 5.284e-4 and mass error
+# 1.227e-2 (just above the 1e-2 of mass_ok), float32 with 3.06e-4 and
+# 2.708e-3. The card runs float32, so its stop residual must lie within a
+# factor of 2 and its mass error within 30% of the float32 run's.
+SGS_ANCHOR = {"iters": (214, 189, 6000), "mass_error": 2.708e-3,
+              "stop": 3.06e-4}
+SGS_MAXIT = 6000
+# example2 65^2 x 17, 2 levels, tol 1e-4: the JAX host driver in float64
+# (acc-ADMM: tests/golden/dot2d_example2_65x17_l2_accadmm.npz)
+VARIANT_ANCHORS = {"acc-sGS-ADMM": (1049, 2138), "acc-ADMM": (1049, 609),
+                   "PALM": (809, 569)}
 RTOL, ATOL = 2e-5, 2e-6          # kernel vs plain (tests/test_pallas.py:108)
 SEG_RTOL, SEG_ATOL = 2e-6, 2e-6  # CA segment vs plain steps (:202-204)
 HBM_PEAK = 3.35e12               # H100 SXM data sheet, bytes/s
@@ -43,12 +66,18 @@ DEVICE = "cuda"
 # (nt, space) of the kernel checks, and of the timing level
 CHECK_SHAPES = ((33, (129, 129)), (65, (513, 513)), (33, (1025,)))
 SCALE = (65, 513)
-SOURCE = "dotsocp_tpu_torch/csrc/fused_step.cu"
+SOURCES = {"x_step": "dotsocp_tpu_torch/csrc/fused_step.cu",
+           "qx_step": "dotsocp_tpu_torch/csrc/fused_step.cu",
+           "cx_step": "dotsocp_tpu_torch/csrc/fused_step.cu",
+           "cx_final": "dotsocp_tpu_torch/csrc/fused_step.cu",
+           "rb_sweep": "dotsocp_tpu_torch/csrc/sgs_sweep.cu"}
 REPLACES = {
     "x_step": "dotsocp_tpu/ops/pallas_kernels.py:812",
     "qx_step": "dotsocp_tpu/ops/pallas_kernels.py:860",
     "cx_step": "dotsocp_tpu/ops/pallas_kernels.py:988",
     "cx_final": "dotsocp_tpu/ops/pallas_kernels.py:988",
+    "rb_sweep": ["dotsocp_tpu/ops/pallas_kernels.py:71",
+                 "dotsocp_tpu/ops/pallas_kernels.py:181"],
 }
 
 
@@ -94,8 +123,9 @@ def build_kernels():
     t0 = time.monotonic()
     _build.library()
     info = _build.build_info
-    log(f"library {info['path']} ({'cached' if info['cached'] else 'built'}) "
-        f"in {time.monotonic() - t0:.2f} s")
+    log(f"libraries {', '.join(info['paths'])} "
+        f"({'cached' if info['cached'] else 'built in parallel'}) in "
+        f"{time.monotonic() - t0:.2f} s")
     for line in info.get("log", "").splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  " + line.strip())
@@ -190,6 +220,39 @@ def check_kernels(torch, cmp, geom, seed):
         f"{k} {e:.2e}" for k, e in errs.items()))
 
 
+def check_sweep(torch, cmp, geom, seed):
+    """The sGS sweep kernel against the plain sweep, with d2 = D^2 of a
+    first level: one sweep, two in one call, two chained calls; the input
+    phi must come back unchanged."""
+    import numpy as np
+
+    from dotsocp_tpu_torch.ops import sgs_sweep
+    from dotsocp_tpu_torch.ops.sgs import make_sgs
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(100 + seed)
+
+    def rand():
+        return torch.from_numpy(
+            rng.standard_normal(geom.phi_shape, dtype=np.float32)).to(dev)
+
+    phi, rhs = rand(), rand()
+    d2 = level_scalars(geom)[0] ** 2
+    sgs = make_sgs(geom, dtype=torch.float32, device=dev)
+    before = phi.clone()
+    errs = []
+    for its in (1, 2):
+        got = sgs_sweep.rb_sweep(sgs, phi, rhs, d2, its)
+        errs.append(cmp("rb_sweep", got, sgs.sweep(phi, rhs, its, d2=d2)))
+    once = sgs_sweep.rb_sweep(sgs, phi, rhs, d2)
+    twice = sgs_sweep.rb_sweep(sgs, once, rhs, d2)
+    errs.append(cmp("rb_sweep", twice, sgs.sweep(phi, rhs, 2, d2=d2)))
+    torch.cuda.synchronize()
+    require(torch.equal(phi, before), "rb_sweep wrote its input phi")
+    log(f"  {geom.space} x {geom.nt}: rb_sweep 1 sweep {errs[0]:.2e}, 2 in "
+        f"one call {errs[1]:.2e}, 2 chained {errs[2]:.2e}; input intact")
+
+
 def headline_level(torch, dev):
     """The finest level of the headline problem after InitialScaling."""
     from dotsocp_tpu_torch.models.examples import get_example_2d
@@ -250,6 +313,13 @@ def check_segment(torch):
 
 # -- phase 4 --------------------------------------------------------------------
 
+def stop_residual(lv):
+    """A level report's largest stop residual (KKT entries 1, 3, 6, 7)."""
+    import numpy as np
+
+    return float(np.max(lv["final_kkt"][[0, 2, 5, 6]]))
+
+
 def headline_solve(torch):
     import numpy as np
 
@@ -287,13 +357,109 @@ def headline_solve(torch):
     require(bool(torch.isfinite(rho).all()), "non-finite density")
     require(out["mass_ok"], "mass conservation violated")
     for lv in out["levels"]:
-        stop = float(np.max(lv["final_kkt"][[0, 2, 5, 6]]))
+        stop = stop_residual(lv)
         require(stop < 1e-4, f"level {lv['level']} stopped at KKT {stop:.3e}")
     require(470 <= total <= 574, f"total iterations {total} outside 470-574")
     for name, n in launches.items():
         require(n > 0, f"{name} was never launched on the main path")
     return launches, dict(iters=iters, total=total, wall_s=wall,
                           mass_ok=bool(out["mass_ok"]))
+
+
+def solve_levels(torch, method, problem, n, nt, levels):
+    """One float32 solve on the card with every launch count set to 0
+    just before; returns (output, run history, launches, wall seconds)."""
+    from dotsocp_tpu_torch.models.examples import get_example_2d
+    from dotsocp_tpu_torch.multilevel.solve import solve_dot
+    from dotsocp_tpu_torch.ops import fused_step as fs
+    from dotsocp_tpu_torch.ops import sgs_sweep
+
+    r0, r1 = get_example_2d(problem, n, n)
+    fs.reset_launches()
+    sgs_sweep.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out, hist, _ = solve_dot(r0, r1, nt, levels, {"tol": 1e-4}, method,
+                             device=DEVICE, dtype=torch.float32, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(fs.LAUNCHES, **sgs_sweep.LAUNCHES)
+    iters = [lv["iters"] for lv in out["levels"]]
+    log(f"  {method} {problem} {n}^2 x {nt}, {levels} levels: iterations "
+        f"{iters} in {wall:.3f} s; launches {launches}")
+    rho = out["rho"]
+    require(tuple(rho.shape) == (nt, n, n), f"{method}: rho shape {rho.shape}")
+    require(bool(torch.isfinite(rho).all()), f"{method}: non-finite density")
+    return out, hist, launches, wall
+
+
+def sgs_solve(torch):
+    """Phase 4b: the sGS-inPALM path at 129^2 x 33 against SGS_ANCHOR."""
+    from dotsocp_tpu_torch.multilevel.level import mass_error
+
+    out, _, launches, wall = solve_levels(torch, "sGS-inPALM",
+                                          "DOTmark_4stitch", 129, 33, 3)
+    iters = [lv["iters"] for lv in out["levels"]]
+    total, want = sum(iters), sum(SGS_ANCHOR["iters"])
+    err = float(mass_error(out["rho"]))
+    stop = stop_residual(out["levels"][-1])
+    log(f"  anchor {list(SGS_ANCHOR['iters'])} ({want}); total {total} "
+        f"({100.0 * (total - want) / want:+.1f}%); mass error {err:.4e} "
+        f"(anchor {SGS_ANCHOR['mass_error']:.4e}), mass_ok "
+        f"{out['mass_ok']}; level-3 stop residual {stop:.3e} (anchor "
+        f"{SGS_ANCHOR['stop']:.3e})")
+    for lv in out["levels"][:-1]:
+        require(lv["method"] == "Inexact Proximal ALM",
+                f"level {lv['level']} ran {lv['method']}, not inPALM")
+        require(stop_residual(lv) < 1e-4, f"level {lv['level']} stopped at "
+                f"KKT {stop_residual(lv):.3e}")
+    require(abs(total - want) <= 0.1 * want,
+            f"total iterations {total} not within 10% of {want}")
+    if SGS_ANCHOR["iters"][-1] == SGS_MAXIT:
+        require(iters[-1] == SGS_MAXIT, f"level 3 stopped at {iters[-1]}, "
+                f"the anchor at maxit {SGS_MAXIT}")
+        require(abs(err - SGS_ANCHOR["mass_error"])
+                <= 0.3 * SGS_ANCHOR["mass_error"],
+                f"mass error {err:.4e} not within 30% of the anchor's")
+        require(0.5 * SGS_ANCHOR["stop"] <= stop <= 2 * SGS_ANCHOR["stop"],
+                f"stop residual {stop:.3e} not within 2x of the anchor's")
+    else:
+        require(out["mass_ok"], "mass conservation violated")
+        require(stop < 1e-4, f"level 3 stopped at KKT {stop:.3e}")
+    require(launches["rb_sweep"] == 3 * iters[-1],
+            f"rb_sweep launched {launches['rb_sweep']} times, not 3 per sGS "
+            f"iteration ({iters[-1]})")
+    for name in ("x_step", "qx_step", "cx_step", "cx_final"):
+        require(launches[name] > 0, f"{name} never launched on levels 1-2")
+    return launches, dict(iters=iters, total=total, wall_s=wall,
+                          mass_error=err, mass_ok=bool(out["mass_ok"]),
+                          stop=stop)
+
+
+def variant_solves(torch):
+    """Phase 4c: acc-sGS-ADMM, acc-ADMM and PALM at example2 65^2 x 17."""
+    results = {}
+    for method, anchor in VARIANT_ANCHORS.items():
+        out, _, launches, wall = solve_levels(torch, method, "example2", 65,
+                                              17, 2)
+        iters = [lv["iters"] for lv in out["levels"]]
+        total, want = sum(iters), sum(anchor)
+        log(f"    anchor {list(anchor)} ({want}): "
+            f"{100.0 * (total - want) / want:+.1f}%, mass_ok "
+            f"{out['mass_ok']}, stop residuals "
+            f"{[f'{stop_residual(lv):.2e}' for lv in out['levels']]}")
+        require(out["mass_ok"], f"{method}: mass conservation violated")
+        for lv in out["levels"]:
+            require(stop_residual(lv) < 1e-4, f"{method} level {lv['level']} "
+                    f"stopped at KKT {stop_residual(lv):.3e}")
+        require(abs(total - want) <= 0.1 * want, f"{method}: total "
+                f"iterations {total} not within 10% of {want}")
+        if "sGS" in method:
+            require(launches["rb_sweep"] == 3 * iters[-1],
+                    f"{method}: rb_sweep launched {launches['rb_sweep']} "
+                    f"times, not 3 per sGS iteration ({iters[-1]})")
+        results[method] = dict(iters=iters, wall_s=wall)
+    return results
 
 
 # -- phase 5 --------------------------------------------------------------------
@@ -400,6 +566,45 @@ def time_scale(torch):
                        plain_iter_ms=plain_it_ms)
 
 
+def time_sweep(torch):
+    """The sweep kernel against the plain sweep at 513^2 x 65 on a state of
+    the sGS-inPALM kernels, and one sGS iteration (sweep kernel + plain
+    post-phi passes)."""
+    from dotsocp_tpu_torch.algorithms.core import LevelConfig
+    from dotsocp_tpu_torch.algorithms.variants import SgsKernels
+    from dotsocp_tpu_torch.models.examples import get_example_2d
+    from dotsocp_tpu_torch.multilevel.level import initial_scaling, initialize
+    from dotsocp_tpu_torch.ops.sgs_sweep import rb_sweep
+
+    nt, n = SCALE
+    r0, r1 = get_example_2d("example2", n, n)
+    lv = initialize(r0, r1, nt, dtype=torch.float32, device=DEVICE)
+    initial_scaling(lv, scaling=True)
+    kern = SgsKernels(LevelConfig(geom=lv.geom, D=lv.D, E=lv.E, tau=1.9,
+                                  dtype=torch.float32, device=DEVICE))
+    s = kern.run_segment(kern.prep(lv.as_dict(), 0.1), 5)
+    phi = kern.ops.phi_from_internal(s.phi)
+    rhs = kern.ops.phi_from_internal(kern._rhs(s))
+    d2 = s.D * s.D
+    reps = 20
+    k_ms, p_ms = paired(torch, lambda: kern.sgs.sweep(phi, rhs, 1, d2=d2),
+                        lambda: rb_sweep(kern.sgs, phi, rhs, d2), reps)
+    nbytes = 3 * 3 * 4 * lv.geom.n_centered
+    gbs = nbytes / (k_ms * 1e-3) / 1e9
+    log(f"  rb_sweep  kernel {k_ms:8.3f} ms  plain {p_ms:8.3f} ms  "
+        f"{nbytes / 1e9:.2f} GB -> {gbs:7.1f} GB/s "
+        f"({100 * gbs * 1e9 / HBM_PEAK:.0f}% of 3.35 TB/s)")
+    state = {"s": s}
+
+    def sgs_iter():
+        state["s"] = kern._step(state["s"])
+
+    it_ms = event_ms(torch, sgs_iter, 10)
+    log(f"  one sGS-inPALM iteration (sweep kernel, plain post-phi passes): "
+        f"{it_ms:.3f} ms")
+    return (k_ms, p_ms), dict(sweep_gbs=gbs, sgs_iter_ms=it_ms)
+
+
 def profile_window(torch, trace_dir):
     """Device busy share over 20 CA iterations at the headline finest level:
     kernel time from torch.profiler, wall time from an unprofiled run of the
@@ -467,13 +672,21 @@ def main(argv=None):
     cmp = Compare(torch)
     for seed, (nt, space) in enumerate(CHECK_SHAPES):
         check_kernels(torch, cmp, Geometry(nt, space), seed)
+        check_sweep(torch, cmp, Geometry(nt, space), seed)
         torch.cuda.empty_cache()
     kernel_err = dict(cmp.max_abs)
     check_segment(torch)
     phase(4, "headline solve")
     launches, headline = headline_solve(torch)
+    phase("4b", "the sGS path: sGS-inPALM at 129^2 x 33")
+    sgs_launches, sgs_path = sgs_solve(torch)
+    launches["rb_sweep"] = sgs_launches["rb_sweep"]
+    phase("4c", "acc-sGS-ADMM, acc-ADMM, PALM at 65^2 x 17")
+    variants = variant_solves(torch)
     phase(5, "times at 513^2 x 65")
     times, others = time_scale(torch)
+    times["rb_sweep"], sweep_others = time_sweep(torch)
+    others.update(sweep_others)
     if args.profile is not None:
         phase(6, "profiler window")
         profile_window(torch, args.profile)
@@ -482,7 +695,7 @@ def main(argv=None):
     kernels = [{
         "name": k,
         "route": "cuda",
-        "source": SOURCE,
+        "source": SOURCES[k],
         "replaces": REPLACES[k],
         "launches": launches[k],
         "max_abs_err": kernel_err[k],
@@ -490,6 +703,7 @@ def main(argv=None):
         "plain_ms": times[k][1],
     } for k in REPLACES]
     print(json.dumps({"kernels": kernels, "headline": headline,
+                      "sgs_path": sgs_path, "variants": variants,
                       "scale_513x65": others}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

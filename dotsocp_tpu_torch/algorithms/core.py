@@ -1,6 +1,7 @@
 """Solver state, per-level constants, and the per-level compute kernels;
 port of ``dotsocp_tpu/algorithms/core.py`` (``Kernels`` with
-``InPALMKernels`` folded in: inPALM, and ALG2 as tau = 1).
+``InPALMKernels`` folded in: inPALM, and ALG2 as tau = 1). The other
+algorithms subclass it in :mod:`.variants`.
 
 The iteration state lives on the caller's device. The level scalars
 (sigma, cScale, dScale, norm_c, norm_d, D, E) are Python floats on the
@@ -23,7 +24,7 @@ import torch
 from ..ops.cone import proj_soc
 from ..ops.engine import OpsFlat, diag_values
 from ..ops.fused_step import (cx_final, cx_step, qx_step,
-                              qx_step_plain, x_step)
+                              qx_step_plain, times_dinv, x_step)
 from ..ops.geometry import Geometry
 from ..ops.staggered import Staggered
 from ..utils.norms import norm_l2
@@ -38,8 +39,11 @@ HOST_SCALARS = {"norm_c_state": "norm_c", "cScale": "cScale",
 
 
 def pack_kkt(res: dict) -> torch.Tensor:
-    return torch.cat([res["kkt_org"], res["kkt"],
-                      torch.stack([res[k] for k in DEVICE_SCALARS])])
+    parts = [res["kkt_org"], res["kkt"],
+             torch.stack([res[k] for k in DEVICE_SCALARS])]
+    if "kkt_sgs_blocks" in res:
+        parts.append(res["kkt_sgs_blocks"][None])
+    return torch.cat(parts)
 
 
 def unpack_kkt(vec) -> dict:
@@ -47,6 +51,8 @@ def unpack_kkt(vec) -> dict:
     out = {"kkt_org": vec[:7], "kkt": vec[7:12]}
     for i, k in enumerate(DEVICE_SCALARS):
         out[k] = vec[12 + i]
+    if vec.shape[0] > 12 + len(DEVICE_SCALARS):
+        out["kkt_sgs_blocks"] = vec[12 + len(DEVICE_SCALARS)]
     return out
 
 
@@ -128,16 +134,24 @@ class Kernels:
         """One plain inPALM iteration (``solver_socp_inPALM.m:192-216``;
         ``dotsocp_tpu/algorithms/core.py:198-222``), from the port's ops.
         The solve loop runs :meth:`segment_impl`; this is its reference."""
+        return self._step_from_phi(s, self._poisson_solve(s, self._rhs(s)))
+
+    def _step_from_phi(self, s: SolverState, phi) -> SolverState:
+        """The inPALM iteration after its phi-step: z-step, q-step and the
+        multipliers (sGS-inPALM shares it)."""
         ops = self.ops
         tau = self.cfg.tau
         sbf = s.E / s.D
         sd = s.E / s.dScale
-        phi = self._poisson_solve(s, self._rhs(s))
         z = proj_soc(ops.bfd(s.q, sbf, sd) - s.beta)
         q, alpha = qx_step_plain(ops, phi, z + s.beta, s.alpha,
                                  self._diag_inv(s), s.D, sbf, tau)
         beta = s.beta + tau * (z - ops.bfd(q, sbf, sd))
         return s.replace(phi=phi, q=q, z=z, alpha=alpha, beta=beta)
+
+    def _q_solve(self, s: SolverState, numer: Staggered) -> Staggered:
+        """The q-step's diagonal solve: numer * diag^-1."""
+        return times_dinv(self.ops, numer, self._diag_inv(s))
 
     # -- CA-fused x-carry segment ----------------------------------------
     def _fresh_x(self, s: SolverState):
@@ -158,11 +172,23 @@ class Kernels:
         beta, znew = step(self.ops, s.beta, s.z, q, sbf, sd, tau)
         return s.replace(phi=phi, q=q, z=znew, alpha=alpha, beta=beta)
 
+    @property
+    def segment_ca(self) -> bool:
+        """True when segments run the x-carry kernels: the subclass has not
+        replaced the inPALM step (PALM and the acc and sGS variants run
+        their own step in a plain loop)."""
+        return type(self)._step is Kernels._step
+
     def segment_impl(self, s: SolverState, k: int) -> SolverState:
-        """k event-free iterations: one x-step prologue, k-1 x-carry CA
-        iterations, one boundary iteration restoring the (z, beta) state of
-        the plain path. On CUDA the kernels update alpha, beta and the z
-        slot in place, so ``s`` is consumed."""
+        """k event-free iterations. inPALM / ALG2: one x-step prologue,
+        k-1 x-carry CA iterations, one boundary iteration restoring the
+        (z, beta) state of the plain path; on CUDA the kernels update
+        alpha, beta and the z slot in place, so ``s`` is consumed. Other
+        variants: k of their own steps."""
+        if not self.segment_ca:
+            for _ in range(k):
+                s = self._step(s)
+            return s
         if k < 1:
             return s
         s = s.replace(z=self._fresh_x(s))
@@ -314,11 +340,17 @@ class Kernels:
         return s.replace(alpha=s.alpha * inv, beta=s.beta * inv,
                          c=s.c * inv, sigma=s.sigma * factor)
 
+    # iterate blocks a dynamic rescale divides by d_scale2: exactly those
+    # the reference scales, i.e. those consumed before being recomputed.
+    # inPALM scales q and z; phi is overwritten by the next phi-step
+    # (``solver_socp_inPALM.m:174-178``)
+    RESCALED = ("q", "z")
+
     def rescale(self, s: SolverState, d_scale2: float,
                 c_scale2: float) -> SolverState:
         """Dynamic rescaling of the whole iterate
-        (``solver_socp_inPALM.m:163-189``). phi is not scaled (the next
-        phi-step overwrites it), matching the reference."""
+        (``solver_socp_inPALM.m:163-189``); the blocks of ``RESCALED``
+        are divided by d_scale2."""
         r = d_scale2 / (c_scale2 * c_scale2)
         return s.replace(
             sigma=s.sigma * (c_scale2 / d_scale2),
@@ -327,12 +359,14 @@ class Kernels:
             norm_d=s.norm_d / d_scale2,
             alpha=s.alpha * r,
             beta=s.beta * r,
-            q=s.q / d_scale2,
-            z=s.z / d_scale2,
             dScale=s.dScale * d_scale2,
             cScale=s.cScale * c_scale2,
             sigmaScale=s.sigmaScale * (c_scale2 / d_scale2),
+            **{b: getattr(s, b) / d_scale2 for b in self.RESCALED},
         )
+
+    def get_sigma(self, s: SolverState) -> float:
+        return s.sigma
 
     # -- lifecycle -------------------------------------------------------
     def prep(self, var: dict, sigma: float) -> SolverState:

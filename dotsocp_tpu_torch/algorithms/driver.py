@@ -1,10 +1,11 @@
 """Host-side orchestration of one level's solve; port of
-``dotsocp_tpu/algorithms/driver.py:35-364`` for the inPALM family.
+``dotsocp_tpu/algorithms/driver.py:35-364``.
 
-The math runs as device segments (:mod:`.core`); this module replicates
-the reference's *scheduling* exactly:
+The math runs as device segments (:mod:`.core`, :mod:`.variants`); this
+module replicates the reference's *scheduling* exactly:
 
-- KKT cadence: ``IfAdjustSigma`` table (``solver_socp_inPALM.m:361-379``).
+- KKT cadence: ``IfAdjustSigma`` tables (``solver_socp_inPALM.m:361-379``;
+  sGS variant with the n^(1/3)/33 scale, ``solver_socp_sGSinPALM.m:431-456``).
   KKT checks happen only at cadence points / maxit / time limit, so checking
   at segment boundaries equals the reference's per-iteration test.
 - sigma update: stepped multiplier table on resiPri/resiDual with the
@@ -24,16 +25,23 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+from typing import Optional
 
 import numpy as np
 
 from .core import Kernels
 
-# sigma update table for inPALM (``solver_socp_inPALM.m:39-51``)
+# sigma update table for inPALM / PALM / acc-ADMM
+# (``solver_socp_inPALM.m:39-51``)
 UPDATE_RULE = [
     (1.1, 1.10), (1.2, 1.15), (1.5, 1.20), (2.0, 1.26), (2.5, 1.28),
     (3.33, 1.32), (5.0, 1.35), (10.0, 1.40), (20.0, 1.60), (40.0, 1.80),
     (50.0, 2.00),
+]
+# sGS variants use a shorter table (``solver_socp_sGSinPALM.m:40-47``)
+UPDATE_RULE_SGS = [
+    (1.5, 1.20), (2.0, 1.26), (2.5, 1.28), (3.33, 1.32), (5.0, 1.35),
+    (10.0, 1.40),
 ]
 
 SIGMA_BOUNDS = (1e-3, 1e3)
@@ -76,10 +84,35 @@ def _cadence_threshold(it: float) -> int:
     return 40
 
 
-def next_check_iter(it: int, last_sigma_it: float) -> int:
+def _cadence_threshold_sgs(it: float) -> int:
+    if it < 20:
+        return 5
+    if it < 50:
+        return 10
+    if it < 100:
+        return 20
+    if it < 200:
+        return 35
+    if it < 500:
+        return 50
+    return 100
+
+
+def is_cadence_point(it: int, last_sigma_it: float,
+                     sgs_scale: Optional[float] = None) -> bool:
+    """IfAdjustSigma(it, last): the inPALM table, or the sGS table on
+    iterations divided by ``sgs_scale``."""
+    if sgs_scale is None:
+        return it - last_sigma_it >= _cadence_threshold(it)
+    return ((it - last_sigma_it) / sgs_scale
+            >= _cadence_threshold_sgs(it / sgs_scale))
+
+
+def next_check_iter(it: int, last_sigma_it: float,
+                    sgs_scale: Optional[float] = None) -> int:
     """Smallest reference-iteration e > it with IfAdjustSigma(e, last) true."""
     e = it + 1
-    while e - last_sigma_it < _cadence_threshold(e):
+    while not is_cadence_point(e, last_sigma_it, sgs_scale):
         e += 1
     return e
 
@@ -94,6 +127,10 @@ class SolveOptions:
     scaling: bool = True
     check_step_by_step: bool = False
     check_prim_dual_feas: bool = True
+    # acc-ADMM extras (``solver_socp_accADMM.m:12-34``); the port runs the
+    # Halpern branch only (theta = 2), so it keeps no theta
+    restart: int = 100
+    rho: float = 2.0
 
 
 @dataclasses.dataclass
@@ -156,17 +193,36 @@ class RescaleMachine:
 
 class SegmentSolver:
     """Level solver: segments of event-free iterations between the
-    driver's events (KKT checks, sigma updates, rescales)."""
+    driver's events (KKT checks, sigma updates, rescales). The algorithm
+    comes from the ``Kernels`` subclass and the hooks below."""
 
     name = "Inexact Proximal ALM"
+    sgs = False
 
     def __init__(self, kernels: Kernels, opts: SolveOptions):
         self.k = kernels
         self.opts = opts
-        self.rule = UPDATE_RULE
+        self.rule = UPDATE_RULE_SGS if self.sgs else UPDATE_RULE
         self.rescale_check_every = 100
 
+    # -- hooks -----------------------------------------------------------
+    def on_sigma_change(self, state, factor: float):
+        return self.k.sigma_mult(state, factor)
+
+    def on_rescale(self, state, d2: float, c2: float):
+        return self.k.rescale(state, d2, c2)
+
+    def post_check(self, state):
+        """Finish the iteration after a KKT / norms checkpoint (acc-ADMM's
+        Halpern averaging lives here). Identity for ALM-type methods."""
+        return state
+
+    def sgs_scale(self) -> Optional[float]:
+        return None
+
     def _run_segment(self, state, steps: int):
+        """Advance ``steps`` iterations; the sGS solvers override it to
+        keep their per-iteration FeasRatio history."""
         state = self.k.run_segment(state, steps)
         self._it += steps
         return state
@@ -188,7 +244,8 @@ class SegmentSolver:
         while self._it < opts.maxit:
             it = self._it
             e_kkt = (it + 1 if opts.check_step_by_step
-                     else next_check_iter(it, last_sigma_it))
+                     else next_check_iter(it, last_sigma_it,
+                                          self.sgs_scale()))
             e_kkt = min(e_kkt, opts.maxit)
             e_rescale = rescale.next_trigger(it)
 
@@ -197,6 +254,10 @@ class SegmentSolver:
                 steps = int(e_rescale) - 1 - it
                 if steps > 0:
                     state = self._run_segment(state, steps)
+                    # the reference takes the rescale norms at the top of
+                    # an iteration, after the previous one completed
+                    # (acc-ADMM's averaging included)
+                    state = self.post_check(state)
                 norms = k.norms(state)
                 norm_phis = max(norms["normPhi"], norms["normQ"],
                                 norms["normZ"])
@@ -207,12 +268,13 @@ class SegmentSolver:
                         min(norm_alps, norm_phis), 1e-300)
                     do_it = ratio > rescale.RATIO_THRESHOLD
                 if do_it:
-                    state = k.rescale(state, norm_phis, norm_alps)
+                    state = self.on_rescale(state, norm_phis, norm_alps)
                     rescale.stage += 1
                 else:
                     # periodic norm check declined; run the checked
                     # iteration so next_trigger advances
                     state = self._run_segment(state, 1)
+                    state = self.post_check(state)
                 continue
 
             state = self._run_segment(state, e_kkt - it)
@@ -231,11 +293,14 @@ class SegmentSolver:
             if max(kkt5) < tol_feas_org:
                 use_feas_org = True
 
-            if it - last_sigma_it >= _cadence_threshold(it):
+            if is_cadence_point(it, last_sigma_it, self.sgs_scale()):
                 last_sigma_it = it
-                state = self._sigma_update(state, kkt_org, kkt5, use_feas_org)
+                state = self._sigma_update(state, kkt_org, kkt5, use_feas_org,
+                                           res)
 
             rescale.update_from_check(float(max(kkt5)), float(res["pdGap"]))
+            # complete the iteration (acc-ADMM's averaging; no-op otherwise)
+            state = self.post_check(state)
 
         var = k.finalize(state, var)
         var["name"] = self.name
@@ -243,16 +308,17 @@ class SegmentSolver:
         var["solve_time"] = time.monotonic() - t0
         return hist.as_arrays(), var
 
-    def _sigma_update(self, state, kkt_org, kkt5, use_feas_org):
-        """Default sigma strategy (``solver_socp_inPALM.m:297-316``)."""
+    def _sigma_update(self, state, kkt_org, kkt5, use_feas_org, res):
+        """Default sigma strategy (``solver_socp_inPALM.m:297-316``);
+        ``res`` is the whole KKT result, which the sGS strategy reads."""
         if use_feas_org:
             resi_pri = max(kkt_org[0], kkt_org[1])
             resi_dual = max(kkt_org[2], kkt_org[4])
         else:
             resi_pri = max(kkt5[0], kkt5[1])
             resi_dual = max(kkt5[2], kkt5[4])
-        _, factor = adjust_sigma(state.sigma,
+        _, factor = adjust_sigma(self.k.get_sigma(state),
                                  resi_pri / max(resi_dual, 1e-300), self.rule)
         if factor != 1.0:
-            state = self.k.sigma_mult(state, factor)
+            state = self.on_sigma_change(state, factor)
         return state

@@ -1,6 +1,7 @@
 """Top-level multilevel solver API; port of
 ``dotsocp_tpu/multilevel/solve.py:462-680`` (``solve_dot``) for the
-unweighted inPALM / ALG2 multilevel loop in 1D and 2D.
+unweighted problem in 1D and 2D, with every method of the JAX package's
+``DOT_METHODS`` (acc-ADMM with theta = 2, its Halpern branch).
 
 ``solve_dot(rho0, rho1, nt, level_n, opts, method, device=...)`` builds the
 coarse pyramid, runs the algorithm per level with warm-started sigma and E2
@@ -20,7 +21,11 @@ import torch
 
 from ..algorithms.core import Kernels, LevelConfig
 from ..algorithms.driver import SolveOptions
-from ..algorithms.solvers import ALG2Solver, InPALMSolver
+from ..algorithms.solvers import (AccADMMSolver, AccSgsADMMSolver,
+                                  ALG2Solver, InPALMSolver, PALMSolver,
+                                  SgsInPALMSolver)
+from ..algorithms.variants import (AccADMMKernels, AccSgsADMMKernels,
+                                   PALMKernels, SgsKernels)
 from ..ops.engine import OpsFlat
 from .level import (
     LevelVar,
@@ -31,8 +36,8 @@ from .level import (
 )
 from .transfer import prolong_phi, prolong_z_like, restrict_density
 
-METHODS = ("inPALM", "ALG2")
-OTHER_METHODS = ("PALM", "acc-ADMM", "sGS-inPALM", "acc-sGS-ADMM")
+METHODS = ("PALM", "inPALM", "ALG2", "acc-ADMM", "sGS-inPALM",
+           "acc-sGS-ADMM")
 
 KKT_LEGEND = [
     "||A psi - q|| / (1 + ||A psi|| + ||q||)",
@@ -45,13 +50,15 @@ KKT_LEGEND = [
 ]
 
 ADMM_MAXIT = 3000
+SGS_MAXIT = 6000
 ALM_STEPSIZE = 1.9
 ALG2_STEPSIZE = 1.0
 
 # options of the JAX solve_dot this port takes, and those that wait in a
 # ROADMAP.md queue
 KNOWN_OPTS = {"tol", "maxit", "sigma", "time_limit", "scaling",
-              "ifCheckStepByStep", "checkPrimDualFeas"}
+              "ifCheckStepByStep", "checkPrimDualFeas", "restart", "rho",
+              "theta"}
 QUEUED_OPTS = {
     "refine_tol": "queue 1 (refine tail)",
     "refine_dtype": "queue 1 (refine tail)",
@@ -59,10 +66,11 @@ QUEUED_OPTS = {
     "refine_dct_split": "queue 1 (refine tail)",
     "mesh": "queue 1 (multi-device, last)",
     "checkpoint_dir": "queue 1 (the rest: checkpointing)",
-    "restart": "queue 1 (other algorithms)",
-    "rho": "queue 1 (other algorithms)",
-    "theta": "queue 1 (other algorithms)",
 }
+
+
+def _is_sgs(method: str) -> bool:
+    return method in ("sGS-inPALM", "acc-sGS-ADMM")
 
 
 def _check_request(rho0, method, weight, opts):
@@ -70,10 +78,6 @@ def _check_request(rho0, method, weight, opts):
         raise NotImplementedError(
             "weighted transport waits in ROADMAP.md queue 1 (other "
             "algorithms and the weighted family) and queue 2 (weighted qx)")
-    if method in OTHER_METHODS:
-        raise NotImplementedError(
-            f"method {method!r} waits in ROADMAP.md queue 1 (other "
-            f"algorithms); this port runs {METHODS}")
     if method not in METHODS:
         raise ValueError(f"method {method!r} not in {METHODS}")
     for key in opts:
@@ -82,6 +86,10 @@ def _check_request(rho0, method, weight, opts):
                 f"option {key!r} waits in ROADMAP.md {QUEUED_OPTS[key]}")
         if key not in KNOWN_OPTS:
             raise ValueError(f"unknown option {key!r}")
+    if float(opts.get("theta", 2.0)) != 2.0:
+        raise NotImplementedError(
+            "acc-ADMM's Nesterov branch (theta != 2) waits in ROADMAP.md "
+            "queue 1 (other algorithms)")
     if np.ndim(rho0) not in (1, 2):
         raise NotImplementedError(
             "3D transport waits in ROADMAP.md queue 1 and queue 2 (3D "
@@ -130,6 +138,25 @@ def _jump_next_level(lv: LevelVar, rho0_f, rho1_f, nt_f: int,
     return lv_f
 
 
+def _make_solver(method: str, lv: LevelVar, o: SolveOptions, device,
+                 dtype):
+    """The level solver of ``method`` (``dotsocp_tpu/multilevel/solve.py:
+    236-313``, host driver)."""
+    cfg = LevelConfig(geom=lv.geom, D=lv.D, E=lv.E, device=str(device),
+                      tau=o.tau, dtype=dtype)
+    if method == "inPALM":
+        return InPALMSolver(Kernels(cfg), o)
+    if method == "ALG2":
+        return ALG2Solver(Kernels(cfg), o)
+    if method == "PALM":
+        return PALMSolver(PALMKernels(cfg), o)
+    if method == "acc-ADMM":
+        return AccADMMSolver(AccADMMKernels(cfg, o.restart, o.rho), o)
+    if method == "sGS-inPALM":
+        return SgsInPALMSolver(SgsKernels(cfg), o)
+    return AccSgsADMMSolver(AccSgsADMMKernels(cfg, o.restart, o.rho), o)
+
+
 def solve_dot(
     rho0,
     rho1,
@@ -159,15 +186,20 @@ def solve_dot(
         print("WARNING: float32 stalls around KKT ~1e-4; tolerances below "
               "5e-5 need dtype=torch.float64.")
 
+    sgs_method = _is_sgs(method)
     tol = float(opts.get("tol", 1e-4))
     scaling = bool(opts.get("scaling", True))
-    maxit = int(opts.get("maxit", ADMM_MAXIT))
-    sigma = float(opts.get("sigma", 1.0))
+    maxit = int(opts.get("maxit", SGS_MAXIT if sgs_method else ADMM_MAXIT))
+    sigma = float(opts.get("sigma", 0.1 if sgs_method else 1.0))
     time_limit = float(opts.get("time_limit", 3600.0))
     check_sbs = bool(opts.get("ifCheckStepByStep", False))
     check_pdf = bool(opts.get("checkPrimDualFeas", True))
-    tau = ALG2_STEPSIZE if method == "ALG2" else ALM_STEPSIZE
-    solver_cls = ALG2Solver if method == "ALG2" else InPALMSolver
+    if method in ("PALM", "inPALM", "sGS-inPALM"):
+        tau = ALM_STEPSIZE
+    elif method == "ALG2":
+        tau = ALG2_STEPSIZE
+    else:
+        tau = 1.0  # acc-ADMM multiplier steps are unit
 
     # tolerance pyramid (``solver_dotsocp2d.m:124-130,166-178``)
     tol_factor = -1.0 if tol > 0.99e-3 else -0.5
@@ -202,10 +234,17 @@ def solve_dot(
         o = SolveOptions(tol=tols[lev], maxit=maxit, sigma=sigma, tau=tau,
                          time_limit=time_limit, scaling=scaling,
                          check_step_by_step=check_sbs,
-                         check_prim_dual_feas=check_pdf)
-        cfg = LevelConfig(geom=lv.geom, D=lv.D, E=lv.E, device=str(device),
-                          tau=tau, dtype=dtype)
-        solver = solver_cls(Kernels(cfg), o)
+                         check_prim_dual_feas=check_pdf,
+                         restart=int(opts.get("restart", 100)),
+                         rho=float(opts.get("rho", 2.0)))
+        lev_method = method
+        if sgs_method and lev < level_n - 1:
+            # non-final levels of sGS methods run inPALM
+            # (``solver_dotsocp2d.m:209-223``)
+            lev_method = "inPALM"
+            o.maxit = ADMM_MAXIT
+            o.tau = ALM_STEPSIZE
+        solver = _make_solver(lev_method, lv, o, device, dtype)
         hist, out = solver.solve(lv.as_dict())
         hist["method"] = solver.name
         hists.append(hist)

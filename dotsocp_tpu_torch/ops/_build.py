@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-``nvcc`` compiles the sources at first use into a shared library with a
+``nvcc`` compiles each source at first use into a shared library with a
 plain C interface, under ``build/kernels/`` at the repository root, named by
-a hash of the sources and flags (an edit rebuilds; an unchanged tree
-reuses the library). The library is loaded with ``ctypes``: pointers come
+a hash of the source and flags (an edit rebuilds; an unchanged tree reuses
+the library). The sources compile in parallel, one ``nvcc`` each, all
+started together. The libraries are loaded with ``ctypes``: pointers come
 from ``Tensor.data_ptr()`` and the stream from
 ``torch.cuda.current_stream().cuda_stream``. No PyTorch headers are
 compiled, so a build takes seconds.
@@ -16,24 +17,30 @@ import os
 import shutil
 import subprocess
 import time
+import types
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-SOURCES = ("fused_step.cu",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# argtypes of every C entry point in csrc/fused_step.cu
-SIGNATURES = {
-    "dotsocp_x_step": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
-    "dotsocp_qx_step": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _F, _F, _F, _F, _F, _F, _F, _F, _P],
-    "dotsocp_cx_step": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I,
-                        _P],
+# every source, with the argtypes of each C entry point it defines
+SOURCES = {
+    "fused_step.cu": {
+        "dotsocp_x_step": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+        "dotsocp_qx_step": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _F, _F, _F, _F, _F, _F, _F, _F, _P],
+        "dotsocp_cx_step": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F,
+                            _I, _P],
+    },
+    "sgs_sweep.cu": {
+        "dotsocp_rb_half_sweep": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
+                                  _P],
+    },
 }
 
 _LIB = None
@@ -56,46 +63,61 @@ def find_nvcc() -> str:
         "built from csrc/ at first use and need the CUDA toolkit")
 
 
-def _digest() -> str:
+def _library_path(source: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        with open(os.path.join(CSRC_DIR, name), "rb") as f:
-            h.update(f.read())
-    return h.hexdigest()[:16]
+    with open(os.path.join(CSRC_DIR, source), "rb") as f:
+        h.update(f.read())
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"{stem}_{h.hexdigest()[:16]}.so")
 
 
-def build() -> str:
-    """Compile the sources if no library for their hash exists; returns
-    the library path. ``build_info`` records the time and the compiler's
-    register / spill report."""
-    path = os.path.join(BUILD_DIR, f"dotsocp_kernels_{_digest()}.so")
-    if os.path.isfile(path):
-        build_info.update(path=path, seconds=0.0, cached=True)
-        return path
+def build() -> list:
+    """Compile the sources that have no library for their hash, all at
+    once; returns the library paths in the order of ``SOURCES``.
+    ``build_info`` records the time and the compiler's register / spill
+    report."""
+    paths = [_library_path(s) for s in SOURCES]
+    todo = [(s, p) for s, p in zip(SOURCES, paths) if not os.path.isfile(p)]
+    build_info.update(paths=paths, seconds=0.0, cached=not todo, log="")
+    if not todo:
+        return paths
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
     t0 = time.monotonic()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stderr}")
-    os.replace(tmp, path)
-    build_info.update(path=path, seconds=time.monotonic() - t0, cached=False,
-                      log=res.stdout + res.stderr)
-    return path
+    jobs = []
+    for source, path in todo:
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, source)]
+        jobs.append((cmd, tmp, path, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    logs, failed = [], []
+    for cmd, tmp, path, proc in jobs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{err}")
+            continue
+        os.replace(tmp, path)
+        logs.append(out + err)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    build_info.update(seconds=time.monotonic() - t0, log="".join(logs))
+    return paths
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+def library() -> types.SimpleNamespace:
+    """Every C entry point of the kernels, by name (built on first call)."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(build())
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _LIB = lib
+        fns = {}
+        libs = []
+        for path, signatures in zip(build(), SOURCES.values()):
+            lib = ctypes.CDLL(path)
+            libs.append(lib)
+            for name, argtypes in signatures.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                fns[name] = fn
+        _LIB = types.SimpleNamespace(libraries=libs, **fns)
     return _LIB

@@ -2,8 +2,7 @@
 ``dotsocp_tpu/ops/cone.py:99-115``.
 
 The BF gather, its adjoint and the q-diagonal live on the flat engine
-(``ops/engine.py:OpsFlat``); the shaped-layout versions wait for the sGS
-slice of the port.
+(``ops/engine.py:OpsFlat``), which every algorithm of the port runs on.
 """
 from __future__ import annotations
 

@@ -10,7 +10,9 @@ zeros. Only the two producers of face arrays (``grad``, ``bfd_T``) multiply
 their output by the ghost mask. All face blocks of a field are one
 ``(d, nt, S)`` tensor (see ``ops/staggered.py``).
 
-The shaped ``Ops3D`` engine and the halo engine wait for later slices.
+The shaped ``Ops3D`` engine is not ported: the sGS methods, which the JAX
+package runs on it, sweep the flat phi reshaped. The halo engine waits for
+the multi-device slice.
 """
 from __future__ import annotations
 

@@ -57,7 +57,7 @@ def reset_launches() -> None:
 
 # -- plain versions (the composition the JAX _step computes) ----------------
 
-def _times_dinv(ops: OpsFlat, st: Staggered, dinv) -> Staggered:
+def times_dinv(ops: OpsFlat, st: Staggered, dinv) -> Staggered:
     """st * diag^-1 from its (interior, boundary-slab) values."""
     d_in, d_bd = dinv
     row = torch.full((ops.geom.nt, 1), d_in, dtype=st.q0.dtype,
@@ -73,7 +73,7 @@ def x_step_plain(ops: OpsFlat, q: Staggered, beta, sbf, sd):
 
 def qx_step_plain(ops: OpsFlat, phi, x, alpha: Staggered, dinv, D, sbf, tau):
     tmp = D * ops.grad(phi)
-    q = _times_dinv(ops, tmp + alpha + ops.bfd_T(x, sbf), dinv)
+    q = times_dinv(ops, tmp + alpha + ops.bfd_T(x, sbf), dinv)
     return q, alpha + tau * (tmp - q)
 
 
@@ -128,14 +128,17 @@ def _dims(ops: OpsFlat):
     return d, g.nt, ops.S, k, n, hs
 
 
-def _launch(name: str, fn, device: torch.device, *args) -> None:
+def _launch(counts: dict, name: str, fn, device: torch.device,
+            *args) -> None:
+    """Launch on the current stream of ``device``, raise on a CUDA error,
+    and add one to ``counts[name]``."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with "
                            f"cudaError {err}")
-    LAUNCHES[name] += 1
+    counts[name] += 1
 
 
 def _check_cone(ops: OpsFlat, *cones: torch.Tensor) -> None:
@@ -160,9 +163,9 @@ def x_step(ops: OpsFlat, q: Staggered, beta, sbf: float, sd: float):
     _check_cone(ops, beta)
     x = torch.empty_like(beta)
     d, nt, S, k, _, _ = _dims(ops)
-    _launch("x_step", _build.library().dotsocp_x_step, beta.device,
-            q.q0.data_ptr(), q.bs.data_ptr(), beta.data_ptr(), x.data_ptr(),
-            d, nt, S, k[0], k[1], sbf, sd)
+    _launch(LAUNCHES, "x_step", _build.library().dotsocp_x_step,
+            beta.device, q.q0.data_ptr(), q.bs.data_ptr(), beta.data_ptr(),
+            x.data_ptr(), d, nt, S, k[0], k[1], sbf, sd)
     return x
 
 
@@ -180,8 +183,8 @@ def qx_step(ops: OpsFlat, phi, x, alpha: Staggered, dinv, D: float,
     _check_distinct(phi, x, alpha.q0, alpha.bs)
     q = Staggered(torch.empty_like(alpha.q0), torch.empty_like(alpha.bs))
     d, nt, S, k, n, hs = _dims(ops)
-    _launch("qx_step", _build.library().dotsocp_qx_step, phi.device,
-            phi.data_ptr(), x.data_ptr(), alpha.q0.data_ptr(),
+    _launch(LAUNCHES, "qx_step", _build.library().dotsocp_qx_step,
+            phi.device, phi.data_ptr(), x.data_ptr(), alpha.q0.data_ptr(),
             alpha.bs.data_ptr(), q.q0.data_ptr(), q.bs.data_ptr(), d, nt, S,
             k[0], k[1], n[0], n[1], D, sbf, tau, g.ht, hs[0], hs[1],
             dinv[0], dinv[1])
@@ -196,7 +199,7 @@ def _cx(name: str, final: bool, ops: OpsFlat, beta, x, q: Staggered, sbf,
     _check_stag(ops, q)
     _check_distinct(beta, x, q.q0, q.bs)
     d, nt, S, k, _, _ = _dims(ops)
-    _launch(name, _build.library().dotsocp_cx_step, beta.device,
+    _launch(LAUNCHES, name, _build.library().dotsocp_cx_step, beta.device,
             q.q0.data_ptr(), q.bs.data_ptr(), beta.data_ptr(), x.data_ptr(),
             d, nt, S, k[0], k[1], sbf, sd, tau, int(final))
     return beta, x

@@ -2,11 +2,13 @@
 out as the JAX package lays them out, and back.
 
 The tests start both packages from the same state: they take
-``LevelVar.as_dict()`` or the ``SolverState`` fields of ``dotsocp_tpu`` as
-numpy arrays (``jax.device_get``), hand them to these functions, and compare
-the results field by field. Staggered fields arrive as ``(q0, bs)`` pairs
-with ``bs`` a sequence of per-axis blocks; the flat solver state's face
-blocks, all ``(nt, S)``, become one ``(d, nt, S)`` tensor here.
+``LevelVar.as_dict()`` or the ``SolverState`` / ``AccState`` fields of
+``dotsocp_tpu`` as numpy arrays (``jax.device_get``), hand them to these
+functions, and compare the results field by field. Staggered fields arrive
+as ``(q0, bs)`` pairs with ``bs`` a sequence of per-axis blocks; the flat
+solver state's face blocks, all ``(nt, S)``, become one ``(d, nt, S)``
+tensor here. A state in the JAX package's shaped layout (``"3d"``, where
+its sGS kernels run) is converted to the port's flat layout on the way.
 """
 from __future__ import annotations
 
@@ -14,7 +16,9 @@ import numpy as np
 import torch
 
 from ..algorithms.core import SolverState
+from ..algorithms.variants import ITERATE, AccState
 from ..multilevel.level import LevelVar
+from ..ops.engine import OpsFlat
 from ..ops.geometry import Geometry
 from ..ops.staggered import Staggered
 
@@ -57,15 +61,55 @@ def level_var_from_numpy(var: dict, rho0, rho1, *, device,
     )
 
 
+class _Layout:
+    """Converts the iterate fields of a JAX solver state, flat or shaped,
+    to the port's flat tensors."""
+
+    def __init__(self, fields: dict, device, dtype: torch.dtype):
+        self.device, self.dtype = device, dtype
+        phi = np.shape(fields["phi"])
+        # flat face blocks are phi-shaped (ghost slot); shaped ones are not
+        self.ops = None
+        if np.shape(fields["q"][1][0]) != phi:
+            geom = Geometry(nt=phi[0], space=tuple(phi[1:]))
+            self.ops = OpsFlat(geom, dtype, device)
+
+    def __call__(self, name: str, value):
+        dev, dt, ops = self.device, self.dtype, self.ops
+        if name in STATE_FIELDS:
+            st = _staggered(value, dev, dt, stack=ops is None)
+            return st if ops is None else ops.stag_to_internal(st)
+        t = _tensor(value, dev, dt)
+        if ops is None:
+            return t
+        if name in ("phi", "c"):
+            return ops.phi_to_internal(t).contiguous()
+        return ops.z_to_internal(t).contiguous()
+
+
 def state_from_numpy(fields: dict, *, device,
                      dtype: torch.dtype) -> SolverState:
-    """A port ``SolverState`` from the fields of a flat-layout JAX
-    ``SolverState`` (``state._asdict()`` after ``jax.device_get``)."""
-    kw = {k: _tensor(fields[k], device, dtype) for k in STATE_ARRAYS}
-    kw.update({k: _staggered(fields[k], device, dtype, stack=True)
-               for k in STATE_FIELDS})
+    """A port ``SolverState`` from the fields of a JAX ``SolverState``, flat
+    or shaped layout (``state._asdict()`` after ``jax.device_get``)."""
+    conv = _Layout(fields, device, dtype)
+    kw = {k: conv(k, fields[k]) for k in STATE_ARRAYS + STATE_FIELDS}
     kw.update({k: float(fields[k]) for k in STATE_SCALARS})
     return SolverState(**kw)
+
+
+def acc_state_from_numpy(fields: dict, *, device,
+                         dtype: torch.dtype) -> AccState:
+    """A port ``AccState`` from the fields of a JAX ``AccState``
+    (``e._asdict()`` after ``jax.device_get``: ``s`` a ``SolverState``,
+    ``old`` and ``anchor`` iterate tuples, ``k`` the averaging counter)."""
+    s = fields["s"]._asdict()
+    conv = _Layout(s, device, dtype)
+    return AccState(
+        s=state_from_numpy(s, device=device, dtype=dtype),
+        old=tuple(conv(n, v) for n, v in zip(ITERATE, fields["old"])),
+        anchor=tuple(conv(n, v) for n, v in zip(ITERATE, fields["anchor"])),
+        k=int(fields["k"]),
+    )
 
 
 def state_to_numpy(state: SolverState) -> dict:

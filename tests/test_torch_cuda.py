@@ -21,8 +21,10 @@ from dotsocp_tpu_torch.models.examples import get_example_1d, get_example_2d
 from dotsocp_tpu_torch.multilevel.level import initial_scaling, initialize
 from dotsocp_tpu_torch.multilevel.solve import solve_dot
 from dotsocp_tpu_torch.ops import fused_step as fs
+from dotsocp_tpu_torch.ops import sgs_sweep
 from dotsocp_tpu_torch.ops.engine import OpsFlat, diag_values
 from dotsocp_tpu_torch.ops.geometry import Geometry
+from dotsocp_tpu_torch.ops.sgs import make_sgs
 from dotsocp_tpu_torch.ops.staggered import Staggered
 
 pytestmark = pytest.mark.cuda
@@ -145,3 +147,56 @@ def test_solve_on_card_matches_cpu(dev, dim):
     assert set(cpu_n.values()) == {0} and min(gpu_n.values()) > 0
     close(gpu["rho"].cpu(), cpu["rho"], 1e-3, 1e-4)
     assert gpu["mass_ok"] and cpu["mass_ok"]
+
+
+# -- the sGS sweep kernel ----------------------------------------------------------
+
+@pytest.mark.parametrize("name", list(SHAPES))
+@pytest.mark.parametrize("its", [1, 2])
+def test_sweep_kernel_matches_plain(dev, name, its):
+    """Within the kernel tolerance; the input phi is left as it was and
+    each sweep is three launches."""
+    nt, space = SHAPES[name]
+    geom = Geometry(nt, space)
+    rng = np.random.default_rng(5)
+    phi, rhs = (torch.from_numpy(rng.standard_normal(
+        geom.phi_shape, dtype=np.float32)).to(dev) for _ in range(2))
+    sgs = make_sgs(geom, dtype=F32, device=dev)
+    before = phi.clone()
+    n0 = sgs_sweep.LAUNCHES["rb_sweep"]
+    got = sgs_sweep.rb_sweep(sgs, phi, rhs, 0.3, its)
+    torch.cuda.synchronize()
+    assert sgs_sweep.LAUNCHES["rb_sweep"] == n0 + 3 * its
+    close(got, sgs.sweep(phi, rhs, its, d2=0.3))
+    assert torch.equal(phi, before)
+
+
+def test_sweep_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    geom = Geometry(*SHAPES["2d"])
+    sgs = make_sgs(geom, dtype=F32, device=dev)
+    phi = torch.zeros(geom.phi_shape, dtype=F32, device=dev)
+    with pytest.raises(ValueError, match="share storage"):
+        sgs_sweep.rb_sweep(sgs, phi, phi, 0.3)
+    with pytest.raises(ValueError, match="shape"):
+        sgs_sweep.rb_sweep(sgs, phi[:-1], phi[1:].clone(), 0.3)
+    with pytest.raises(TypeError, match="float32"):
+        sgs_sweep.rb_sweep(sgs, phi.double(), phi.double() + 1, 0.3)
+
+
+@pytest.mark.parametrize("method", ["sGS-inPALM", "acc-sGS-ADMM"])
+def test_sgs_solve_on_card_matches_cpu(dev, method):
+    """The same small f32 sGS solve on the card and on the CPU: equal
+    iteration counts on every level; the card's sGS level swept with the
+    kernel, three launches per iteration."""
+    r0, r1 = get_example_2d("example2", 17, 17)
+    runs = {}
+    for device in ("cpu", dev):
+        sgs_sweep.reset_launches()
+        out, _, _ = solve_dot(r0, r1, 7, 2, {"tol": 1e-3}, method,
+                              device=device, verbose=False)
+        runs[str(device)] = out, sgs_sweep.LAUNCHES["rb_sweep"]
+    (cpu, cpu_n), (gpu, gpu_n) = runs["cpu"], runs[str(dev)]
+    iters = [lv["iters"] for lv in gpu["levels"]]
+    assert iters == [lv["iters"] for lv in cpu["levels"]]
+    assert cpu_n == 0 and gpu_n == 3 * iters[-1]
+    close(gpu["rho"].cpu(), cpu["rho"], 1e-3, 1e-4)

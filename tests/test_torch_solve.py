@@ -306,9 +306,10 @@ def test_solve_dot_refuses_what_waits():
     run = lambda **kw: tsolve.solve_dot(
         r0, r1, 5, 1, kw.pop("opts", None), kw.pop("method", "inPALM"),
         kw.pop("weight", None), device="cpu", verbose=False)
-    for method in ("PALM", "acc-ADMM", "sGS-inPALM", "acc-sGS-ADMM"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
-            run(method=method)
+    with pytest.raises(ValueError, match="not in"):
+        run(method="sGS-ADMM")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
+        run(opts={"theta": 3.0}, method="acc-ADMM")
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
         run(weight=object())
     for key in ("refine_tol", "mesh"):
@@ -364,6 +365,27 @@ def test_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
         _build.library()
     assert not (tmp_path / "build").exists() or not any(
         (tmp_path / "build").iterdir())
+
+
+def test_build_compiles_sources_in_parallel(monkeypatch, tmp_path):
+    """One nvcc per source, all started together; a second build reuses
+    the libraries. A stand-in nvcc sleeps 1 s and writes its -o file."""
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    fake.write_text("#!/bin/sh\n"
+                    "while [ $# -gt 0 ]; do [ \"$1\" = -o ] && out=$2; "
+                    "shift; done\n"
+                    "sleep 1; echo 'ptxas info: Used 8 registers' >&2; "
+                    "touch \"$out\"\n")
+    fake.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{fake.parent}:{os.environ['PATH']}")
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    paths = _build.build()
+    assert len(paths) == len(_build.SOURCES) >= 2
+    assert all(os.path.isfile(p) for p in paths)
+    assert _build.build_info["seconds"] < 1.0 + 0.8 * (len(paths) - 1)
+    assert _build.build_info["log"].count("registers") == len(paths)
+    assert _build.build() == paths and _build.build_info["cached"]
 
 
 def test_dotmark_data_matches_jax_package():
