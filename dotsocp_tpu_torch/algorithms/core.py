@@ -1,7 +1,14 @@
 """Solver state, per-level constants, and the per-level compute kernels;
 port of ``dotsocp_tpu/algorithms/core.py`` (``Kernels`` with
-``InPALMKernels`` folded in: inPALM, and ALG2 as tau = 1). The other
-algorithms subclass it in :mod:`.variants`.
+``InPALMKernels`` folded in: inPALM, and ALG2 as tau = 1), weighted or
+not. The other algorithms subclass it in :mod:`.variants`.
+
+A weighted level (the obstacle problems, ``solver_wsocp_inPALM.m``) carries
+the weight w in the flat layout. It enters the phi-step rhs
+D A^T(w q - alpha) + c, the q-step (w (A phi + alpha) + BF^T(z + beta)) /
+(base + w^2) and its multiplier A phi - w q, and the KKT battery; the z-
+and beta-steps, and so the x_step and cx kernels, are those of the
+unweighted problem (``dotsocp_tpu/algorithms/core.py:156-168, 258-313``).
 
 The iteration state lives on the caller's device. The level scalars
 (sigma, cScale, dScale, norm_c, norm_d, D, E) are Python floats on the
@@ -17,14 +24,15 @@ the reference (``solver_socp_inPALM.m:102-104``).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..ops.cone import proj_soc
 from ..ops.engine import OpsFlat, diag_values
-from ..ops.fused_step import (cx_final, cx_step, qx_step,
-                              qx_step_plain, times_dinv, x_step)
+from ..ops.fused_step import (cx_final, cx_step, qx_step, qx_step_plain,
+                              times_dinv, weighted_dinv, x_step)
 from ..ops.geometry import Geometry
 from ..ops.staggered import Staggered
 from ..utils.norms import norm_l2
@@ -103,7 +111,7 @@ class Kernels:
     """One level's compute: the inPALM step, the CA x-carry segment, the
     KKT battery and the host-driven state transforms."""
 
-    def __init__(self, cfg: LevelConfig):
+    def __init__(self, cfg: LevelConfig, weight: Optional[Staggered] = None):
         if cfg.geom.ndim_space not in (1, 2):
             raise NotImplementedError(
                 "3D grids wait in ROADMAP.md queue 1 (other algorithms and "
@@ -113,21 +121,36 @@ class Kernels:
         self.ops = OpsFlat(cfg.geom, cfg.dtype, cfg.device)
         # unit-D build: the solve multiplies by 1/D^2 at use time
         self.poisson = self.ops.make_poisson(1.0)
+        # the shaped weight of a weighted level, flat, in the level's dtype
+        self.weight = None
+        if weight is not None:
+            self.weight = self.ops.weight_to_internal(
+                weight.to(dtype=cfg.dtype, device=self.ops.device))
+        self._wdinv = None  # (D, E) -> WeightedDinv, see _diag_inv
 
-    @staticmethod
-    def _diag_inv(s: SolverState):
-        """(interior, boundary-slab) entries of 1 / diag(I + (E/D)^2
-        F*B*BF)."""
-        d_in, d_bd = diag_values(s.D, s.E)
-        return 1.0 / d_in, 1.0 / d_bd
+    def _w(self, x: Staggered) -> Staggered:
+        """Multiply by the diagonal weight D_w (identity when unweighted)."""
+        return x if self.weight is None else self.weight * x
+
+    def _diag_inv(self, s: SolverState):
+        """1 / diag(D_w*D_w + (E/D)^2 F*B*BF): unweighted its (interior,
+        boundary-slab) values; weighted a :class:`WeightedDinv`, formed once
+        for the level's (D, E) (they change only between levels)."""
+        if self.weight is None:
+            d_in, d_bd = diag_values(s.D, s.E)
+            return 1.0 / d_in, 1.0 / d_bd
+        if self._wdinv is None or self._wdinv[0] != (s.D, s.E):
+            self._wdinv = ((s.D, s.E),
+                           weighted_dinv(self.ops, self.weight, s.D, s.E))
+        return self._wdinv[1]
 
     def _poisson_solve(self, s: SolverState, rhs):
         """phi-step DCT solve of D^2 A^T A phi = rhs."""
         return self.poisson.solve(rhs, scale=1.0 / (s.D * s.D))
 
     def _rhs(self, s: SolverState):
-        """phi-step rhs: D A^T (q - alpha) + c."""
-        return s.D * self.ops.grad_T(s.q - s.alpha) + s.c
+        """phi-step rhs: D A^T (w q - alpha) + c."""
+        return s.D * self.ops.grad_T(self._w(s.q) - s.alpha) + s.c
 
     # -- core iteration --------------------------------------------------
     def _step(self, s: SolverState) -> SolverState:
@@ -149,9 +172,11 @@ class Kernels:
         beta = s.beta + tau * (z - ops.bfd(q, sbf, sd))
         return s.replace(phi=phi, q=q, z=z, alpha=alpha, beta=beta)
 
-    def _q_solve(self, s: SolverState, numer: Staggered) -> Staggered:
-        """The q-step's diagonal solve: numer * diag^-1."""
-        return times_dinv(self.ops, numer, self._diag_inv(s))
+    def _q_solve(self, s: SolverState, tmp_q: Staggered,
+                 q2: Staggered) -> Staggered:
+        """The q-step: (w (tmp_q + alpha) + q2) * diag^-1."""
+        return times_dinv(self.ops, self._w(tmp_q + s.alpha) + q2,
+                          self._diag_inv(s))
 
     # -- CA-fused x-carry segment ----------------------------------------
     def _fresh_x(self, s: SolverState):
@@ -226,11 +251,11 @@ class Kernels:
         kkt_const = 1.0
 
         tmp_q = s.D * ops.grad(s.phi)
-        resi_alpha = tmp_q - s.q
+        resi_alpha = tmp_q - self._w(s.q)
         z2 = ops.bfd(s.q, s.E / s.D, s.E / s.dScale)
         resi_beta = s.z - z2
         q2b = ops.bfd_T(s.beta, s.E / s.D)
-        d_alpha = s.alpha
+        d_alpha = self._w(s.alpha)
 
         norm_q = norm_l2(s.q, h)
         norm_z = norm_l2(s.z, h)
@@ -248,7 +273,11 @@ class Kernels:
         dc = self._dot_complement(s, d_alpha, z2)
 
         E_over_dscale = s.E / s.dScale
-        denom2 = kkt_const * E_over_dscale + s.norm_d
+        if self.weight is not None:
+            # wdot2d denominator of residual 2 (``solver_wsocp_inPALM.m``)
+            denom2 = kkt_const * E_over_dscale + norm_q + norm_z
+        else:
+            denom2 = kkt_const * E_over_dscale + s.norm_d
         kkt_org = torch.stack([
             prim_fea1 / (kkt_const * s.D / s.dScale + norm_aphi + norm_q),
             prim_fea2 / denom2,
@@ -294,7 +323,8 @@ class Kernels:
 
     def _dot_complement(self, s: SolverState, d_alpha: Staggered, z2):
         """Original-DOT complementarity residuals
-        (``socp/dot2d/utils/compute_kkt_dot_complement.m``)."""
+        (``socp/dot2d/utils/compute_kkt_dot_complement.m``; weighted:
+        ``d_alpha`` is D_w alpha)."""
         geom = self.geom
         h = geom.h
         d = geom.ndim_space
@@ -387,7 +417,7 @@ class Kernels:
             st = ops.stag_to_internal(st.to(**conv))
             return Staggered(fresh(st.q0), fresh(st.bs))
 
-        return SolverState(
+        s = SolverState(
             phi=fresh(ops.phi_to_internal(var["phi"])),
             q=fresh_stag(var["q"]),
             z=fresh(ops.z_to_internal(var["z"])),
@@ -403,6 +433,8 @@ class Kernels:
             D=float(var.get("D", cfg.D)),
             E=float(var.get("E", cfg.E)),
         )
+        self._diag_inv(s)  # a weighted level's inverse diagonal, once
+        return s
 
     def finalize(self, s: SolverState, var: dict) -> dict:
         """Write back the iteration variables in the shaped layout

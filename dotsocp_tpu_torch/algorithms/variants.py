@@ -13,6 +13,10 @@ scales, i.e. those consumed before being recomputed):
 - acc-ADMM and acc-sGS-ADMM: phi, q, z, and the Halpern anchors restart
   (``solver_socp_accADMM.m:204-224``)
 
+acc-ADMM also takes a weight (the obstacle problems; ``WDOT_METHODS``):
+its q-step and multipliers use w as inPALM's do
+(``dotsocp_tpu/algorithms/variants.py:127-150``).
+
 These variants run their own step in a plain loop (``Kernels.segment_impl``);
 the sGS methods' phi-step is one red-black sweep, the CUDA kernel of
 ``ops/sgs_sweep.py`` on the card. The rest of each step is plain PyTorch,
@@ -59,7 +63,7 @@ class PALMKernels(Kernels):
         # step q0: uses A*phi from the previous iteration
         tmp_q = s.D * ops.grad(s.phi)
         q2 = ops.bfd_T(s.z + s.beta, sbf)
-        q = self._q_solve(s, tmp_q + s.alpha + q2)
+        q = self._q_solve(s, tmp_q, q2)
         # step phi
         phi = self._poisson_solve(s, s.D * ops.grad_T(q - s.alpha) + s.c)
         # step z (z2 refreshed from the q0-step's q)
@@ -67,7 +71,7 @@ class PALMKernels(Kernels):
         # step q (second)
         tmp_q = s.D * ops.grad(phi)
         q2 = ops.bfd_T(z + s.beta, sbf)
-        q = self._q_solve(s, tmp_q + s.alpha + q2)
+        q = self._q_solve(s, tmp_q, q2)
         # multipliers
         z2 = ops.bfd(q, sbf, sd)
         return s.replace(phi=phi, q=q, z=z,
@@ -105,9 +109,9 @@ class AccADMMKernels(Kernels):
 
     RESCALED = ("phi", "q", "z")
 
-    def __init__(self, cfg: LevelConfig, restart: int = 100,
+    def __init__(self, cfg: LevelConfig, weight=None, restart: int = 100,
                  rho: float = 2.0):
-        super().__init__(cfg)
+        super().__init__(cfg, weight)
         self.restart = restart
         self.rho = rho
 
@@ -122,13 +126,14 @@ class AccADMMKernels(Kernels):
         # step q
         q2 = ops.bfd_T(s.z + s.beta, sbf)
         tmp_q = s.D * ops.grad(s.phi)
-        q = self._q_solve(s, tmp_q + s.alpha + q2)
-        # step alpha, beta (unit step)
+        q = self._q_solve(s, tmp_q, q2)
+        # step alpha, beta (unit step); weighted with w q
+        # (``dotsocp_tpu/algorithms/variants.py:133-150``)
         z2 = ops.bfd(q, sbf, s.E / s.dScale)
-        alpha = s.alpha + tmp_q - q
+        alpha = s.alpha + tmp_q - self._w(q)
         beta = s.beta + s.z - z2
         # step phi
-        rhs = s.D * ops.grad_T(q - alpha) + s.c
+        rhs = s.D * ops.grad_T(self._w(q) - alpha) + s.c
         phi = self._phi_solve(s, rhs)
         return s.replace(phi=phi, q=q, alpha=alpha, beta=beta), rhs, z2
 

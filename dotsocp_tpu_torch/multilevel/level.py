@@ -1,9 +1,10 @@
 """Per-level problem setup, initial scaling, and solution recovery; port of
-``dotsocp_tpu/multilevel/level.py`` (unweighted).
+``dotsocp_tpu/multilevel/level.py``.
 
 Replaces the reference's ``initialize.m`` + the ``InitialScaling`` /
 ``recoverOrgVar`` closures of ``solver_dotsocp2d.m:304-386`` (1-D deltas at
-``solver_dotsocp1d.m:263-317``). Level variables are shaped tensors on the
+``solver_dotsocp1d.m:263-317``, weighted at ``solver_wdotsocp2d.m:296-360``).
+Level variables are shaped tensors on the
 caller's device; the solver's ``prep`` converts them to the flat layout.
 """
 from __future__ import annotations
@@ -33,6 +34,7 @@ class LevelVar:
     z: torch.Tensor
     alpha: Staggered
     beta: torch.Tensor
+    weight: Optional[Staggered] = None  # shaped; None when unweighted
     # scaling factors (set by initial_scaling)
     D: float = 1.0
     E: float = 1.0
@@ -68,9 +70,11 @@ def zeros_staggered(geom: Geometry, dtype, device) -> Staggered:
                  for a in range(geom.ndim_space)))
 
 
-def initialize(rho0, rho1, nt: int, dtype: torch.dtype, device) -> LevelVar:
+def initialize(rho0, rho1, nt: int, dtype: torch.dtype, device,
+               weight: Optional[Staggered] = None) -> LevelVar:
     """Model (c) and initial variables (``initialize.m``):
-    phi = sum_a x_a^2 / 2 replicated over t; z, beta, q, alpha zero."""
+    phi = sum_a x_a^2 / 2 replicated over t; z, beta, q, alpha zero.
+    ``weight`` (shaped, the level's grid) makes the level weighted."""
     rho0 = torch.as_tensor(rho0, device=device).to(dtype)
     rho1 = torch.as_tensor(rho1, device=device).to(dtype)
     space = tuple(rho0.shape)
@@ -94,15 +98,20 @@ def initialize(rho0, rho1, nt: int, dtype: torch.dtype, device) -> LevelVar:
         z=torch.zeros(geom.z_shape, **kw),
         alpha=zeros_staggered(geom, dtype, device),
         beta=torch.zeros(geom.z_shape, **kw),
+        weight=weight,
     )
 
 
-def update_e2(prev_e2: Optional[float], last_kkt) -> float:
+def update_e2(prev_e2: Optional[float], last_kkt,
+              weighted: bool = False) -> float:
     """E2 feedback from the previous level's final KKT
-    (``solver_dotsocp2d.m:308-318``)."""
+    (``solver_dotsocp2d.m:308-318``; weighted: safeguard [0.25, 4],
+    ``solver_wdotsocp2d.m:300-305``)."""
     if last_kkt is None or prev_e2 is None:
         return math.sqrt(2.0)
     ratio = math.sqrt(max(last_kkt[0], 1e-300) / max(last_kkt[1], 1e-300))
+    if weighted:
+        return prev_e2 * min(4.0, max(0.25, ratio))
     lower = 0.8333
     if ratio < lower:
         return prev_e2 * max(1.0 / math.sqrt(2.0), ratio / lower)
@@ -116,7 +125,7 @@ def initial_scaling(lv: LevelVar, scaling: bool, last_kkt=None,
     geom = lv.geom
     h = geom.h
     h_mean = geom.h_mean
-    lv.E2 = update_e2(prev_e2, last_kkt)
+    lv.E2 = update_e2(prev_e2, last_kkt, lv.weight is not None)
     norm_c0 = float(norm_l2(lv.c, h))
 
     if not scaling:
@@ -127,10 +136,17 @@ def initial_scaling(lv: LevelVar, scaling: bool, last_kkt=None,
 
     norm_c = norm_c0 * math.sqrt(geom.nt)
     norm_d = math.sqrt(2.0)
-    D = math.sqrt(2.0) * math.sqrt(h_mean)
-    E = D / lv.E2
-    c_scale = max(1.0, norm_c * math.sqrt(h_mean))
-    d_scale = E * norm_d
+    if lv.weight is not None:
+        adjust = weight_adjust(lv.weight)
+        D = math.sqrt(2.0) * math.sqrt(h_mean) * adjust
+        E = D / lv.E2
+        c_scale = max(1.0, norm_c * math.sqrt(h_mean) / adjust)
+        d_scale = E * norm_d * math.sqrt(adjust)
+    else:
+        D = math.sqrt(2.0) * math.sqrt(h_mean)
+        E = D / lv.E2
+        c_scale = max(1.0, norm_c * math.sqrt(h_mean))
+        d_scale = E * norm_d
 
     lv.norm_c = norm_c / c_scale
     lv.norm_d = norm_d * E / d_scale
@@ -142,6 +158,17 @@ def initial_scaling(lv: LevelVar, scaling: bool, last_kkt=None,
     lv.alpha = lv.alpha * (1.0 / (c_scale * D))
     lv.beta = lv.beta * (1.0 / (c_scale * E))
     lv.D, lv.E, lv.cScale, lv.dScale = D, E, c_scale, d_scale
+
+
+def weight_adjust(weight: Staggered) -> float:
+    """Geometric mean of the weight, 10^mean(log10(w + 1e-10))
+    (``solver_wdotsocp2d.m:310-316``). Summed in host numpy in the weight's
+    dtype, block by block, as the JAX package sums it, so D and E come out
+    the same to the last bit."""
+    logs = [np.log10(b.cpu().numpy() + 1e-10) for b in weight.blocks()]
+    total = sum(float(x.sum()) for x in logs)
+    count = sum(x.size for x in logs)
+    return 10.0 ** (total / count)
 
 
 def recover_org_var(lv: LevelVar, out: dict) -> None:
@@ -173,12 +200,13 @@ def _mid_pad(b: torch.Tensor, ax: int) -> torch.Tensor:
 def recover_rho_e(lv: LevelVar):
     """(rho, E_1..E_d) from the multiplier alpha (``recover_RhoE.m``): the
     q0-block is the density on time-staggered cells, the face blocks are
-    the momentum."""
-    rho_mid = lv.alpha.q0
+    the momentum. A weighted level folds the weight in first: w * alpha."""
+    alpha = lv.alpha if lv.weight is None else lv.weight * lv.alpha
+    rho_mid = alpha.q0
     rho = torch.cat([lv.rho0[None], 0.5 * (rho_mid[:-1] + rho_mid[1:]),
                      lv.rho1[None]], dim=0)
     Es = []
-    for a, b in enumerate(lv.alpha.bs):
+    for a, b in enumerate(alpha.bs):
         b = b.clone()
         b[0] *= 2.0   # double the boundary time slabs (half-cells)
         b[-1] *= 2.0

@@ -1,11 +1,13 @@
 """Top-level multilevel solver API; port of
-``dotsocp_tpu/multilevel/solve.py:462-680`` (``solve_dot``) for the
-unweighted problem in 1D and 2D, with every method of the JAX package's
-``DOT_METHODS`` (acc-ADMM with theta = 2, its Halpern branch).
+``dotsocp_tpu/multilevel/solve.py:462-680`` (``solve_dot``) in 1D and 2D:
+the unweighted problem with every method of the JAX package's
+``DOT_METHODS`` (acc-ADMM with theta = 2, its Halpern branch), and the
+weighted (obstacle) problem with those of ``WDOT_METHODS``.
 
-``solve_dot(rho0, rho1, nt, level_n, opts, method, device=...)`` builds the
-coarse pyramid, runs the algorithm per level with warm-started sigma and E2
-feedback, prolongates between levels, and recovers (rho, E, q). The JAX
+``solve_dot(rho0, rho1, nt, level_n, opts, method, weight=..., barrier=...,
+device=...)`` builds the coarse pyramid (weights and densities), runs the
+algorithm per level with warm-started sigma and E2 feedback, prolongates
+between levels, and recovers (rho, E, q). The JAX
 package's solver cache, prewarm, Pallas size gate, tracing and profiling
 options have no counterpart here: eager PyTorch compiles nothing, and the
 CUDA kernels run at every size.
@@ -34,10 +36,14 @@ from .level import (
     recover_org_var,
     recover_solution,
 )
-from .transfer import prolong_phi, prolong_z_like, restrict_density
+from ..models.wdot2d import ensure_barrier_validity
+from ..ops.staggered import Staggered
+from .transfer import (prolong_phi, prolong_z_like, restrict_density,
+                       restrict_staggered)
 
 METHODS = ("PALM", "inPALM", "ALG2", "acc-ADMM", "sGS-inPALM",
            "acc-sGS-ADMM")
+WDOT_METHODS = ("inPALM", "ALG2", "acc-ADMM")
 
 KKT_LEGEND = [
     "||A psi - q|| / (1 + ||A psi|| + ||q||)",
@@ -51,6 +57,7 @@ KKT_LEGEND = [
 
 ADMM_MAXIT = 3000
 SGS_MAXIT = 6000
+WDOT_MAXIT = 10000
 ALM_STEPSIZE = 1.9
 ALG2_STEPSIZE = 1.0
 
@@ -74,12 +81,12 @@ def _is_sgs(method: str) -> bool:
 
 
 def _check_request(rho0, method, weight, opts):
-    if weight is not None:
-        raise NotImplementedError(
-            "weighted transport waits in ROADMAP.md queue 1 (other "
-            "algorithms and the weighted family) and queue 2 (weighted qx)")
-    if method not in METHODS:
-        raise ValueError(f"method {method!r} not in {METHODS}")
+    methods = METHODS if weight is None else WDOT_METHODS
+    if method not in methods:
+        raise ValueError(f"method {method!r} not in {methods}")
+    if weight is not None and not isinstance(weight, Staggered):
+        raise TypeError("weight must be a dotsocp_tpu_torch Staggered (see "
+                        "models/wdot2d.py, utils/interop.weight_from_numpy)")
     for key in opts:
         if key in QUEUED_OPTS:
             raise NotImplementedError(
@@ -119,14 +126,16 @@ def _cat_hist(hists):
     }
 
 
-def _jump_next_level(lv: LevelVar, rho0_f, rho1_f, nt_f: int,
-                     dtype) -> LevelVar:
+def _jump_next_level(lv: LevelVar, rho0_f, rho1_f, nt_f: int, dtype,
+                     weight_f: Optional[Staggered] = None) -> LevelVar:
     """Prolongate (phi, beta), build the fine model, and warm-start
-    q = A phi, alpha = -(BF)^T beta (``jump_nextLevel.m``). The gradient and
-    the BF adjoint go through the flat engine and back: the values equal
-    the shaped operators' (``dotsocp_tpu/ops/engine.py:24-26``)."""
+    q = A phi, alpha = -(BF)^T beta (``jump_nextLevel.m``; weighted: both
+    divided by the fine weight, ``dotsocp_tpu/multilevel/solve.py:320-359``).
+    The gradient and the BF adjoint go through the flat engine and back:
+    the values equal the shaped operators'
+    (``dotsocp_tpu/ops/engine.py:24-26``)."""
     lv_f = initialize(rho0_f, rho1_f, nt_f, dtype=dtype,
-                      device=lv.phi.device)
+                      device=lv.phi.device, weight=weight_f)
     ops = OpsFlat(lv_f.geom, dtype, lv.phi.device)
     phi_f = prolong_phi(lv.phi.to(dtype))
     beta_f = prolong_z_like(lv.beta.to(dtype))
@@ -135,6 +144,9 @@ def _jump_next_level(lv: LevelVar, rho0_f, rho1_f, nt_f: int,
     lv_f.q = ops.stag_from_internal(ops.grad(ops.phi_to_internal(phi_f)))
     lv_f.alpha = ops.stag_from_internal(
         ops.bfd_T(ops.z_to_internal(-beta_f), 1.0))
+    if weight_f is not None:
+        lv_f.q = lv_f.q / weight_f
+        lv_f.alpha = lv_f.alpha / weight_f
     return lv_f
 
 
@@ -144,14 +156,16 @@ def _make_solver(method: str, lv: LevelVar, o: SolveOptions, device,
     236-313``, host driver)."""
     cfg = LevelConfig(geom=lv.geom, D=lv.D, E=lv.E, device=str(device),
                       tau=o.tau, dtype=dtype)
+    w = lv.weight
     if method == "inPALM":
-        return InPALMSolver(Kernels(cfg), o)
+        return InPALMSolver(Kernels(cfg, w), o)
     if method == "ALG2":
-        return ALG2Solver(Kernels(cfg), o)
+        return ALG2Solver(Kernels(cfg, w), o)
+    if method == "acc-ADMM":
+        return AccADMMSolver(AccADMMKernels(cfg, w, o.restart, o.rho), o)
+    # the methods below are not in WDOT_METHODS: w is None
     if method == "PALM":
         return PALMSolver(PALMKernels(cfg), o)
-    if method == "acc-ADMM":
-        return AccADMMSolver(AccADMMKernels(cfg, o.restart, o.rho), o)
     if method == "sGS-inPALM":
         return SgsInPALMSolver(SgsKernels(cfg), o)
     return AccSgsADMMSolver(AccSgsADMMKernels(cfg, o.restart, o.rho), o)
@@ -164,7 +178,8 @@ def solve_dot(
     level_n: int = 1,
     opts: Optional[dict] = None,
     method: str = "inPALM",
-    weight=None,
+    weight: Optional[Staggered] = None,
+    barrier=None,
     *,
     device,
     dtype: torch.dtype = torch.float32,
@@ -172,6 +187,12 @@ def solve_dot(
 ):
     """Multilevel DOT-SOCP solve on ``device`` (required). Returns
     (output, run_hist_ml, run_hist) like the JAX ``solve_dot``.
+
+    ``weight`` (a shaped :class:`Staggered` of the finest grid, e.g.
+    ``models.wdot2d.get_weight_by_barrier``) switches to the weighted
+    problem, with a method of ``WDOT_METHODS``; ``barrier`` (the predicate
+    the weight was built from) restricts the weight in log space and
+    re-validates the coarse densities against it.
 
     output: rho (nt, *space), E (list per axis; Ex/Ey aliases in 2D), q0,
     b (list per axis), mass_ok, per-level reports, total_time.
@@ -186,14 +207,18 @@ def solve_dot(
         print("WARNING: float32 stalls around KKT ~1e-4; tolerances below "
               "5e-5 need dtype=torch.float64.")
 
+    weighted = weight is not None
     sgs_method = _is_sgs(method)
     tol = float(opts.get("tol", 1e-4))
     scaling = bool(opts.get("scaling", True))
-    maxit = int(opts.get("maxit", SGS_MAXIT if sgs_method else ADMM_MAXIT))
+    maxit = int(opts.get("maxit", WDOT_MAXIT if weighted else (
+        SGS_MAXIT if sgs_method else ADMM_MAXIT)))
     sigma = float(opts.get("sigma", 0.1 if sgs_method else 1.0))
     time_limit = float(opts.get("time_limit", 3600.0))
     check_sbs = bool(opts.get("ifCheckStepByStep", False))
-    check_pdf = bool(opts.get("checkPrimDualFeas", True))
+    # weighted problems stop on residuals 1, 3, 6
+    # (``dotsocp_tpu/multilevel/solve.py:532``)
+    check_pdf = bool(opts.get("checkPrimDualFeas", not weighted))
     if method in ("PALM", "inPALM", "sGS-inPALM"):
         tau = ALM_STEPSIZE
     elif method == "ALG2":
@@ -208,20 +233,36 @@ def solve_dot(
     rho1s = [None] * level_n
     nts = [0] * level_n
     tols = [0.0] * level_n
+    weights = [None] * level_n
     rho0s[-1] = torch.as_tensor(rho0, device=device).to(dtype)
     rho1s[-1] = torch.as_tensor(rho1, device=device).to(dtype)
     nts[-1] = nt
     tols[-1] = tol
+    if weighted:
+        weights[-1] = weight.to(dtype=dtype, device=device)
     for lev in range(level_n - 2, -1, -1):
         nts[lev] = (nts[lev + 1] - 1) // 2 + 1
         tols[lev] = max(tols[lev + 1] * 2.0 ** tol_factor, tol_lower)
         r0 = restrict_density(rho0s[lev + 1])
         r1 = restrict_density(rho1s[lev + 1])
-        # renormalize to unit mean (``solver_dotsocp2d.m:174-178``)
-        rho0s[lev] = r0 / r0.mean()
-        rho1s[lev] = r1 / r1.mean()
+        if weighted:
+            weights[lev] = restrict_staggered(weights[lev + 1],
+                                              log_space=barrier is not None)
+        if weighted and barrier is not None:
+            # zero the mass on the coarse walls, renormalize (host numpy,
+            # ``solve.py:557-580``)
+            r0, r1, _ = ensure_barrier_validity(r0, r1, barrier)
+            r0 = torch.as_tensor(r0, device=device).to(dtype)
+            r1 = torch.as_tensor(r1, device=device).to(dtype)
+        else:
+            # renormalize to unit mean (``solver_dotsocp2d.m:174-178``)
+            r0 = r0 / r0.mean()
+            r1 = r1 / r1.mean()
+        rho0s[lev] = r0
+        rho1s[lev] = r1
 
-    lv = initialize(rho0s[0], rho1s[0], nts[0], dtype=dtype, device=device)
+    lv = initialize(rho0s[0], rho1s[0], nts[0], dtype=dtype, device=device,
+                    weight=weights[0])
     last_kkt = None
     prev_e2 = None
     hists = []
@@ -267,7 +308,7 @@ def solve_dot(
             sigma = 10.0 ** (math.log10(sigma * out["sigma_out"]) / 2.0)
             last_kkt = hist["kkt"][-1]
             lv = _jump_next_level(lv, rho0s[lev + 1], rho1s[lev + 1],
-                                  nts[lev + 1], dtype)
+                                  nts[lev + 1], dtype, weights[lev + 1])
 
     total_time = time.monotonic() - t_start
     rho, Es, q0, bs, mass_ok = recover_solution(lv)

@@ -34,6 +34,7 @@ SOURCES = {
         "dotsocp_x_step": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
         "dotsocp_qx_step": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _F, _F, _F, _F, _F, _F, _F, _F, _P],
+        "dotsocp_qx_step_w": [_P] * 8 + [_I] * 7 + [_F] * 9 + [_P],
         "dotsocp_cx_step": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F,
                             _I, _P],
     },

@@ -17,6 +17,7 @@ the multi-device slice.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -117,19 +118,30 @@ class OpsFlat:
             bs.append((s * acc) * self.masks[a])
         return Staggered(q0=q0, bs=torch.stack(bs))
 
-    def oper_q_diag(self, D: float, E: float) -> Staggered:
-        """Diagonal of I + (E/D)^2 F*B*BF (unweighted ``oper_q.m``): 1 +
-        2(E/D)^2, and 1 + (E/D)^2 on the two boundary time slabs of the face
-        blocks. Ghost slots get the interior value (harmless: every
-        numerator that multiplies 1/diag is exactly zero there)."""
-        inner, bnd = diag_values(D, E)
+    def oper_q_diag(self, D: float, E: float,
+                    weight: Optional[Staggered] = None) -> Staggered:
+        """Diagonal of D_w*D_w + (E/D)^2 F*B*BF: base + w*w, base being
+        2(E/D)^2 and (E/D)^2 on the two boundary time slabs of the face
+        blocks (``dotsocp_tpu/ops/engine.py:224-244``). Unweighted (w = 1,
+        ``oper_q.m``) the two values are formed in double precision
+        (``diag_values``); weighted (``wdot2d/utils/oper_q.m``) base + w*w
+        is summed in the weight's dtype, as the JAX package does. Ghost
+        slots get the interior base (+ 1, the flat weight's ghost value):
+        harmless, every numerator that multiplies 1/diag is exactly zero
+        there."""
+        if weight is None:
+            inner, bnd = diag_values(D, E)
+        else:
+            inner, bnd = base_values(D, E)
         geom = self.geom
-        kw = dict(dtype=self.dtype, device=self.device)
+        kw = dict(dtype=self.dtype if weight is None else weight.dtype,
+                  device=self.device)
         q0 = torch.full((geom.nt - 1, self.S), inner, **kw)
         bs = torch.full((geom.ndim_space, geom.nt, self.S), inner, **kw)
         bs[:, 0] = bnd
         bs[:, -1] = bnd
-        return Staggered(q0=q0, bs=bs)
+        diag = Staggered(q0=q0, bs=bs)
+        return diag if weight is None else diag + weight * weight
 
     def make_poisson(self, D: float = 1.0) -> "FlatPoisson":
         inner = make_dct_poisson(self.geom, D=D, dtype=self.dtype,
@@ -169,6 +181,19 @@ class OpsFlat:
             bs.append(b.narrow(1 + a, 0, geom.space[a] - 1))
         return Staggered(q0=q0, bs=tuple(bs))
 
+    def weight_to_internal(self, w: Staggered) -> Staggered:
+        """A shaped weight in the flat layout, ghost slots padded with 1.0
+        (any finite value works: they only ever multiply exact zeros;
+        ``dotsocp_tpu/ops/engine.py:283-297``)."""
+        geom = self.geom
+        bs = []
+        for a in range(geom.ndim_space):
+            pad = [0, 0] * w.bs[a].ndim
+            pad[2 * (w.bs[a].ndim - 2 - a) + 1] = 1
+            bs.append(F.pad(w.bs[a], pad, value=1.0).reshape(geom.nt, self.S))
+        return Staggered(q0=w.q0.reshape(geom.nt - 1, self.S).contiguous(),
+                         bs=torch.stack(bs))
+
     def z_to_internal(self, z: torch.Tensor) -> torch.Tensor:
         return z.reshape(tuple(z.shape[:2]) + (self.S,))
 
@@ -187,6 +212,13 @@ def diag_values(D: float, E: float):
     operation order of ``dotsocp_tpu/ops/engine.py:224-244``."""
     tmp = (E / D) ** 2
     return 2.0 * tmp + 1.0, tmp + 1.0
+
+
+def base_values(D: float, E: float):
+    """(interior, boundary-slab) entries of the diagonal of (E/D)^2 F*B*BF,
+    which the weighted q-step adds to w*w."""
+    tmp = (E / D) ** 2
+    return 2.0 * tmp, tmp
 
 
 class FlatPoisson:

@@ -13,7 +13,7 @@ wrapper    replaces (dotsocp_tpu/ops/pallas_kernels.py)        bytes at
 =========  ==================================================  ==========
 x_step     ``make_fused_flat_step.x_step`` / ``x_kernel``      1.55 GB
 qx_step    ``make_fused_flat_step.qx_step`` / ``qx_kernel``    1.35 GB
-           (unweighted form)
+           (unweighted form); weighted form (``WeightedDinv``)  1.56 GB
 cx_step    ``make_fused_flat_step.cx_step`` /                  2.90 GB
            ``make_cx_kernel(final=False)``
 cx_final   ``make_fused_flat_step.cx_final`` /                 2.90 GB
@@ -24,13 +24,20 @@ Each kernel is one streaming pass over HBM, so bytes moved bound it on the
 card; the design is one thread per element with coalesced loads (see the
 source). The q-step diagonal enters as its two distinct values (interior,
 boundary time slab) instead of two diagonal arrays, which saves ~0.2 GB of
-reads per qx pass at 513^2 x 65. Shared-memory tiling, TMA and merging cx
-with the next qx are left for later work.
+reads per qx pass at 513^2 x 65. The weighted q-step (obstacles,
+``solver_wsocp_inPALM.m:198-222``) is the same kernel with the weight w
+read once: it forms 1/(base + w*w) in registers from w and base's two
+values, and reads no diagonal array (0.41 GB less than carrying one); its
+plain version multiplies by the inverse diagonal that
+:func:`weighted_dinv` computes once a level, and the kernel rounds every
+operation as that plain version does. Shared-memory tiling, TMA and
+merging cx with the next qx are left for later work.
 
 Dispatch: a wrapper runs the plain version only because the tensors it was
 given lie on the CPU. On CUDA tensors it checks device, dtype (f32 only),
 shape, contiguity and aliasing, launches the kernel, and raises on any
-error; there is no fallback. Every launch adds one to ``LAUNCHES[name]``.
+error; there is no fallback. Every launch adds one to ``LAUNCHES[name]``;
+the weighted q-step counts under ``qx_step_w``.
 
 In-place outputs: ``qx_step`` updates alpha, and ``cx_step`` / ``cx_final``
 update beta and x, in the buffers they were given (each thread reads those
@@ -40,14 +47,17 @@ versions return new tensors.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import _build
 from .cone import proj_soc
-from .engine import OpsFlat
+from .engine import _INV_SQRT2, OpsFlat, base_values
 from .staggered import Staggered
 
-LAUNCHES = {"x_step": 0, "qx_step": 0, "cx_step": 0, "cx_final": 0}
+LAUNCHES = {"x_step": 0, "qx_step": 0, "qx_step_w": 0, "cx_step": 0,
+            "cx_final": 0}
 
 
 def reset_launches() -> None:
@@ -55,10 +65,33 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+class WeightedDinv(NamedTuple):
+    """The weighted q-step's diagonal: the flat weight ``w`` (ghost slots
+    1.0), the (interior, boundary-slab) values ``base`` of (E/D)^2 F*B*BF's
+    diagonal, and ``inv`` = 1 / (base + w*w). The kernel forms ``inv`` in
+    registers from ``w`` and ``base``; the plain version reads ``inv``."""
+
+    w: Staggered
+    base: tuple
+    inv: Staggered
+
+
+def weighted_dinv(ops: OpsFlat, w: Staggered, D: float,
+                  E: float) -> WeightedDinv:
+    """1 / (base + w*w) in w's dtype, in the operation order of
+    ``dotsocp_tpu/algorithms/core.py:175-179``."""
+    diag = ops.oper_q_diag(D, E, w)
+    return WeightedDinv(w=w, base=base_values(D, E),
+                        inv=Staggered(1.0 / diag.q0, 1.0 / diag.bs))
+
+
 # -- plain versions (the composition the JAX _step computes) ----------------
 
 def times_dinv(ops: OpsFlat, st: Staggered, dinv) -> Staggered:
-    """st * diag^-1 from its (interior, boundary-slab) values."""
+    """st * diag^-1: from its (interior, boundary-slab) values, or the
+    weighted inverse diagonal of a :class:`WeightedDinv`."""
+    if isinstance(dinv, WeightedDinv):
+        return st * dinv.inv
     d_in, d_bd = dinv
     row = torch.full((ops.geom.nt, 1), d_in, dtype=st.q0.dtype,
                      device=st.q0.device)
@@ -73,6 +106,10 @@ def x_step_plain(ops: OpsFlat, q: Staggered, beta, sbf, sd):
 
 def qx_step_plain(ops: OpsFlat, phi, x, alpha: Staggered, dinv, D, sbf, tau):
     tmp = D * ops.grad(phi)
+    if isinstance(dinv, WeightedDinv):
+        w = dinv.w
+        q = times_dinv(ops, w * (tmp + alpha) + ops.bfd_T(x, sbf), dinv)
+        return q, alpha + tau * (tmp - w * q)
     q = times_dinv(ops, tmp + alpha + ops.bfd_T(x, sbf), dinv)
     return q, alpha + tau * (tmp - q)
 
@@ -172,22 +209,37 @@ def x_step(ops: OpsFlat, q: Staggered, beta, sbf: float, sd: float):
 def qx_step(ops: OpsFlat, phi, x, alpha: Staggered, dinv, D: float,
             sbf: float, tau: float):
     """q' = (D grad phi + alpha + sbf BF^T x) * diag^-1 and alpha' = alpha +
-    tau (D grad phi - q'). Returns (q', alpha'); on CUDA alpha' is alpha's
-    own buffers, updated in place."""
-    if not _use_kernel(phi, x, alpha.q0, alpha.bs):
+    tau (D grad phi - q'); with a :class:`WeightedDinv`, q' = (w (D grad phi
+    + alpha) + sbf BF^T x) * diag^-1 and alpha' = alpha + tau (D grad phi -
+    w q'). Returns (q', alpha'); on CUDA alpha' is alpha's own buffers,
+    updated in place."""
+    weighted = isinstance(dinv, WeightedDinv)
+    operands = (phi, x, alpha.q0, alpha.bs)
+    if weighted:
+        operands += (dinv.w.q0, dinv.w.bs)
+    if not _use_kernel(*operands):
         return qx_step_plain(ops, phi, x, alpha, dinv, D, sbf, tau)
     g = ops.geom
     _check_shape(phi, (g.nt, ops.S), "phi")
     _check_cone(ops, x)
     _check_stag(ops, alpha)
-    _check_distinct(phi, x, alpha.q0, alpha.bs)
+    if weighted:
+        _check_stag(ops, dinv.w)
+    _check_distinct(*operands)
     q = Staggered(torch.empty_like(alpha.q0), torch.empty_like(alpha.bs))
     d, nt, S, k, n, hs = _dims(ops)
-    _launch(LAUNCHES, "qx_step", _build.library().dotsocp_qx_step,
-            phi.device, phi.data_ptr(), x.data_ptr(), alpha.q0.data_ptr(),
-            alpha.bs.data_ptr(), q.q0.data_ptr(), q.bs.data_ptr(), d, nt, S,
-            k[0], k[1], n[0], n[1], D, sbf, tau, g.ht, hs[0], hs[1],
-            dinv[0], dinv[1])
+    args = [phi.data_ptr(), x.data_ptr(), alpha.q0.data_ptr(),
+            alpha.bs.data_ptr(), q.q0.data_ptr(), q.bs.data_ptr()]
+    if weighted:
+        # s_bf / sqrt2 as the plain version's bfd_T rounds it
+        name, fn = "qx_step_w", _build.library().dotsocp_qx_step_w
+        args += [dinv.w.q0.data_ptr(), dinv.w.bs.data_ptr()]
+        diag = list(dinv.base) + [sbf * _INV_SQRT2]
+    else:
+        name, fn = "qx_step", _build.library().dotsocp_qx_step
+        diag = list(dinv)
+    _launch(LAUNCHES, name, fn, phi.device, *args, d, nt, S, k[0], k[1],
+            n[0], n[1], D, sbf, tau, g.ht, hs[0], hs[1], *diag)
     return q, alpha
 
 

@@ -40,9 +40,10 @@ def _staggered(st, device, dtype, stack: bool) -> Staggered:
 
 
 def level_var_from_numpy(var: dict, rho0, rho1, *, device,
-                         dtype: torch.dtype) -> LevelVar:
+                         dtype: torch.dtype, weight=None) -> LevelVar:
     """A port ``LevelVar`` (shaped layout) from a JAX ``LevelVar.as_dict()``
-    whose arrays are numpy, plus the level's densities."""
+    whose arrays are numpy, plus the level's densities and, for a weighted
+    level, its weight (see :func:`weight_from_numpy`)."""
     phi = _tensor(var["phi"], device, dtype)
     geom = Geometry(nt=phi.shape[0], space=tuple(phi.shape[1:]))
     return LevelVar(
@@ -55,10 +56,20 @@ def level_var_from_numpy(var: dict, rho0, rho1, *, device,
         z=_tensor(var["z"], device, dtype),
         alpha=_staggered(var["alpha"], device, dtype, stack=False),
         beta=_tensor(var["beta"], device, dtype),
+        weight=(None if weight is None else
+                weight_from_numpy(weight, device=device, dtype=dtype)),
         D=float(var["D"]), E=float(var["E"]),
         cScale=float(var["cScale"]), dScale=float(var["dScale"]),
         norm_c=float(var["norm_c"]), norm_d=float(var["norm_d"]),
     )
+
+
+def weight_from_numpy(weight, *, device, dtype: torch.dtype) -> Staggered:
+    """The port's shaped weight from a JAX ``Staggered`` weight of numpy
+    arrays (``jax.device_get`` of ``models.wdot2d.get_weight_by_barrier``),
+    or a ``(q0, bs)`` pair."""
+    q0, bs = weight
+    return _staggered((q0, bs), device, dtype, stack=False)
 
 
 class _Layout:

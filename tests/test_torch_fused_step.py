@@ -259,4 +259,5 @@ def test_launch_counter_reset():
     fs.LAUNCHES["x_step"] += 3
     fs.reset_launches()
     assert set(fs.LAUNCHES.values()) == {0}
-    assert set(fs.LAUNCHES) == {"x_step", "qx_step", "cx_step", "cx_final"}
+    assert set(fs.LAUNCHES) == {"x_step", "qx_step", "qx_step_w", "cx_step",
+                                "cx_final"}

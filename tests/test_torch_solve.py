@@ -32,6 +32,7 @@ from dotsocp_tpu.multilevel import solve as jsolve
 from dotsocp_tpu_torch.algorithms import driver as tdriver
 from dotsocp_tpu_torch.algorithms.core import Kernels, LevelConfig
 from dotsocp_tpu_torch.models import examples as texamples
+from dotsocp_tpu_torch.models import wdot2d as twdot2d
 from dotsocp_tpu_torch.multilevel import level as tlevel
 from dotsocp_tpu_torch.multilevel import solve as tsolve
 from dotsocp_tpu_torch.ops import _build
@@ -310,8 +311,13 @@ def test_solve_dot_refuses_what_waits():
         run(method="sGS-ADMM")
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
         run(opts={"theta": 3.0}, method="acc-ADMM")
+    # weighted: only WDOT_METHODS; the image barriers wait
+    weight = twdot2d.get_weight_by_barrier(9, 9, 5,
+                                           twdot2d.barrier_love_heart())
+    with pytest.raises(ValueError, match="not in"):
+        run(weight=weight, method="PALM")
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
-        run(weight=object())
+        twdot2d.barrier_maze14()
     for key in ("refine_tol", "mesh"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
             run(opts={key: 1e-6})
