@@ -13,19 +13,27 @@ Phases, each raising on failure:
    inputs, at 129^2 x 33 and 513^2 x 65 (2D) and 1025 x 33 (1D), within
    rtol 2e-5 / atol 2e-6 (the sGS sweep: one sweep, two in one call and
    two chained calls, its input phi unchanged; the weighted q-step with
-   love-heart barrier weights in 2D and seeded weights with walls in 1D);
-   and a 4-iteration CA segment against 4 plain steps within rtol 2e-6 /
-   atol 2e-6, unweighted and weighted (and weighted at 129^2 x 129).
+   love-heart barrier weights in 2D and seeded weights with walls in 1D;
+   the single-step kernels z_step, q_step, q_step_w, beta_step and
+   cone_project_diff with their inputs unchanged, q_step_w and
+   cone_project_diff bit-equal);
+   a 4-iteration CA segment against 4 plain steps within rtol 2e-6 /
+   atol 2e-6, unweighted and weighted (and weighted at 129^2 x 129); and
+   4 ``run_one`` steps (the single-step kernels) against 4 ``_step_plain``
+   steps at 17^2 x 7 within the same 2e-6, unweighted and weighted, the
+   state handed to ``run_one`` unchanged.
 4. The headline solve: DOTmark-4stitch 129^2 x 33, 3 levels, inPALM, tol
    1e-4, float32, through ``solve_dot(..., device="cuda")``: mass
    conservation, stop residuals, 470-574 iterations (522 is the anchor),
    and every x-carry kernel launched.
 4b. The sGS path at the same size: ``sGS-inPALM``, levels 1-2 inPALM on the
-   x-carry kernels, level 3 sGS on the sweep kernel; held to the JAX
+   x-carry kernels, level 3 sGS on the sweep kernel and the single-step
+   kernels (z_step, q_step, beta_step once an iteration); held to the JAX
    package's own runs of this configuration (``SGS_ANCHOR``).
 4c. example2 65^2 x 17, 2 levels, tol 1e-4, float32: acc-sGS-ADMM, acc-ADMM
    and PALM, each within +-10% of its JAX float64 iteration count, with
-   mass conservation and stop residuals.
+   mass conservation and stop residuals; cone_project_diff once an
+   iteration of every acc level.
 4d. The weighted headline: love-heart 129^2 x 129, 3 levels, inPALM, tol
    1e-3, float32 (``demo_wdot2d.m``): within +-10% of the JAX package's
    12,718 iterations, mass conservation, stop residuals 1, 3, 6 below the
@@ -34,16 +42,24 @@ Phases, each raising on failure:
    does), no mass inside the (eroded) barrier, and one
    weighted q-step launch per iteration; and weighted acc-ADMM at
    33^2 x 9 against the JAX package's float32 count.
+4e. ``solve_dot(..., opts={"profile": True})`` of the headline, each
+   level's phase table printed; acc-ADMM's Nesterov branch (theta = 3) at
+   example2 65^2 x 17, 2 levels, within +-10% of the JAX host driver's
+   float64 count (``THETA3_ANCHOR``); ``profile_phases`` at 513^2 x 65 for
+   inPALM, inPALM with love-heart weights (the weighted q_step kernel),
+   sGS-inPALM and acc-ADMM.
 5. Times at 513^2 x 65 with CUDA events: each kernel against its plain
-   version (the weighted q-step with love-heart weights), the phi-step,
-   one CA iteration with the kernels against the plain step, one sGS
-   iteration; and one weighted CA iteration at 129^2 x 129. Nothing about
-   speed is asserted.
+   version (the weighted q-steps with love-heart weights), with its bytes
+   and share of 3.35 TB/s, the phi-step, one CA iteration, one single-step
+   iteration (``_step``) and one plain step, one sGS iteration; and one
+   weighted CA iteration at 129^2 x 129. Nothing about speed is asserted.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
-without the rest of the repository beside it, the script exits non-zero
-before printing any result.
+The line before the last is a JSON object with one entry per kernel (its
+launches on the main path, its largest error against its plain version,
+its time and its plain version's at 513^2 x 65, its bytes and the bound
+bytes / 3.35 TB/s); the last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or without the rest of the repository beside it,
+the script exits non-zero before printing any result.
 """
 from __future__ import annotations
 
@@ -83,6 +99,11 @@ WDOT_MAXIT = 10000
 # float32 path takes the same 809; float64 takes 144, the walls' 1e6 make
 # this problem sensitive to the precision)
 WDOT_ACC_ANCHOR = 809
+# acc-ADMM's Nesterov branch, theta = 3, example2 65^2 x 17, 2 levels, tol
+# 1e-4: the JAX package's host driver on the CPU in float64, and the port's
+# plain float64 path with it
+# (tests/test_torch_single_step.py::test_nesterov_anchor_matches_jax)
+THETA3_ANCHOR = (1009, 649)
 # relative bound of the weighted CA segment against plain steps at
 # 129^2 x 129 after 4 iterations: the two plain paths on the CPU differ by
 # 4.8e-7 of the largest entry there; the kernels add FMA contraction
@@ -94,12 +115,12 @@ DEVICE = "cuda"
 # (nt, space) of the kernel checks, and of the timing level
 CHECK_SHAPES = ((33, (129, 129)), (65, (513, 513)), (33, (1025,)))
 SCALE = (65, 513)
-SOURCES = {"x_step": "dotsocp_tpu_torch/csrc/fused_step.cu",
-           "qx_step": "dotsocp_tpu_torch/csrc/fused_step.cu",
-           "qx_step_w": "dotsocp_tpu_torch/csrc/fused_step.cu",
-           "cx_step": "dotsocp_tpu_torch/csrc/fused_step.cu",
-           "cx_final": "dotsocp_tpu_torch/csrc/fused_step.cu",
-           "rb_sweep": "dotsocp_tpu_torch/csrc/sgs_sweep.cu"}
+FUSED_CU = "dotsocp_tpu_torch/csrc/fused_step.cu"
+SOURCES = {"x_step": FUSED_CU, "qx_step": FUSED_CU, "qx_step_w": FUSED_CU,
+           "cx_step": FUSED_CU, "cx_final": FUSED_CU,
+           "rb_sweep": "dotsocp_tpu_torch/csrc/sgs_sweep.cu",
+           "z_step": FUSED_CU, "q_step": FUSED_CU, "q_step_w": FUSED_CU,
+           "beta_step": FUSED_CU, "cone_project_diff": FUSED_CU}
 REPLACES = {
     "x_step": "dotsocp_tpu/ops/pallas_kernels.py:812",
     "qx_step": "dotsocp_tpu/ops/pallas_kernels.py:860",
@@ -110,6 +131,13 @@ REPLACES = {
     "cx_final": "dotsocp_tpu/ops/pallas_kernels.py:988",
     "rb_sweep": ["dotsocp_tpu/ops/pallas_kernels.py:71",
                  "dotsocp_tpu/ops/pallas_kernels.py:181"],
+    "z_step": "dotsocp_tpu/ops/pallas_kernels.py:531",
+    "q_step": "dotsocp_tpu/ops/pallas_kernels.py:587",
+    # the weighted form of the same kernel (its weighted body at :632)
+    "q_step_w": ["dotsocp_tpu/ops/pallas_kernels.py:587",
+                 "dotsocp_tpu/ops/pallas_kernels.py:632"],
+    "beta_step": "dotsocp_tpu/ops/pallas_kernels.py:750",
+    "cone_project_diff": "dotsocp_tpu/ops/pallas_kernels.py:1094",
 }
 
 
@@ -172,7 +200,8 @@ class Compare:
         self.torch = torch
         self.max_abs = {}
 
-    def __call__(self, name, got, want, rtol=RTOL, atol=ATOL):
+    def __call__(self, name, got, want, rtol=RTOL, atol=ATOL, exact=False):
+        """Largest |got - want|; held to rtol/atol, and to 0 if exact."""
         torch = self.torch
         got = got.float()
         want = want.float()
@@ -185,6 +214,8 @@ class Compare:
         self.max_abs[name] = max(self.max_abs.get(name, 0.0), err)
         require(excess <= 0, f"{name}: max |kernel - plain| = {err:.3e} "
                 f"exceeds rtol {rtol:g} / atol {atol:g}")
+        require(not exact or err == 0.0, f"{name}: max |kernel - plain| = "
+                f"{err:.3e}, not bit-equal")
         return err
 
 
@@ -262,6 +293,50 @@ def check_kernels(torch, cmp, geom, seed):
     torch.cuda.synchronize()
     log(f"  {geom.space} x {geom.nt}: " + ", ".join(
         f"{k} {e:.2e}" for k, e in errs.items()))
+
+
+def check_single_step_kernels(torch, cmp, geom, seed):
+    """z_step, q_step, q_step_w, beta_step and cone_project_diff against
+    their plain versions on the inputs of ``check_kernels``; q_step_w and
+    cone_project_diff bit-equal (they round as their plain versions do),
+    ghost face slots of the q-steps exactly zero, every input left as it
+    was."""
+    from dotsocp_tpu_torch.ops import fused_step as fs
+    from dotsocp_tpu_torch.ops.engine import diag_values
+
+    ops, v = random_inputs(torch, geom, seed, torch.device(DEVICE))
+    D, E, dscale = level_scalars(geom)
+    sbf, sd, tau = E / D, E / dscale, 1.9
+    d_in, d_bd = diag_values(D, E)
+    wdinv = fs.weighted_dinv(ops, ops.weight_to_internal(
+        check_weight(torch, geom, seed)), D, E)
+    q, alpha, phi, beta, z = v["q"], v["alpha"], v["phi"], v["beta"], v["x"]
+    inputs = (q.blocks() + alpha.blocks() + wdinv.w.blocks()
+              + [phi, beta, z])
+    before = [t.clone() for t in inputs]
+    errs = {"z_step": cmp("z_step", fs.z_step(ops, q, beta, sbf, sd),
+                          fs.z_step_plain(ops, q, beta, sbf, sd))}
+    for name, dinv in (("q_step", (1.0 / d_in, 1.0 / d_bd)),
+                       ("q_step_w", wdinv)):
+        want = fs.q_step_plain(ops, phi, z, beta, alpha, dinv, D, sbf, tau)
+        got = fs.q_step(ops, phi, z, beta, alpha, dinv, D, sbf, tau)
+        errs[name] = max(cmp(name, g, w, exact=name == "q_step_w")
+                         for g, w in zip(got[0].blocks() + got[1].blocks(),
+                                         want[0].blocks() + want[1].blocks()))
+        ghost = (got[0].bs * (1.0 - ops.masks)).abs().max()
+        require(float(ghost) == 0.0, f"{name} wrote a non-zero ghost face "
+                f"slot")
+    errs["beta_step"] = cmp(
+        "beta_step", fs.beta_step(ops, beta, z, q, sbf, sd, tau),
+        fs.beta_step_plain(ops, beta, z, q, sbf, sd, tau))
+    errs["cone_project_diff"] = cmp(
+        "cone_project_diff", fs.cone_project_diff(z, beta),
+        fs.cone_project_diff_plain(z, beta), exact=True)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(inputs, before)),
+            "a single-step kernel wrote one of its inputs")
+    log(f"  {geom.space} x {geom.nt}: " + ", ".join(
+        f"{k} {e:.2e}" for k, e in errs.items()) + "; inputs intact")
 
 
 def check_weight(torch, geom, seed):
@@ -354,16 +429,37 @@ def make_kernels(torch, lv):
     return Kernels(cfg, lv.weight)
 
 
-def segment_vs_steps(torch, lv, k):
-    """Largest |segment - plain steps|, its excess over rtol/atol
-    SEG_RTOL/SEG_ATOL, and the largest |plain step value|, after k
-    iterations from the level's start."""
+def state_blocks(s):
+    """Every tensor of a SolverState's iterate and c."""
+    return [s.phi, s.z, s.beta, s.c] + s.q.blocks() + s.alpha.blocks()
+
+
+def run_ones(kern, s, k):
+    """k ``run_one`` steps from s, which must come back unchanged."""
+    start = s.clone()
+    out = s
+    for _ in range(k):
+        out = kern.run_one(out)
+    require(all(a.equal(b) for a, b in zip(state_blocks(s),
+                                            state_blocks(start))),
+            "run_one changed the state it was given")
+    return out
+
+
+def segment_vs_steps(torch, lv, k, run=None):
+    """Largest |run(kernels, state, k) - plain steps|, its excess over
+    rtol/atol SEG_RTOL/SEG_ATOL, and the largest |plain step value|, after
+    k iterations from the level's start; ``run`` is the CA segment unless
+    given."""
     kern = make_kernels(torch, lv)
     s = kern.prep(lv.as_dict(), 1.0)
     plain = s.clone()
     for _ in range(k):
-        plain = kern._step(plain)
-    seg = kern.run_segment(s.clone(), k)
+        plain = kern._step_plain(plain)
+    if run is None:
+        seg = kern.run_segment(s.clone(), k)
+    else:
+        seg = run(kern, s.clone(), k)
     pairs = [(getattr(seg, n), getattr(plain, n)) for n in ("phi", "z", "beta")]
     for n in ("q", "alpha"):
         pairs += list(zip(getattr(seg, n).blocks(), getattr(plain, n).blocks()))
@@ -404,6 +500,36 @@ def check_segment(torch):
     require(err <= SEG_REL_129 * scale, f"weighted CA segment at 129^2 x 129: "
             f"max |segment - steps| = {err:.3e} exceeds {SEG_REL_129:g} of "
             f"{scale:.3e}")
+
+
+def check_run_one(torch):
+    """4 ``run_one`` steps (the single-step kernels) against 4
+    ``_step_plain`` steps on the card at 17^2 x 7, unweighted and weighted,
+    as tests/test_pallas.py:91-114 holds the fused Pallas step; one launch
+    of each single-step kernel a step, the state given to run_one intact."""
+    from dotsocp_tpu_torch.models.examples import get_example_2d
+    from dotsocp_tpu_torch.multilevel.level import initial_scaling, initialize
+    from dotsocp_tpu_torch.ops import fused_step as fs
+
+    r0, r1 = get_example_2d("example2", 17, 17)
+    lv = initialize(r0, r1, 7, dtype=torch.float32, device=DEVICE)
+    initial_scaling(lv, scaling=True)
+    for name, level in (("unweighted", lv),
+                        ("weighted (love-heart)",
+                         weighted_level(torch, 17, 7, DEVICE))):
+        fs.reset_launches()
+        err, excess, _ = segment_vs_steps(torch, level, 4, run_ones)
+        launches = dict(fs.LAUNCHES)
+        q_name = "q_step" if level.weight is None else "q_step_w"
+        log(f"  run_one x 4 vs 4 plain steps, {name} at 17^2 x 7: max abs "
+            f"{err:.2e}; launches z_step {launches['z_step']}, {q_name} "
+            f"{launches[q_name]}, beta_step {launches['beta_step']}; input "
+            f"state intact")
+        require(excess <= 0, f"run_one ({name}): max |run_one - steps| = "
+                f"{err:.3e} exceeds rtol {SEG_RTOL:g} / atol {SEG_ATOL:g}")
+        require(launches["z_step"] == launches[q_name]
+                == launches["beta_step"] == 4, f"run_one ({name}) launched "
+                f"{launches}, not each single-step kernel once a step")
 
 
 # -- phase 4 --------------------------------------------------------------------
@@ -466,9 +592,10 @@ def headline_solve(torch):
                           mass_ok=bool(out["mass_ok"]))
 
 
-def solve_levels(torch, method, problem, n, nt, levels):
-    """One float32 solve on the card with every launch count set to 0
-    just before; returns (output, run history, launches, wall seconds)."""
+def solve_levels(torch, method, problem, n, nt, levels, **opts):
+    """One float32 solve at tol 1e-4 (and ``opts``) on the card with every
+    launch count set to 0 just before; returns (output, run history,
+    launches, wall seconds)."""
     from dotsocp_tpu_torch.models.examples import get_example_2d
     from dotsocp_tpu_torch.multilevel.solve import solve_dot
     from dotsocp_tpu_torch.ops import fused_step as fs
@@ -479,7 +606,7 @@ def solve_levels(torch, method, problem, n, nt, levels):
     sgs_sweep.reset_launches()
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    out, hist, _ = solve_dot(r0, r1, nt, levels, {"tol": 1e-4}, method,
+    out, hist, _ = solve_dot(r0, r1, nt, levels, dict(opts, tol=1e-4), method,
                              device=DEVICE, dtype=torch.float32, verbose=False)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
@@ -529,6 +656,10 @@ def sgs_solve(torch):
     require(launches["rb_sweep"] == 3 * iters[-1],
             f"rb_sweep launched {launches['rb_sweep']} times, not 3 per sGS "
             f"iteration ({iters[-1]})")
+    for name in ("z_step", "q_step", "beta_step"):
+        require(launches[name] == iters[-1], f"{name} launched "
+                f"{launches[name]} times, not once per sGS iteration "
+                f"({iters[-1]})")
     for name in ("x_step", "qx_step", "cx_step", "cx_final"):
         require(launches[name] > 0, f"{name} never launched on levels 1-2")
     return launches, dict(iters=iters, total=total, wall_s=wall,
@@ -558,8 +689,20 @@ def variant_solves(torch):
             require(launches["rb_sweep"] == 3 * iters[-1],
                     f"{method}: rb_sweep launched {launches['rb_sweep']} "
                     f"times, not 3 per sGS iteration ({iters[-1]})")
-        results[method] = dict(iters=iters, wall_s=wall)
+        require(launches["cone_project_diff"] == acc_iterations(method, out),
+                f"{method}: cone_project_diff launched "
+                f"{launches['cone_project_diff']} times, not once per "
+                f"iteration of its acc levels ({acc_iterations(method, out)})")
+        results[method] = dict(iters=iters, wall_s=wall,
+                               cone_launches=launches["cone_project_diff"])
     return results
+
+
+def acc_iterations(method, out):
+    """Iterations of a solve's levels that run an acc method (acc-sGS-ADMM's
+    non-final levels run inPALM)."""
+    return sum(lv["iters"] for lv in out["levels"]
+               if lv["method"].startswith("Accelerated"))
 
 
 def level_tols(tol, levels):
@@ -644,16 +787,152 @@ def weighted_solves(torch):
     headline = dict(iters=iters, total=total, wall_s=wall,
                     mass_ok=bool(out["mass_ok"]), barrier_max_rho=leak)
 
-    out, _, acc_wall, _ = weighted_solve(torch, "acc-ADMM", 33, 9, 1, 1e-3)
+    out, acc_launches, acc_wall, _ = weighted_solve(torch, "acc-ADMM", 33, 9,
+                                                    1, 1e-3)
     acc_iters = [lv["iters"] for lv in out["levels"]]
     log(f"  acc-ADMM love-heart 33^2 x 9: iterations {acc_iters} in "
         f"{acc_wall:.3f} s (anchor {WDOT_ACC_ANCHOR}, float32), stop "
-        f"residual {stop_residual(out['levels'][0], weighted=True):.2e}")
+        f"residual {stop_residual(out['levels'][0], weighted=True):.2e}; "
+        f"cone_project_diff launches {acc_launches['cone_project_diff']}")
     require(abs(acc_iters[0] - WDOT_ACC_ANCHOR) <= 0.1 * WDOT_ACC_ANCHOR,
             f"weighted acc-ADMM: {acc_iters[0]} iterations not within 10% of "
             f"{WDOT_ACC_ANCHOR}")
+    require(acc_launches["cone_project_diff"] == acc_iters[0],
+            f"weighted acc-ADMM: cone_project_diff launched "
+            f"{acc_launches['cone_project_diff']} times, not once per "
+            f"iteration ({acc_iters[0]})")
+    launches["cone_project_diff"] += acc_launches["cone_project_diff"]
     return launches, dict(headline=headline,
                           acc_admm=dict(iters=acc_iters, wall_s=acc_wall))
+
+
+# -- phase 4e -------------------------------------------------------------------
+
+# the phases profile_phases reports for inPALM (tests/test_profiling.py)
+INPALM_PHASES = ("phi_dct_solve", "cone_projection", "q_step", "multiplier",
+                 "kkt_battery", "full_step_fused")
+
+
+def check_phases(torch, phases, what):
+    import math
+
+    for name, row in phases.items():
+        require(math.isfinite(row["ms"]) and row["ms"] >= 0.0,
+                f"{what}: phase {name} took {row['ms']} ms")
+
+
+def profile_solve(torch):
+    """The headline with opts={"profile": True}: the phases of every level,
+    each with a finite time."""
+    from dotsocp_tpu_torch.models.examples import get_example_2d
+    from dotsocp_tpu_torch.multilevel.solve import solve_dot
+    from dotsocp_tpu_torch.utils.profiling import format_table
+
+    r0, r1 = get_example_2d("DOTmark_4stitch", 129, 129)
+    t0 = time.monotonic()
+    out, _, _ = solve_dot(r0, r1, 33, 3, {"tol": 1e-4, "profile": True},
+                          "inPALM", device=DEVICE, dtype=torch.float32,
+                          verbose=False)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    iters = [lv["iters"] for lv in out["levels"]]
+    log(f"  headline with profile: iterations {iters} in {wall:.3f} s")
+    tables = {}
+    for lv in out["levels"]:
+        phases = lv["phases"]
+        log(f"  level {lv['level']} {lv['geom'].space} x {lv['geom'].nt}:")
+        for line in format_table(phases).splitlines():
+            log("    " + line)
+        require(set(INPALM_PHASES) <= set(phases), f"level {lv['level']}: "
+                f"phases {sorted(phases)}, expected {INPALM_PHASES}")
+        check_phases(torch, phases, f"level {lv['level']}")
+        tables[lv["level"]] = phases
+    require(470 <= sum(iters) <= 574, f"profiled headline: total iterations "
+            f"{sum(iters)} outside 470-574")
+    return tables
+
+
+def theta3_solve(torch):
+    """acc-ADMM's Nesterov branch (theta = 3) at example2 65^2 x 17, 2
+    levels, against ``THETA3_ANCHOR``."""
+    out, _, launches, wall = solve_levels(torch, "acc-ADMM", "example2", 65,
+                                          17, 2, theta=3.0)
+    iters = [lv["iters"] for lv in out["levels"]]
+    total, want = sum(iters), sum(THETA3_ANCHOR)
+    log(f"    anchor {list(THETA3_ANCHOR)} ({want}, float64): "
+        f"{100.0 * (total - want) / want:+.1f}%, mass_ok {out['mass_ok']}, "
+        f"stop residuals "
+        f"{[f'{stop_residual(lv):.2e}' for lv in out['levels']]}")
+    require(out["mass_ok"], "theta = 3: mass conservation violated")
+    for lv in out["levels"]:
+        require(lv["method"] == "Accelerated ADMM", f"theta = 3 level "
+                f"{lv['level']} ran {lv['method']}")
+        require(stop_residual(lv) < 1e-4, f"theta = 3 level {lv['level']} "
+                f"stopped at KKT {stop_residual(lv):.3e}")
+    require(abs(total - want) <= 0.1 * want, f"theta = 3: total iterations "
+            f"{total} not within 10% of {want}")
+    require(launches["cone_project_diff"] == total, f"theta = 3: "
+            f"cone_project_diff launched {launches['cone_project_diff']} "
+            f"times, not once per iteration ({total})")
+    return dict(iters=iters, wall_s=wall,
+                cone_launches=launches["cone_project_diff"])
+
+
+def profile_scale(torch):
+    """``profile_phases`` at 513^2 x 65 from each level's start: inPALM,
+    inPALM with love-heart weights (its full step on the weighted q_step
+    kernel), sGS-inPALM and acc-ADMM. Returns the tables and the weighted
+    q-step's launches there."""
+    from dotsocp_tpu_torch.algorithms.core import LevelConfig
+    from dotsocp_tpu_torch.algorithms.variants import (AccADMMKernels,
+                                                       SgsKernels)
+    from dotsocp_tpu_torch.models.examples import get_example_2d
+    from dotsocp_tpu_torch.multilevel.level import initial_scaling, initialize
+    from dotsocp_tpu_torch.ops import fused_step as fs
+    from dotsocp_tpu_torch.utils.profiling import format_table, profile_phases
+
+    nt, n = SCALE
+    r0, r1 = get_example_2d("example2", n, n)
+    lv = initialize(r0, r1, nt, dtype=torch.float32, device=DEVICE)
+    initial_scaling(lv, scaling=True)
+
+    def cfg(tau):
+        return LevelConfig(geom=lv.geom, D=lv.D, E=lv.E, tau=tau,
+                           dtype=torch.float32, device=DEVICE)
+
+    def build(name):
+        if name == "inPALM love-heart":
+            wlv = weighted_level(torch, n, nt, DEVICE)
+            return make_kernels(torch, wlv), wlv
+        if name == "sGS-inPALM":
+            return SgsKernels(cfg(1.9)), lv
+        if name == "acc-ADMM":
+            return AccADMMKernels(cfg(1.0)), lv
+        return make_kernels(torch, lv), lv
+
+    tables, q_w = {}, 0
+    for name in ("inPALM", "inPALM love-heart", "sGS-inPALM", "acc-ADMM"):
+        kern, level = build(name)
+        state = kern.prep(level.as_dict(), 1.0)
+        fs.reset_launches()
+        allocs = torch.cuda.memory_stats().get("num_device_alloc", 0)
+        phases = profile_phases(kern, state, iters=20)
+        torch.cuda.synchronize()
+        allocs = torch.cuda.memory_stats().get("num_device_alloc", 0) - allocs
+        if name == "inPALM love-heart":
+            q_w = fs.LAUNCHES["q_step_w"]
+            require(q_w > 0 and fs.LAUNCHES["q_step"] == 0, f"{name}: "
+                    f"launches {dict(fs.LAUNCHES)}, expected the weighted "
+                    f"q_step kernel")
+        log(f"  {name} at {lv.geom.space} x {nt} ({allocs} cudaMalloc "
+            f"calls of the caching allocator during the profile):")
+        for line in format_table(phases).splitlines():
+            log("    " + line)
+        check_phases(torch, phases, name)
+        tables[name] = phases
+        del kern, level, state
+        torch.cuda.empty_cache()
+    return tables, q_w
 
 
 # -- phase 5 --------------------------------------------------------------------
@@ -683,7 +962,8 @@ def paired(torch, plain_fn, kernel_fn, n):
 
 
 def kernel_bytes(geom):
-    """Bytes each kernel moves through HBM once (f32)."""
+    """Bytes each kernel moves through HBM, each input read once and each
+    output written once (f32)."""
     import math
 
     S = math.prod(geom.space)
@@ -696,6 +976,17 @@ def kernel_bytes(geom):
         "qx_step_w": 4 * (nt * S + C * cells + 4 * cells + 4 * faces),
         "cx_step": 4 * (cells + faces + 4 * C * cells),
         "cx_final": 4 * (cells + faces + 4 * C * cells),
+        # phi, rhs read and out written by each of three half-sweeps
+        "rb_sweep": 3 * 3 * 4 * geom.n_centered,
+        # q0, bs, beta -> z
+        "z_step": 4 * (cells + faces + 2 * C * cells),
+        # phi, z, beta, alpha -> q', alpha' (weighted: and w, once)
+        "q_step": 4 * (nt * S + 2 * C * cells + 3 * cells + 3 * faces),
+        "q_step_w": 4 * (nt * S + 2 * C * cells + 4 * cells + 4 * faces),
+        # q0', bs', beta, z -> beta'
+        "beta_step": 4 * (cells + faces + 3 * C * cells),
+        # z2, beta -> z
+        "cone_project_diff": 4 * 3 * C * cells,
     }
 
 
@@ -743,14 +1034,32 @@ def time_scale(torch):
             torch, lambda: fs.cx_step_plain(ops, s.beta, x, s.q, sbf, sd, tau,
                                             final),
             lambda: fn(ops, work["beta"], work["x"], s.q, sbf, sd, tau), reps)
+    # the single-step kernels: fresh outputs, so no work copies
+    times["z_step"] = paired(
+        torch, lambda: fs.z_step_plain(ops, s.q, s.beta, sbf, sd),
+        lambda: fs.z_step(ops, s.q, s.beta, sbf, sd), reps)
+    for name, d in (("q_step", dinv), ("q_step_w", wdinv)):
+        times[name] = paired(
+            torch, lambda: fs.q_step_plain(ops, s.phi, s.z, s.beta, s.alpha,
+                                           d, s.D, sbf, tau),
+            lambda: fs.q_step(ops, s.phi, s.z, s.beta, s.alpha, d, s.D, sbf,
+                              tau), reps)
+    times["beta_step"] = paired(
+        torch, lambda: fs.beta_step_plain(ops, s.beta, s.z, s.q, sbf, sd, tau),
+        lambda: fs.beta_step(ops, s.beta, s.z, s.q, sbf, sd, tau), reps)
+    z2 = ops.bfd(s.q, sbf, sd)
+    times["cone_project_diff"] = paired(
+        torch, lambda: fs.cone_project_diff_plain(z2, s.beta),
+        lambda: fs.cone_project_diff(z2, s.beta), reps)
     nbytes = kernel_bytes(lv.geom)
     log(f"  {lv.geom.space} x {nt} f32, means of {reps} launches (plain, "
         f"kernel, kernel, plain):")
     for name, (k_ms, p_ms) in times.items():
         gbs = nbytes[name] / (k_ms * 1e-3) / 1e9
-        log(f"  {name:9s} kernel {k_ms:8.3f} ms  plain {p_ms:8.3f} ms  "
+        log(f"  {name:17s} kernel {k_ms:8.3f} ms  plain {p_ms:8.3f} ms  "
             f"{nbytes[name] / 1e9:.2f} GB -> {gbs:7.1f} GB/s "
-            f"({100 * gbs * 1e9 / HBM_PEAK:.0f}% of 3.35 TB/s)")
+            f"({100 * gbs * 1e9 / HBM_PEAK:.0f}% of 3.35 TB/s; bound "
+            f"{1e3 * nbytes[name] / HBM_PEAK:.3f} ms)")
 
     rhs = kern._rhs(s)
     dct_ms = event_ms(torch, lambda: kern._poisson_solve(s, rhs), reps)
@@ -759,19 +1068,25 @@ def time_scale(torch):
 
     state = {"ca": s.replace(z=x.clone(), alpha=s.alpha.clone(),
                              beta=s.beta.clone()),
-             "plain": s.clone()}
+             "plain": s.clone(), "step": s.clone()}
 
     def ca_iter():
         state["ca"] = kern._step_fused_x(state["ca"], final=False)
 
+    def step_iter():
+        state["step"] = kern._step(state["step"])
+
     def plain_iter():
-        state["plain"] = kern._step(state["plain"])
+        state["plain"] = kern._step_plain(state["plain"])
 
     ca_ms, plain_it_ms = paired(torch, plain_iter, ca_iter, 10)
-    log(f"  one iteration: CA kernels {ca_ms:.3f} ms, plain step "
-        f"{plain_it_ms:.3f} ms")
+    step_ms, plain_it2_ms = paired(torch, plain_iter, step_iter, 10)
+    log(f"  one iteration: CA kernels {ca_ms:.3f} ms, single-step kernels "
+        f"(_step) {step_ms:.3f} ms, plain step {plain_it_ms:.3f} / "
+        f"{plain_it2_ms:.3f} ms")
     return times, dict(dct_ms=dct_ms, phi_step_ms=phi_ms, ca_iter_ms=ca_ms,
-                       plain_iter_ms=plain_it_ms)
+                       step_iter_ms=step_ms,
+                       plain_iter_ms=(plain_it_ms + plain_it2_ms) / 2)
 
 
 def time_weighted_iteration(torch):
@@ -788,7 +1103,7 @@ def time_weighted_iteration(torch):
         state["ca"] = kern._step_fused_x(state["ca"], final=False)
 
     def plain_iter():
-        state["plain"] = kern._step(state["plain"])
+        state["plain"] = kern._step_plain(state["plain"])
 
     ca_ms, plain_ms = paired(torch, plain_iter, ca_iter, 10)
     log(f"  one weighted iteration at 129^2 x 129: CA kernels {ca_ms:.3f} ms, "
@@ -799,8 +1114,8 @@ def time_weighted_iteration(torch):
 
 def time_sweep(torch):
     """The sweep kernel against the plain sweep at 513^2 x 65 on a state of
-    the sGS-inPALM kernels, and one sGS iteration (sweep kernel + plain
-    post-phi passes)."""
+    the sGS-inPALM kernels, and one sGS iteration (the sweep kernel and the
+    single-step kernels) against one with the plain post-phi passes."""
     from dotsocp_tpu_torch.algorithms.core import LevelConfig
     from dotsocp_tpu_torch.algorithms.variants import SgsKernels
     from dotsocp_tpu_torch.models.examples import get_example_2d
@@ -820,20 +1135,27 @@ def time_sweep(torch):
     reps = 20
     k_ms, p_ms = paired(torch, lambda: kern.sgs.sweep(phi, rhs, 1, d2=d2),
                         lambda: rb_sweep(kern.sgs, phi, rhs, d2), reps)
-    nbytes = 3 * 3 * 4 * lv.geom.n_centered
+    nbytes = kernel_bytes(lv.geom)["rb_sweep"]
     gbs = nbytes / (k_ms * 1e-3) / 1e9
     log(f"  rb_sweep  kernel {k_ms:8.3f} ms  plain {p_ms:8.3f} ms  "
         f"{nbytes / 1e9:.2f} GB -> {gbs:7.1f} GB/s "
         f"({100 * gbs * 1e9 / HBM_PEAK:.0f}% of 3.35 TB/s)")
-    state = {"s": s}
+    state = {"s": s, "p": s.clone()}
 
     def sgs_iter():
         state["s"] = kern._step(state["s"])
 
-    it_ms = event_ms(torch, sgs_iter, 10)
-    log(f"  one sGS-inPALM iteration (sweep kernel, plain post-phi passes): "
-        f"{it_ms:.3f} ms")
-    return (k_ms, p_ms), dict(sweep_gbs=gbs, sgs_iter_ms=it_ms)
+    def sgs_iter_plain_post():
+        st = state["p"]
+        state["p"] = kern._step_from_phi(st, kern._sweep(st, kern._rhs(st)),
+                                         plain=True)
+
+    it_ms, plain_post_ms = paired(torch, sgs_iter_plain_post, sgs_iter, 10)
+    log(f"  one sGS-inPALM iteration: sweep kernel + single-step kernels "
+        f"{it_ms:.3f} ms, sweep kernel + plain post-phi passes "
+        f"{plain_post_ms:.3f} ms")
+    return (k_ms, p_ms), dict(sweep_gbs=gbs, sgs_iter_ms=it_ms,
+                              sgs_iter_plain_post_ms=plain_post_ms)
 
 
 def profile_window(torch, trace_dir):
@@ -894,7 +1216,7 @@ def main(argv=None):
 
     t_start = time.monotonic()
     phase(1, "device")
-    name, _ = check_device(torch)
+    device_name, _ = check_device(torch)
     phase(2, "build")
     build_kernels()
     phase(3, "kernels against their plain versions")
@@ -903,21 +1225,34 @@ def main(argv=None):
     cmp = Compare(torch)
     for seed, (nt, space) in enumerate(CHECK_SHAPES):
         check_kernels(torch, cmp, Geometry(nt, space), seed)
+        check_single_step_kernels(torch, cmp, Geometry(nt, space), seed)
         check_sweep(torch, cmp, Geometry(nt, space), seed)
         torch.cuda.empty_cache()
     kernel_err = dict(cmp.max_abs)
     check_segment(torch)
+    check_run_one(torch)
     phase(4, "headline solve")
     launches, headline = headline_solve(torch)
     phase("4b", "the sGS path: sGS-inPALM at 129^2 x 33")
     sgs_launches, sgs_path = sgs_solve(torch)
-    launches["rb_sweep"] = sgs_launches["rb_sweep"]
+    for k in ("rb_sweep", "z_step", "q_step", "beta_step"):
+        launches[k] = sgs_launches[k]
     phase("4c", "acc-sGS-ADMM, acc-ADMM, PALM at 65^2 x 17")
     variants = variant_solves(torch)
     phase("4d", "the weighted headline: love-heart 129^2 x 129; weighted "
           "acc-ADMM at 33^2 x 9")
     w_launches, weighted = weighted_solves(torch)
     launches["qx_step_w"] = w_launches["qx_step_w"]
+    launches["cone_project_diff"] = (
+        sum(v["cone_launches"] for v in variants.values())
+        + w_launches["cone_project_diff"])
+    phase("4e", "profile: the headline with opts profile; acc-ADMM theta = 3 "
+          "at 65^2 x 17; profile_phases at 513^2 x 65")
+    profiled = profile_solve(torch)
+    variants["acc-ADMM theta=3"] = theta3_solve(torch)
+    launches["cone_project_diff"] += variants["acc-ADMM theta=3"][
+        "cone_launches"]
+    profiles, launches["q_step_w"] = profile_scale(torch)
     phase(5, "times at 513^2 x 65")
     times, others = time_scale(torch)
     times["rb_sweep"], sweep_others = time_sweep(torch)
@@ -928,6 +1263,7 @@ def main(argv=None):
         profile_window(torch, args.profile)
     log(f"\nall phases passed in {time.monotonic() - t_start:.1f} s")
 
+    nbytes = kernel_bytes(Geometry(SCALE[0], (SCALE[1], SCALE[1])))
     kernels = [{
         "name": k,
         "route": "cuda",
@@ -937,12 +1273,18 @@ def main(argv=None):
         "max_abs_err": kernel_err[k],
         "ms": times[k][0],
         "plain_ms": times[k][1],
+        "bytes": nbytes[k],
+        "bound_ms": 1e3 * nbytes[k] / HBM_PEAK,
+        "bound_by": "bytes",
+        # no single PyTorch call computes any of these functions
+        "library_ms": None,
     } for k in REPLACES]
     print(json.dumps({"kernels": kernels, "headline": headline,
                       "sgs_path": sgs_path, "variants": variants,
-                      "weighted": weighted, "scale_513x65": others}))
+                      "weighted": weighted, "profile_headline": profiled,
+                      "profile_513x65": profiles, "scale_513x65": others}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}))
 
 

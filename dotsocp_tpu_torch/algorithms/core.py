@@ -7,8 +7,15 @@ A weighted level (the obstacle problems, ``solver_wsocp_inPALM.m``) carries
 the weight w in the flat layout. It enters the phi-step rhs
 D A^T(w q - alpha) + c, the q-step (w (A phi + alpha) + BF^T(z + beta)) /
 (base + w^2) and its multiplier A phi - w q, and the KKT battery; the z-
-and beta-steps, and so the x_step and cx kernels, are those of the
-unweighted problem (``dotsocp_tpu/algorithms/core.py:156-168, 258-313``).
+and beta-steps, and so the x_step, cx, z_step and beta_step kernels, are
+those of the unweighted problem (``dotsocp_tpu/algorithms/core.py:156-168,
+258-313``).
+
+Two paths run the iteration after the phi-step on hand-written kernels
+(``ops/fused_step.py``): the CA x-carry segment of inPALM / ALG2
+(``segment_impl``: x_step, then qx_step + cx_step per iteration), and the
+single step ``_step`` (z_step, q_step, beta_step), which ``run_one``, the
+profiler and sGS-inPALM's step run.
 
 The iteration state lives on the caller's device. The level scalars
 (sigma, cScale, dScale, norm_c, norm_d, D, E) are Python floats on the
@@ -31,8 +38,9 @@ import torch
 
 from ..ops.cone import proj_soc
 from ..ops.engine import OpsFlat, diag_values
-from ..ops.fused_step import (cx_final, cx_step, qx_step, qx_step_plain,
-                              times_dinv, weighted_dinv, x_step)
+from ..ops.fused_step import (beta_step, beta_step_plain, cx_final, cx_step,
+                              q_step, q_step_plain, qx_step, times_dinv,
+                              weighted_dinv, x_step, z_step, z_step_plain)
 from ..ops.geometry import Geometry
 from ..ops.staggered import Staggered
 from ..utils.norms import norm_l2
@@ -154,22 +162,42 @@ class Kernels:
 
     # -- core iteration --------------------------------------------------
     def _step(self, s: SolverState) -> SolverState:
-        """One plain inPALM iteration (``solver_socp_inPALM.m:192-216``;
-        ``dotsocp_tpu/algorithms/core.py:198-222``), from the port's ops.
-        The solve loop runs :meth:`segment_impl`; this is its reference."""
+        """One inPALM iteration (``solver_socp_inPALM.m:192-216``): the
+        phi-step, then the z-step, the q-step with the alpha multiplier and
+        the beta multiplier on the single-step kernels; port of
+        ``dotsocp_tpu/algorithms/core.py:224-247`` (``_step_fused``). On
+        the CPU the wrappers run their plain versions, which compose to the
+        JAX plain ``_step`` (:198-222) operation for operation. Every
+        output is a fresh tensor: ``s`` is left as it was."""
         return self._step_from_phi(s, self._poisson_solve(s, self._rhs(s)))
 
-    def _step_from_phi(self, s: SolverState, phi) -> SolverState:
+    def _step_plain(self, s: SolverState) -> SolverState:
+        """:meth:`_step` from the kernels' plain versions, on any device:
+        the reference that tests and ``chip_smoke.py`` hold the kernels'
+        step and segment against."""
+        return self._step_from_phi(s, self._poisson_solve(s, self._rhs(s)),
+                                   plain=True)
+
+    def run_one(self, s: SolverState) -> SolverState:
+        """One iteration, the single-step entry point (the JAX
+        ``run_one``); ``s`` is left as it was."""
+        return self._step(s)
+
+    def _step_from_phi(self, s: SolverState, phi,
+                       plain: bool = False) -> SolverState:
         """The inPALM iteration after its phi-step: z-step, q-step and the
-        multipliers (sGS-inPALM shares it)."""
+        multipliers (sGS-inPALM shares it), on the kernels or, with
+        ``plain``, their plain versions."""
+        zs, qs, bs = ((z_step_plain, q_step_plain, beta_step_plain) if plain
+                      else (z_step, q_step, beta_step))
         ops = self.ops
         tau = self.cfg.tau
         sbf = s.E / s.D
         sd = s.E / s.dScale
-        z = proj_soc(ops.bfd(s.q, sbf, sd) - s.beta)
-        q, alpha = qx_step_plain(ops, phi, z + s.beta, s.alpha,
-                                 self._diag_inv(s), s.D, sbf, tau)
-        beta = s.beta + tau * (z - ops.bfd(q, sbf, sd))
+        z = zs(ops, s.q, s.beta, sbf, sd)
+        q, alpha = qs(ops, phi, z, s.beta, s.alpha, self._diag_inv(s), s.D,
+                      sbf, tau)
+        beta = bs(ops, s.beta, z, q, sbf, sd, tau)
         return s.replace(phi=phi, q=q, z=z, alpha=alpha, beta=beta)
 
     def _q_solve(self, s: SolverState, tmp_q: Staggered,

@@ -1,6 +1,6 @@
-"""Algorithm variants: PALM, acc-ADMM (Halpern), sGS-inPALM, acc-sGS-ADMM;
-port of ``dotsocp_tpu/algorithms/variants.py`` (without the Nesterov
-branch of acc-ADMM, which waits in ROADMAP.md queue 1).
+"""Algorithm variants: PALM, acc-ADMM (Halpern, and its Nesterov branch
+for theta != 2), sGS-inPALM, acc-sGS-ADMM; port of
+``dotsocp_tpu/algorithms/variants.py``.
 
 Each variant supplies its step order and which iterate blocks a dynamic
 rescale divides (``Kernels.RESCALED``: exactly the blocks the reference
@@ -19,8 +19,13 @@ its q-step and multipliers use w as inPALM's do
 
 These variants run their own step in a plain loop (``Kernels.segment_impl``);
 the sGS methods' phi-step is one red-black sweep, the CUDA kernel of
-``ops/sgs_sweep.py`` on the card. The rest of each step is plain PyTorch,
-as the JAX package runs it in jnp. All tensors are in the flat layout
+``ops/sgs_sweep.py`` on the card. sGS-inPALM's step after its sweep is
+inPALM's single step (``Kernels._step_from_phi``: the z_step, q_step and
+beta_step kernels), and every acc step closes with the cone projection
+kernel ``cone_project_diff``. The rest of each step is plain PyTorch, as
+the JAX package runs it in jnp: acc-ADMM's q- and beta-steps form beta as
+(beta + z) - z2, not beta_step's beta + tau (z - z2), and PALM's steps wait
+for their own kernels (ROADMAP.md). All tensors are in the flat layout
 (``ops/engine.py``): the JAX package moves the sGS kernels to its shaped
 engine only because its TPU sweep wanted a shaped array, and the flat phi
 is that array reshaped.
@@ -32,6 +37,7 @@ import dataclasses
 import torch
 
 from ..ops.cone import proj_soc
+from ..ops.fused_step import cone_project_diff
 from ..ops.sgs import make_sgs
 from ..ops.sgs_sweep import rb_sweep
 from ..utils.norms import norm_l2
@@ -139,7 +145,7 @@ class AccADMMKernels(Kernels):
 
     def _step(self, s: SolverState) -> SolverState:
         s2, _, z2 = self._step_parts(s)
-        return s2.replace(z=proj_soc(z2 - s2.beta))
+        return s2.replace(z=cone_project_diff(z2, s2.beta))
 
     def _halpern(self, e: AccState) -> AccState:
         """x <- 1/(k+2) x0 + (k+1)/(k+2) ((1-rho) x_old + rho x), k += 1;
@@ -161,10 +167,12 @@ class AccADMMKernels(Kernels):
         if k < 1:
             return e
         for _ in range(k - 1):
-            e = self._halpern(dataclasses.replace(e, s=self._step(e.s)))
+            e = self.post_check(dataclasses.replace(e, s=self._step(e.s)))
         return dataclasses.replace(e, s=self._step(e.s))
 
     def post_check(self, e: AccState) -> AccState:
+        """The averaging after a step: Halpern's (the Nesterov branch
+        extrapolates instead)."""
         return self._halpern(e)
 
     def kkt(self, e: AccState) -> dict:
@@ -199,6 +207,75 @@ class AccADMMKernels(Kernels):
 
     def finalize(self, e: AccState, var: dict) -> dict:
         return super().finalize(e.s, var)
+
+
+@dataclasses.dataclass
+class NesterovState:
+    """State of acc-ADMM's Nesterov branch, theta != 2
+    (``solver_socp_accADMM.m:389-421``): iterate tuples in :data:`ITERATE`
+    order. Right after ``prep`` and every rescale ``old`` and ``hat_old``
+    hold the very tensors of ``s``; ``hat_old`` is read only when k > 0."""
+
+    s: SolverState
+    old: tuple      # x_old
+    hat_old: tuple  # xHat_old
+    k: int          # extrapolation counter
+
+
+class AccADMMNesterovKernels(AccADMMKernels):
+    """acc-ADMM with Nesterov-type extrapolation instead of Halpern
+    anchoring: the reference's ``theta != 2`` branch
+    (``dotsocp_tpu/algorithms/variants.py:243-335``). The step is acc-ADMM's;
+    host driver only, as in the JAX package."""
+
+    def __init__(self, cfg: LevelConfig, weight=None, restart: int = 100,
+                 rho: float = 2.0, theta: float = 3.0):
+        super().__init__(cfg, weight, restart=restart, rho=rho)
+        self.theta = theta
+
+    def _extrapolate(self, e: NesterovState) -> NesterovState:
+        """xHat = (1-rho) x_old + rho x; x <- (1-c1) x_old + c1 xHat at
+        k = 0, else (1-c1) x_old + (c1+c2) xHat - c2 xHat_old, with
+        c1 = theta / (2 (k + theta)), c2 = k / (k + theta); k += 1, back to
+        0 (keeping xHat_old) when it reaches ``restart``."""
+        rho, theta, k = self.rho, self.theta, e.k
+        c1 = theta / (2.0 * (k + theta))
+        c2 = k / (k + theta)
+        hat = tuple((1.0 - rho) * xo + rho * x
+                    for xo, x in zip(e.old, _iterate(e.s)))
+        if k == 0:
+            new = tuple((1.0 - c1) * xo + c1 * xh
+                        for xo, xh in zip(e.old, hat))
+        else:
+            new = tuple((1.0 - c1) * xo + (c1 + c2) * xh - c2 * xho
+                        for xo, xh, xho in zip(e.old, hat, e.hat_old))
+        s = _with_iterate(e.s, new)
+        if k + 1 >= self.restart:
+            return NesterovState(s=s, old=new, hat_old=e.hat_old, k=0)
+        return NesterovState(s=s, old=new, hat_old=hat, k=k + 1)
+
+    def post_check(self, e: NesterovState) -> NesterovState:
+        return self._extrapolate(e)
+
+    def sigma_mult(self, e: NesterovState, factor: float) -> NesterovState:
+        """Scales alpha/beta/c and the old copies; the counter restarts."""
+        inv = 1.0 / factor
+        s = Kernels.sigma_mult(self, e.s, factor)
+        old = e.old[:3] + (e.old[3] * inv, e.old[4] * inv)
+        return NesterovState(s=s, old=old, hat_old=e.hat_old, k=0)
+
+    def rescale(self, e: NesterovState, d_scale2: float,
+                c_scale2: float) -> NesterovState:
+        return self._nesterov_state(
+            Kernels.rescale(self, e.s, d_scale2, c_scale2))
+
+    def prep(self, var: dict, sigma: float) -> NesterovState:
+        return self._nesterov_state(Kernels.prep(self, var, sigma))
+
+    @staticmethod
+    def _nesterov_state(s: SolverState) -> NesterovState:
+        cur = _iterate(s)
+        return NesterovState(s=s, old=cur, hat_old=cur, k=0)
 
 
 class _SgsPhiStep:
@@ -314,7 +391,7 @@ class AccSgsADMMKernels(_SgsPhiStep, AccADMMKernels):
     def _step_instrumented(self, s: SolverState):
         s2, rhs, z2 = self._step_parts(s)
         resi = self._resi_sgs(s, s2.phi, rhs)
-        return s2.replace(z=proj_soc(z2 - s2.beta)), resi
+        return s2.replace(z=cone_project_diff(z2, s2.beta)), resi
 
     def segment_impl(self, e: AccState, k: int) -> AccState:
         if k < 1:

@@ -1,5 +1,7 @@
-// Hand-written Hopper (sm_90a) kernels for the x-carry segment of the
-// inPALM / ALG2 step: the three post-DCT passes of every iteration.
+// Hand-written Hopper (sm_90a) kernels for the post-DCT passes of the
+// inPALM / ALG2 step: the x-carry segment's three, and the single step's
+// three (the sGS-inPALM step after its sweep too), and the cone projection
+// that closes every acc-ADMM step.
 //
 //   x_step   x  = Pi_K(BF_d q - beta) + beta              (segment prologue)
 //   qx_step  q' = (D grad phi + alpha + s_bf BF^T x) * diag^-1,
@@ -9,25 +11,39 @@
 //            alpha' = alpha + tau (D grad phi - w q'), diag = base + w w
 //   cx_step  z = x - beta; beta' = beta + tau (z - BF_d q');
 //            x' = Pi_K(BF_d q' - beta') + beta'           (FINAL: x' = z)
+//   z_step   z  = Pi_K(BF_d q - beta)                      (single step)
+//   q_step   the q-step of qx_step with x = z + beta formed per element
+//   beta_step  beta' = beta + tau (z - BF_d q')
+//   cone_project_diff  z = Pi_K(z2 - beta) over a flat (C, M) view
 //
-// They replace the Pallas kernels x_kernel, qx_kernel and make_cx_kernel of
-// dotsocp_tpu/ops/pallas_kernels.py (make_fused_flat_step) and follow the
-// operation order of those bodies, so each agrees with its plain PyTorch
-// version (dotsocp_tpu_torch/ops/fused_step.py) to a few ulp; FMA
-// contraction is left on, except in the weighted q-step (see qx_kernel).
+// They replace the Pallas kernels x_kernel, qx_kernel, make_cx_kernel,
+// z_kernel, q_kernel and b_kernel of dotsocp_tpu/ops/pallas_kernels.py
+// (make_fused_flat_step) and the kernel of cone_project_diff_pallas, and
+// follow the operation order of those bodies, so each agrees with its plain
+// PyTorch version (dotsocp_tpu_torch/ops/fused_step.py) to a few ulp; FMA
+// contraction is left on, except in the weighted q-step (see qx_kernel) and
+// the cone projection (see cone_kernel), which round as their plain
+// versions do.
 //
 // Layout (flat, f32, contiguous): phi (nt, S); q0, alpha0 (nt-1, S); face
 // blocks bs, alpha_b (d, nt, S) with the ghost slot of each axis pinned to
-// zero; cone arrays beta, x (C, nt-1, S) with C = 2 + 4d. A spatial shift by
-// one cell along axis a is a flat shift by k_a = stride_a with zero fill.
+// zero; cone arrays beta, x, z (C, nt-1, S) with C = 2 + 4d. A spatial shift
+// by one cell along axis a is a flat shift by k_a = stride_a with zero fill.
 //
 // Design: one thread per (row, s) element, s fastest, so every load and
 // store of a warp is one coalesced transaction per array plane. Each kernel
 // is one streaming pass bounded by HBM bandwidth (bytes at 513^2 x 65:
-// x_step 1.55 GB, qx_step 1.35 GB (weighted 1.56 GB), cx_step 2.90 GB).
-// Offsets are 64-bit:
-// C (nt-1) S passes 2^31 on the larger grids. Tiling through shared memory,
-// TMA, and merging cx with the next qx are left for later work.
+// x_step 1.55 GB, qx_step 1.35 GB (weighted 1.56 GB), cx_step 2.90 GB,
+// z_step 1.55 GB, q_step 2.03 GB (weighted 2.23 GB), beta_step 2.23 GB,
+// cone_project_diff 2.02 GB). Offsets are 64-bit: C (nt-1) S passes 2^31 on
+// the larger grids. Tiling through shared memory, TMA, and merging passes
+// are left for later work.
+//
+// In place or fresh: the x-carry kernels update alpha (qx), beta and x (cx)
+// in the buffers they were given; the single-step kernels (z, q, beta,
+// cone) write only fresh outputs, so the caller's state survives the step
+// (the acc-ADMM anchors hold the very tensors of the state). Either way a
+// thread reads an array it writes only at its own position, before writing.
 //
 // Every entry point launches on the given stream, synchronises nothing, and
 // returns cudaGetLastError().
@@ -83,9 +99,10 @@ __device__ __forceinline__ void bfd_cols(
   col[C - 1] = sd + sbf * q;
 }
 
-// x = Pi_K(BF_d q - beta) + beta; one thread per cell (t < nt-1, s).
-// Writes only x, which no thread reads.
-template <int DIM>
+// x = Pi_K(BF_d q - beta) + beta (PLUS_BETA, the x_step), or the z-step's
+// z = Pi_K(BF_d q - beta); one thread per cell (t < nt-1, s). Writes only
+// x, which no thread reads.
+template <int DIM, bool PLUS_BETA>
 __global__ void x_kernel(const float* __restrict__ q0,
                          const float* __restrict__ bs,
                          const float* __restrict__ beta, float* __restrict__ x,
@@ -109,9 +126,11 @@ __global__ void x_kernel(const float* __restrict__ q0,
   }
   float head, coef;
   project<C>(col, head, coef);
-  x[cell] = head + bt[0];
+  x[cell] = PLUS_BETA ? head + bt[0] : head;
 #pragma unroll
-  for (int c = 1; c < C; ++c) x[c * plane + cell] = coef * col[c] + bt[c];
+  for (int c = 1; c < C; ++c) {
+    x[c * plane + cell] = PLUS_BETA ? coef * col[c] + bt[c] : coef * col[c];
+  }
 }
 
 // The weighted q-step's update of one element, in the operation order of
@@ -131,10 +150,24 @@ __device__ __forceinline__ float weighted_update(float tmp, float al, float q2,
   return qn;
 }
 
-// q-step + alpha multiplier from the carried x; one thread per node
-// (t <= nt-1, s). alpha0 / alpha_b are updated in place: each thread reads
-// them only at its own position. x and phi are read at shifted positions
-// and are never written here; q0n / bsn are fresh outputs. Unweighted,
+// The q-step's read of x = z + beta at flat offset i of the cone array:
+// the carried x itself, or (SPLIT, the single step) z and beta read apart
+// and summed per element. A shift only relocates, so this is bit-equal to
+// shifting the sum, as the plain version does, and to shifting z and beta
+// apart and summing, as the Pallas q_kernel does.
+template <bool SPLIT>
+__device__ __forceinline__ float xval(const float* __restrict__ x,
+                                      const float* __restrict__ beta,
+                                      int64_t i) {
+  return SPLIT ? x[i] + beta[i] : x[i];
+}
+
+// q-step + alpha multiplier; one thread per node (t <= nt-1, s). x holds
+// the carried x (qx_step), or z with beta beside it (SPLIT, q_step). alpha'
+// goes to (a0n, abn): alpha's own buffers for qx_step (in place: each
+// thread reads alpha only at its own position, before writing), fresh ones
+// for q_step. x, beta and phi are read at shifted positions and are never
+// written here; q0n / bsn are fresh outputs. Unweighted,
 // (diag_in, diag_bd) are the interior and boundary-slab values of diag^-1;
 // WEIGHTED, they are those of base (the diagonal of (E/D)^2 F*B*BF), and
 // w0 (cells) and wb (faces, ghost slots 1) are read once each, at the
@@ -143,11 +176,12 @@ __device__ __forceinline__ float weighted_update(float tmp, float al, float q2,
 // s_bf BF^T x exactly as the plain version does: the four columns summed
 // left to right and s_bf / sqrt2 as the host rounds it (sv_host), so the
 // weighted kernel and its plain version round alike everywhere.
-template <int DIM, bool WEIGHTED>
+template <int DIM, bool WEIGHTED, bool SPLIT>
 __global__ void qx_kernel(const float* __restrict__ phi,
-                          const float* __restrict__ x, float* __restrict__ a0,
-                          float* __restrict__ ab, float* __restrict__ q0n,
-                          float* __restrict__ bsn,
+                          const float* __restrict__ x,
+                          const float* __restrict__ beta, const float* a0,
+                          const float* ab, float* a0n, float* abn,
+                          float* __restrict__ q0n, float* __restrict__ bsn,
                           const float* __restrict__ w0,
                           const float* __restrict__ wb, int nt, int S, int k0,
                           int k1, int n0, int n1, float D, float sbf,
@@ -165,16 +199,17 @@ __global__ void qx_kernel(const float* __restrict__ phi,
   if (t < last) {
     // node (t, s) and cell (t, s) share the flat offset
     const float tmp = D * ((phi[node + S] - p) / ht);
-    const float q2 = sbf * (x[(C - 1) * plane + node] - x[node]);
+    const float q2 = sbf * (xval<SPLIT>(x, beta, (C - 1) * plane + node) -
+                            xval<SPLIT>(x, beta, node));
     const float al = a0[node];
     if (WEIGHTED) {
       float al_out;
       q0n[node] = weighted_update(tmp, al, q2, w0[node], diag_in, tau, al_out);
-      a0[node] = al_out;
+      a0n[node] = al_out;
     } else {
       const float qn = (tmp + al + q2) * diag_in;
       q0n[node] = qn;
-      a0[node] = al + tau * (tmp - qn);
+      a0n[node] = al + tau * (tmp - qn);
     }
   }
   const float diag_b = (t == 0 || t == last) ? diag_bd : diag_in;
@@ -192,13 +227,13 @@ __global__ void qx_kernel(const float* __restrict__ phi,
     float y0 = 0.f, y1 = 0.f, y2 = 0.f, y3 = 0.f;
     if (t < last) {
       const int64_t cell = node;
-      y0 = in ? x[c0 * plane + cell + k] : 0.f;
-      y1 = x[(c0 + 1) * plane + cell];
+      y0 = in ? xval<SPLIT>(x, beta, c0 * plane + cell + k) : 0.f;
+      y1 = xval<SPLIT>(x, beta, (c0 + 1) * plane + cell);
     }
     if (t >= 1) {
       const int64_t cell = node - S;
-      y2 = in ? x[(c0 + 2) * plane + cell + k] : 0.f;
-      y3 = x[(c0 + 3) * plane + cell];
+      y2 = in ? xval<SPLIT>(x, beta, (c0 + 2) * plane + cell + k) : 0.f;
+      y3 = xval<SPLIT>(x, beta, (c0 + 3) * plane + cell);
     }
     const float acc = WEIGHTED ? ((y0 + y1) + y2) + y3 : (y0 + y1) + (y2 + y3);
     const float q2 = (sv * acc) * m;
@@ -207,23 +242,32 @@ __global__ void qx_kernel(const float* __restrict__ phi,
     if (WEIGHTED) {
       float al_out;
       bsn[face] = weighted_update(tmp, al, q2, wb[face], diag_b, tau, al_out);
-      ab[face] = al_out;
+      abn[face] = al_out;
     } else {
       const float bn = (tmp + al + q2) * diag_b;
       bsn[face] = bn;
-      ab[face] = al + tau * (tmp - bn);
+      abn[face] = al + tau * (tmp - bn);
     }
   }
 }
 
-// beta multiplier fused with the next z-step; one thread per cell
-// (t < nt-1, s). beta and x are updated in place: each thread reads them
-// only at its own position, before it writes. q0n / bsn (read at shifted
-// positions) are never written here.
-template <int DIM, bool FINAL>
+// What cx_kernel computes: the beta multiplier fused with the next z-step
+// (kCx), the segment's last multiplier step (kCxFinal), or the single
+// step's beta multiplier alone from a given z (kBeta).
+constexpr int kCx = 0;
+constexpr int kCxFinal = 1;
+constexpr int kBeta = 2;
+
+// The beta multiplier; one thread per cell (t < nt-1, s). kCx / kCxFinal
+// read z as x - beta from the carried x and update beta and x in place
+// (beta_out == beta, x_out == x: each thread reads them only at its own
+// position, before it writes); kBeta reads z itself from x and writes
+// beta' alone to the fresh beta_out. q0n / bsn (read at shifted positions)
+// are never written here.
+template <int DIM, int MODE>
 __global__ void cx_kernel(const float* __restrict__ q0n,
-                          const float* __restrict__ bsn,
-                          float* __restrict__ beta, float* __restrict__ x,
+                          const float* __restrict__ bsn, const float* beta,
+                          const float* x, float* beta_out, float* x_out,
                           int nt, int S, int k0, int k1, float sbf, float sd,
                           float tau) {
   constexpr int C = 2 + 4 * DIM;
@@ -241,14 +285,16 @@ __global__ void cx_kernel(const float* __restrict__ q0n,
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const float b = beta[c * plane + cell];
-    zs[c] = x[c * plane + cell] - b;  // the stale z of this iteration
+    // the z of this iteration: given, or the stale z from the carried x
+    zs[c] = MODE == kBeta ? x[c * plane + cell] : x[c * plane + cell] - b;
     br[c] = b + tau * (zs[c] - col[c]);
   }
 #pragma unroll
-  for (int c = 0; c < C; ++c) beta[c * plane + cell] = br[c];
-  if (FINAL) {
+  for (int c = 0; c < C; ++c) beta_out[c * plane + cell] = br[c];
+  if (MODE == kBeta) return;
+  if (MODE == kCxFinal) {
 #pragma unroll
-    for (int c = 0; c < C; ++c) x[c * plane + cell] = zs[c];
+    for (int c = 0; c < C; ++c) x_out[c * plane + cell] = zs[c];
     return;
   }
   float zc[C];
@@ -256,17 +302,77 @@ __global__ void cx_kernel(const float* __restrict__ q0n,
   for (int c = 0; c < C; ++c) zc[c] = col[c] - br[c];
   float head, coef;
   project<C>(zc, head, coef);
-  x[cell] = head + br[0];
+  x_out[cell] = head + br[0];
 #pragma unroll
-  for (int c = 1; c < C; ++c) x[c * plane + cell] = coef * zc[c] + br[c];
+  for (int c = 1; c < C; ++c) x_out[c * plane + cell] = coef * zc[c] + br[c];
+}
+
+// z = Pi_K(z2 - beta) on one column i of a flat (C, M) view; one thread per
+// column. Every operation is rounded on its own (__f*_rn, never an FMA) and
+// the squares are summed left to right, as the plain version
+// cone_project_diff_plain does: the kernel is bit-equal to it. A C of the
+// solver's cone (6, 10, 14) is a template argument and the column stays in
+// registers; any other C (CT = 0) reads its column twice.
+template <int CT>
+__global__ void cone_kernel(const float* __restrict__ z2,
+                            const float* __restrict__ beta,
+                            float* __restrict__ z, int C_rt, int M) {
+  const int C = CT > 0 ? CT : C_rt;
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= M) return;
+  float v[CT > 0 ? CT : 1];
+  float nrm2 = 0.f;
+  float v0 = 0.f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int64_t at = c * (int64_t)M + i;
+    const float vc = __fsub_rn(z2[at], beta[at]);
+    if (CT > 0) v[c] = vc;
+    if (c == 0) {
+      v0 = vc;
+    } else {
+      const float sq = __fmul_rn(vc, vc);
+      nrm2 = c == 1 ? sq : __fadd_rn(nrm2, sq);
+    }
+  }
+  const float nrm = __fsqrt_rn(nrm2);
+  const float safe = nrm > 0.f ? nrm : 1.f;
+  const float coef = fminf(
+      fmaxf(__fmul_rn(0.5f, __fadd_rn(1.f, __fdiv_rn(v0, safe))), 0.f), 1.f);
+  z[i] = fmaxf(v0, __fmul_rn(coef, nrm));
+#pragma unroll
+  for (int c = 1; c < C; ++c) {
+    const int64_t at = c * (int64_t)M + i;
+    const float vc = CT > 0 ? v[c] : __fsub_rn(z2[at], beta[at]);
+    z[at] = __fmul_rn(coef, vc);
+  }
 }
 
 inline dim3 grid_for(int S, int rows) {
   return dim3((unsigned)((S + kThreads - 1) / kThreads), (unsigned)rows);
 }
 
-template <bool WEIGHTED>
-int launch_qx(const float* phi, const float* x, float* a0, float* ab,
+template <bool PLUS_BETA>
+int launch_x(const float* q0, const float* bs, const float* beta, float* x,
+             int dim, int nt, int S, int k0, int k1, float sbf, float sd,
+             void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid = grid_for(S, nt - 1);
+  if (dim == 1) {
+    x_kernel<1, PLUS_BETA><<<grid, kThreads, 0, st>>>(q0, bs, beta, x, nt, S,
+                                                      k0, k1, sbf, sd);
+  } else if (dim == 2) {
+    x_kernel<2, PLUS_BETA><<<grid, kThreads, 0, st>>>(q0, bs, beta, x, nt, S,
+                                                      k0, k1, sbf, sd);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool WEIGHTED, bool SPLIT>
+int launch_qx(const float* phi, const float* x, const float* beta,
+              const float* a0, const float* ab, float* a0n, float* abn,
               float* q0n, float* bsn, const float* w0, const float* wb,
               int dim, int nt, int S, int k0, int k1, int n0, int n1, float D,
               float sbf, float tau, float ht, float hs0, float hs1,
@@ -274,13 +380,32 @@ int launch_qx(const float* phi, const float* x, float* a0, float* ab,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid = grid_for(S, nt);
   if (dim == 1) {
-    qx_kernel<1, WEIGHTED><<<grid, kThreads, 0, st>>>(
-        phi, x, a0, ab, q0n, bsn, w0, wb, nt, S, k0, k1, n0, n1, D, sbf, tau,
-        ht, hs0, hs1, diag_in, diag_bd, sv_host);
+    qx_kernel<1, WEIGHTED, SPLIT><<<grid, kThreads, 0, st>>>(
+        phi, x, beta, a0, ab, a0n, abn, q0n, bsn, w0, wb, nt, S, k0, k1, n0,
+        n1, D, sbf, tau, ht, hs0, hs1, diag_in, diag_bd, sv_host);
   } else if (dim == 2) {
-    qx_kernel<2, WEIGHTED><<<grid, kThreads, 0, st>>>(
-        phi, x, a0, ab, q0n, bsn, w0, wb, nt, S, k0, k1, n0, n1, D, sbf, tau,
-        ht, hs0, hs1, diag_in, diag_bd, sv_host);
+    qx_kernel<2, WEIGHTED, SPLIT><<<grid, kThreads, 0, st>>>(
+        phi, x, beta, a0, ab, a0n, abn, q0n, bsn, w0, wb, nt, S, k0, k1, n0,
+        n1, D, sbf, tau, ht, hs0, hs1, diag_in, diag_bd, sv_host);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int MODE>
+int launch_cx(const float* q0n, const float* bsn, const float* beta,
+              const float* x, float* beta_out, float* x_out, int dim, int nt,
+              int S, int k0, int k1, float sbf, float sd, float tau,
+              void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid = grid_for(S, nt - 1);
+  if (dim == 1) {
+    cx_kernel<1, MODE><<<grid, kThreads, 0, st>>>(
+        q0n, bsn, beta, x, beta_out, x_out, nt, S, k0, k1, sbf, sd, tau);
+  } else if (dim == 2) {
+    cx_kernel<2, MODE><<<grid, kThreads, 0, st>>>(
+        q0n, bsn, beta, x, beta_out, x_out, nt, S, k0, k1, sbf, sd, tau);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -294,28 +419,26 @@ extern "C" {
 int dotsocp_x_step(const float* q0, const float* bs, const float* beta,
                    float* x, int dim, int nt, int S, int k0, int k1, float sbf,
                    float sd, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid = grid_for(S, nt - 1);
-  if (dim == 1) {
-    x_kernel<1><<<grid, kThreads, 0, st>>>(q0, bs, beta, x, nt, S, k0, k1,
-                                           sbf, sd);
-  } else if (dim == 2) {
-    x_kernel<2><<<grid, kThreads, 0, st>>>(q0, bs, beta, x, nt, S, k0, k1,
-                                           sbf, sd);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return launch_x<true>(q0, bs, beta, x, dim, nt, S, k0, k1, sbf, sd, stream);
 }
 
+// z = Pi_K(BF_d q - beta) into the fresh z.
+int dotsocp_z_step(const float* q0, const float* bs, const float* beta,
+                   float* z, int dim, int nt, int S, int k0, int k1, float sbf,
+                   float sd, void* stream) {
+  return launch_x<false>(q0, bs, beta, z, dim, nt, S, k0, k1, sbf, sd, stream);
+}
+
+// alpha (a0, ab) updated in place.
 int dotsocp_qx_step(const float* phi, const float* x, float* a0, float* ab,
                     float* q0n, float* bsn, int dim, int nt, int S, int k0,
                     int k1, int n0, int n1, float D, float sbf, float tau,
                     float ht, float hs0, float hs1, float dinv_in,
                     float dinv_bd, void* stream) {
-  return launch_qx<false>(phi, x, a0, ab, q0n, bsn, nullptr, nullptr, dim, nt,
-                          S, k0, k1, n0, n1, D, sbf, tau, ht, hs0, hs1,
-                          dinv_in, dinv_bd, 0.f, stream);
+  return launch_qx<false, false>(phi, x, nullptr, a0, ab, a0, ab, q0n, bsn,
+                                 nullptr, nullptr, dim, nt, S, k0, k1, n0, n1,
+                                 D, sbf, tau, ht, hs0, hs1, dinv_in, dinv_bd,
+                                 0.f, stream);
 }
 
 // The weighted q-step: w0 (nt-1, S) and wb (d, nt, S) the flat weight,
@@ -327,30 +450,72 @@ int dotsocp_qx_step_w(const float* phi, const float* x, float* a0, float* ab,
                       float D, float sbf, float tau, float ht, float hs0,
                       float hs1, float base_in, float base_bd, float sv,
                       void* stream) {
-  return launch_qx<true>(phi, x, a0, ab, q0n, bsn, w0, wb, dim, nt, S, k0, k1,
-                         n0, n1, D, sbf, tau, ht, hs0, hs1, base_in, base_bd,
-                         sv, stream);
+  return launch_qx<true, false>(phi, x, nullptr, a0, ab, a0, ab, q0n, bsn, w0,
+                                wb, dim, nt, S, k0, k1, n0, n1, D, sbf, tau,
+                                ht, hs0, hs1, base_in, base_bd, sv, stream);
 }
 
+// The single step's q-step from z and beta; alpha' into the fresh
+// (a0n, abn).
+int dotsocp_q_step(const float* phi, const float* z, const float* beta,
+                   const float* a0, const float* ab, float* a0n, float* abn,
+                   float* q0n, float* bsn, int dim, int nt, int S, int k0,
+                   int k1, int n0, int n1, float D, float sbf, float tau,
+                   float ht, float hs0, float hs1, float dinv_in,
+                   float dinv_bd, void* stream) {
+  return launch_qx<false, true>(phi, z, beta, a0, ab, a0n, abn, q0n, bsn,
+                                nullptr, nullptr, dim, nt, S, k0, k1, n0, n1,
+                                D, sbf, tau, ht, hs0, hs1, dinv_in, dinv_bd,
+                                0.f, stream);
+}
+
+int dotsocp_q_step_w(const float* phi, const float* z, const float* beta,
+                     const float* a0, const float* ab, float* a0n, float* abn,
+                     float* q0n, float* bsn, const float* w0, const float* wb,
+                     int dim, int nt, int S, int k0, int k1, int n0, int n1,
+                     float D, float sbf, float tau, float ht, float hs0,
+                     float hs1, float base_in, float base_bd, float sv,
+                     void* stream) {
+  return launch_qx<true, true>(phi, z, beta, a0, ab, a0n, abn, q0n, bsn, w0,
+                               wb, dim, nt, S, k0, k1, n0, n1, D, sbf, tau,
+                               ht, hs0, hs1, base_in, base_bd, sv, stream);
+}
+
+// beta and x updated in place.
 int dotsocp_cx_step(const float* q0n, const float* bsn, float* beta, float* x,
                     int dim, int nt, int S, int k0, int k1, float sbf,
                     float sd, float tau, int final_step, void* stream) {
+  if (final_step) {
+    return launch_cx<kCxFinal>(q0n, bsn, beta, x, beta, x, dim, nt, S, k0, k1,
+                               sbf, sd, tau, stream);
+  }
+  return launch_cx<kCx>(q0n, bsn, beta, x, beta, x, dim, nt, S, k0, k1, sbf,
+                        sd, tau, stream);
+}
+
+// beta' = beta + tau (z - BF_d q') into the fresh beta_out.
+int dotsocp_beta_step(const float* q0n, const float* bsn, const float* beta,
+                      const float* z, float* beta_out, int dim, int nt, int S,
+                      int k0, int k1, float sbf, float sd, float tau,
+                      void* stream) {
+  return launch_cx<kBeta>(q0n, bsn, beta, z, beta_out, nullptr, dim, nt, S,
+                          k0, k1, sbf, sd, tau, stream);
+}
+
+// z = Pi_K(z2 - beta) over flat (C, M) views, into the fresh z.
+int dotsocp_cone_project_diff(const float* z2, const float* beta, float* z,
+                              int C, int M, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid = grid_for(S, nt - 1);
-  if (dim == 1 && !final_step) {
-    cx_kernel<1, false><<<grid, kThreads, 0, st>>>(q0n, bsn, beta, x, nt, S,
-                                                   k0, k1, sbf, sd, tau);
-  } else if (dim == 1) {
-    cx_kernel<1, true><<<grid, kThreads, 0, st>>>(q0n, bsn, beta, x, nt, S,
-                                                  k0, k1, sbf, sd, tau);
-  } else if (dim == 2 && !final_step) {
-    cx_kernel<2, false><<<grid, kThreads, 0, st>>>(q0n, bsn, beta, x, nt, S,
-                                                   k0, k1, sbf, sd, tau);
-  } else if (dim == 2) {
-    cx_kernel<2, true><<<grid, kThreads, 0, st>>>(q0n, bsn, beta, x, nt, S,
-                                                  k0, k1, sbf, sd, tau);
+  if (C < 2 || M < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((M + kThreads - 1) / kThreads));
+  if (C == 6) {
+    cone_kernel<6><<<grid, kThreads, 0, st>>>(z2, beta, z, C, M);
+  } else if (C == 10) {
+    cone_kernel<10><<<grid, kThreads, 0, st>>>(z2, beta, z, C, M);
+  } else if (C == 14) {
+    cone_kernel<14><<<grid, kThreads, 0, st>>>(z2, beta, z, C, M);
   } else {
-    return (int)cudaErrorInvalidValue;
+    cone_kernel<0><<<grid, kThreads, 0, st>>>(z2, beta, z, C, M);
   }
   return (int)cudaGetLastError();
 }

@@ -1,16 +1,19 @@
 """Top-level multilevel solver API; port of
 ``dotsocp_tpu/multilevel/solve.py:462-680`` (``solve_dot``) in 1D and 2D:
 the unweighted problem with every method of the JAX package's
-``DOT_METHODS`` (acc-ADMM with theta = 2, its Halpern branch), and the
-weighted (obstacle) problem with those of ``WDOT_METHODS``.
+``DOT_METHODS`` (acc-ADMM with its Halpern branch, theta = 2, and its
+Nesterov branch, any other theta), and the weighted (obstacle) problem with
+those of ``WDOT_METHODS``.
 
 ``solve_dot(rho0, rho1, nt, level_n, opts, method, weight=..., barrier=...,
 device=...)`` builds the coarse pyramid (weights and densities), runs the
 algorithm per level with warm-started sigma and E2 feedback, prolongates
-between levels, and recovers (rho, E, q). The JAX
-package's solver cache, prewarm, Pallas size gate, tracing and profiling
-options have no counterpart here: eager PyTorch compiles nothing, and the
-CUDA kernels run at every size.
+between levels, and recovers (rho, E, q). With ``opts={"profile": True}``
+each level report also holds ``phases``, the per-phase times of
+``utils/profiling.profile_phases`` on the level's final state. The JAX
+package's solver cache, prewarm, Pallas size gate and tracing options have
+no counterpart here: eager PyTorch compiles nothing, and the CUDA kernels
+run at every size.
 """
 from __future__ import annotations
 
@@ -26,8 +29,8 @@ from ..algorithms.driver import SolveOptions
 from ..algorithms.solvers import (AccADMMSolver, AccSgsADMMSolver,
                                   ALG2Solver, InPALMSolver, PALMSolver,
                                   SgsInPALMSolver)
-from ..algorithms.variants import (AccADMMKernels, AccSgsADMMKernels,
-                                   PALMKernels, SgsKernels)
+from ..algorithms.variants import (AccADMMKernels, AccADMMNesterovKernels,
+                                   AccSgsADMMKernels, PALMKernels, SgsKernels)
 from ..ops.engine import OpsFlat
 from .level import (
     LevelVar,
@@ -38,6 +41,7 @@ from .level import (
 )
 from ..models.wdot2d import ensure_barrier_validity
 from ..ops.staggered import Staggered
+from ..utils.profiling import profile_phases
 from .transfer import (prolong_phi, prolong_z_like, restrict_density,
                        restrict_staggered)
 
@@ -65,7 +69,7 @@ ALG2_STEPSIZE = 1.0
 # ROADMAP.md queue
 KNOWN_OPTS = {"tol", "maxit", "sigma", "time_limit", "scaling",
               "ifCheckStepByStep", "checkPrimDualFeas", "restart", "rho",
-              "theta"}
+              "theta", "profile"}
 QUEUED_OPTS = {
     "refine_tol": "queue 1 (refine tail)",
     "refine_dtype": "queue 1 (refine tail)",
@@ -93,10 +97,6 @@ def _check_request(rho0, method, weight, opts):
                 f"option {key!r} waits in ROADMAP.md {QUEUED_OPTS[key]}")
         if key not in KNOWN_OPTS:
             raise ValueError(f"unknown option {key!r}")
-    if float(opts.get("theta", 2.0)) != 2.0:
-        raise NotImplementedError(
-            "acc-ADMM's Nesterov branch (theta != 2) waits in ROADMAP.md "
-            "queue 1 (other algorithms)")
     if np.ndim(rho0) not in (1, 2):
         raise NotImplementedError(
             "3D transport waits in ROADMAP.md queue 1 and queue 2 (3D "
@@ -151,9 +151,10 @@ def _jump_next_level(lv: LevelVar, rho0_f, rho1_f, nt_f: int, dtype,
 
 
 def _make_solver(method: str, lv: LevelVar, o: SolveOptions, device,
-                 dtype):
+                 dtype, theta: float = 2.0):
     """The level solver of ``method`` (``dotsocp_tpu/multilevel/solve.py:
-    236-313``, host driver)."""
+    236-313``, host driver); acc-ADMM with ``theta`` != 2 runs its Nesterov
+    branch."""
     cfg = LevelConfig(geom=lv.geom, D=lv.D, E=lv.E, device=str(device),
                       tau=o.tau, dtype=dtype)
     w = lv.weight
@@ -161,6 +162,9 @@ def _make_solver(method: str, lv: LevelVar, o: SolveOptions, device,
         return InPALMSolver(Kernels(cfg, w), o)
     if method == "ALG2":
         return ALG2Solver(Kernels(cfg, w), o)
+    if method == "acc-ADMM" and theta != 2.0:
+        return AccADMMSolver(AccADMMNesterovKernels(cfg, w, o.restart, o.rho,
+                                                    theta), o)
     if method == "acc-ADMM":
         return AccADMMSolver(AccADMMKernels(cfg, w, o.restart, o.rho), o)
     # the methods below are not in WDOT_METHODS: w is None
@@ -219,6 +223,8 @@ def solve_dot(
     # weighted problems stop on residuals 1, 3, 6
     # (``dotsocp_tpu/multilevel/solve.py:532``)
     check_pdf = bool(opts.get("checkPrimDualFeas", not weighted))
+    theta = float(opts.get("theta", 2.0))
+    profile = bool(opts.get("profile", False))
     if method in ("PALM", "inPALM", "sGS-inPALM"):
         tau = ALM_STEPSIZE
     elif method == "ALG2":
@@ -285,18 +291,22 @@ def solve_dot(
             lev_method = "inPALM"
             o.maxit = ADMM_MAXIT
             o.tau = ALM_STEPSIZE
-        solver = _make_solver(lev_method, lv, o, device, dtype)
+        solver = _make_solver(lev_method, lv, o, device, dtype, theta)
         hist, out = solver.solve(lv.as_dict())
         hist["method"] = solver.name
         hists.append(hist)
 
         recover_org_var(lv, out)
-        level_reports.append({"level": lev + 1, "geom": lv.geom,
-                              "iters": out["iters"],
-                              "time": out["solve_time"],
-                              "method": solver.name,
-                              "final_kkt": (hist["kkt"][-1] if hist["len"]
-                                            else None)})
+        report = {"level": lev + 1, "geom": lv.geom, "iters": out["iters"],
+                  "time": out["solve_time"], "method": solver.name,
+                  "final_kkt": hist["kkt"][-1] if hist["len"] else None}
+        if profile:
+            # per-phase times on the level's final state (the reference's
+            # record_time, ``solver_socp_inPALM.m:339-341``); a phase that
+            # fails raises
+            report["phases"] = profile_phases(
+                solver.k, solver.k.prep(lv.as_dict(), 1.0), iters=20)
+        level_reports.append(report)
         if verbose:
             print(f"Completed level {lev + 1}/{level_n} "
                   f"(nt={lv.geom.nt}, space={lv.geom.space}): "

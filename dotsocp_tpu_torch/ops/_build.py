@@ -37,6 +37,11 @@ SOURCES = {
         "dotsocp_qx_step_w": [_P] * 8 + [_I] * 7 + [_F] * 9 + [_P],
         "dotsocp_cx_step": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F,
                             _I, _P],
+        "dotsocp_z_step": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+        "dotsocp_q_step": [_P] * 9 + [_I] * 7 + [_F] * 8 + [_P],
+        "dotsocp_q_step_w": [_P] * 11 + [_I] * 7 + [_F] * 9 + [_P],
+        "dotsocp_beta_step": [_P] * 5 + [_I] * 5 + [_F] * 3 + [_P],
+        "dotsocp_cone_project_diff": [_P, _P, _P, _I, _I, _P],
     },
     "sgs_sweep.cu": {
         "dotsocp_rb_half_sweep": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,

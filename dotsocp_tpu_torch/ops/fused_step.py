@@ -1,49 +1,61 @@
-"""The x-carry step kernels of the inPALM / ALG2 segment, each beside its
-plain PyTorch version.
+"""The post-DCT step kernels of the inPALM / ALG2 step, each beside its
+plain PyTorch version: the x-carry segment's three, the single step's three
+(which sGS-inPALM's step runs after its sweep), and the cone projection
+that closes every acc-ADMM step.
 
 Inside a segment the z slot of the state carries x = z + beta: the q-step
 only consumes z + beta, so one cone read replaces two, and the CA kernel
 (beta multiplier fused with the next cone projection) forms x' = z' + beta'
-in registers. Four entry points, three kernel sources in
-``csrc/fused_step.cu``:
+in registers. The single step (``run_one``, the sGS-inPALM step, the
+profiler's full step) keeps z and beta apart, as the JAX ``_step_fused``
+does. Eight wrappers over the kernels of ``csrc/fused_step.cu``:
 
-=========  ==================================================  ==========
-wrapper    replaces (dotsocp_tpu/ops/pallas_kernels.py)        bytes at
-                                                               513^2 x 65
-=========  ==================================================  ==========
-x_step     ``make_fused_flat_step.x_step`` / ``x_kernel``      1.55 GB
-qx_step    ``make_fused_flat_step.qx_step`` / ``qx_kernel``    1.35 GB
-           (unweighted form); weighted form (``WeightedDinv``)  1.56 GB
-cx_step    ``make_fused_flat_step.cx_step`` /                  2.90 GB
-           ``make_cx_kernel(final=False)``
-cx_final   ``make_fused_flat_step.cx_final`` /                 2.90 GB
-           ``make_cx_kernel(final=True)``
-=========  ==================================================  ==========
+=================  ============================================  ==========
+wrapper            replaces (dotsocp_tpu/ops/pallas_kernels.py)  bytes at
+                                                                 513^2 x 65
+=================  ============================================  ==========
+x_step             ``make_fused_flat_step.x_step`` / x_kernel    1.55 GB
+qx_step            ``make_fused_flat_step.qx_step`` / qx_kernel  1.35 GB
+                   (unweighted); weighted (``WeightedDinv``)     1.56 GB
+cx_step            ``make_fused_flat_step.cx_step`` /            2.90 GB
+                   ``make_cx_kernel(final=False)``
+cx_final           ``make_fused_flat_step.cx_final`` /           2.90 GB
+                   ``make_cx_kernel(final=True)``
+z_step             ``make_fused_flat_step.z_step`` / z_kernel    1.55 GB
+q_step             ``make_fused_flat_step.q_step`` / q_kernel    2.03 GB
+                   (unweighted); weighted (``WeightedDinv``)     2.23 GB
+beta_step          ``make_fused_flat_step.beta_step`` / b_kernel 2.23 GB
+cone_project_diff  ``cone_project_diff_pallas`` / its kernel     2.02 GB
+=================  ============================================  ==========
 
 Each kernel is one streaming pass over HBM, so bytes moved bound it on the
 card; the design is one thread per element with coalesced loads (see the
 source). The q-step diagonal enters as its two distinct values (interior,
 boundary time slab) instead of two diagonal arrays, which saves ~0.2 GB of
-reads per qx pass at 513^2 x 65. The weighted q-step (obstacles,
+reads per q pass at 513^2 x 65. The weighted q-step (obstacles,
 ``solver_wsocp_inPALM.m:198-222``) is the same kernel with the weight w
 read once: it forms 1/(base + w*w) in registers from w and base's two
 values, and reads no diagonal array (0.41 GB less than carrying one); its
 plain version multiplies by the inverse diagonal that
 :func:`weighted_dinv` computes once a level, and the kernel rounds every
-operation as that plain version does. Shared-memory tiling, TMA and
-merging cx with the next qx are left for later work.
+operation as that plain version does. So does the cone projection, whose
+plain version sums the squares left to right. Shared-memory tiling, TMA and
+merging passes are left for later work.
 
 Dispatch: a wrapper runs the plain version only because the tensors it was
 given lie on the CPU. On CUDA tensors it checks device, dtype (f32 only),
 shape, contiguity and aliasing, launches the kernel, and raises on any
 error; there is no fallback. Every launch adds one to ``LAUNCHES[name]``;
-the weighted q-step counts under ``qx_step_w``.
+the weighted q-steps count under ``qx_step_w`` and ``q_step_w``.
 
 In-place outputs: ``qx_step`` updates alpha, and ``cx_step`` / ``cx_final``
 update beta and x, in the buffers they were given (each thread reads those
 arrays only at its own position, so concurrent blocks cannot race). Callers
 use the returned tensors and treat the inputs as consumed; the plain
-versions return new tensors.
+versions return new tensors. ``z_step``, ``q_step``, ``beta_step`` and
+``cone_project_diff`` write only fresh outputs and leave every input as it
+was: ``Kernels.run_one`` promises its caller the state survives, and the
+acc-ADMM anchors hold the very tensors of the state.
 """
 from __future__ import annotations
 
@@ -57,7 +69,8 @@ from .engine import _INV_SQRT2, OpsFlat, base_values
 from .staggered import Staggered
 
 LAUNCHES = {"x_step": 0, "qx_step": 0, "qx_step_w": 0, "cx_step": 0,
-            "cx_final": 0}
+            "cx_final": 0, "z_step": 0, "q_step": 0, "q_step_w": 0,
+            "beta_step": 0, "cone_project_diff": 0}
 
 
 def reset_launches() -> None:
@@ -122,6 +135,36 @@ def cx_step_plain(ops: OpsFlat, beta, x, q: Staggered, sbf, sd, tau,
     if final:
         return beta, z
     return beta, proj_soc(z2 - beta) + beta
+
+
+def z_step_plain(ops: OpsFlat, q: Staggered, beta, sbf, sd):
+    return proj_soc(ops.bfd(q, sbf, sd) - beta)
+
+
+def q_step_plain(ops: OpsFlat, phi, z, beta, alpha: Staggered, dinv, D, sbf,
+                 tau):
+    return qx_step_plain(ops, phi, z + beta, alpha, dinv, D, sbf, tau)
+
+
+def beta_step_plain(ops: OpsFlat, beta, z, q: Staggered, sbf, sd, tau):
+    return beta + tau * (z - ops.bfd(q, sbf, sd))
+
+
+def cone_project_diff_plain(z2, beta):
+    """Pi_K(z2 - beta), as :func:`~.cone.proj_soc` computes it but with the
+    squares of the tail summed left to right, each operation rounded on its
+    own: the order the kernel (and the Pallas z_kernel) sums in, so the two
+    are bit-equal on the card, where ``torch.sum`` takes another order."""
+    v = z2 - beta
+    z0, w = v[0], v[1:]
+    nrm2 = w[0] * w[0]
+    for c in range(1, w.shape[0]):
+        nrm2 = nrm2 + w[c] * w[c]
+    nrm = torch.sqrt(nrm2)
+    safe = torch.where(nrm > 0, nrm, torch.ones_like(nrm))
+    coef = torch.clamp(0.5 * (1.0 + z0 / safe), 0.0, 1.0)
+    head = torch.maximum(z0, coef * nrm)
+    return torch.cat([head[None], coef[None] * w], dim=0)
 
 
 # -- kernel launch plumbing --------------------------------------------------
@@ -206,6 +249,38 @@ def x_step(ops: OpsFlat, q: Staggered, beta, sbf: float, sd: float):
     return x
 
 
+def _check_q_operands(ops: OpsFlat, phi, alpha: Staggered, dinv) -> None:
+    _check_shape(phi, (ops.geom.nt, ops.S), "phi")
+    _check_stag(ops, alpha)
+    if isinstance(dinv, WeightedDinv):
+        _check_stag(ops, dinv.w)
+
+
+def _weight_operands(dinv) -> tuple:
+    if isinstance(dinv, WeightedDinv):
+        return dinv.w.q0, dinv.w.bs
+    return ()
+
+
+def _launch_q(kind: str, ops: OpsFlat, ptrs: list, dinv, D: float,
+              sbf: float, tau: float, device) -> None:
+    """Launch the q-step kernel ``kind`` (``qx_step`` or ``q_step``; its
+    weighted entry for a :class:`WeightedDinv`) on the pointer operands
+    ``ptrs``, followed by the weight and the scalars."""
+    g = ops.geom
+    d, nt, S, k, n, hs = _dims(ops)
+    if isinstance(dinv, WeightedDinv):
+        # s_bf / sqrt2 as the plain version's bfd_T rounds it
+        kind += "_w"
+        ptrs = ptrs + [dinv.w.q0.data_ptr(), dinv.w.bs.data_ptr()]
+        diag = list(dinv.base) + [sbf * _INV_SQRT2]
+    else:
+        diag = list(dinv)
+    _launch(LAUNCHES, kind, getattr(_build.library(), "dotsocp_" + kind),
+            device, *ptrs, d, nt, S, k[0], k[1], n[0], n[1], D, sbf, tau,
+            g.ht, hs[0], hs[1], *diag)
+
+
 def qx_step(ops: OpsFlat, phi, x, alpha: Staggered, dinv, D: float,
             sbf: float, tau: float):
     """q' = (D grad phi + alpha + sbf BF^T x) * diag^-1 and alpha' = alpha +
@@ -213,33 +288,17 @@ def qx_step(ops: OpsFlat, phi, x, alpha: Staggered, dinv, D: float,
     + alpha) + sbf BF^T x) * diag^-1 and alpha' = alpha + tau (D grad phi -
     w q'). Returns (q', alpha'); on CUDA alpha' is alpha's own buffers,
     updated in place."""
-    weighted = isinstance(dinv, WeightedDinv)
-    operands = (phi, x, alpha.q0, alpha.bs)
-    if weighted:
-        operands += (dinv.w.q0, dinv.w.bs)
+    operands = (phi, x, alpha.q0, alpha.bs) + _weight_operands(dinv)
     if not _use_kernel(*operands):
         return qx_step_plain(ops, phi, x, alpha, dinv, D, sbf, tau)
-    g = ops.geom
-    _check_shape(phi, (g.nt, ops.S), "phi")
+    _check_q_operands(ops, phi, alpha, dinv)
     _check_cone(ops, x)
-    _check_stag(ops, alpha)
-    if weighted:
-        _check_stag(ops, dinv.w)
     _check_distinct(*operands)
     q = Staggered(torch.empty_like(alpha.q0), torch.empty_like(alpha.bs))
-    d, nt, S, k, n, hs = _dims(ops)
-    args = [phi.data_ptr(), x.data_ptr(), alpha.q0.data_ptr(),
-            alpha.bs.data_ptr(), q.q0.data_ptr(), q.bs.data_ptr()]
-    if weighted:
-        # s_bf / sqrt2 as the plain version's bfd_T rounds it
-        name, fn = "qx_step_w", _build.library().dotsocp_qx_step_w
-        args += [dinv.w.q0.data_ptr(), dinv.w.bs.data_ptr()]
-        diag = list(dinv.base) + [sbf * _INV_SQRT2]
-    else:
-        name, fn = "qx_step", _build.library().dotsocp_qx_step
-        diag = list(dinv)
-    _launch(LAUNCHES, name, fn, phi.device, *args, d, nt, S, k[0], k[1],
-            n[0], n[1], D, sbf, tau, g.ht, hs[0], hs[1], *diag)
+    _launch_q("qx_step", ops, [phi.data_ptr(), x.data_ptr(),
+                               alpha.q0.data_ptr(), alpha.bs.data_ptr(),
+                               q.q0.data_ptr(), q.bs.data_ptr()],
+              dinv, D, sbf, tau, phi.device)
     return q, alpha
 
 
@@ -271,3 +330,72 @@ def cx_final(ops: OpsFlat, beta, x, q: Staggered, sbf: float, sd: float,
     iteration's q-step consumed: the segment-boundary state of the plain
     path. Returns (beta', z)."""
     return _cx("cx_final", True, ops, beta, x, q, sbf, sd, tau)
+
+
+# -- the single step: fresh outputs, inputs left as they were ----------------
+
+def z_step(ops: OpsFlat, q: Staggered, beta, sbf: float, sd: float):
+    """z = Pi_K(BF_d q - beta): the z-step."""
+    if not _use_kernel(q.q0, q.bs, beta):
+        return z_step_plain(ops, q, beta, sbf, sd)
+    _check_stag(ops, q)
+    _check_cone(ops, beta)
+    z = torch.empty_like(beta)
+    d, nt, S, k, _, _ = _dims(ops)
+    _launch(LAUNCHES, "z_step", _build.library().dotsocp_z_step,
+            beta.device, q.q0.data_ptr(), q.bs.data_ptr(), beta.data_ptr(),
+            z.data_ptr(), d, nt, S, k[0], k[1], sbf, sd)
+    return z
+
+
+def q_step(ops: OpsFlat, phi, z, beta, alpha: Staggered, dinv, D: float,
+           sbf: float, tau: float):
+    """The q-step and alpha multiplier of :func:`qx_step` from z and beta
+    read apart (x = z + beta formed per element). Returns fresh (q',
+    alpha')."""
+    operands = (phi, z, beta, alpha.q0, alpha.bs) + _weight_operands(dinv)
+    if not _use_kernel(*operands):
+        return q_step_plain(ops, phi, z, beta, alpha, dinv, D, sbf, tau)
+    _check_q_operands(ops, phi, alpha, dinv)
+    _check_cone(ops, z, beta)
+    q = Staggered(torch.empty_like(alpha.q0), torch.empty_like(alpha.bs))
+    a = Staggered(torch.empty_like(alpha.q0), torch.empty_like(alpha.bs))
+    _launch_q("q_step", ops, [phi.data_ptr(), z.data_ptr(), beta.data_ptr(),
+                              alpha.q0.data_ptr(), alpha.bs.data_ptr(),
+                              a.q0.data_ptr(), a.bs.data_ptr(),
+                              q.q0.data_ptr(), q.bs.data_ptr()],
+              dinv, D, sbf, tau, phi.device)
+    return q, a
+
+
+def beta_step(ops: OpsFlat, beta, z, q: Staggered, sbf: float, sd: float,
+              tau: float):
+    """beta' = beta + tau (z - BF_d q'), fresh."""
+    if not _use_kernel(beta, z, q.q0, q.bs):
+        return beta_step_plain(ops, beta, z, q, sbf, sd, tau)
+    _check_cone(ops, beta, z)
+    _check_stag(ops, q)
+    out = torch.empty_like(beta)
+    d, nt, S, k, _, _ = _dims(ops)
+    _launch(LAUNCHES, "beta_step", _build.library().dotsocp_beta_step,
+            beta.device, q.q0.data_ptr(), q.bs.data_ptr(), beta.data_ptr(),
+            z.data_ptr(), out.data_ptr(), d, nt, S, k[0], k[1], sbf, sd, tau)
+    return out
+
+
+def cone_project_diff(z2, beta):
+    """z = Pi_K(z2 - beta) over the leading (cone) axis, fresh; any shape
+    (C, ...) with C >= 2, both operands alike."""
+    if not _use_kernel(z2, beta):
+        return cone_project_diff_plain(z2, beta)
+    _check_shape(beta, z2.shape, "beta")
+    C = z2.shape[0]
+    M = z2.numel() // max(C, 1)
+    if C < 2 or M < 1 or M >= 2 ** 31:
+        raise ValueError(f"cone_project_diff: shape {tuple(z2.shape)} is not "
+                         f"a cone array (C >= 2 and 1 <= M < 2^31 columns)")
+    z = torch.empty_like(z2)
+    _launch(LAUNCHES, "cone_project_diff",
+            _build.library().dotsocp_cone_project_diff, z2.device,
+            z2.data_ptr(), beta.data_ptr(), z.data_ptr(), C, M)
+    return z

@@ -2,7 +2,8 @@
 out as the JAX package lays them out, and back.
 
 The tests start both packages from the same state: they take
-``LevelVar.as_dict()`` or the ``SolverState`` / ``AccState`` fields of
+``LevelVar.as_dict()`` or the ``SolverState`` / ``AccState`` /
+``NesterovState`` fields of
 ``dotsocp_tpu`` as numpy arrays (``jax.device_get``), hand them to these
 functions, and compare the results field by field. Staggered fields arrive
 as ``(q0, bs)`` pairs with ``bs`` a sequence of per-axis blocks; the flat
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from ..algorithms.core import SolverState
-from ..algorithms.variants import ITERATE, AccState
+from ..algorithms.variants import ITERATE, AccState, NesterovState
 from ..multilevel.level import LevelVar
 from ..ops.engine import OpsFlat
 from ..ops.geometry import Geometry
@@ -119,6 +120,20 @@ def acc_state_from_numpy(fields: dict, *, device,
         s=state_from_numpy(s, device=device, dtype=dtype),
         old=tuple(conv(n, v) for n, v in zip(ITERATE, fields["old"])),
         anchor=tuple(conv(n, v) for n, v in zip(ITERATE, fields["anchor"])),
+        k=int(fields["k"]),
+    )
+
+
+def nesterov_state_from_numpy(fields: dict, *, device,
+                              dtype: torch.dtype) -> NesterovState:
+    """A port ``NesterovState`` from the fields of a JAX ``NesterovState``
+    (``s``, the iterate tuples ``old`` and ``hat_old``, the counter ``k``)."""
+    s = fields["s"]._asdict()
+    conv = _Layout(s, device, dtype)
+    return NesterovState(
+        s=state_from_numpy(s, device=device, dtype=dtype),
+        old=tuple(conv(n, v) for n, v in zip(ITERATE, fields["old"])),
+        hat_old=tuple(conv(n, v) for n, v in zip(ITERATE, fields["hat_old"])),
         k=int(fields["k"]),
     )
 

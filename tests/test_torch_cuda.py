@@ -9,8 +9,11 @@ Tolerances as in ``chip_smoke.py``: rtol 2e-5 / atol 2e-6 for a kernel
 against its plain version (FMA contraction and the association of the
 four-term face sum differ, a few ulp), and 2e-6 / 2e-6 for a 4-iteration
 CA segment against 4 plain steps at 17^2 x 7 (``tests/test_pallas.py``).
-The weighted q-step rounds as its plain version does, operation by
-operation, and is held to the same rtol 2e-5 / atol 2e-6.
+The weighted q-steps round as their plain versions do, operation by
+operation, and so does the cone projection (its plain version sums the
+squares left to right): all three are held to the same rtol 2e-5 /
+atol 2e-6, and the weighted q-step to bit-equality. ``run_one`` (the
+single-step kernels) is held against plain steps as the CA segment is.
 """
 import math
 
@@ -19,6 +22,7 @@ import pytest
 import torch
 
 from dotsocp_tpu_torch.algorithms.core import Kernels, LevelConfig
+from dotsocp_tpu_torch.algorithms.variants import AccADMMKernels, SgsKernels
 from dotsocp_tpu_torch.models import wdot2d
 from dotsocp_tpu_torch.models.examples import get_example_1d, get_example_2d
 from dotsocp_tpu_torch.multilevel.level import initial_scaling, initialize
@@ -34,6 +38,9 @@ pytestmark = pytest.mark.cuda
 
 F32 = torch.float32
 SHAPES = {"2d": (9, (33, 33)), "1d": (9, (129,))}
+CA_KERNELS = ("x_step", "qx_step", "cx_step", "cx_final")
+SINGLE_STEP_KERNELS = ("z_step", "q_step", "q_step_w", "beta_step",
+                       "cone_project_diff")
 
 
 @pytest.fixture
@@ -93,8 +100,8 @@ def test_kernels_match_plain(dev, name):
         close(got[0], want[0])
         close(got[1], want[1])
     torch.cuda.synchronize()
-    # one launch of each unweighted kernel; the weighted q-step has its own
-    assert all(fs.LAUNCHES[k] == before[k] + (k != "qx_step_w")
+    # one launch of each unweighted x-carry kernel, none of the others
+    assert all(fs.LAUNCHES[k] == before[k] + (k in CA_KERNELS)
                for k in fs.LAUNCHES)
 
 
@@ -122,7 +129,7 @@ def test_ca_segment_matches_plain_steps(dev, k):
     s = kern.prep(lv.as_dict(), 1.0)
     plain = s.clone()
     for _ in range(k):
-        plain = kern._step(plain)
+        plain = kern._step_plain(plain)
     seg = kern.run_segment(s.clone(), k)
     for name in ("phi", "z", "beta"):
         close(getattr(seg, name), getattr(plain, name), 2e-6, 2e-6)
@@ -149,8 +156,9 @@ def test_solve_on_card_matches_cpu(dev, dim):
     (cpu, cpu_n), (gpu, gpu_n) = runs["cpu"], runs[str(dev)]
     assert ([lv["iters"] for lv in gpu["levels"]]
             == [lv["iters"] for lv in cpu["levels"]])
-    assert set(cpu_n.values()) == {0} and gpu_n.pop("qx_step_w") == 0
-    assert min(gpu_n.values()) > 0
+    assert set(cpu_n.values()) == {0}
+    assert all(gpu_n[k] > 0 for k in CA_KERNELS)
+    assert all(gpu_n[k] == 0 for k in SINGLE_STEP_KERNELS + ("qx_step_w",))
     close(gpu["rho"].cpu(), cpu["rho"], 1e-3, 1e-4)
     assert gpu["mass_ok"] and cpu["mass_ok"]
 
@@ -262,7 +270,7 @@ def test_weighted_ca_segment_matches_plain_steps(dev, k):
     s = kern.prep(lv.as_dict(), 1.0)
     plain = s.clone()
     for _ in range(k):
-        plain = kern._step(plain)
+        plain = kern._step_plain(plain)
     n0 = fs.LAUNCHES["qx_step_w"]
     seg = kern.run_segment(s.clone(), k)
     assert fs.LAUNCHES["qx_step_w"] == n0 + k
@@ -299,9 +307,145 @@ def test_weighted_solve_on_card_matches_cpu(dev, method):
     iters = [lv["iters"] for lv in gpu["levels"]]
     assert set(cpu_n.values()) == {0} and gpu_n["qx_step"] == 0
     assert gpu_n["qx_step_w"] == (sum(iters) if method == "inPALM" else 0)
+    assert gpu_n["cone_project_diff"] == (sum(iters) if method == "acc-ADMM"
+                                          else 0)
     for out in (cpu, gpu):
         assert out["mass_ok"]
         assert all(max(lv["final_kkt"][[0, 2, 5]]) < 1e-3
                    for lv in out["levels"][-1:])
     diff = torch.linalg.norm(gpu["rho"].cpu() - cpu["rho"])
     assert float(diff / torch.linalg.norm(cpu["rho"])) < 5e-2
+
+
+# -- the single-step kernels -------------------------------------------------------
+
+def _blocks(*fields):
+    out = []
+    for f in fields:
+        out += f.blocks() if isinstance(f, Staggered) else [f]
+    return out
+
+
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_single_step_kernels_match_plain(dev, name):
+    """z_step, q_step (unweighted and weighted), beta_step and
+    cone_project_diff: within the kernel tolerance, the weighted q-step
+    bit-equal, ghost face slots exactly zero, one launch each, and every
+    input left as it was."""
+    ops, v = _inputs(name, dev)
+    E = v["sbf"] * v["D"]
+    wdinv = fs.weighted_dinv(ops, ops.weight_to_internal(_weight(name, dev)),
+                             v["D"], E)
+    q, alpha, phi, beta, z = v["q"], v["alpha"], v["phi"], v["beta"], v["x"]
+    inputs = _blocks(q, alpha, wdinv.w, phi, beta, z)
+    kept = [t.clone() for t in inputs]
+    sbf, sd, tau, D = v["sbf"], v["sd"], v["tau"], v["D"]
+    before = dict(fs.LAUNCHES)
+    close(fs.z_step(ops, q, beta, sbf, sd),
+          fs.z_step_plain(ops, q, beta, sbf, sd))
+    for dinv in (v["dinv"], wdinv):
+        got = fs.q_step(ops, phi, z, beta, alpha, dinv, D, sbf, tau)
+        want = fs.q_step_plain(ops, phi, z, beta, alpha, dinv, D, sbf, tau)
+        for g, w in zip(_blocks(*got), _blocks(*want)):
+            close(g, w)
+            if dinv is wdinv:
+                assert torch.equal(g, w)
+        assert float((got[0].bs * (1.0 - ops.masks)).abs().max()) == 0.0
+    close(fs.beta_step(ops, beta, z, q, sbf, sd, tau),
+          fs.beta_step_plain(ops, beta, z, q, sbf, sd, tau))
+    close(fs.cone_project_diff(z, beta), fs.cone_project_diff_plain(z, beta))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(inputs, kept))
+    assert all(fs.LAUNCHES[k] == before[k] + (k in SINGLE_STEP_KERNELS)
+               for k in fs.LAUNCHES)
+
+
+def test_cone_kernel_takes_any_width(dev):
+    """A cone width outside the solver's (6, 10, 14) takes the generic
+    path of the kernel."""
+    rng = np.random.default_rng(3)
+    z2, beta = (torch.from_numpy(rng.standard_normal((7, 5, 301),
+                                                     dtype=np.float32)).to(dev)
+                for _ in range(2))
+    close(fs.cone_project_diff(z2, beta), fs.cone_project_diff_plain(z2, beta))
+
+
+def test_single_step_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    ops, v = _inputs("2d", dev)
+    with pytest.raises(ValueError, match="shape"):
+        fs.z_step(ops, v["q"], v["beta"][:, :-1].contiguous(), v["sbf"],
+                  v["sd"])
+    with pytest.raises(TypeError, match="float32"):
+        fs.beta_step(ops, v["beta"].double(), v["x"].double(), v["q"],
+                     v["sbf"], v["sd"], v["tau"])
+    with pytest.raises(ValueError, match="contiguous"):
+        fs.q_step(ops, v["phi"], v["x"].transpose(1, 2), v["beta"],
+                  v["alpha"], v["dinv"], v["D"], v["sbf"], v["tau"])
+    with pytest.raises(ValueError, match="shape"):
+        fs.cone_project_diff(v["x"], v["beta"][:, :-1].contiguous())
+
+
+@pytest.mark.parametrize("weighted", [False, True],
+                         ids=["unweighted", "weighted"])
+def test_run_one_matches_plain_steps(dev, weighted):
+    """4 run_one steps (the single-step kernels) against 4 plain steps at
+    17^2 x 7 within 2e-6, as the CA segment; run_one never writes the state
+    it was given."""
+    r0, r1 = get_example_2d("example2", 17, 17)
+    weight = None
+    if weighted:
+        barrier = wdot2d.barrier_love_heart()
+        r0, r1 = wdot2d.get_example_w2d("love-heart", 17, 17)
+        r0, r1, _ = wdot2d.ensure_barrier_validity(r0, r1, barrier)
+        weight = wdot2d.get_weight_by_barrier(17, 17, 7, barrier, dtype=F32,
+                                              device=dev)
+    lv = initialize(r0, r1, 7, dtype=F32, device=dev, weight=weight)
+    initial_scaling(lv, scaling=True)
+    kern = Kernels(LevelConfig(geom=lv.geom, D=lv.D, E=lv.E, device=dev,
+                               dtype=F32), lv.weight)
+    s = kern.prep(lv.as_dict(), 1.0)
+    start = s.clone()
+    plain, one = s.clone(), s
+    fs.reset_launches()
+    for _ in range(4):
+        plain = kern._step_plain(plain)
+        one = kern.run_one(one)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["q_step_w" if weighted else "q_step"] == 4
+    assert fs.LAUNCHES["z_step"] == fs.LAUNCHES["beta_step"] == 4
+    for a, b in zip(_blocks(s.phi, s.z, s.beta, s.q, s.alpha),
+                    _blocks(start.phi, start.z, start.beta, start.q,
+                            start.alpha)):
+        assert torch.equal(a, b)
+    for g, w in zip(_blocks(one.phi, one.z, one.beta, one.q, one.alpha),
+                    _blocks(plain.phi, plain.z, plain.beta, plain.q,
+                            plain.alpha)):
+        close(g, w, 2e-6, 2e-6)
+
+
+@pytest.mark.parametrize("method", ["sGS-inPALM", "acc-ADMM"])
+def test_segment_launch_counts(dev, method):
+    """A 5-iteration segment: sGS-inPALM runs one sweep (3 launches) and one
+    z_step, q_step and beta_step an iteration; acc-ADMM one
+    cone_project_diff an iteration; neither runs a plain version."""
+    r0, r1 = get_example_2d("example2", 17, 17)
+    lv = initialize(r0, r1, 7, dtype=F32, device=dev)
+    initial_scaling(lv, scaling=True)
+    if method == "sGS-inPALM":
+        kern = SgsKernels(LevelConfig(geom=lv.geom, D=lv.D, E=lv.E,
+                                      device=dev, dtype=F32))
+    else:
+        kern = AccADMMKernels(LevelConfig(geom=lv.geom, D=lv.D, E=lv.E,
+                                          device=dev, dtype=F32, tau=1.0))
+    state = kern.prep(lv.as_dict(), 1.0)
+    fs.reset_launches()
+    sgs_sweep.reset_launches()
+    kern.run_segment(state, 5)
+    torch.cuda.synchronize()
+    want = dict.fromkeys(fs.LAUNCHES, 0)
+    if method == "sGS-inPALM":
+        want.update(z_step=5, q_step=5, beta_step=5)
+        assert sgs_sweep.LAUNCHES["rb_sweep"] == 15
+    else:
+        want.update(cone_project_diff=5)
+    assert fs.LAUNCHES == want

@@ -213,7 +213,7 @@ def test_ca_segment_matches_plain_steps_f64(k):
         lv.as_dict(), sigma=1.0)), device="cpu", dtype=torch.float64)
     plain = s.clone()
     for _ in range(k):
-        plain = tk._step(plain)
+        plain = tk._step_plain(plain)
     seg = tk.run_segment(s.clone(), k)
     _assert_state_close(state_to_numpy(seg), state_to_numpy(plain), 1e-12,
                         1e-12)
@@ -228,7 +228,7 @@ def test_plain_steps_match_jax_steps_f64():
     ts = state_from_numpy(_fields(js), device="cpu", dtype=torch.float64)
     for _ in range(3):
         js = jk.run_one(js)
-        ts = tk._step(ts)
+        ts = tk._step_plain(ts)
     _assert_state_close(state_to_numpy(ts), _fields(js), 1e-12, 1e-13)
 
 
@@ -260,4 +260,5 @@ def test_launch_counter_reset():
     fs.reset_launches()
     assert set(fs.LAUNCHES.values()) == {0}
     assert set(fs.LAUNCHES) == {"x_step", "qx_step", "qx_step_w", "cx_step",
-                                "cx_final"}
+                                "cx_final", "z_step", "q_step", "q_step_w",
+                                "beta_step", "cone_project_diff"}

@@ -309,8 +309,6 @@ def test_solve_dot_refuses_what_waits():
         kw.pop("weight", None), device="cpu", verbose=False)
     with pytest.raises(ValueError, match="not in"):
         run(method="sGS-ADMM")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
-        run(opts={"theta": 3.0}, method="acc-ADMM")
     # weighted: only WDOT_METHODS; the image barriers wait
     weight = twdot2d.get_weight_by_barrier(9, 9, 5,
                                            twdot2d.barrier_love_heart())

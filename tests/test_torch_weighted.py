@@ -274,7 +274,7 @@ def test_weighted_prep_and_plain_steps_match_f64():
     _assert_state_close(state_to_numpy(ts), _fields(js))
     for _ in range(5):
         js = jk.run_one(js)
-        ts = tk._step(ts)
+        ts = tk._step_plain(ts)
     _assert_state_close(state_to_numpy(ts), _fields(js))
 
 
