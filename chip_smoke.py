@@ -16,12 +16,19 @@ Phases, each raising on failure:
    love-heart barrier weights in 2D and seeded weights with walls in 1D;
    the single-step kernels z_step, q_step, q_step_w, beta_step and
    cone_project_diff with their inputs unchanged, q_step_w and
-   cone_project_diff bit-equal);
+   cone_project_diff bit-equal, and in 3D every q-step; the flat shift
+   bit-equal at every axis stride);
    a 4-iteration CA segment against 4 plain steps within rtol 2e-6 /
    atol 2e-6, unweighted and weighted (and weighted at 129^2 x 129); and
    4 ``run_one`` steps (the single-step kernels) against 4 ``_step_plain``
    steps at 17^2 x 7 within the same 2e-6, unweighted and weighted, the
    state handed to ``run_one`` unchanged.
+3b. The same checks of every DIM = 3 kernel (C = 14; seeded weights with
+   walls) at 17 x 33 x 65 x 9 (a different size on each axis), 33^3 x 17,
+   the 3D scale level 129^3 x 33, and the levels of the 3D solves of
+   phase 4f (65^3 x 33, 17^3 x 9), with the device memory peak of each;
+   a 3D CA segment and 4 ``run_one`` steps against 4 plain steps at
+   gaussian 17^3 x 9 within ``SEG_REL_3D`` of the largest entry.
 4. The headline solve: DOTmark-4stitch 129^2 x 33, 3 levels, inPALM, tol
    1e-4, float32, through ``solve_dot(..., device="cuda")``: mass
    conservation, stop residuals, 470-574 iterations (522 is the anchor),
@@ -48,16 +55,29 @@ Phases, each raising on failure:
    float64 count (``THETA3_ANCHOR``); ``profile_phases`` at 513^2 x 65 for
    inPALM, inPALM with love-heart weights (the weighted q_step kernel),
    sGS-inPALM and acc-ADMM.
+4f. The 3D path, float32, tol 1e-4: gaussian 65^3 x 33, 3 levels, inPALM
+   (``HEADLINE_3D_ANCHOR``, the x centre of mass on the geodesic 0.3, 0.5,
+   0.7 within 5e-3, W2^2 printed); the demo default 33^3 x 17, 2 levels,
+   gaussian and split8; split8 sGS-inPALM and gaussian acc-ADMM at
+   17^3 x 9: each within +-10% of the JAX host driver's count, mass
+   conservation, stop residuals, and the launches of each kernel per
+   iteration or segment.
 5. Times at 513^2 x 65 with CUDA events: each kernel against its plain
    version (the weighted q-steps with love-heart weights), with its bytes
    and share of 3.35 TB/s, the phi-step, one CA iteration, one single-step
    iteration (``_step``) and one plain step, one sGS iteration; and one
-   weighted CA iteration at 129^2 x 129. Nothing about speed is asserted.
+   weighted CA iteration at 129^2 x 129. The same at the 3D scale level
+   129^3 x 33 for every DIM = 3 kernel, and one CA, single-step, plain and
+   sGS iteration there. Nothing about speed is asserted.
 
 The line before the last is a JSON object with one entry per kernel (its
-launches on the main path, its largest error against its plain version,
-its time and its plain version's at 513^2 x 65, its bytes and the bound
-bytes / 3.35 TB/s); the last line is ``{"ok": true, "device": {...}}``.
+launches on the main path: the sum over every solve and profile of phases
+4-4e, each run with every count set to 0 just before and read just after;
+its largest error against its plain version, its time and its plain
+version's at 513^2 x 65, its bytes and the bound bytes / 3.35 TB/s; and
+under ``dim3`` the same for its DIM = 3 form at 129^3 x 33, with its
+launches summed over the 3D solves of phase 4f); the last line is
+``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero before printing any result.
 """
@@ -115,12 +135,44 @@ DEVICE = "cuda"
 # (nt, space) of the kernel checks, and of the timing level
 CHECK_SHAPES = ((33, (129, 129)), (65, (513, 513)), (33, (1025,)))
 SCALE = (65, 513)
+# the 3D kernel checks: a different size on each axis (a swapped stride,
+# size or spacing shows), the demo default 33^3 x 17, the 3D scale level
+# 129^3 x 33 (one cone array 3.85 GB), which phase 5 also times, and the
+# finest and coarsest levels the 3D solves of phase 4f run on
+CHECK_SHAPES_3D = ((9, (17, 33, 65)), (17, (33, 33, 33)),
+                   (33, (129, 129, 129)), (33, (65, 65, 65)),
+                   (9, (17, 17, 17)))
+# kernels that no solve of a path launches: the flat shift (on no solver
+# path, as in the JAX package) and, in 3D, the weighted q-steps (the JAX
+# package has no 3D weight model)
+OFF_PATH = {"flat_shift"}
+OFF_PATH_3D = OFF_PATH | {"qx_step_w", "q_step_w"}
+SCALE_3D = (33, 129)
+# gaussian 65^3 x 33, 3 levels, inPALM, tol 1e-4, float32: the JAX
+# package's host driver on the CPU takes 1409 + 529 + 89 = 2027 iterations
+HEADLINE_3D_ANCHOR = (1409, 529, 89)
+# (n, nt, levels) of the 3D solves of phase 4f: the 3D headline, the demo
+# default, the sGS-inPALM / acc-ADMM pair
+HEADLINE_3D, DEMO_3D, VARIANT_3D = (65, 33, 3), (33, 17, 2), (17, 9, 2)
+# 33^3 x 17, 2 levels, inPALM, tol 1e-4 (``demos/demo_dot3d.py``'s
+# default): the JAX host driver on the CPU, float64 and float32 alike
+DEMO_3D_ANCHORS = {"gaussian": (1449, 529), "split8": (689, 609)}
+# 17^3 x 9, 2 levels, tol 1e-4: split8 with sGS-inPALM and gaussian with
+# acc-ADMM, the JAX host driver on the CPU, float64 and float32 alike; both
+# converge before maxit
+VARIANT_3D_ANCHORS = {("sGS-inPALM", "split8"): (529, 1506),
+                      ("acc-ADMM", "gaussian"): (1489, 1249)}
+# relative bound of a 3D CA segment and of 3D run_one steps against plain
+# steps at 17^3 x 9 after 4 iterations, as SEG_REL_129 in 2D
+SEG_REL_3D = 1e-5
+STEPS_3D = (17, 9)
 FUSED_CU = "dotsocp_tpu_torch/csrc/fused_step.cu"
 SOURCES = {"x_step": FUSED_CU, "qx_step": FUSED_CU, "qx_step_w": FUSED_CU,
            "cx_step": FUSED_CU, "cx_final": FUSED_CU,
            "rb_sweep": "dotsocp_tpu_torch/csrc/sgs_sweep.cu",
            "z_step": FUSED_CU, "q_step": FUSED_CU, "q_step_w": FUSED_CU,
-           "beta_step": FUSED_CU, "cone_project_diff": FUSED_CU}
+           "beta_step": FUSED_CU, "cone_project_diff": FUSED_CU,
+           "flat_shift": "dotsocp_tpu_torch/csrc/flat_shift.cu"}
 REPLACES = {
     "x_step": "dotsocp_tpu/ops/pallas_kernels.py:812",
     "qx_step": "dotsocp_tpu/ops/pallas_kernels.py:860",
@@ -138,6 +190,7 @@ REPLACES = {
                  "dotsocp_tpu/ops/pallas_kernels.py:632"],
     "beta_step": "dotsocp_tpu/ops/pallas_kernels.py:750",
     "cone_project_diff": "dotsocp_tpu/ops/pallas_kernels.py:1094",
+    "flat_shift": "dotsocp_tpu/ops/pallas_kernels.py:321",
 }
 
 
@@ -177,7 +230,37 @@ def check_device(torch):
 
 # -- phase 2 --------------------------------------------------------------------
 
+def register_report(ptxas_log):
+    """(kernel<args>, registers, spill store bytes, spill load bytes) of
+    every entry function in the compiler's ``-Xptxas -v`` report."""
+    import re
+
+    rows, name, spill = [], None, (0, 0)
+    for line in ptxas_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"([a-z_]+_kernel)(?:I((?:L[ib]\d+E)+)E)?",
+                          m.group(1))
+            name = m.group(1) if k is None else k.group(1)
+            if k is not None and k.group(2):
+                name += "<{}>".format(", ".join(
+                    v if t == "i" else ("true" if v == "1" else "false")
+                    for t, v in re.findall(r"L([ib])(\d+)E", k.group(2))))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            rows.append((name, int(m.group(1))) + spill)
+            name, spill = None, (0, 0)
+    return rows
+
+
 def build_kernels():
+    """Build the kernels; print and return the register report, the
+    DIM = 3 forms (C = 14) first."""
     from dotsocp_tpu_torch.ops import _build
 
     t0 = time.monotonic()
@@ -186,9 +269,14 @@ def build_kernels():
     log(f"libraries {', '.join(info['paths'])} "
         f"({'cached' if info['cached'] else 'built in parallel'}) in "
         f"{time.monotonic() - t0:.2f} s")
-    for line in info.get("log", "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log("  " + line.strip())
+    rows = register_report(info.get("log", ""))
+    rows.sort(key=lambda r: ("<3" not in r[0] and "<14" not in r[0], r[0]))
+    for name, regs, st, ld in rows:
+        log(f"  {name:38s} {regs:3d} registers, spill stores {st} B, "
+            f"spill loads {ld} B")
+    require(rows or info["cached"], "no register report from ptxas")
+    return [dict(kernel=n, registers=r, spill_store_bytes=st,
+                 spill_load_bytes=ld) for n, r, st, ld in rows]
 
 
 # -- phase 3 --------------------------------------------------------------------
@@ -236,9 +324,12 @@ def random_inputs(torch, geom, seed, dev):
 
     ops = OpsFlat(geom, torch.float32, dev)
     rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     d, nt, S, C = geom.ndim_space, geom.nt, ops.S, geom.cone_cols
 
     def rand(*shape):
+        if d == 3:  # gigabytes at 129^3 x 33: drawn on the card
+            return torch.randn(shape, generator=gen, device=dev)
         return torch.from_numpy(
             rng.standard_normal(shape, dtype=np.float32)).to(dev)
 
@@ -265,10 +356,12 @@ def check_kernels(torch, cmp, geom, seed):
                                       D, sbf, tau)
     q, a = fs.qx_step(ops, v["phi"], v["x"], v["alpha"].clone(), dinv, D,
                       sbf, tau)
-    errs["qx_step"] = max(cmp("qx_step", q.q0, want_q.q0),
-                          cmp("qx_step", q.bs, want_q.bs),
-                          cmp("qx_step", a.q0, want_a.q0),
-                          cmp("qx_step", a.bs, want_a.bs))
+    # the 3D q-steps round as their plain versions do
+    exact = geom.ndim_space == 3
+    errs["qx_step"] = max(cmp("qx_step", q.q0, want_q.q0, exact=exact),
+                          cmp("qx_step", q.bs, want_q.bs, exact=exact),
+                          cmp("qx_step", a.q0, want_a.q0, exact=exact),
+                          cmp("qx_step", a.bs, want_a.bs, exact=exact))
     ghost = (q.bs * (1.0 - ops.masks)).abs().max()
     require(float(ghost) == 0.0, "qx_step wrote a non-zero ghost face slot")
     wdinv = fs.weighted_dinv(ops, ops.weight_to_internal(
@@ -320,7 +413,8 @@ def check_single_step_kernels(torch, cmp, geom, seed):
                        ("q_step_w", wdinv)):
         want = fs.q_step_plain(ops, phi, z, beta, alpha, dinv, D, sbf, tau)
         got = fs.q_step(ops, phi, z, beta, alpha, dinv, D, sbf, tau)
-        errs[name] = max(cmp(name, g, w, exact=name == "q_step_w")
+        exact = name == "q_step_w" or geom.ndim_space == 3
+        errs[name] = max(cmp(name, g, w, exact=exact)
                          for g, w in zip(got[0].blocks() + got[1].blocks(),
                                          want[0].blocks() + want[1].blocks()))
         ghost = (got[0].bs * (1.0 - ops.masks)).abs().max()
@@ -341,8 +435,8 @@ def check_single_step_kernels(torch, cmp, geom, seed):
 
 def check_weight(torch, geom, seed):
     """A shaped weight of the check shape: the love-heart barrier's in 2D;
-    in 1D seeded weights in [0.5, 2] (the time block too) with about one
-    face in eight at the wall weight."""
+    in 1D and 3D seeded weights in [0.5, 2] (the time block too) with about
+    one face in eight at the wall weight (drawn on the card in 3D)."""
     import numpy as np
 
     from dotsocp_tpu_torch.models import wdot2d as W
@@ -353,6 +447,18 @@ def check_weight(torch, geom, seed):
         ny, nx = geom.space
         return W.get_weight_by_barrier(nx, ny, geom.nt, W.barrier_love_heart(),
                                        dtype=torch.float32, device=dev)
+    if geom.ndim_space == 3:
+        gen = torch.Generator(device=dev).manual_seed(200 + seed)
+
+        def block(shape, walls):
+            w = 0.5 + 1.5 * torch.rand(shape, generator=gen, device=dev)
+            if walls:
+                wall = torch.rand(shape, generator=gen, device=dev) < 0.125
+                w = torch.where(wall, torch.full_like(w, W.BARRIER_WEIGHT), w)
+            return w
+
+        return Staggered(block(geom.q0_shape, False),
+                         tuple(block(geom.b_shape(a), True) for a in range(3)))
     rng = np.random.default_rng(200 + seed)
     q0 = rng.uniform(0.5, 2.0, geom.q0_shape)
     b = rng.uniform(0.5, 2.0, geom.b_shape(0))
@@ -392,6 +498,92 @@ def check_sweep(torch, cmp, geom, seed):
     require(torch.equal(phi, before), "rb_sweep wrote its input phi")
     log(f"  {geom.space} x {geom.nt}: rb_sweep 1 sweep {errs[0]:.2e}, 2 in "
         f"one call {errs[1]:.2e}, 2 chained {errs[2]:.2e}; input intact")
+
+
+def check_shift(torch, cmp, geom, seed):
+    """The flat shift kernel (TPU kernel 3) bit-equal to its plain version
+    at every axis stride of the grid, both directions, on phi and on one
+    plane of a cone array read in place."""
+    from dotsocp_tpu_torch.ops import shift
+
+    ops, v = random_inputs(torch, geom, 300 + seed, torch.device(DEVICE))
+    plane = geom.cone_cols // 2
+    for a, k in enumerate(ops.strides):
+        for forward in (True, False):
+            plain = ops._sfwd if forward else ops._sbwd
+            cmp("flat_shift", shift.flat_shift(v["phi"], k, forward),
+                plain(v["phi"], a), exact=True)
+            cmp("flat_shift", shift.flat_shift(v["beta"], k, forward, plane),
+                plain(v["beta"][plane], a), exact=True)
+    torch.cuda.synchronize()
+    log(f"  {geom.space} x {geom.nt}: flat_shift at strides {ops.strides}, "
+        f"both directions, phi and cone plane {plane}: bit-equal")
+
+
+def check_3d_kernels(torch):
+    """Phase 3 in 3D: every DIM = 3 kernel against its plain version at
+    each of ``CHECK_SHAPES_3D``, with the device memory peak of each."""
+    from dotsocp_tpu_torch.ops.geometry import Geometry
+
+    cmp = Compare(torch)
+    peaks = {}
+    for seed, (nt, space) in enumerate(CHECK_SHAPES_3D):
+        geom = Geometry(nt, space)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        check_kernels(torch, cmp, geom, seed)
+        check_single_step_kernels(torch, cmp, geom, seed)
+        check_sweep(torch, cmp, geom, seed)
+        check_shift(torch, cmp, geom, seed)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        peaks["x".join(map(str, space)) + f"x{nt}"] = peak
+        log(f"  {space} x {nt}: peak device memory {peak:.2f} GiB")
+    torch.cuda.empty_cache()
+    return dict(cmp.max_abs), peaks
+
+
+def gaussian_3d_level(torch, n, nt, dev):
+    """The finest level of gaussian n^3 x nt after InitialScaling."""
+    from dotsocp_tpu_torch.models.examples import get_example_3d
+    from dotsocp_tpu_torch.multilevel.level import initial_scaling, initialize
+
+    r0, r1 = get_example_3d("gaussian", n, n, n)
+    lv = initialize(r0, r1, nt, dtype=torch.float32, device=dev)
+    initial_scaling(lv, scaling=True)
+    return lv
+
+
+def check_3d_steps(torch):
+    """A 4-iteration CA segment and 4 ``run_one`` steps against 4 plain
+    steps at gaussian 17^3 x 9, held to ``SEG_REL_3D`` of the largest
+    entry; one launch of each single-step kernel a step, the state given
+    to run_one intact."""
+    from dotsocp_tpu_torch.ops import fused_step as fs
+
+    lv = gaussian_3d_level(torch, *STEPS_3D, DEVICE)
+    out = {}
+    for name, run in (("CA segment", None), ("run_one", run_ones)):
+        fs.reset_launches()
+        err, _, scale = segment_vs_steps(torch, lv, 4, run)
+        launches = dict(fs.LAUNCHES)
+        log(f"  3D {name} (4 its) vs 4 plain steps at {STEPS_3D[0]}^3 x "
+            f"{STEPS_3D[1]}: max abs "
+            f"{err:.2e}, {err / scale:.2e} of the largest entry {scale:.3e} "
+            f"(held to {SEG_REL_3D:g}); launches {launches}")
+        require(err <= SEG_REL_3D * scale, f"3D {name}: max |kernels - "
+                f"steps| = {err:.3e} exceeds {SEG_REL_3D:g} of {scale:.3e}")
+        if run is None:
+            require(launches["x_step"] == launches["cx_final"] == 1
+                    and launches["qx_step"] == 4
+                    and launches["cx_step"] == 3,
+                    f"3D CA segment launched {launches}")
+        else:
+            require(launches["z_step"] == launches["q_step"]
+                    == launches["beta_step"] == 4,
+                    f"3D run_one launched {launches}, not each single-step "
+                    f"kernel once a step")
+        out[name] = dict(max_abs=err, rel=err / scale)
+    return out
 
 
 def headline_level(torch, dev):
@@ -534,6 +726,28 @@ def check_run_one(torch):
 
 # -- phase 4 --------------------------------------------------------------------
 
+def reset_launch_counts():
+    """Every kernel wrapper's launch count set to 0."""
+    from dotsocp_tpu_torch.ops import fused_step, sgs_sweep, shift
+
+    for module in (fused_step, sgs_sweep, shift):
+        module.reset_launches()
+
+
+def launch_counts():
+    """Every kernel wrapper's launch count, by kernel."""
+    from dotsocp_tpu_torch.ops import fused_step, sgs_sweep, shift
+
+    return dict(fused_step.LAUNCHES, **sgs_sweep.LAUNCHES, **shift.LAUNCHES)
+
+
+def add_counts(total, counts):
+    """Adds one run's launch counts into ``total``; returns it."""
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+    return total
+
+
 def stop_residual(lv, weighted=False):
     """A level report's largest stop residual: KKT entries 1, 3, 6, 7, or
     1, 3, 6 for a weighted problem."""
@@ -548,21 +762,20 @@ def headline_solve(torch):
 
     from dotsocp_tpu_torch.models.examples import get_example_2d
     from dotsocp_tpu_torch.multilevel.solve import solve_dot
-    from dotsocp_tpu_torch.ops import fused_step as fs
 
     # warm-up: library load, cuBLAS handles, allocator pools
     w0, w1 = get_example_2d("example2", 17, 17)
     solve_dot(w0, w1, 9, 2, {"tol": 1e-3}, device=DEVICE, verbose=False)
 
     r0, r1 = get_example_2d("DOTmark_4stitch", 129, 129)
-    fs.reset_launches()
+    reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.monotonic()
     out, _, _ = solve_dot(r0, r1, 33, 3, {"tol": 1e-4}, "inPALM",
                           device=DEVICE, dtype=torch.float32, verbose=True)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = dict(fs.LAUNCHES)
+    launches = launch_counts()
 
     iters = [lv["iters"] for lv in out["levels"]]
     total = sum(iters)
@@ -598,19 +811,16 @@ def solve_levels(torch, method, problem, n, nt, levels, **opts):
     launches, wall seconds)."""
     from dotsocp_tpu_torch.models.examples import get_example_2d
     from dotsocp_tpu_torch.multilevel.solve import solve_dot
-    from dotsocp_tpu_torch.ops import fused_step as fs
-    from dotsocp_tpu_torch.ops import sgs_sweep
 
     r0, r1 = get_example_2d(problem, n, n)
-    fs.reset_launches()
-    sgs_sweep.reset_launches()
+    reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.monotonic()
     out, hist, _ = solve_dot(r0, r1, nt, levels, dict(opts, tol=1e-4), method,
                              device=DEVICE, dtype=torch.float32, verbose=False)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = dict(fs.LAUNCHES, **sgs_sweep.LAUNCHES)
+    launches = launch_counts()
     iters = [lv["iters"] for lv in out["levels"]]
     log(f"  {method} {problem} {n}^2 x {nt}, {levels} levels: iterations "
         f"{iters} in {wall:.3f} s; launches {launches}")
@@ -668,8 +878,9 @@ def sgs_solve(torch):
 
 
 def variant_solves(torch):
-    """Phase 4c: acc-sGS-ADMM, acc-ADMM and PALM at example2 65^2 x 17."""
-    results = {}
+    """Phase 4c: acc-sGS-ADMM, acc-ADMM and PALM at example2 65^2 x 17;
+    returns the launches of the three solves and their results."""
+    total_launches, results = {}, {}
     for method, anchor in VARIANT_ANCHORS.items():
         out, _, launches, wall = solve_levels(torch, method, "example2", 65,
                                               17, 2)
@@ -695,7 +906,8 @@ def variant_solves(torch):
                 f"iteration of its acc levels ({acc_iterations(method, out)})")
         results[method] = dict(iters=iters, wall_s=wall,
                                cone_launches=launches["cone_project_diff"])
-    return results
+        add_counts(total_launches, launches)
+    return total_launches, results
 
 
 def acc_iterations(method, out):
@@ -720,14 +932,13 @@ def weighted_solve(torch, method, n, nt, levels, tol):
     to 0 just before; returns (output, launches, wall seconds, mask)."""
     from dotsocp_tpu_torch.models import wdot2d as W
     from dotsocp_tpu_torch.multilevel.solve import solve_dot
-    from dotsocp_tpu_torch.ops import fused_step as fs
 
     barrier = W.barrier_love_heart()
     r0, r1 = W.get_example_w2d("love-heart", n, n)
     r0, r1, mask = W.ensure_barrier_validity(r0, r1, barrier)
     weight = W.get_weight_by_barrier(n, n, nt, barrier, dtype=torch.float32,
                                      device=DEVICE)
-    fs.reset_launches()
+    reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.monotonic()
     out, _, _ = solve_dot(r0, r1, nt, levels, {"tol": tol}, method, weight,
@@ -735,7 +946,7 @@ def weighted_solve(torch, method, n, nt, levels, tol):
                           verbose=False)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = dict(fs.LAUNCHES)
+    launches = launch_counts()
     rho = out["rho"]
     require(tuple(rho.shape) == (nt, n, n), f"{method}: rho shape {rho.shape}")
     require(bool(torch.isfinite(rho).all()), f"{method}: non-finite density")
@@ -752,7 +963,8 @@ def weighted_solve(torch, method, n, nt, levels, tol):
 
 
 def weighted_solves(torch):
-    """Phase 4d: the weighted headline and weighted acc-ADMM."""
+    """Phase 4d: the weighted headline and weighted acc-ADMM; returns the
+    launches of the two solves and their results."""
     import numpy as np
     from scipy.ndimage import binary_erosion
 
@@ -801,8 +1013,7 @@ def weighted_solves(torch):
             f"weighted acc-ADMM: cone_project_diff launched "
             f"{acc_launches['cone_project_diff']} times, not once per "
             f"iteration ({acc_iters[0]})")
-    launches["cone_project_diff"] += acc_launches["cone_project_diff"]
-    return launches, dict(headline=headline,
+    return add_counts(launches, acc_launches), dict(headline=headline,
                           acc_admm=dict(iters=acc_iters, wall_s=acc_wall))
 
 
@@ -823,18 +1034,21 @@ def check_phases(torch, phases, what):
 
 def profile_solve(torch):
     """The headline with opts={"profile": True}: the phases of every level,
-    each with a finite time."""
+    each with a finite time; returns the launches of the solve and the
+    tables."""
     from dotsocp_tpu_torch.models.examples import get_example_2d
     from dotsocp_tpu_torch.multilevel.solve import solve_dot
     from dotsocp_tpu_torch.utils.profiling import format_table
 
     r0, r1 = get_example_2d("DOTmark_4stitch", 129, 129)
+    reset_launch_counts()
     t0 = time.monotonic()
     out, _, _ = solve_dot(r0, r1, 33, 3, {"tol": 1e-4, "profile": True},
                           "inPALM", device=DEVICE, dtype=torch.float32,
                           verbose=False)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
+    launches = launch_counts()
     iters = [lv["iters"] for lv in out["levels"]]
     log(f"  headline with profile: iterations {iters} in {wall:.3f} s")
     tables = {}
@@ -849,12 +1063,13 @@ def profile_solve(torch):
         tables[lv["level"]] = phases
     require(470 <= sum(iters) <= 574, f"profiled headline: total iterations "
             f"{sum(iters)} outside 470-574")
-    return tables
+    return launches, tables
 
 
 def theta3_solve(torch):
     """acc-ADMM's Nesterov branch (theta = 3) at example2 65^2 x 17, 2
-    levels, against ``THETA3_ANCHOR``."""
+    levels, against ``THETA3_ANCHOR``; returns the launches of the solve and
+    its result."""
     out, _, launches, wall = solve_levels(torch, "acc-ADMM", "example2", 65,
                                           17, 2, theta=3.0)
     iters = [lv["iters"] for lv in out["levels"]]
@@ -874,21 +1089,20 @@ def theta3_solve(torch):
     require(launches["cone_project_diff"] == total, f"theta = 3: "
             f"cone_project_diff launched {launches['cone_project_diff']} "
             f"times, not once per iteration ({total})")
-    return dict(iters=iters, wall_s=wall,
-                cone_launches=launches["cone_project_diff"])
+    return launches, dict(iters=iters, wall_s=wall,
+                          cone_launches=launches["cone_project_diff"])
 
 
 def profile_scale(torch):
     """``profile_phases`` at 513^2 x 65 from each level's start: inPALM,
     inPALM with love-heart weights (its full step on the weighted q_step
-    kernel), sGS-inPALM and acc-ADMM. Returns the tables and the weighted
-    q-step's launches there."""
+    kernel), sGS-inPALM and acc-ADMM. Returns the launches of the four
+    profiles and the tables."""
     from dotsocp_tpu_torch.algorithms.core import LevelConfig
     from dotsocp_tpu_torch.algorithms.variants import (AccADMMKernels,
                                                        SgsKernels)
     from dotsocp_tpu_torch.models.examples import get_example_2d
     from dotsocp_tpu_torch.multilevel.level import initial_scaling, initialize
-    from dotsocp_tpu_torch.ops import fused_step as fs
     from dotsocp_tpu_torch.utils.profiling import format_table, profile_phases
 
     nt, n = SCALE
@@ -910,19 +1124,20 @@ def profile_scale(torch):
             return AccADMMKernels(cfg(1.0)), lv
         return make_kernels(torch, lv), lv
 
-    tables, q_w = {}, 0
+    tables, total_launches = {}, {}
     for name in ("inPALM", "inPALM love-heart", "sGS-inPALM", "acc-ADMM"):
         kern, level = build(name)
         state = kern.prep(level.as_dict(), 1.0)
-        fs.reset_launches()
+        reset_launch_counts()
         allocs = torch.cuda.memory_stats().get("num_device_alloc", 0)
         phases = profile_phases(kern, state, iters=20)
         torch.cuda.synchronize()
         allocs = torch.cuda.memory_stats().get("num_device_alloc", 0) - allocs
+        launches = launch_counts()
+        add_counts(total_launches, launches)
         if name == "inPALM love-heart":
-            q_w = fs.LAUNCHES["q_step_w"]
-            require(q_w > 0 and fs.LAUNCHES["q_step"] == 0, f"{name}: "
-                    f"launches {dict(fs.LAUNCHES)}, expected the weighted "
+            require(launches["q_step_w"] > 0 and launches["q_step"] == 0,
+                    f"{name}: launches {launches}, expected the weighted "
                     f"q_step kernel")
         log(f"  {name} at {lv.geom.space} x {nt} ({allocs} cudaMalloc "
             f"calls of the caching allocator during the profile):")
@@ -932,7 +1147,130 @@ def profile_scale(torch):
         tables[name] = phases
         del kern, level, state
         torch.cuda.empty_cache()
-    return tables, q_w
+    return total_launches, tables
+
+
+# -- phase 4f -------------------------------------------------------------------
+
+def solve_3d(torch, method, problem, n, nt, levels):
+    """One float32 3D solve at tol 1e-4 on the card with every launch count
+    set to 0 just before; checks the shape, finiteness, mass conservation
+    and every level's stop residuals; returns (output, launches, wall)."""
+    from dotsocp_tpu_torch.models.examples import get_example_3d
+    from dotsocp_tpu_torch.multilevel.solve import solve_dot
+
+    r0, r1 = get_example_3d(problem, n, n, n)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    out, _, _ = solve_dot(r0, r1, nt, levels, {"tol": 1e-4}, method,
+                          device=DEVICE, dtype=torch.float32, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = launch_counts()
+    iters = [lv["iters"] for lv in out["levels"]]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    stops = [stop_residual(lv) for lv in out["levels"]]
+    log(f"  {method} {problem} {n}^3 x {nt}, {levels} levels: iterations "
+        f"{iters} ({sum(iters)}) in {wall:.3f} s, mass_ok {out['mass_ok']}, "
+        f"stop residuals {[f'{x:.2e}' for x in stops]}, peak device memory "
+        f"{peak:.2f} GiB; launches {launches}")
+    rho = out["rho"]
+    require(tuple(rho.shape) == (nt, n, n, n), f"{method}: rho shape "
+            f"{tuple(rho.shape)}")
+    require(bool(torch.isfinite(rho).all()), f"{method}: non-finite density")
+    require(out["mass_ok"], f"3D {method} {problem}: mass conservation "
+            f"violated")
+    require(len(out["E"]) == 3 and "Ex" not in out, "3D output keys")
+    for lv, stop in zip(out["levels"], stops):
+        require(stop < 1e-4, f"3D {method} {problem} level {lv['level']} "
+                f"stopped at KKT {stop:.3e}")
+    return out, launches, wall, peak
+
+
+def require_band(what, iters, anchor):
+    total, want = sum(iters), sum(anchor)
+    log(f"    anchor {list(anchor)} ({want}): "
+        f"{100.0 * (total - want) / want:+.1f}%")
+    require(abs(total - want) <= 0.1 * want, f"{what}: total iterations "
+            f"{total} not within 10% of {want}")
+
+
+def require_ca_launches(what, launches, total):
+    """The x-carry kernels of inPALM levels: one qx_step an iteration, one
+    x_step and one cx_final a segment, cx_step the rest."""
+    require(launches["qx_step"] == total, f"{what}: qx_step launched "
+            f"{launches['qx_step']} times, not once per iteration ({total})")
+    require(launches["x_step"] == launches["cx_final"] > 0, f"{what}: x_step "
+            f"{launches['x_step']} and cx_final {launches['cx_final']} "
+            f"launches, not one each a segment")
+    require(launches["cx_step"] == total - launches["cx_final"],
+            f"{what}: cx_step launched {launches['cx_step']} times")
+
+
+def solves_3d(torch):
+    """Phase 4f: the 3D path through ``solve_dot``: the 3D headline, the
+    demo default pair, sGS-inPALM and acc-ADMM; returns the launches summed
+    over the five solves and their results."""
+    import numpy as np
+
+    from dotsocp_tpu_torch.utils.objective import (gaussian_w2_squared,
+                                                   transport_cost)
+
+    results, total_launches = {}, {}
+    out, launches, wall, peak = solve_3d(torch, "inPALM", "gaussian",
+                                         *HEADLINE_3D)
+    iters = [lv["iters"] for lv in out["levels"]]
+    require_band("3D headline", iters, HEADLINE_3D_ANCHOR)
+    require_ca_launches("3D headline", launches, sum(iters))
+    rho = out["rho"].double().cpu().numpy()
+    x = np.linspace(0.0, 1.0, rho.shape[-1])
+    com = [float((rho[t] * x).sum() / rho[t].sum())
+           for t in (0, rho.shape[0] // 2, rho.shape[0] - 1)]
+    w2 = transport_cost(out["rho"], out["E"])
+    w2_exact = gaussian_w2_squared((0.3,) * 3, (0.7,) * 3, 0.12, 0.12)
+    log(f"    x centre of mass at t = 0, mid, end: "
+        f"{[f'{c:.5f}' for c in com]} (geodesic 0.3, 0.5, 0.7); W2^2 "
+        f"{w2:.5f} (closed form of the continuous Gaussians {w2_exact:g}; "
+        f"printed, not held)")
+    require(np.allclose(com, [0.3, 0.5, 0.7], rtol=0.0, atol=5e-3),
+            f"3D headline: centre of mass {com} off the geodesic")
+    results["headline_65"] = dict(iters=iters, total=sum(iters), wall_s=wall,
+                                  com_x=com, w2=w2, peak_gib=peak)
+    add_counts(total_launches, launches)
+    for problem, anchor in DEMO_3D_ANCHORS.items():
+        out, launches, wall, _ = solve_3d(torch, "inPALM", problem, *DEMO_3D)
+        iters = [lv["iters"] for lv in out["levels"]]
+        require_band(f"3D demo {problem}", iters, anchor)
+        require_ca_launches(f"3D demo {problem}", launches, sum(iters))
+        add_counts(total_launches, launches)
+        results[f"demo_{problem}_33"] = dict(iters=iters, wall_s=wall)
+    for (method, problem), anchor in VARIANT_3D_ANCHORS.items():
+        out, launches, wall, _ = solve_3d(torch, method, problem,
+                                          *VARIANT_3D)
+        iters = [lv["iters"] for lv in out["levels"]]
+        require_band(f"3D {method}", iters, anchor)
+        if method == "sGS-inPALM":
+            require(out["levels"][0]["method"] == "Inexact Proximal ALM",
+                    f"3D sGS-inPALM level 1 ran {out['levels'][0]['method']}")
+            require(launches["rb_sweep"] == 3 * iters[-1], f"3D sGS-inPALM: "
+                    f"rb_sweep launched {launches['rb_sweep']} times, not 3 "
+                    f"per sGS iteration ({iters[-1]})")
+            for name in ("z_step", "q_step", "beta_step"):
+                require(launches[name] == iters[-1], f"3D sGS-inPALM: {name} "
+                        f"launched {launches[name]} times, not once per sGS "
+                        f"iteration ({iters[-1]})")
+            require_ca_launches("3D sGS-inPALM level 1", launches, iters[0])
+        else:
+            acc = acc_iterations(method, out)
+            require(acc == sum(iters) and launches["cone_project_diff"] == acc,
+                    f"3D acc-ADMM: cone_project_diff launched "
+                    f"{launches['cone_project_diff']} times, not once per "
+                    f"iteration ({acc})")
+        add_counts(total_launches, launches)
+        results[f"{method}_{problem}_17"] = dict(iters=iters, wall_s=wall)
+    return total_launches, results
 
 
 # -- phase 5 --------------------------------------------------------------------
@@ -987,10 +1325,13 @@ def kernel_bytes(geom):
         "beta_step": 4 * (cells + faces + 3 * C * cells),
         # z2, beta -> z
         "cone_project_diff": 4 * 3 * C * cells,
+        # phi read once, its shift written once
+        "flat_shift": 4 * 2 * nt * S,
     }
 
 
 def time_scale(torch):
+    from dotsocp_tpu_torch.models import wdot2d as W
     from dotsocp_tpu_torch.models.examples import get_example_2d
     from dotsocp_tpu_torch.multilevel.level import initial_scaling, initialize
     from dotsocp_tpu_torch.ops import fused_step as fs
@@ -1000,66 +1341,17 @@ def time_scale(torch):
     lv = initialize(r0, r1, nt, dtype=torch.float32, device=DEVICE)
     initial_scaling(lv, scaling=True)
     kern = make_kernels(torch, lv)
-    ops = kern.ops
     s = kern.run_segment(kern.prep(lv.as_dict(), 1.0), 5)
-    sbf, sd, tau = s.E / s.D, s.E / s.dScale, kern.cfg.tau
-    dinv = kern._diag_inv(s)
-    x = kern._fresh_x(s)
-    work = {"alpha": s.alpha.clone(), "beta": s.beta.clone(), "x": x.clone()}
-    reps = 20
-    times = {}
-    times["x_step"] = paired(
-        torch, lambda: fs.x_step_plain(ops, s.q, s.beta, sbf, sd),
-        lambda: fs.x_step(ops, s.q, s.beta, sbf, sd), reps)
-    times["qx_step"] = paired(
-        torch, lambda: fs.qx_step_plain(ops, s.phi, x, s.alpha, dinv, s.D,
-                                        sbf, tau),
-        lambda: fs.qx_step(ops, s.phi, x, work["alpha"], dinv, s.D, sbf, tau),
-        reps)
-    from dotsocp_tpu_torch.models import wdot2d as W
-
-    wdinv = fs.weighted_dinv(ops, ops.weight_to_internal(
+    wdinv = fs.weighted_dinv(kern.ops, kern.ops.weight_to_internal(
         W.get_weight_by_barrier(n, n, nt, W.barrier_love_heart(),
                                 dtype=torch.float32, device=DEVICE)),
         s.D, s.E)
-    times["qx_step_w"] = paired(
-        torch, lambda: fs.qx_step_plain(ops, s.phi, x, s.alpha, wdinv, s.D,
-                                        sbf, tau),
-        lambda: fs.qx_step(ops, s.phi, x, work["alpha"], wdinv, s.D, sbf,
-                           tau),
-        reps)
-    for name, final in (("cx_step", False), ("cx_final", True)):
-        fn = fs.cx_final if final else fs.cx_step
-        times[name] = paired(
-            torch, lambda: fs.cx_step_plain(ops, s.beta, x, s.q, sbf, sd, tau,
-                                            final),
-            lambda: fn(ops, work["beta"], work["x"], s.q, sbf, sd, tau), reps)
-    # the single-step kernels: fresh outputs, so no work copies
-    times["z_step"] = paired(
-        torch, lambda: fs.z_step_plain(ops, s.q, s.beta, sbf, sd),
-        lambda: fs.z_step(ops, s.q, s.beta, sbf, sd), reps)
-    for name, d in (("q_step", dinv), ("q_step_w", wdinv)):
-        times[name] = paired(
-            torch, lambda: fs.q_step_plain(ops, s.phi, s.z, s.beta, s.alpha,
-                                           d, s.D, sbf, tau),
-            lambda: fs.q_step(ops, s.phi, s.z, s.beta, s.alpha, d, s.D, sbf,
-                              tau), reps)
-    times["beta_step"] = paired(
-        torch, lambda: fs.beta_step_plain(ops, s.beta, s.z, s.q, sbf, sd, tau),
-        lambda: fs.beta_step(ops, s.beta, s.z, s.q, sbf, sd, tau), reps)
-    z2 = ops.bfd(s.q, sbf, sd)
-    times["cone_project_diff"] = paired(
-        torch, lambda: fs.cone_project_diff_plain(z2, s.beta),
-        lambda: fs.cone_project_diff(z2, s.beta), reps)
-    nbytes = kernel_bytes(lv.geom)
-    log(f"  {lv.geom.space} x {nt} f32, means of {reps} launches (plain, "
-        f"kernel, kernel, plain):")
-    for name, (k_ms, p_ms) in times.items():
-        gbs = nbytes[name] / (k_ms * 1e-3) / 1e9
-        log(f"  {name:17s} kernel {k_ms:8.3f} ms  plain {p_ms:8.3f} ms  "
-            f"{nbytes[name] / 1e9:.2f} GB -> {gbs:7.1f} GB/s "
-            f"({100 * gbs * 1e9 / HBM_PEAK:.0f}% of 3.35 TB/s; bound "
-            f"{1e3 * nbytes[name] / HBM_PEAK:.3f} ms)")
+    reps = 20
+    times, library = time_kernels(torch, kern, s, wdinv, reps)
+    log_times(times, kernel_bytes(lv.geom), lv.geom, reps)
+    log(f"  flat_shift library call (F.pad of a slice) "
+        f"{library['flat_shift']:.3f} ms")
+    x = kern._fresh_x(s)
 
     rhs = kern._rhs(s)
     dct_ms = event_ms(torch, lambda: kern._poisson_solve(s, rhs), reps)
@@ -1084,9 +1376,9 @@ def time_scale(torch):
     log(f"  one iteration: CA kernels {ca_ms:.3f} ms, single-step kernels "
         f"(_step) {step_ms:.3f} ms, plain step {plain_it_ms:.3f} / "
         f"{plain_it2_ms:.3f} ms")
-    return times, dict(dct_ms=dct_ms, phi_step_ms=phi_ms, ca_iter_ms=ca_ms,
-                       step_iter_ms=step_ms,
-                       plain_iter_ms=(plain_it_ms + plain_it2_ms) / 2)
+    return times, library, dict(dct_ms=dct_ms, phi_step_ms=phi_ms,
+                                ca_iter_ms=ca_ms, step_iter_ms=step_ms,
+                                plain_iter_ms=(plain_it_ms + plain_it2_ms) / 2)
 
 
 def time_weighted_iteration(torch):
@@ -1158,6 +1450,156 @@ def time_sweep(torch):
                               sgs_iter_plain_post_ms=plain_post_ms)
 
 
+def time_kernels(torch, kern, s, wdinv, reps):
+    """Each step kernel against its plain version on the state ``s`` of
+    ``kern``'s level (weighted q-steps with ``wdinv``), the cone projection
+    and the flat shift at the first axis's stride; {name: (kernel ms,
+    plain ms)}, and the shift's library call (one ``F.pad`` of a slice)."""
+    import torch.nn.functional as F
+
+    from dotsocp_tpu_torch.ops import fused_step as fs
+    from dotsocp_tpu_torch.ops import shift
+
+    ops = kern.ops
+    sbf, sd, tau = s.E / s.D, s.E / s.dScale, kern.cfg.tau
+    dinv = kern._diag_inv(s)
+    x = kern._fresh_x(s)
+    work = {"alpha": s.alpha.clone(), "beta": s.beta.clone(), "x": x.clone()}
+    times = {}
+    times["x_step"] = paired(
+        torch, lambda: fs.x_step_plain(ops, s.q, s.beta, sbf, sd),
+        lambda: fs.x_step(ops, s.q, s.beta, sbf, sd), reps)
+    for name, d in (("qx_step", dinv), ("qx_step_w", wdinv)):
+        times[name] = paired(
+            torch, lambda: fs.qx_step_plain(ops, s.phi, x, s.alpha, d, s.D,
+                                            sbf, tau),
+            lambda: fs.qx_step(ops, s.phi, x, work["alpha"], d, s.D, sbf,
+                               tau), reps)
+    for name, final in (("cx_step", False), ("cx_final", True)):
+        fn = fs.cx_final if final else fs.cx_step
+        times[name] = paired(
+            torch, lambda: fs.cx_step_plain(ops, s.beta, x, s.q, sbf, sd, tau,
+                                            final),
+            lambda: fn(ops, work["beta"], work["x"], s.q, sbf, sd, tau), reps)
+    del work, x
+    # the single-step kernels: fresh outputs, so no work copies
+    times["z_step"] = paired(
+        torch, lambda: fs.z_step_plain(ops, s.q, s.beta, sbf, sd),
+        lambda: fs.z_step(ops, s.q, s.beta, sbf, sd), reps)
+    for name, d in (("q_step", dinv), ("q_step_w", wdinv)):
+        times[name] = paired(
+            torch, lambda: fs.q_step_plain(ops, s.phi, s.z, s.beta, s.alpha,
+                                           d, s.D, sbf, tau),
+            lambda: fs.q_step(ops, s.phi, s.z, s.beta, s.alpha, d, s.D, sbf,
+                              tau), reps)
+    times["beta_step"] = paired(
+        torch, lambda: fs.beta_step_plain(ops, s.beta, s.z, s.q, sbf, sd, tau),
+        lambda: fs.beta_step(ops, s.beta, s.z, s.q, sbf, sd, tau), reps)
+    z2 = ops.bfd(s.q, sbf, sd)
+    times["cone_project_diff"] = paired(
+        torch, lambda: fs.cone_project_diff_plain(z2, s.beta),
+        lambda: fs.cone_project_diff(z2, s.beta), reps)
+    del z2
+    k = ops.strides[0]
+    times["flat_shift"] = paired(
+        torch, lambda: ops._sfwd(s.phi, 0),
+        lambda: shift.flat_shift(s.phi, k, True), reps)
+    library = {"flat_shift": event_ms(
+        torch, lambda: F.pad(s.phi[..., : ops.S - k], (k, 0)), reps)}
+    return times, library
+
+
+def log_times(times, nbytes, geom, reps):
+    log(f"  {geom.space} x {geom.nt} f32, means of {reps} launches (plain, "
+        f"kernel, kernel, plain):")
+    for name, (k_ms, p_ms) in times.items():
+        gbs = nbytes[name] / (k_ms * 1e-3) / 1e9
+        log(f"  {name:17s} kernel {k_ms:8.3f} ms  plain {p_ms:8.3f} ms  "
+            f"{nbytes[name] / 1e9:.2f} GB -> {gbs:7.1f} GB/s "
+            f"({100 * gbs * 1e9 / HBM_PEAK:.0f}% of 3.35 TB/s; bound "
+            f"{1e3 * nbytes[name] / HBM_PEAK:.3f} ms)")
+
+
+def time_scale_3d(torch):
+    """Phase 5 in 3D, at the 3D scale level 129^3 x 33 (gaussian): every
+    DIM = 3 kernel against its plain version (the weighted q-steps with
+    seeded walls), the sweep kernel, and one CA, one single-step and one
+    sGS iteration against one plain step; at most two level states live
+    at a time."""
+    from dotsocp_tpu_torch.algorithms.core import LevelConfig
+    from dotsocp_tpu_torch.algorithms.variants import SgsKernels
+    from dotsocp_tpu_torch.ops import fused_step as fs
+    from dotsocp_tpu_torch.ops.sgs_sweep import rb_sweep
+
+    nt, n = SCALE_3D
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lv = gaussian_3d_level(torch, n, nt, DEVICE)
+    kern = make_kernels(torch, lv)
+    s = kern.run_segment(kern.prep(lv.as_dict(), 1.0), 5)
+    wdinv = fs.weighted_dinv(kern.ops, kern.ops.weight_to_internal(
+        check_weight(torch, lv.geom, 0)), s.D, s.E)
+    reps = 10
+    times, library = time_kernels(torch, kern, s, wdinv, reps)
+    del wdinv
+    torch.cuda.empty_cache()
+    nbytes = kernel_bytes(lv.geom)
+    state = {"ca": s.replace(z=kern._fresh_x(s), alpha=s.alpha.clone(),
+                             beta=s.beta.clone())}
+
+    def ca_iter():
+        state["ca"] = kern._step_fused_x(state["ca"], final=False)
+
+    def step_iter():
+        state["step"] = kern._step(state["step"])
+
+    def plain_iter():
+        state["plain"] = kern._step_plain(state["plain"])
+
+    ca_ms = event_ms(torch, ca_iter, reps)
+    del state["ca"]
+    state["step"] = s.clone()
+    step_ms = event_ms(torch, step_iter, reps)
+    del state["step"]
+    state["plain"] = s.clone()
+    plain_ms = event_ms(torch, plain_iter, reps)
+    del state["plain"]
+    rhs = kern._rhs(s)
+    dct_ms = event_ms(torch, lambda: kern._poisson_solve(s, rhs), reps)
+    del rhs, kern, s
+    torch.cuda.empty_cache()
+
+    sk = SgsKernels(LevelConfig(geom=lv.geom, D=lv.D, E=lv.E, tau=1.9,
+                                dtype=torch.float32, device=DEVICE))
+    s = sk.run_segment(sk.prep(lv.as_dict(), 0.1), 5)
+    phi = sk.ops.phi_from_internal(s.phi)
+    rhs = sk.ops.phi_from_internal(sk._rhs(s))
+    d2 = s.D * s.D
+    times["rb_sweep"] = paired(torch, lambda: sk.sgs.sweep(phi, rhs, 1, d2=d2),
+                               lambda: rb_sweep(sk.sgs, phi, rhs, d2), reps)
+    del phi, rhs
+    state["sgs"] = s
+
+    def sgs_iter():
+        state["sgs"] = sk._step(state["sgs"])
+
+    sgs_ms = event_ms(torch, sgs_iter, reps)
+    del state["sgs"], s, sk
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.empty_cache()
+    log_times(times, nbytes, lv.geom, reps)
+    log(f"  flat_shift library call (F.pad of a slice) "
+        f"{library['flat_shift']:.3f} ms")
+    log(f"  one iteration at {lv.geom.space} x {nt}: CA kernels {ca_ms:.3f} "
+        f"ms, single-step kernels (_step) {step_ms:.3f} ms, plain step "
+        f"{plain_ms:.3f} ms, sGS-inPALM (sweep + single-step kernels) "
+        f"{sgs_ms:.3f} ms; DCT solve {dct_ms:.3f} ms; peak device memory "
+        f"{peak:.2f} GiB")
+    return times, library, dict(ca_iter_ms=ca_ms, step_iter_ms=step_ms,
+                                plain_iter_ms=plain_ms, sgs_iter_ms=sgs_ms,
+                                dct_ms=dct_ms, peak_gib=peak)
+
+
 def profile_window(torch, trace_dir):
     """Device busy share over 20 CA iterations at the headline finest level:
     kernel time from torch.profiler, wall time from an unprofiled run of the
@@ -1218,7 +1660,7 @@ def main(argv=None):
     phase(1, "device")
     device_name, _ = check_device(torch)
     phase(2, "build")
-    build_kernels()
+    registers = build_kernels()
     phase(3, "kernels against their plain versions")
     from dotsocp_tpu_torch.ops.geometry import Geometry
 
@@ -1227,43 +1669,63 @@ def main(argv=None):
         check_kernels(torch, cmp, Geometry(nt, space), seed)
         check_single_step_kernels(torch, cmp, Geometry(nt, space), seed)
         check_sweep(torch, cmp, Geometry(nt, space), seed)
+        check_shift(torch, cmp, Geometry(nt, space), seed)
         torch.cuda.empty_cache()
     kernel_err = dict(cmp.max_abs)
     check_segment(torch)
     check_run_one(torch)
+    phase("3b", "the DIM = 3 kernels at 17 x 33 x 65 x 9, 33^3 x 17, "
+          "129^3 x 33, 65^3 x 33 and 17^3 x 9; 3D CA segment and run_one at "
+          "17^3 x 9")
+    kernel_err_3d, peaks_3d = check_3d_kernels(torch)
+    steps_3d = check_3d_steps(torch)
+    # the main path's launches: each solve and profile below counts from 0
+    # and hands back what it read
+    launches = {}
     phase(4, "headline solve")
-    launches, headline = headline_solve(torch)
+    run_launches, headline = headline_solve(torch)
+    add_counts(launches, run_launches)
     phase("4b", "the sGS path: sGS-inPALM at 129^2 x 33")
-    sgs_launches, sgs_path = sgs_solve(torch)
-    for k in ("rb_sweep", "z_step", "q_step", "beta_step"):
-        launches[k] = sgs_launches[k]
+    run_launches, sgs_path = sgs_solve(torch)
+    add_counts(launches, run_launches)
     phase("4c", "acc-sGS-ADMM, acc-ADMM, PALM at 65^2 x 17")
-    variants = variant_solves(torch)
+    run_launches, variants = variant_solves(torch)
+    add_counts(launches, run_launches)
     phase("4d", "the weighted headline: love-heart 129^2 x 129; weighted "
           "acc-ADMM at 33^2 x 9")
-    w_launches, weighted = weighted_solves(torch)
-    launches["qx_step_w"] = w_launches["qx_step_w"]
-    launches["cone_project_diff"] = (
-        sum(v["cone_launches"] for v in variants.values())
-        + w_launches["cone_project_diff"])
+    run_launches, weighted = weighted_solves(torch)
+    add_counts(launches, run_launches)
     phase("4e", "profile: the headline with opts profile; acc-ADMM theta = 3 "
           "at 65^2 x 17; profile_phases at 513^2 x 65")
-    profiled = profile_solve(torch)
-    variants["acc-ADMM theta=3"] = theta3_solve(torch)
-    launches["cone_project_diff"] += variants["acc-ADMM theta=3"][
-        "cone_launches"]
-    profiles, launches["q_step_w"] = profile_scale(torch)
-    phase(5, "times at 513^2 x 65")
-    times, others = time_scale(torch)
+    run_launches, profiled = profile_solve(torch)
+    add_counts(launches, run_launches)
+    run_launches, variants["acc-ADMM theta=3"] = theta3_solve(torch)
+    add_counts(launches, run_launches)
+    run_launches, profiles = profile_scale(torch)
+    add_counts(launches, run_launches)
+    phase("4f", "the 3D path: gaussian 65^3 x 33 (3 levels), the demo "
+          "default 33^3 x 17 (gaussian, split8), sGS-inPALM and acc-ADMM at "
+          "17^3 x 9")
+    launches_3d, solves3d = solves_3d(torch)
+    log(f"  main-path launches, 2D {launches}; 3D {launches_3d}")
+    for k in REPLACES:
+        require(k in OFF_PATH or launches[k] > 0, f"{k} was launched no time "
+                f"on the 2D main path")
+        require(k in OFF_PATH_3D or launches_3d[k] > 0, f"{k} was launched "
+                f"no time on the 3D path")
+    phase(5, "times at 513^2 x 65 and at 129^3 x 33")
+    times, library, others = time_scale(torch)
     times["rb_sweep"], sweep_others = time_sweep(torch)
     others.update(sweep_others)
     others.update(time_weighted_iteration(torch))
+    times_3d, library_3d, others_3d = time_scale_3d(torch)
     if args.profile is not None:
         phase(6, "profiler window")
         profile_window(torch, args.profile)
     log(f"\nall phases passed in {time.monotonic() - t_start:.1f} s")
 
     nbytes = kernel_bytes(Geometry(SCALE[0], (SCALE[1], SCALE[1])))
+    nbytes_3d = kernel_bytes(Geometry(SCALE_3D[0], (SCALE_3D[1],) * 3))
     kernels = [{
         "name": k,
         "route": "cuda",
@@ -1276,13 +1738,28 @@ def main(argv=None):
         "bytes": nbytes[k],
         "bound_ms": 1e3 * nbytes[k] / HBM_PEAK,
         "bound_by": "bytes",
-        # no single PyTorch call computes any of these functions
-        "library_ms": None,
+        # one PyTorch call computes only the shift (F.pad of a slice)
+        "library_ms": library.get(k),
+        # the DIM = 3 form at the 3D scale level; its launches on the 3D
+        # path (phase 4f), its error over the 3D check shapes
+        "dim3": {
+            "shape": [SCALE_3D[0]] + [SCALE_3D[1]] * 3,
+            "launches": launches_3d[k],
+            "max_abs_err": kernel_err_3d[k],
+            "ms": times_3d[k][0],
+            "plain_ms": times_3d[k][1],
+            "bytes": nbytes_3d[k],
+            "bound_ms": 1e3 * nbytes_3d[k] / HBM_PEAK,
+            "library_ms": library_3d.get(k),
+        },
     } for k in REPLACES]
     print(json.dumps({"kernels": kernels, "headline": headline,
                       "sgs_path": sgs_path, "variants": variants,
                       "weighted": weighted, "profile_headline": profiled,
-                      "profile_513x65": profiles, "scale_513x65": others}))
+                      "profile_513x65": profiles, "scale_513x65": others,
+                      "registers": registers, "peak_gib_3d": peaks_3d,
+                      "steps_3d": steps_3d, "solves_3d": solves3d,
+                      "scale_129x3x33": others_3d}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}))

@@ -4,13 +4,15 @@ Dynamic optimal transport (Benamou-Brenier, staggered space-time grid)
 solved as a second-order cone program by PALM, inPALM, ALG2, acc-ADMM,
 sGS-inPALM or acc-sGS-ADMM inside the multilevel coarse-to-fine scheme.
 The JAX package ``dotsocp_tpu`` stays the reference; module names here
-mirror it one to one. The post-DCT passes of the inPALM loop and the sGS
-sweep are hand-written CUDA kernels for Hopper (``csrc/*.cu``, bound in
-``ops/fused_step.py`` and ``ops/sgs_sweep.py``); on CPU tensors the same
+mirror it one to one, on 1D, 2D and 3D grids. The post-DCT passes of
+the inPALM loop, the sGS sweep and the cone projection are hand-written
+CUDA kernels for Hopper (``csrc/*.cu``, bound in ``ops/fused_step.py``,
+``ops/sgs_sweep.py`` and ``ops/shift.py``); on CPU tensors the same
 wrappers run their plain PyTorch versions.
 
-Every entry point takes its ``device`` from the caller; nothing here picks
-one by itself.
+The entry points run on the card (``solve_dot``'s ``device`` defaults to
+``"cuda"``) unless the caller asks for the CPU with ``device="cpu"``; they
+never fall back to the CPU by themselves.
 """
 
 from .ops.geometry import Geometry

@@ -120,10 +120,6 @@ class Kernels:
     KKT battery and the host-driven state transforms."""
 
     def __init__(self, cfg: LevelConfig, weight: Optional[Staggered] = None):
-        if cfg.geom.ndim_space not in (1, 2):
-            raise NotImplementedError(
-                "3D grids wait in ROADMAP.md queue 1 (other algorithms and "
-                "dimensions) and queue 2 (3D kernels)")
         self.cfg = cfg
         self.geom = cfg.geom
         self.ops = OpsFlat(cfg.geom, cfg.dtype, cfg.device)

@@ -27,17 +27,23 @@
 //
 // Layout (flat, f32, contiguous): phi (nt, S); q0, alpha0 (nt-1, S); face
 // blocks bs, alpha_b (d, nt, S) with the ghost slot of each axis pinned to
-// zero; cone arrays beta, x, z (C, nt-1, S) with C = 2 + 4d. A spatial shift
-// by one cell along axis a is a flat shift by k_a = stride_a with zero fill.
+// zero; cone arrays beta, x, z (C, nt-1, S) with C = 2 + 4d, d = 1, 2 or 3
+// (C = 6, 10, 14). A spatial shift by one cell along axis a is a flat shift
+// by k_a = stride_a with zero fill. Each kernel takes the stride, size and
+// spacing of each of its DIM axes in an Axes<DIM> struct and reads axis a's
+// own: a grid with a different size on each axis is what the checks run on.
 //
 // Design: one thread per (row, s) element, s fastest, so every load and
 // store of a warp is one coalesced transaction per array plane. Each kernel
 // is one streaming pass bounded by HBM bandwidth (bytes at 513^2 x 65:
 // x_step 1.55 GB, qx_step 1.35 GB (weighted 1.56 GB), cx_step 2.90 GB,
 // z_step 1.55 GB, q_step 2.03 GB (weighted 2.23 GB), beta_step 2.23 GB,
-// cone_project_diff 2.02 GB). Offsets are 64-bit: C (nt-1) S passes 2^31 on
-// the larger grids. Tiling through shared memory, TMA, and merging passes
-// are left for later work.
+// cone_project_diff 2.02 GB; at 129^3 x 33, d = 3: x_step 8.8 GB, cx_step
+// 16.5 GB). Offsets are 64-bit: C (nt-1) S passes 2^31 on the larger
+// grids. At C = 14 a cx thread keeps up to four C-arrays live (56 floats);
+// the compiler's register report (``-Xptxas -v``) says whether any spill.
+// Tiling through shared memory, TMA, and merging passes are left for later
+// work.
 //
 // In place or fresh: the x-carry kernels update alpha (qx), beta and x (cx)
 // in the buffers they were given; the single-step kernels (z, q, beta,
@@ -55,6 +61,35 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr float kInvSqrt2 = 0.707106781186547524400844362104849039f;
+
+// Flat stride k, size n and spacing hs of each of the DIM space axes (last
+// axis fastest), passed by value and sized by DIM, so a 1D or 2D kernel's
+// parameters hold only the axes it has.
+template <int DIM>
+struct Axes {
+  int k[DIM];
+  int n[DIM];
+  float hs[DIM];
+};
+
+// The three axes as the entry points receive them; a d < 3 call passes
+// k 0, n 1, hs 1 for the axes it lacks, which axes_for drops.
+struct AxesIn {
+  int k[3];
+  int n[3];
+  float hs[3];
+};
+
+template <int DIM>
+inline Axes<DIM> axes_for(const AxesIn& in) {
+  Axes<DIM> ax;
+  for (int a = 0; a < DIM; ++a) {
+    ax.k[a] = in.k[a];
+    ax.n[a] = in.n[a];
+    ax.hs[a] = in.hs[a];
+  }
+  return ax;
+}
 
 // Lorentz-cone projection of v (C entries, head first), branch-free as in
 // dotsocp_tpu/ops/cone.py:proj_soc. Returns head and the tail factor coef.
@@ -77,7 +112,7 @@ __device__ __forceinline__ void project(const float (&v)[C], float& head,
 template <int DIM>
 __device__ __forceinline__ void bfd_cols(
     float (&col)[2 + 4 * DIM], const float* __restrict__ q0,
-    const float* __restrict__ bs, int nt, int S, const int (&k)[DIM], int t,
+    const float* __restrict__ bs, int nt, int S, const Axes<DIM>& ax, int t,
     int s, float sbf, float sd) {
   constexpr int C = 2 + 4 * DIM;
   const float sv = sbf * kInvSqrt2;
@@ -89,11 +124,12 @@ __device__ __forceinline__ void bfd_cols(
     const float* b = bs + (int64_t)a * nt * S;
     const int64_t lo = cell;      // face row t
     const int64_t hi = cell + S;  // face row t + 1
-    const bool has = s >= k[a];
+    const int k = ax.k[a];
+    const bool has = s >= k;
     const int c = 1 + 4 * a;
-    col[c] = sv * (has ? b[lo - k[a]] : 0.f);
+    col[c] = sv * (has ? b[lo - k] : 0.f);
     col[c + 1] = sv * b[lo];
-    col[c + 2] = sv * (has ? b[hi - k[a]] : 0.f);
+    col[c + 2] = sv * (has ? b[hi - k] : 0.f);
     col[c + 3] = sv * b[hi];
   }
   col[C - 1] = sd + sbf * q;
@@ -106,18 +142,16 @@ template <int DIM, bool PLUS_BETA>
 __global__ void x_kernel(const float* __restrict__ q0,
                          const float* __restrict__ bs,
                          const float* __restrict__ beta, float* __restrict__ x,
-                         int nt, int S, int k0, int k1, float sbf, float sd) {
+                         int nt, int S, const Axes<DIM> ax, float sbf,
+                         float sd) {
   constexpr int C = 2 + 4 * DIM;
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   const int t = blockIdx.y;
   if (s >= S) return;
-  int ks[DIM];
-#pragma unroll
-  for (int a = 0; a < DIM; ++a) ks[a] = a == 0 ? k0 : k1;
   const int64_t plane = (int64_t)(nt - 1) * S;
   const int64_t cell = (int64_t)t * S + s;
   float col[C];
-  bfd_cols<DIM>(col, q0, bs, nt, S, ks, t, s, sbf, sd);
+  bfd_cols<DIM>(col, q0, bs, nt, S, ax, t, s, sbf, sd);
   float bt[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
@@ -150,6 +184,20 @@ __device__ __forceinline__ float weighted_update(float tmp, float al, float q2,
   return qn;
 }
 
+// The unweighted q-step's update of one element, rounded as its plain
+// version rounds it: (tmp + al + q2) * dinv and al + tau (tmp - q'), every
+// operation on its own (no FMA). The 3D kernels take it: there D grad phi
+// is large against alpha (|D dphi / hs| ~ 30 at 129^3 x 33, ~4 at
+// 513^2 x 65), and where alpha' cancels, an FMA-contracted update misses
+// the plain one by more than the 2e-6 the kernel is held to.
+__device__ __forceinline__ float exact_update(float tmp, float al, float q2,
+                                              float dinv, float tau,
+                                              float& al_out) {
+  const float qn = __fmul_rn(__fadd_rn(__fadd_rn(tmp, al), q2), dinv);
+  al_out = __fadd_rn(al, __fmul_rn(tau, __fsub_rn(tmp, qn)));
+  return qn;
+}
+
 // The q-step's read of x = z + beta at flat offset i of the cone array:
 // the carried x itself, or (SPLIT, the single step) z and beta read apart
 // and summed per element. A shift only relocates, so this is bit-equal to
@@ -172,10 +220,12 @@ __device__ __forceinline__ float xval(const float* __restrict__ x,
 // WEIGHTED, they are those of base (the diagonal of (E/D)^2 F*B*BF), and
 // w0 (cells) and wb (faces, ghost slots 1) are read once each, at the
 // thread's own position. Ghost face slots come out exactly zero either way:
-// tmp, q2 and alpha are zero there. WEIGHTED also forms the face term
-// s_bf BF^T x exactly as the plain version does: the four columns summed
-// left to right and s_bf / sqrt2 as the host rounds it (sv_host), so the
-// weighted kernel and its plain version round alike everywhere.
+// tmp, q2 and alpha are zero there. EXACT (WEIGHTED, or DIM = 3) forms the
+// face term s_bf BF^T x exactly as the plain version does: the four
+// columns summed left to right and s_bf / sqrt2 as the host rounds it
+// (sv_host); with weighted_update or exact_update the kernel and its plain
+// version then round alike everywhere. The 1D and 2D unweighted kernels
+// keep the Pallas association and FMA contraction.
 template <int DIM, bool WEIGHTED, bool SPLIT>
 __global__ void qx_kernel(const float* __restrict__ phi,
                           const float* __restrict__ x,
@@ -183,18 +233,19 @@ __global__ void qx_kernel(const float* __restrict__ phi,
                           const float* ab, float* a0n, float* abn,
                           float* __restrict__ q0n, float* __restrict__ bsn,
                           const float* __restrict__ w0,
-                          const float* __restrict__ wb, int nt, int S, int k0,
-                          int k1, int n0, int n1, float D, float sbf,
-                          float tau, float ht, float hs0, float hs1,
-                          float diag_in, float diag_bd, float sv_host) {
+                          const float* __restrict__ wb, int nt, int S,
+                          const Axes<DIM> ax, float D, float sbf, float tau,
+                          float ht, float diag_in, float diag_bd,
+                          float sv_host) {
   constexpr int C = 2 + 4 * DIM;
+  constexpr bool EXACT = WEIGHTED || DIM == 3;
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   const int t = blockIdx.y;
   if (s >= S) return;
   const int last = nt - 1;
   const int64_t plane = (int64_t)last * S;
   const int64_t node = (int64_t)t * S + s;
-  const float sv = WEIGHTED ? sv_host : sbf * kInvSqrt2;
+  const float sv = EXACT ? sv_host : sbf * kInvSqrt2;
   const float p = phi[node];
   if (t < last) {
     // node (t, s) and cell (t, s) share the flat offset
@@ -206,6 +257,10 @@ __global__ void qx_kernel(const float* __restrict__ phi,
       float al_out;
       q0n[node] = weighted_update(tmp, al, q2, w0[node], diag_in, tau, al_out);
       a0n[node] = al_out;
+    } else if (EXACT) {
+      float al_out;
+      q0n[node] = exact_update(tmp, al, q2, diag_in, tau, al_out);
+      a0n[node] = al_out;
     } else {
       const float qn = (tmp + al + q2) * diag_in;
       q0n[node] = qn;
@@ -215,9 +270,9 @@ __global__ void qx_kernel(const float* __restrict__ phi,
   const float diag_b = (t == 0 || t == last) ? diag_bd : diag_in;
 #pragma unroll
   for (int a = 0; a < DIM; ++a) {
-    const int k = a == 0 ? k0 : k1;
-    const int n = a == 0 ? n0 : n1;
-    const float hs = a == 0 ? hs0 : hs1;
+    const int k = ax.k[a];
+    const int n = ax.n[a];
+    const float hs = ax.hs[a];
     const float m = ((s / k) % n) != n - 1 ? 1.f : 0.f;  // ghost mask
     const bool in = s + k < S;                           // backward shift
     const float ps = in ? phi[node + k] : 0.f;
@@ -235,13 +290,17 @@ __global__ void qx_kernel(const float* __restrict__ phi,
       y2 = in ? xval<SPLIT>(x, beta, (c0 + 2) * plane + cell + k) : 0.f;
       y3 = xval<SPLIT>(x, beta, (c0 + 3) * plane + cell);
     }
-    const float acc = WEIGHTED ? ((y0 + y1) + y2) + y3 : (y0 + y1) + (y2 + y3);
+    const float acc = EXACT ? ((y0 + y1) + y2) + y3 : (y0 + y1) + (y2 + y3);
     const float q2 = (sv * acc) * m;
     const int64_t face = (int64_t)a * nt * S + node;
     const float al = ab[face];
     if (WEIGHTED) {
       float al_out;
       bsn[face] = weighted_update(tmp, al, q2, wb[face], diag_b, tau, al_out);
+      abn[face] = al_out;
+    } else if (EXACT) {
+      float al_out;
+      bsn[face] = exact_update(tmp, al, q2, diag_b, tau, al_out);
       abn[face] = al_out;
     } else {
       const float bn = (tmp + al + q2) * diag_b;
@@ -268,19 +327,16 @@ template <int DIM, int MODE>
 __global__ void cx_kernel(const float* __restrict__ q0n,
                           const float* __restrict__ bsn, const float* beta,
                           const float* x, float* beta_out, float* x_out,
-                          int nt, int S, int k0, int k1, float sbf, float sd,
-                          float tau) {
+                          int nt, int S, const Axes<DIM> ax, float sbf,
+                          float sd, float tau) {
   constexpr int C = 2 + 4 * DIM;
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   const int t = blockIdx.y;
   if (s >= S) return;
-  int ks[DIM];
-#pragma unroll
-  for (int a = 0; a < DIM; ++a) ks[a] = a == 0 ? k0 : k1;
   const int64_t plane = (int64_t)(nt - 1) * S;
   const int64_t cell = (int64_t)t * S + s;
   float col[C];
-  bfd_cols<DIM>(col, q0n, bsn, nt, S, ks, t, s, sbf, sd);
+  bfd_cols<DIM>(col, q0n, bsn, nt, S, ax, t, s, sbf, sd);
   float zs[C], br[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
@@ -352,20 +408,33 @@ inline dim3 grid_for(int S, int rows) {
   return dim3((unsigned)((S + kThreads - 1) / kThreads), (unsigned)rows);
 }
 
+inline AxesIn make_axes(int k0, int k1, int k2, int n0 = 1, int n1 = 1,
+                        int n2 = 1, float hs0 = 1.f, float hs1 = 1.f,
+                        float hs2 = 1.f) {
+  return AxesIn{{k0, k1, k2}, {n0, n1, n2}, {hs0, hs1, hs2}};
+}
+
 template <bool PLUS_BETA>
 int launch_x(const float* q0, const float* bs, const float* beta, float* x,
-             int dim, int nt, int S, int k0, int k1, float sbf, float sd,
+             int dim, int nt, int S, const AxesIn& ax, float sbf, float sd,
              void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid = grid_for(S, nt - 1);
-  if (dim == 1) {
-    x_kernel<1, PLUS_BETA><<<grid, kThreads, 0, st>>>(q0, bs, beta, x, nt, S,
-                                                      k0, k1, sbf, sd);
-  } else if (dim == 2) {
-    x_kernel<2, PLUS_BETA><<<grid, kThreads, 0, st>>>(q0, bs, beta, x, nt, S,
-                                                      k0, k1, sbf, sd);
-  } else {
-    return (int)cudaErrorInvalidValue;
+  switch (dim) {
+    case 1:
+      x_kernel<1, PLUS_BETA><<<grid, kThreads, 0, st>>>(
+          q0, bs, beta, x, nt, S, axes_for<1>(ax), sbf, sd);
+      break;
+    case 2:
+      x_kernel<2, PLUS_BETA><<<grid, kThreads, 0, st>>>(
+          q0, bs, beta, x, nt, S, axes_for<2>(ax), sbf, sd);
+      break;
+    case 3:
+      x_kernel<3, PLUS_BETA><<<grid, kThreads, 0, st>>>(
+          q0, bs, beta, x, nt, S, axes_for<3>(ax), sbf, sd);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
@@ -374,21 +443,29 @@ template <bool WEIGHTED, bool SPLIT>
 int launch_qx(const float* phi, const float* x, const float* beta,
               const float* a0, const float* ab, float* a0n, float* abn,
               float* q0n, float* bsn, const float* w0, const float* wb,
-              int dim, int nt, int S, int k0, int k1, int n0, int n1, float D,
-              float sbf, float tau, float ht, float hs0, float hs1,
-              float diag_in, float diag_bd, float sv_host, void* stream) {
+              int dim, int nt, int S, const AxesIn& ax, float D, float sbf,
+              float tau, float ht, float diag_in, float diag_bd,
+              float sv_host, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid = grid_for(S, nt);
-  if (dim == 1) {
-    qx_kernel<1, WEIGHTED, SPLIT><<<grid, kThreads, 0, st>>>(
-        phi, x, beta, a0, ab, a0n, abn, q0n, bsn, w0, wb, nt, S, k0, k1, n0,
-        n1, D, sbf, tau, ht, hs0, hs1, diag_in, diag_bd, sv_host);
-  } else if (dim == 2) {
-    qx_kernel<2, WEIGHTED, SPLIT><<<grid, kThreads, 0, st>>>(
-        phi, x, beta, a0, ab, a0n, abn, q0n, bsn, w0, wb, nt, S, k0, k1, n0,
-        n1, D, sbf, tau, ht, hs0, hs1, diag_in, diag_bd, sv_host);
-  } else {
-    return (int)cudaErrorInvalidValue;
+  switch (dim) {
+    case 1:
+      qx_kernel<1, WEIGHTED, SPLIT><<<grid, kThreads, 0, st>>>(
+          phi, x, beta, a0, ab, a0n, abn, q0n, bsn, w0, wb, nt, S,
+          axes_for<1>(ax), D, sbf, tau, ht, diag_in, diag_bd, sv_host);
+      break;
+    case 2:
+      qx_kernel<2, WEIGHTED, SPLIT><<<grid, kThreads, 0, st>>>(
+          phi, x, beta, a0, ab, a0n, abn, q0n, bsn, w0, wb, nt, S,
+          axes_for<2>(ax), D, sbf, tau, ht, diag_in, diag_bd, sv_host);
+      break;
+    case 3:
+      qx_kernel<3, WEIGHTED, SPLIT><<<grid, kThreads, 0, st>>>(
+          phi, x, beta, a0, ab, a0n, abn, q0n, bsn, w0, wb, nt, S,
+          axes_for<3>(ax), D, sbf, tau, ht, diag_in, diag_bd, sv_host);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
@@ -396,18 +473,28 @@ int launch_qx(const float* phi, const float* x, const float* beta,
 template <int MODE>
 int launch_cx(const float* q0n, const float* bsn, const float* beta,
               const float* x, float* beta_out, float* x_out, int dim, int nt,
-              int S, int k0, int k1, float sbf, float sd, float tau,
+              int S, const AxesIn& ax, float sbf, float sd, float tau,
               void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid = grid_for(S, nt - 1);
-  if (dim == 1) {
-    cx_kernel<1, MODE><<<grid, kThreads, 0, st>>>(
-        q0n, bsn, beta, x, beta_out, x_out, nt, S, k0, k1, sbf, sd, tau);
-  } else if (dim == 2) {
-    cx_kernel<2, MODE><<<grid, kThreads, 0, st>>>(
-        q0n, bsn, beta, x, beta_out, x_out, nt, S, k0, k1, sbf, sd, tau);
-  } else {
-    return (int)cudaErrorInvalidValue;
+  switch (dim) {
+    case 1:
+      cx_kernel<1, MODE><<<grid, kThreads, 0, st>>>(
+          q0n, bsn, beta, x, beta_out, x_out, nt, S, axes_for<1>(ax), sbf, sd,
+          tau);
+      break;
+    case 2:
+      cx_kernel<2, MODE><<<grid, kThreads, 0, st>>>(
+          q0n, bsn, beta, x, beta_out, x_out, nt, S, axes_for<2>(ax), sbf, sd,
+          tau);
+      break;
+    case 3:
+      cx_kernel<3, MODE><<<grid, kThreads, 0, st>>>(
+          q0n, bsn, beta, x, beta_out, x_out, nt, S, axes_for<3>(ax), sbf, sd,
+          tau);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
@@ -416,29 +503,36 @@ int launch_cx(const float* q0n, const float* bsn, const float* beta,
 
 extern "C" {
 
+// Every entry point takes the flat stride k_a of each space axis (k0..k2),
+// and the q-steps also its size n_a and spacing hs_a; a d < 3 launch passes
+// 0, 1 and 1 for the axes it lacks.
+
 int dotsocp_x_step(const float* q0, const float* bs, const float* beta,
-                   float* x, int dim, int nt, int S, int k0, int k1, float sbf,
-                   float sd, void* stream) {
-  return launch_x<true>(q0, bs, beta, x, dim, nt, S, k0, k1, sbf, sd, stream);
+                   float* x, int dim, int nt, int S, int k0, int k1, int k2,
+                   float sbf, float sd, void* stream) {
+  return launch_x<true>(q0, bs, beta, x, dim, nt, S, make_axes(k0, k1, k2),
+                        sbf, sd, stream);
 }
 
 // z = Pi_K(BF_d q - beta) into the fresh z.
 int dotsocp_z_step(const float* q0, const float* bs, const float* beta,
-                   float* z, int dim, int nt, int S, int k0, int k1, float sbf,
-                   float sd, void* stream) {
-  return launch_x<false>(q0, bs, beta, z, dim, nt, S, k0, k1, sbf, sd, stream);
+                   float* z, int dim, int nt, int S, int k0, int k1, int k2,
+                   float sbf, float sd, void* stream) {
+  return launch_x<false>(q0, bs, beta, z, dim, nt, S, make_axes(k0, k1, k2),
+                         sbf, sd, stream);
 }
 
-// alpha (a0, ab) updated in place.
+// alpha (a0, ab) updated in place; sv is the host's s_bf / sqrt2, which
+// the 3D kernel takes (see qx_kernel).
 int dotsocp_qx_step(const float* phi, const float* x, float* a0, float* ab,
                     float* q0n, float* bsn, int dim, int nt, int S, int k0,
-                    int k1, int n0, int n1, float D, float sbf, float tau,
-                    float ht, float hs0, float hs1, float dinv_in,
-                    float dinv_bd, void* stream) {
-  return launch_qx<false, false>(phi, x, nullptr, a0, ab, a0, ab, q0n, bsn,
-                                 nullptr, nullptr, dim, nt, S, k0, k1, n0, n1,
-                                 D, sbf, tau, ht, hs0, hs1, dinv_in, dinv_bd,
-                                 0.f, stream);
+                    int k1, int k2, int n0, int n1, int n2, float D, float sbf,
+                    float tau, float ht, float hs0, float hs1, float hs2,
+                    float dinv_in, float dinv_bd, float sv, void* stream) {
+  return launch_qx<false, false>(
+      phi, x, nullptr, a0, ab, a0, ab, q0n, bsn, nullptr, nullptr, dim, nt, S,
+      make_axes(k0, k1, k2, n0, n1, n2, hs0, hs1, hs2), D, sbf, tau, ht,
+      dinv_in, dinv_bd, sv, stream);
 }
 
 // The weighted q-step: w0 (nt-1, S) and wb (d, nt, S) the flat weight,
@@ -446,13 +540,14 @@ int dotsocp_qx_step(const float* phi, const float* x, float* a0, float* ab,
 // host's s_bf / sqrt2.
 int dotsocp_qx_step_w(const float* phi, const float* x, float* a0, float* ab,
                       float* q0n, float* bsn, const float* w0, const float* wb,
-                      int dim, int nt, int S, int k0, int k1, int n0, int n1,
-                      float D, float sbf, float tau, float ht, float hs0,
-                      float hs1, float base_in, float base_bd, float sv,
-                      void* stream) {
-  return launch_qx<true, false>(phi, x, nullptr, a0, ab, a0, ab, q0n, bsn, w0,
-                                wb, dim, nt, S, k0, k1, n0, n1, D, sbf, tau,
-                                ht, hs0, hs1, base_in, base_bd, sv, stream);
+                      int dim, int nt, int S, int k0, int k1, int k2, int n0,
+                      int n1, int n2, float D, float sbf, float tau, float ht,
+                      float hs0, float hs1, float hs2, float base_in,
+                      float base_bd, float sv, void* stream) {
+  return launch_qx<true, false>(
+      phi, x, nullptr, a0, ab, a0, ab, q0n, bsn, w0, wb, dim, nt, S,
+      make_axes(k0, k1, k2, n0, n1, n2, hs0, hs1, hs2), D, sbf, tau, ht,
+      base_in, base_bd, sv, stream);
 }
 
 // The single step's q-step from z and beta; alpha' into the fresh
@@ -460,46 +555,48 @@ int dotsocp_qx_step_w(const float* phi, const float* x, float* a0, float* ab,
 int dotsocp_q_step(const float* phi, const float* z, const float* beta,
                    const float* a0, const float* ab, float* a0n, float* abn,
                    float* q0n, float* bsn, int dim, int nt, int S, int k0,
-                   int k1, int n0, int n1, float D, float sbf, float tau,
-                   float ht, float hs0, float hs1, float dinv_in,
-                   float dinv_bd, void* stream) {
-  return launch_qx<false, true>(phi, z, beta, a0, ab, a0n, abn, q0n, bsn,
-                                nullptr, nullptr, dim, nt, S, k0, k1, n0, n1,
-                                D, sbf, tau, ht, hs0, hs1, dinv_in, dinv_bd,
-                                0.f, stream);
+                   int k1, int k2, int n0, int n1, int n2, float D, float sbf,
+                   float tau, float ht, float hs0, float hs1, float hs2,
+                   float dinv_in, float dinv_bd, float sv, void* stream) {
+  return launch_qx<false, true>(
+      phi, z, beta, a0, ab, a0n, abn, q0n, bsn, nullptr, nullptr, dim, nt, S,
+      make_axes(k0, k1, k2, n0, n1, n2, hs0, hs1, hs2), D, sbf, tau, ht,
+      dinv_in, dinv_bd, sv, stream);
 }
 
 int dotsocp_q_step_w(const float* phi, const float* z, const float* beta,
                      const float* a0, const float* ab, float* a0n, float* abn,
                      float* q0n, float* bsn, const float* w0, const float* wb,
-                     int dim, int nt, int S, int k0, int k1, int n0, int n1,
-                     float D, float sbf, float tau, float ht, float hs0,
-                     float hs1, float base_in, float base_bd, float sv,
-                     void* stream) {
-  return launch_qx<true, true>(phi, z, beta, a0, ab, a0n, abn, q0n, bsn, w0,
-                               wb, dim, nt, S, k0, k1, n0, n1, D, sbf, tau,
-                               ht, hs0, hs1, base_in, base_bd, sv, stream);
+                     int dim, int nt, int S, int k0, int k1, int k2, int n0,
+                     int n1, int n2, float D, float sbf, float tau, float ht,
+                     float hs0, float hs1, float hs2, float base_in,
+                     float base_bd, float sv, void* stream) {
+  return launch_qx<true, true>(
+      phi, z, beta, a0, ab, a0n, abn, q0n, bsn, w0, wb, dim, nt, S,
+      make_axes(k0, k1, k2, n0, n1, n2, hs0, hs1, hs2), D, sbf, tau, ht,
+      base_in, base_bd, sv, stream);
 }
 
 // beta and x updated in place.
 int dotsocp_cx_step(const float* q0n, const float* bsn, float* beta, float* x,
-                    int dim, int nt, int S, int k0, int k1, float sbf,
+                    int dim, int nt, int S, int k0, int k1, int k2, float sbf,
                     float sd, float tau, int final_step, void* stream) {
+  const AxesIn ax = make_axes(k0, k1, k2);
   if (final_step) {
-    return launch_cx<kCxFinal>(q0n, bsn, beta, x, beta, x, dim, nt, S, k0, k1,
+    return launch_cx<kCxFinal>(q0n, bsn, beta, x, beta, x, dim, nt, S, ax,
                                sbf, sd, tau, stream);
   }
-  return launch_cx<kCx>(q0n, bsn, beta, x, beta, x, dim, nt, S, k0, k1, sbf,
-                        sd, tau, stream);
+  return launch_cx<kCx>(q0n, bsn, beta, x, beta, x, dim, nt, S, ax, sbf, sd,
+                        tau, stream);
 }
 
 // beta' = beta + tau (z - BF_d q') into the fresh beta_out.
 int dotsocp_beta_step(const float* q0n, const float* bsn, const float* beta,
                       const float* z, float* beta_out, int dim, int nt, int S,
-                      int k0, int k1, float sbf, float sd, float tau,
+                      int k0, int k1, int k2, float sbf, float sd, float tau,
                       void* stream) {
   return launch_cx<kBeta>(q0n, bsn, beta, z, beta_out, nullptr, dim, nt, S,
-                          k0, k1, sbf, sd, tau, stream);
+                          make_axes(k0, k1, k2), sbf, sd, tau, stream);
 }
 
 // z = Pi_K(z2 - beta) over flat (C, M) views, into the fresh z.

@@ -16,7 +16,10 @@
 // sgs.py), so the two agree to a few ulp; FMA contraction is left on.
 //
 // Layout (f32, contiguous): phi, rhs and out are the field (nt, *space),
-// viewed as (nt, S) with S = prod(space) and the last axis fastest.
+// viewed as (nt, S) with S = prod(space) and the last axis fastest; one,
+// two or three space axes (DIM), each with its own size n_a. In 3D this is
+// the counterpart of the whole-field Pallas kernel (the tiled one is 2D
+// only).
 //
 // inv_diag is computed in the kernel from the per-axis degree (1 at an
 // edge, 2 inside), as the tiled Pallas kernel does, instead of read: the
@@ -47,15 +50,16 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// DIM = number of space axes (1 or 2); the field has DIM + 1 axes.
+// DIM = number of space axes (1, 2 or 3); the field has DIM + 1 axes. The
+// sizes of the axes a DIM < 3 launch lacks are 1 and never read.
 template <int DIM>
 __global__ void rb_half_kernel(const float* src, const float* __restrict__ rhs,
                                float* dst, int nt, int S, int n0, int n1,
-                               float d2, int color, int copy_other) {
+                               int n2, float d2, int color, int copy_other) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   const int t = blockIdx.y;
   if (s >= S) return;
-  const int n[2] = {n0, n1};
+  const int n[3] = {n0, n1, n2};
   // coordinates and strides of the space axes (last axis fastest)
   int c[DIM], k[DIM];
   int rest = s;
@@ -103,19 +107,27 @@ extern "C" {
 // One half-sweep of colour `color` (0 = A, 1 = B) from src into dst; with
 // copy_other the cells of the other colour are copied from src, else dst
 // keeps them. src == dst is allowed (see above); rhs must not alias dst.
+// n0..n2 are the sizes of the space axes (1 for those a d < 3 field lacks).
 int dotsocp_rb_half_sweep(const float* src, const float* rhs, float* dst,
-                          int dim, int nt, int S, int n0, int n1, float d2,
-                          int color, int copy_other, void* stream) {
+                          int dim, int nt, int S, int n0, int n1, int n2,
+                          float d2, int color, int copy_other, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((unsigned)((S + kThreads - 1) / kThreads), (unsigned)nt);
-  if (dim == 1) {
-    rb_half_kernel<1><<<grid, kThreads, 0, st>>>(src, rhs, dst, nt, S, n0, n1,
-                                                 d2, color, copy_other);
-  } else if (dim == 2) {
-    rb_half_kernel<2><<<grid, kThreads, 0, st>>>(src, rhs, dst, nt, S, n0, n1,
-                                                 d2, color, copy_other);
-  } else {
-    return (int)cudaErrorInvalidValue;
+  switch (dim) {
+    case 1:
+      rb_half_kernel<1><<<grid, kThreads, 0, st>>>(
+          src, rhs, dst, nt, S, n0, n1, n2, d2, color, copy_other);
+      break;
+    case 2:
+      rb_half_kernel<2><<<grid, kThreads, 0, st>>>(
+          src, rhs, dst, nt, S, n0, n1, n2, d2, color, copy_other);
+      break;
+    case 3:
+      rb_half_kernel<3><<<grid, kThreads, 0, st>>>(
+          src, rhs, dst, nt, S, n0, n1, n2, d2, color, copy_other);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,9 @@
-"""Problem generators for 1D and 2D DOT; a numpy copy of
-``dotsocp_tpu/models/examples.py`` (``get_example_1d``, ``get_example_2d``).
+"""Problem generators for 1D, 2D and 3D DOT; a numpy copy of
+``dotsocp_tpu/models/examples.py`` (``get_example_1d``, ``get_example_2d``,
+``get_example_3d``).
 
 Array convention: densities are (ny, nx) with rows = the first spatial axis
-(y) and columns = x; 1D densities are (nx,). All generators normalize to
+(y) and columns = x; 1D densities are (nx,), 3D ones (nz, ny, nx). All generators normalize to
 unit mean with an optional lower bound:
 rho <- (rho / mean(rho) + lb) / (1 + lb)  (``get_example.m:45-47``).
 
@@ -188,6 +189,55 @@ def gene_example_dotmark_4stitch(nx, ny):
             f"`python scripts/make_dotmark_npz.py --n {nx}`")
     with np.load(path) as f:
         return f["rho0"], f["rho1"]
+
+
+# ---------------------------------------------------------------------------
+# 3D problems (``dotsocp_tpu/models/examples.py:304-349``): beyond the
+# reference, which stops at 2D; cone width 2 + 4*3 = 14
+# ---------------------------------------------------------------------------
+
+def _grid3d(nx, ny, nz):
+    z = np.linspace(0.0, 1.0, nz)[:, None, None]
+    y = np.linspace(0.0, 1.0, ny)[None, :, None]
+    x = np.linspace(0.0, 1.0, nx)[None, None, :]
+    return z, y, x
+
+
+def gene_example3d_gaussian(nx, ny, nz):
+    """Two offset 3D Gaussians (the 3D analogue of example1)."""
+    z, y, x = _grid3d(nx, ny, nz)
+
+    def g(c, s):
+        return np.exp(-((x - c[0]) ** 2 + (y - c[1]) ** 2 + (z - c[2]) ** 2)
+                      / (2 * s * s))
+
+    return g((0.3, 0.3, 0.3), 0.12), g((0.7, 0.7, 0.7), 0.12)
+
+
+def gene_example3d_split8(nx, ny, nz):
+    """One center Gaussian splitting into the 8 corners (3D example2)."""
+    z, y, x = _grid3d(nx, ny, nz)
+
+    def g(c, s):
+        return np.exp(-((x - c[0]) ** 2 + (y - c[1]) ** 2 + (z - c[2]) ** 2)
+                      / (2 * s * s))
+
+    rho0 = g((0.5, 0.5, 0.5), 0.12)
+    rho1 = sum(
+        g((cx, cy, cz), 0.07)
+        for cx in (0.25, 0.75) for cy in (0.25, 0.75) for cz in (0.25, 0.75)
+    )
+    return rho0, rho1
+
+
+def get_example_3d(problem: str, nx: int, ny: int, nz: int,
+                   lower_bound: float = 0.0):
+    gens = {"gaussian": gene_example3d_gaussian,
+            "split8": gene_example3d_split8}
+    if problem not in gens:
+        raise ValueError(f"unknown 3D problem {problem!r}")
+    rho0, rho1 = gens[problem](nx, ny, nz)
+    return _normalize(rho0, lower_bound), _normalize(rho1, lower_bound)
 
 
 # ---------------------------------------------------------------------------

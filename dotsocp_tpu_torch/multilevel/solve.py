@@ -1,6 +1,6 @@
 """Top-level multilevel solver API; port of
-``dotsocp_tpu/multilevel/solve.py:462-680`` (``solve_dot``) in 1D and 2D:
-the unweighted problem with every method of the JAX package's
+``dotsocp_tpu/multilevel/solve.py:462-680`` (``solve_dot``) in 1D, 2D and
+3D: the unweighted problem with every method of the JAX package's
 ``DOT_METHODS`` (acc-ADMM with its Halpern branch, theta = 2, and its
 Nesterov branch, any other theta), and the weighted (obstacle) problem with
 those of ``WDOT_METHODS``.
@@ -97,10 +97,9 @@ def _check_request(rho0, method, weight, opts):
                 f"option {key!r} waits in ROADMAP.md {QUEUED_OPTS[key]}")
         if key not in KNOWN_OPTS:
             raise ValueError(f"unknown option {key!r}")
-    if np.ndim(rho0) not in (1, 2):
-        raise NotImplementedError(
-            "3D transport waits in ROADMAP.md queue 1 and queue 2 (3D "
-            "kernels)")
+    if np.ndim(rho0) not in (1, 2, 3):
+        raise ValueError(f"rho0 has {np.ndim(rho0)} axes; solve_dot takes "
+                         f"1D, 2D and 3D densities")
 
 
 def _cat_hist(hists):
@@ -185,12 +184,15 @@ def solve_dot(
     weight: Optional[Staggered] = None,
     barrier=None,
     *,
-    device,
+    device="cuda",
     dtype: torch.dtype = torch.float32,
     verbose: bool = True,
 ):
-    """Multilevel DOT-SOCP solve on ``device`` (required). Returns
-    (output, run_hist_ml, run_hist) like the JAX ``solve_dot``.
+    """Multilevel DOT-SOCP solve on ``device``: the card unless the caller
+    asks for another device (``device="cpu"`` runs the plain versions of
+    the kernels); without a card the default raises, it never falls back
+    to the CPU. Returns (output, run_hist_ml, run_hist) like the JAX
+    ``solve_dot``.
 
     ``weight`` (a shaped :class:`Staggered` of the finest grid, e.g.
     ``models.wdot2d.get_weight_by_barrier``) switches to the weighted
@@ -198,8 +200,9 @@ def solve_dot(
     the weight was built from) restricts the weight in log space and
     re-validates the coarse densities against it.
 
-    output: rho (nt, *space), E (list per axis; Ex/Ey aliases in 2D), q0,
-    b (list per axis), mass_ok, per-level reports, total_time.
+    output: rho (nt, *space), E (list per axis; Ex/Ey aliases in 2D, Ex
+    in 1D, none in 3D), q0, b (list per axis, aliased alike), mass_ok,
+    per-level reports, total_time.
     """
     opts = dict(opts or {})
     _check_request(rho0, method, weight, opts)
@@ -332,7 +335,7 @@ def solve_dot(
         # space = (ny, nx): axis 0 = y, axis 1 = x
         output["Ey"], output["Ex"] = Es[0], Es[1]
         output["by"], output["bx"] = bs[0], bs[1]
-    else:
+    elif lv.geom.ndim_space == 1:
         output["Ex"] = Es[0]
         output["bx"] = bs[0]
 

@@ -31,21 +31,23 @@ _F = ctypes.c_float
 # every source, with the argtypes of each C entry point it defines
 SOURCES = {
     "fused_step.cu": {
-        "dotsocp_x_step": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
-        "dotsocp_qx_step": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _F, _F, _F, _F, _F, _F, _F, _F, _P],
-        "dotsocp_qx_step_w": [_P] * 8 + [_I] * 7 + [_F] * 9 + [_P],
-        "dotsocp_cx_step": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F,
-                            _I, _P],
-        "dotsocp_z_step": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
-        "dotsocp_q_step": [_P] * 9 + [_I] * 7 + [_F] * 8 + [_P],
-        "dotsocp_q_step_w": [_P] * 11 + [_I] * 7 + [_F] * 9 + [_P],
-        "dotsocp_beta_step": [_P] * 5 + [_I] * 5 + [_F] * 3 + [_P],
+        # (dim, nt, S, k0..k2): the stride of each space axis; the q-steps
+        # also take the sizes n0..n2 and, among their floats, hs0..hs2
+        "dotsocp_x_step": [_P] * 4 + [_I] * 6 + [_F] * 2 + [_P],
+        "dotsocp_qx_step": [_P] * 6 + [_I] * 9 + [_F] * 10 + [_P],
+        "dotsocp_qx_step_w": [_P] * 8 + [_I] * 9 + [_F] * 10 + [_P],
+        "dotsocp_cx_step": [_P] * 4 + [_I] * 6 + [_F] * 3 + [_I, _P],
+        "dotsocp_z_step": [_P] * 4 + [_I] * 6 + [_F] * 2 + [_P],
+        "dotsocp_q_step": [_P] * 9 + [_I] * 9 + [_F] * 10 + [_P],
+        "dotsocp_q_step_w": [_P] * 11 + [_I] * 9 + [_F] * 10 + [_P],
+        "dotsocp_beta_step": [_P] * 5 + [_I] * 6 + [_F] * 3 + [_P],
         "dotsocp_cone_project_diff": [_P, _P, _P, _I, _I, _P],
     },
     "sgs_sweep.cu": {
-        "dotsocp_rb_half_sweep": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
-                                  _P],
+        "dotsocp_rb_half_sweep": [_P] * 3 + [_I] * 6 + [_F, _I, _I, _P],
+    },
+    "flat_shift.cu": {
+        "dotsocp_flat_shift": [_P, _P, _I, _I, _I, _I, _I, _P],
     },
 }
 

@@ -30,6 +30,21 @@ from .staggered import Staggered
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 
 
+def flat_sfwd(x: torch.Tensor, k: int) -> torch.Tensor:
+    """y[..., i] = x[..., i - k] with zero fill, any k >= 0 (pad and
+    slice; ``dotsocp_tpu/ops/pallas_kernels.py:280-283``)."""
+    S = x.shape[-1]
+    k = min(k, S)
+    return F.pad(x[..., : S - k], (k, 0))
+
+
+def flat_sbwd(x: torch.Tensor, k: int) -> torch.Tensor:
+    """y[..., i] = x[..., i + k] with zero fill, any k >= 0."""
+    S = x.shape[-1]
+    k = min(k, S)
+    return F.pad(x[..., k:], (0, k))
+
+
 class OpsFlat:
     """Flat-space engine: fields carry (time, S) with S = prod(space)."""
 
@@ -53,13 +68,11 @@ class OpsFlat:
     # -- flat shifts --------------------------------------------------------
     def _sfwd(self, x: torch.Tensor, a: int) -> torch.Tensor:
         """y[..., i] = x[..., i - stride_a] (zeros shifted in)."""
-        k = self.strides[a]
-        return F.pad(x[..., : self.S - k], (k, 0))
+        return flat_sfwd(x, self.strides[a])
 
     def _sbwd(self, x: torch.Tensor, a: int) -> torch.Tensor:
         """y[..., i] = x[..., i + stride_a] (zeros shifted in)."""
-        k = self.strides[a]
-        return F.pad(x[..., k:], (0, k))
+        return flat_sbwd(x, self.strides[a])
 
     # -- operators ----------------------------------------------------------
     def grad(self, phi: torch.Tensor) -> Staggered:

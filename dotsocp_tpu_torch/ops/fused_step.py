@@ -30,17 +30,20 @@ cone_project_diff  ``cone_project_diff_pallas`` / its kernel     2.02 GB
 
 Each kernel is one streaming pass over HBM, so bytes moved bound it on the
 card; the design is one thread per element with coalesced loads (see the
-source). The q-step diagonal enters as its two distinct values (interior,
-boundary time slab) instead of two diagonal arrays, which saves ~0.2 GB of
-reads per q pass at 513^2 x 65. The weighted q-step (obstacles,
+source). Every kernel takes one, two or three space axes (C = 6, 10, 14),
+each with its own stride, size and spacing (``_dims``). The q-step
+diagonal enters as its two distinct values (interior, boundary time slab)
+instead of two diagonal arrays, which saves ~0.2 GB of reads per q pass
+at 513^2 x 65. The weighted q-step (obstacles,
 ``solver_wsocp_inPALM.m:198-222``) is the same kernel with the weight w
 read once: it forms 1/(base + w*w) in registers from w and base's two
 values, and reads no diagonal array (0.41 GB less than carrying one); its
 plain version multiplies by the inverse diagonal that
 :func:`weighted_dinv` computes once a level, and the kernel rounds every
-operation as that plain version does. So does the cone projection, whose
-plain version sums the squares left to right. Shared-memory tiling, TMA and
-merging passes are left for later work.
+operation as that plain version does. So do the 3D q-steps, weighted or
+not, and the cone projection, whose plain version sums the squares left
+to right. Shared-memory tiling, TMA and merging passes are left for later
+work.
 
 Dispatch: a wrapper runs the plain version only because the tensors it was
 given lie on the CPU. On CUDA tensors it checks device, dtype (f32 only),
@@ -200,11 +203,13 @@ def _check_distinct(*tensors: torch.Tensor) -> None:
 
 
 def _dims(ops: OpsFlat):
+    """(d, nt, S) and the stride, size and spacing of the three axes the
+    kernels take; an axis a d < 3 grid lacks gets 0, 1 and 1."""
     g = ops.geom
     d = g.ndim_space
-    k = list(ops.strides) + [0] * (2 - d)
-    n = list(g.space) + [1] * (2 - d)
-    hs = [g.hs(a) for a in range(d)] + [1.0] * (2 - d)
+    k = list(ops.strides) + [0] * (3 - d)
+    n = list(g.space) + [1] * (3 - d)
+    hs = [g.hs(a) for a in range(d)] + [1.0] * (3 - d)
     return d, g.nt, ops.S, k, n, hs
 
 
@@ -245,7 +250,7 @@ def x_step(ops: OpsFlat, q: Staggered, beta, sbf: float, sd: float):
     d, nt, S, k, _, _ = _dims(ops)
     _launch(LAUNCHES, "x_step", _build.library().dotsocp_x_step,
             beta.device, q.q0.data_ptr(), q.bs.data_ptr(), beta.data_ptr(),
-            x.data_ptr(), d, nt, S, k[0], k[1], sbf, sd)
+            x.data_ptr(), d, nt, S, *k, sbf, sd)
     return x
 
 
@@ -270,15 +275,16 @@ def _launch_q(kind: str, ops: OpsFlat, ptrs: list, dinv, D: float,
     g = ops.geom
     d, nt, S, k, n, hs = _dims(ops)
     if isinstance(dinv, WeightedDinv):
-        # s_bf / sqrt2 as the plain version's bfd_T rounds it
         kind += "_w"
         ptrs = ptrs + [dinv.w.q0.data_ptr(), dinv.w.bs.data_ptr()]
-        diag = list(dinv.base) + [sbf * _INV_SQRT2]
+        diag = list(dinv.base)
     else:
         diag = list(dinv)
+    # s_bf / sqrt2 as the plain version's bfd_T rounds it: the weighted and
+    # the 3D kernels round as their plain versions do
     _launch(LAUNCHES, kind, getattr(_build.library(), "dotsocp_" + kind),
-            device, *ptrs, d, nt, S, k[0], k[1], n[0], n[1], D, sbf, tau,
-            g.ht, hs[0], hs[1], *diag)
+            device, *ptrs, d, nt, S, *k, *n, D, sbf, tau, g.ht, *hs, *diag,
+            sbf * _INV_SQRT2)
 
 
 def qx_step(ops: OpsFlat, phi, x, alpha: Staggered, dinv, D: float,
@@ -312,7 +318,7 @@ def _cx(name: str, final: bool, ops: OpsFlat, beta, x, q: Staggered, sbf,
     d, nt, S, k, _, _ = _dims(ops)
     _launch(LAUNCHES, name, _build.library().dotsocp_cx_step, beta.device,
             q.q0.data_ptr(), q.bs.data_ptr(), beta.data_ptr(), x.data_ptr(),
-            d, nt, S, k[0], k[1], sbf, sd, tau, int(final))
+            d, nt, S, *k, sbf, sd, tau, int(final))
     return beta, x
 
 
@@ -344,7 +350,7 @@ def z_step(ops: OpsFlat, q: Staggered, beta, sbf: float, sd: float):
     d, nt, S, k, _, _ = _dims(ops)
     _launch(LAUNCHES, "z_step", _build.library().dotsocp_z_step,
             beta.device, q.q0.data_ptr(), q.bs.data_ptr(), beta.data_ptr(),
-            z.data_ptr(), d, nt, S, k[0], k[1], sbf, sd)
+            z.data_ptr(), d, nt, S, *k, sbf, sd)
     return z
 
 
@@ -379,7 +385,7 @@ def beta_step(ops: OpsFlat, beta, z, q: Staggered, sbf: float, sd: float,
     d, nt, S, k, _, _ = _dims(ops)
     _launch(LAUNCHES, "beta_step", _build.library().dotsocp_beta_step,
             beta.device, q.q0.data_ptr(), q.bs.data_ptr(), beta.data_ptr(),
-            z.data_ptr(), out.data_ptr(), d, nt, S, k[0], k[1], sbf, sd, tau)
+            z.data_ptr(), out.data_ptr(), d, nt, S, *k, sbf, sd, tau)
     return out
 
 

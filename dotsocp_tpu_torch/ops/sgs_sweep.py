@@ -3,7 +3,8 @@ plain PyTorch version (:meth:`..ops.sgs.RedBlackSGS.sweep`).
 
 One CUDA kernel (``csrc/sgs_sweep.cu``, one launch per half-sweep) replaces
 both Pallas sweeps of ``dotsocp_tpu/ops/pallas_kernels.py``, the whole-field
-``make_sgs_sweep_pallas`` and the row-tiled ``make_sgs_sweep_pallas_tiled``.
+``make_sgs_sweep_pallas`` and the row-tiled ``make_sgs_sweep_pallas_tiled``,
+on fields of one, two or three space axes.
 Bytes at 513^2 x 65 (f32, 17.1 M cells): phi read, rhs read and out written
 per half-sweep, ~205 MB, so ~0.62 GB per symmetric sweep.
 
@@ -42,13 +43,11 @@ def rb_sweep(sgs: RedBlackSGS, phi: torch.Tensor, rhs: torch.Tensor,
     if not _use_kernel(phi, rhs) or its < 1:
         return sgs.sweep(phi, rhs, its, d2=d2)
     g = sgs.geom
-    if g.ndim_space not in (1, 2):
-        raise NotImplementedError("the sweep kernel takes 1D and 2D fields")
     _check_shape(phi, g.phi_shape, "phi")
     _check_shape(rhs, g.phi_shape, "rhs")
     _check_distinct(phi, rhs)
     out = torch.empty_like(phi)
-    n = list(g.space) + [1] * (2 - g.ndim_space)
+    n = list(g.space) + [1] * (3 - g.ndim_space)
     S = g.n_centered // g.nt
     fn = _build.library().dotsocp_rb_half_sweep
     src = phi
@@ -57,6 +56,6 @@ def rb_sweep(sgs: RedBlackSGS, phi: torch.Tensor, rhs: torch.Tensor,
             # copy the other colour only where out does not hold it yet
             _launch(LAUNCHES, "rb_sweep", fn, phi.device, src.data_ptr(),
                     rhs.data_ptr(), out.data_ptr(), g.ndim_space, g.nt, S,
-                    n[0], n[1], float(d2), color, int(src is phi))
+                    *n, float(d2), color, int(src is phi))
             src = out
     return out

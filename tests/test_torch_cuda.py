@@ -9,11 +9,15 @@ Tolerances as in ``chip_smoke.py``: rtol 2e-5 / atol 2e-6 for a kernel
 against its plain version (FMA contraction and the association of the
 four-term face sum differ, a few ulp), and 2e-6 / 2e-6 for a 4-iteration
 CA segment against 4 plain steps at 17^2 x 7 (``tests/test_pallas.py``).
-The weighted q-steps round as their plain versions do, operation by
-operation, and so does the cone projection (its plain version sums the
+The weighted q-steps and every 3D q-step round as their plain versions
+do, operation by operation, and so does the cone projection (its plain version sums the
 squares left to right): all three are held to the same rtol 2e-5 /
 atol 2e-6, and the weighted q-step to bit-equality. ``run_one`` (the
 single-step kernels) is held against plain steps as the CA segment is.
+The DIM = 3 forms (C = 14) run on a grid with a different size on each
+axis; in 3D the CA segment and ``run_one`` are held to 1e-5 of the largest
+entry (``chip_smoke.SEG_REL_3D``). The flat shift is bit-equal to its
+plain version.
 """
 import math
 
@@ -24,11 +28,13 @@ import torch
 from dotsocp_tpu_torch.algorithms.core import Kernels, LevelConfig
 from dotsocp_tpu_torch.algorithms.variants import AccADMMKernels, SgsKernels
 from dotsocp_tpu_torch.models import wdot2d
-from dotsocp_tpu_torch.models.examples import get_example_1d, get_example_2d
+from dotsocp_tpu_torch.models.examples import (get_example_1d,
+                                               get_example_2d,
+                                               get_example_3d)
 from dotsocp_tpu_torch.multilevel.level import initial_scaling, initialize
 from dotsocp_tpu_torch.multilevel.solve import solve_dot
 from dotsocp_tpu_torch.ops import fused_step as fs
-from dotsocp_tpu_torch.ops import sgs_sweep
+from dotsocp_tpu_torch.ops import sgs_sweep, shift
 from dotsocp_tpu_torch.ops.engine import OpsFlat, diag_values
 from dotsocp_tpu_torch.ops.geometry import Geometry
 from dotsocp_tpu_torch.ops.sgs import make_sgs
@@ -37,7 +43,7 @@ from dotsocp_tpu_torch.ops.staggered import Staggered
 pytestmark = pytest.mark.cuda
 
 F32 = torch.float32
-SHAPES = {"2d": (9, (33, 33)), "1d": (9, (129,))}
+SHAPES = {"2d": (9, (33, 33)), "1d": (9, (129,)), "3d": (9, (9, 17, 33))}
 CA_KERNELS = ("x_step", "qx_step", "cx_step", "cx_final")
 SINGLE_STEP_KERNELS = ("z_step", "q_step", "q_step_w", "beta_step",
                        "cone_project_diff")
@@ -90,6 +96,8 @@ def test_kernels_match_plain(dev, name):
     for got, want in zip(q.blocks() + a.blocks(),
                          want_q.blocks() + want_a.blocks()):
         close(got, want)
+        # the 3D q-steps round as their plain versions do
+        assert name != "3d" or torch.equal(got, want)
     assert float((q.bs * (1.0 - ops.masks)).abs().max()) == 0.0
     for final in (False, True):
         want = fs.cx_step_plain(ops, v["beta"], v["x"], v["q"], v["sbf"],
@@ -139,14 +147,16 @@ def test_ca_segment_matches_plain_steps(dev, k):
             close(got, want, 2e-6, 2e-6)
 
 
-@pytest.mark.parametrize("dim", [1, 2])
+@pytest.mark.parametrize("dim", [1, 2, 3])
 def test_solve_on_card_matches_cpu(dev, dim):
     """The same small f32 solve on the card and on the CPU: equal iteration
     counts on every level, densities within f32 rounding."""
     if dim == 1:
         r0, r1 = get_example_1d("gaussian", 65)
-    else:
+    elif dim == 2:
         r0, r1 = get_example_2d("example2", 33, 33)
+    else:
+        r0, r1 = get_example_3d("gaussian", 9, 9, 9)
     runs = {}
     for device in ("cpu", dev):
         fs.reset_launches()
@@ -219,8 +229,8 @@ def test_sgs_solve_on_card_matches_cpu(dev, method):
 # -- the weighted q-step ---------------------------------------------------------
 
 def _weight(name, dev, seed=0):
-    """Love-heart barrier weights in 2D; in 1D seeded weights in [0.5, 2]
-    with about one face in eight at the wall weight."""
+    """Love-heart barrier weights in 2D; in 1D and 3D seeded weights in
+    [0.5, 2] with about one face in eight at the wall weight."""
     nt, space = SHAPES[name]
     if name == "2d":
         return wdot2d.get_weight_by_barrier(space[1], space[0], nt,
@@ -228,11 +238,14 @@ def _weight(name, dev, seed=0):
                                             dtype=F32, device=dev)
     geom = Geometry(nt, space)
     rng = np.random.default_rng(seed)
-    b = rng.uniform(0.5, 2.0, geom.b_shape(0))
-    b[rng.random(b.shape) < 0.125] = wdot2d.BARRIER_WEIGHT
     f32 = dict(dtype=F32, device=dev)
+    bs = []
+    for a in range(geom.ndim_space):
+        b = rng.uniform(0.5, 2.0, geom.b_shape(a))
+        b[rng.random(b.shape) < 0.125] = wdot2d.BARRIER_WEIGHT
+        bs.append(torch.tensor(b, **f32))
     return Staggered(torch.tensor(rng.uniform(0.5, 2.0, geom.q0_shape), **f32),
-                     (torch.tensor(b, **f32),))
+                     tuple(bs))
 
 
 @pytest.mark.parametrize("name", list(SHAPES))
@@ -348,7 +361,7 @@ def test_single_step_kernels_match_plain(dev, name):
         want = fs.q_step_plain(ops, phi, z, beta, alpha, dinv, D, sbf, tau)
         for g, w in zip(_blocks(*got), _blocks(*want)):
             close(g, w)
-            if dinv is wdinv:
+            if dinv is wdinv or name == "3d":
                 assert torch.equal(g, w)
         assert float((got[0].bs * (1.0 - ops.masks)).abs().max()) == 0.0
     close(fs.beta_step(ops, beta, z, q, sbf, sd, tau),
@@ -449,3 +462,61 @@ def test_segment_launch_counts(dev, method):
     else:
         want.update(cone_project_diff=5)
     assert fs.LAUNCHES == want
+
+
+# -- the 3D path and the flat shift ------------------------------------------------
+
+@pytest.mark.parametrize("run", ["segment", "run_one"])
+def test_3d_steps_match_plain_steps(dev, run):
+    """A 4-iteration CA segment, or 4 run_one steps, against 4 plain steps
+    at gaussian 9^3 x 5, within 1e-5 of the largest entry; the kernels of
+    each path launched as many times as it has iterations or segments."""
+    r0, r1 = get_example_3d("gaussian", 9, 9, 9)
+    lv = initialize(r0, r1, 5, dtype=F32, device=dev)
+    initial_scaling(lv, scaling=True)
+    kern = Kernels(LevelConfig(geom=lv.geom, D=lv.D, E=lv.E, device=dev,
+                               dtype=F32))
+    s = kern.prep(lv.as_dict(), 1.0)
+    plain = s.clone()
+    for _ in range(4):
+        plain = kern._step_plain(plain)
+    fs.reset_launches()
+    if run == "segment":
+        got = kern.run_segment(s.clone(), 4)
+        want = dict(x_step=1, qx_step=4, cx_step=3, cx_final=1)
+    else:
+        got = s
+        for _ in range(4):
+            got = kern.run_one(got)
+        want = dict(z_step=4, q_step=4, beta_step=4)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES == dict(dict.fromkeys(fs.LAUNCHES, 0), **want)
+    pairs = list(zip(_blocks(got.phi, got.z, got.beta, got.q, got.alpha),
+                     _blocks(plain.phi, plain.z, plain.beta, plain.q,
+                             plain.alpha)))
+    scale = max(float(w.abs().max()) for _, w in pairs)
+    err = max(float((g - w).abs().max()) for g, w in pairs)
+    assert err <= 1e-5 * scale, (err, scale)
+
+
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_flat_shift_kernel_matches_plain(dev, name):
+    """Bit-equal to the engine's shift at every axis stride, both ways, on
+    phi and on a plane of a cone array; one launch each."""
+    ops, v = _inputs(name, dev)
+    n0 = shift.LAUNCHES["flat_shift"]
+    count = 0
+    for a, k in enumerate(ops.strides):
+        for forward in (True, False):
+            plain = ops._sfwd if forward else ops._sbwd
+            assert torch.equal(shift.flat_shift(v["phi"], k, forward),
+                               plain(v["phi"], a))
+            assert torch.equal(shift.flat_shift(v["beta"], k, forward, 3),
+                               plain(v["beta"][3], a))
+            count += 2
+    # a stride beyond the field: all zeros
+    S = ops.S
+    assert torch.equal(shift.flat_shift(v["phi"], S + 5, True),
+                       torch.zeros_like(v["phi"]))
+    torch.cuda.synchronize()
+    assert shift.LAUNCHES["flat_shift"] == n0 + count + 1

@@ -11,6 +11,7 @@ absolute floor of 1e-12 covers residual 5 (||F*B*beta + alpha||), which is
 rounding noise near 1e-16 on both sides because the level jump sets
 alpha = -(BF)^T beta.
 """
+import inspect
 import math
 import os
 import subprocess
@@ -321,11 +322,13 @@ def test_solve_dot_refuses_what_waits():
             run(opts={key: 1e-6})
     with pytest.raises(ValueError, match="unknown option"):
         run(opts={"tolerance": 1e-6})
-    with pytest.raises(TypeError):
-        tsolve.solve_dot(r0, r1, 5, 1)  # the device is the caller's choice
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
-        tsolve.solve_dot(np.ones((5, 5, 5)), np.ones((5, 5, 5)), 5, 1,
-                         device="cpu")
+    # the device defaults to the card, and a call without one never falls
+    # back to the CPU: torch cannot reach the device, so the call raises
+    device = inspect.signature(tsolve.solve_dot).parameters["device"]
+    assert device.default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            tsolve.solve_dot(r0, r1, 5, 1, verbose=False)
 
 
 # -- the port's own guarantees -------------------------------------------------
