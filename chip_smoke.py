@@ -6,13 +6,19 @@
 
 Phases, each raising on failure:
 
-1. Device: the card's name and power limit; TF32 off for matmuls.
+1. Device: the card's name and power limit, and the HBM peak the bounds
+   and shares use, by the card's full name
+   (``dotsocp_tpu_torch.utils.profiling.hbm_peak_for``); TF32 off for
+   matmuls.
 2. Build: the hand-written kernels of ``dotsocp_tpu_torch/csrc/`` with nvcc,
-   one process per source, in parallel.
+   one process per source, in parallel; registers and spills per kernel,
+   and the sweep kernel's shared memory a block.
 3. Kernels against their plain PyTorch versions on the card, on seeded
    inputs, at 129^2 x 33 and 513^2 x 65 (2D) and 1025 x 33 (1D), within
    rtol 2e-5 / atol 2e-6 (the sGS sweep: one sweep, two in one call and
-   two chained calls, its input phi unchanged; the weighted q-step with
+   two chained calls, one launch a sweep, its input phi unchanged, also on
+   ``SWEEP_SHAPES``, grids its tiles and halos do not divide; the weighted
+   q-step with
    love-heart barrier weights in 2D and seeded weights with walls in 1D;
    the single-step kernels z_step, q_step, q_step_w, beta_step and
    cone_project_diff with their inputs unchanged, q_step_w and
@@ -62,22 +68,27 @@ Phases, each raising on failure:
    17^3 x 9: each within +-10% of the JAX host driver's count, mass
    conservation, stop residuals, and the launches of each kernel per
    iteration or segment.
+4g. The headline in float64 on the card, the plain route by dtype: exactly
+   the float64 CPU anchor's 189 + 174 + 159 iterations, mass conservation,
+   and no kernel launched.
 5. Times at 513^2 x 65 with CUDA events: each kernel against its plain
    version (the weighted q-steps with love-heart weights), with its bytes
-   and share of 3.35 TB/s, the phi-step, one CA iteration, one single-step
-   iteration (``_step``) and one plain step, one sGS iteration; and one
+   and share of the card's HBM peak (the sweep against its one-pass bytes:
+   phi, rhs read and the output written once), the phi-step, one CA
+   iteration, one single-step iteration (``_step``) and one plain step, one
+   sGS iteration, the sweep at 129^2 x 33; and one
    weighted CA iteration at 129^2 x 129. The same at the 3D scale level
    129^3 x 33 for every DIM = 3 kernel, and one CA, single-step, plain and
    sGS iteration there. Nothing about speed is asserted.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on the main path: the sum over every solve and profile of phases
-4-4e, each run with every count set to 0 just before and read just after;
-its largest error against its plain version, its time and its plain
-version's at 513^2 x 65, its bytes and the bound bytes / 3.35 TB/s; and
-under ``dim3`` the same for its DIM = 3 form at 129^3 x 33, with its
-launches summed over the 3D solves of phase 4f); the last line is
-``{"ok": true, "device": {...}}``.
+4-4e and 4g, each run with every count set to 0 just before and read just
+after; its largest error against its plain version, its time and its
+plain version's at 513^2 x 65, its bytes and the bound bytes / the HBM
+peak; and under ``dim3`` the same for its DIM = 3 form at 129^3 x 33,
+with its launches summed over the 3D solves of phase 4f); the last line
+is ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero before printing any result.
 """
@@ -92,6 +103,9 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HEADLINE_ANCHOR = 522
+# the headline in float64: the JAX package and the port on the CPU both take
+# 189 + 174 + 159 iterations (BASELINE.md:44)
+HEADLINE_F64_ANCHOR = (189, 174, 159)
 # DOTmark-4stitch 129^2 x 33, 3 levels, sGS-inPALM, tol 1e-4, the JAX
 # package's host driver on the CPU: levels 1-2 (inPALM) converge in 214 +
 # 189 iterations and level 3 stops at SGS_MAXIT, short of the tolerance,
@@ -130,11 +144,22 @@ THETA3_ANCHOR = (1009, 649)
 SEG_REL_129 = 1e-5
 RTOL, ATOL = 2e-5, 2e-6          # kernel vs plain (tests/test_pallas.py:108)
 SEG_RTOL, SEG_ATOL = 2e-6, 2e-6  # CA segment vs plain steps (:202-204)
-HBM_PEAK = 3.35e12               # H100 SXM data sheet, bytes/s
+# the card's HBM peak in bytes/s, by its full name
+# (dotsocp_tpu_torch.utils.profiling.hbm_peak_for; None for a card it does
+# not know), set by check_device / card_peak
+HBM_PEAK = None
 DEVICE = "cuda"
 # (nt, space) of the kernel checks, and of the timing level
 CHECK_SHAPES = ((33, (129, 129)), (65, (513, 513)), (33, (1025,)))
 SCALE = (65, 513)
+# the sweep kernel's own checks beside CHECK_SHAPES and CHECK_SHAPES_3D:
+# grids its tiles and 3-cell halos do not divide (axes of 3 to 5 cells,
+# nt = 3 and 5, a 1D field below one 250-cell tile)
+SWEEP_SHAPES = ((3, (5,)), (5, (200,)), (3, (4, 3)), (5, (3, 70)),
+                (5, (515, 5)), (3, (5, 4, 3)), (5, (3, 17, 30)),
+                (3, (20, 5, 61)))
+# the largest |rb_sweep - plain sweep| per checked shape ("129x129x33")
+SWEEP_ERRS = {}
 # the 3D kernel checks: a different size on each axis (a swapped stride,
 # size or spacing shows), the demo default 33^3 x 17, the 3D scale level
 # 129^3 x 33 (one cone array 3.85 GB), which phase 5 also times, and the
@@ -221,11 +246,37 @@ def check_device(torch):
         f"count {torch.cuda.device_count()}")
     log("nvidia-smi name, power.limit:")
     log(smi)
+    peak = card_peak(torch)
+    log(f"HBM peak used for bounds and shares: "
+        f"{'none known for this card' if peak is None else f'{peak / 1e12:g} TB/s'}"
+        f" ({name})")
     full_precision_matmul()
     require(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 is on")
     require(torch.get_float32_matmul_precision() == "highest",
             "float32 matmul precision is not 'highest'")
     return name, smi
+
+
+def card_peak(torch):
+    """The card's HBM peak in bytes/s by its full name (None if unknown);
+    sets ``HBM_PEAK``."""
+    global HBM_PEAK
+    from dotsocp_tpu_torch.utils.profiling import hbm_peak_for
+
+    HBM_PEAK = hbm_peak_for(torch.cuda.get_device_name(0))
+    return HBM_PEAK
+
+
+def share(nbytes, ms):
+    """'NN% of P TB/s' for nbytes moved in ms (none for an unknown card)."""
+    if HBM_PEAK is None:
+        return "no HBM peak known"
+    return (f"{100 * nbytes / (ms * 1e-3) / HBM_PEAK:.0f}% of "
+            f"{HBM_PEAK / 1e12:g} TB/s")
+
+
+def bound_ms(nbytes):
+    return None if HBM_PEAK is None else 1e3 * nbytes / HBM_PEAK
 
 
 # -- phase 2 --------------------------------------------------------------------
@@ -275,8 +326,17 @@ def build_kernels():
         log(f"  {name:38s} {regs:3d} registers, spill stores {st} B, "
             f"spill loads {ld} B")
     require(rows or info["cached"], "no register report from ptxas")
+    lib = _build.library()
+    smem = {d: (lib.dotsocp_rb_sweep_smem_bytes(d),
+                lib.dotsocp_rb_sweep_blocks_per_sm(d)) for d in (1, 2, 3)}
+    log("  rb_sweep_kernel<DIM> dynamic shared memory a block, blocks an "
+        "SM: " + ", ".join(f"DIM {d} {b} B, {n}" for d, (b, n) in smem.items()))
+    require(all(n >= 1 for _, n in smem.values()), "rb_sweep_kernel: a block "
+            "does not fit an SM")
     return [dict(kernel=n, registers=r, spill_store_bytes=st,
-                 spill_load_bytes=ld) for n, r, st, ld in rows]
+                 spill_load_bytes=ld) for n, r, st, ld in rows] + [
+        dict(kernel=f"rb_sweep_kernel<{d}>", smem_bytes=b, blocks_per_sm=n)
+        for d, (b, n) in smem.items()]
 
 
 # -- phase 3 --------------------------------------------------------------------
@@ -469,8 +529,9 @@ def check_weight(torch, geom, seed):
 
 def check_sweep(torch, cmp, geom, seed):
     """The sGS sweep kernel against the plain sweep, with d2 = D^2 of a
-    first level: one sweep, two in one call, two chained calls; the input
-    phi must come back unchanged."""
+    first level: one sweep, two in one call, two chained calls, one launch
+    a sweep; the input phi must come back unchanged. Keeps the largest
+    |kernel - plain| of the shape in ``SWEEP_ERRS``."""
     import numpy as np
 
     from dotsocp_tpu_torch.ops import sgs_sweep
@@ -488,6 +549,7 @@ def check_sweep(torch, cmp, geom, seed):
     sgs = make_sgs(geom, dtype=torch.float32, device=dev)
     before = phi.clone()
     errs = []
+    n0 = sgs_sweep.LAUNCHES["rb_sweep"]
     for its in (1, 2):
         got = sgs_sweep.rb_sweep(sgs, phi, rhs, d2, its)
         errs.append(cmp("rb_sweep", got, sgs.sweep(phi, rhs, its, d2=d2)))
@@ -495,9 +557,62 @@ def check_sweep(torch, cmp, geom, seed):
     twice = sgs_sweep.rb_sweep(sgs, once, rhs, d2)
     errs.append(cmp("rb_sweep", twice, sgs.sweep(phi, rhs, 2, d2=d2)))
     torch.cuda.synchronize()
+    require(sgs_sweep.LAUNCHES["rb_sweep"] == n0 + 5, f"rb_sweep: "
+            f"{sgs_sweep.LAUNCHES['rb_sweep'] - n0} launches for 5 sweeps")
     require(torch.equal(phi, before), "rb_sweep wrote its input phi")
     log(f"  {geom.space} x {geom.nt}: rb_sweep 1 sweep {errs[0]:.2e}, 2 in "
         f"one call {errs[1]:.2e}, 2 chained {errs[2]:.2e}; input intact")
+    SWEEP_ERRS["x".join(map(str, geom.space)) + f"x{geom.nt}"] = max(errs)
+
+
+def check_sweep_shapes(torch):
+    """The sweep kernel on ``SWEEP_SHAPES``, its errors kept apart from the
+    main check shapes'."""
+    from dotsocp_tpu_torch.ops.geometry import Geometry
+
+    cmp = Compare(torch)
+    for seed, (nt, space) in enumerate(SWEEP_SHAPES):
+        check_sweep(torch, cmp, Geometry(nt, space), 50 + seed)
+
+
+def sweep_outputs(torch, path):
+    """One and two sweeps of the sweep kernel on seeded inputs at 513^2 x
+    65, 129^3 x 33, a ragged 3D grid and 1025 x 33, saved to ``path``; run
+    from a checkout of another tree (with this file loaded by path) to hold
+    two trees' kernels against each other on the card."""
+    from dotsocp_tpu_torch.ops import sgs_sweep
+    from dotsocp_tpu_torch.ops.geometry import Geometry
+    from dotsocp_tpu_torch.ops.sgs import make_sgs
+
+    dev = torch.device(DEVICE)
+    outs = {}
+    for nt, space in ((SCALE[0], (SCALE[1],) * 2),
+                      (SCALE_3D[0], (SCALE_3D[1],) * 3), (5, (3, 17, 30)),
+                      (33, (1025,))):
+        geom = Geometry(nt, space)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        phi, rhs = (torch.randn(geom.phi_shape, generator=gen, device=dev)
+                    for _ in range(2))
+        sgs = make_sgs(geom, dtype=torch.float32, device=dev)
+        d2 = level_scalars(geom)[0] ** 2
+        key = "x".join(map(str, space)) + f"x{nt}"
+        for its in (1, 2):
+            outs[f"{key} its {its}"] = sgs_sweep.rb_sweep(
+                sgs, phi, rhs, d2, its).cpu()
+        del phi, rhs, sgs
+        torch.cuda.empty_cache()
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(outs, path)
+    return outs
+
+
+def compare_sweep_outputs(torch, path_a, path_b):
+    """Per saved sweep: bit-equal, or the largest |a - b|."""
+    a, b = torch.load(path_a), torch.load(path_b)
+    for key in a:
+        diff = float((a[key] - b[key]).abs().max())
+        log(f"  {key}: {'bit-equal' if torch.equal(a[key], b[key]) else ''}"
+            f" max |a - b| {diff:.3e}")
 
 
 def check_shift(torch, cmp, geom, seed):
@@ -805,6 +920,43 @@ def headline_solve(torch):
                           mass_ok=bool(out["mass_ok"]))
 
 
+def headline_f64(torch):
+    """Phase 4g: the headline in float64 on the card, which takes the plain
+    route by dtype: exactly the float64 CPU anchor's 189 + 174 + 159
+    iterations, mass conservation, stop residuals, and no kernel launched.
+    Returns the launches (all 0) and the result."""
+    from dotsocp_tpu_torch.models.examples import get_example_2d
+    from dotsocp_tpu_torch.multilevel.solve import solve_dot
+
+    r0, r1 = get_example_2d("DOTmark_4stitch", 129, 129)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out, _, _ = solve_dot(r0, r1, 33, 3, {"tol": 1e-4}, "inPALM",
+                          device=DEVICE, dtype=torch.float64, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = launch_counts()
+    iters = [lv["iters"] for lv in out["levels"]]
+    stops = [stop_residual(lv) for lv in out["levels"]]
+    log(f"  inPALM DOTmark-4stitch 129^2 x 33, 3 levels, float64: iterations "
+        f"{iters} ({sum(iters)}) in {wall:.3f} s, mass_ok {out['mass_ok']}, "
+        f"stop residuals {[f'{x:.2e}' for x in stops]}; launches {launches}")
+    rho = out["rho"]
+    require(rho.dtype == torch.float64 and rho.is_cuda,
+            f"float64 headline: rho {rho.dtype} on {rho.device}")
+    require(bool(torch.isfinite(rho).all()), "float64 headline: non-finite "
+            "density")
+    require(tuple(iters) == HEADLINE_F64_ANCHOR, f"float64 headline: "
+            f"iterations {iters}, not {list(HEADLINE_F64_ANCHOR)}")
+    require(out["mass_ok"], "float64 headline: mass conservation violated")
+    require(max(stops) < 1e-4, f"float64 headline: stop residuals {stops}")
+    require(set(launches.values()) == {0}, f"float64 headline launched "
+            f"kernels: {launches}")
+    return launches, dict(iters=iters, total=sum(iters), wall_s=wall,
+                          mass_ok=bool(out["mass_ok"]))
+
+
 def solve_levels(torch, method, problem, n, nt, levels, **opts):
     """One float32 solve at tol 1e-4 (and ``opts``) on the card with every
     launch count set to 0 just before; returns (output, run history,
@@ -863,9 +1015,9 @@ def sgs_solve(torch):
     else:
         require(out["mass_ok"], "mass conservation violated")
         require(stop < 1e-4, f"level 3 stopped at KKT {stop:.3e}")
-    require(launches["rb_sweep"] == 3 * iters[-1],
-            f"rb_sweep launched {launches['rb_sweep']} times, not 3 per sGS "
-            f"iteration ({iters[-1]})")
+    require(launches["rb_sweep"] == iters[-1],
+            f"rb_sweep launched {launches['rb_sweep']} times, not once per "
+            f"sGS iteration ({iters[-1]})")
     for name in ("z_step", "q_step", "beta_step"):
         require(launches[name] == iters[-1], f"{name} launched "
                 f"{launches[name]} times, not once per sGS iteration "
@@ -897,9 +1049,9 @@ def variant_solves(torch):
         require(abs(total - want) <= 0.1 * want, f"{method}: total "
                 f"iterations {total} not within 10% of {want}")
         if "sGS" in method:
-            require(launches["rb_sweep"] == 3 * iters[-1],
+            require(launches["rb_sweep"] == iters[-1],
                     f"{method}: rb_sweep launched {launches['rb_sweep']} "
-                    f"times, not 3 per sGS iteration ({iters[-1]})")
+                    f"times, not once per sGS iteration ({iters[-1]})")
         require(launches["cone_project_diff"] == acc_iterations(method, out),
                 f"{method}: cone_project_diff launched "
                 f"{launches['cone_project_diff']} times, not once per "
@@ -1254,9 +1406,9 @@ def solves_3d(torch):
         if method == "sGS-inPALM":
             require(out["levels"][0]["method"] == "Inexact Proximal ALM",
                     f"3D sGS-inPALM level 1 ran {out['levels'][0]['method']}")
-            require(launches["rb_sweep"] == 3 * iters[-1], f"3D sGS-inPALM: "
-                    f"rb_sweep launched {launches['rb_sweep']} times, not 3 "
-                    f"per sGS iteration ({iters[-1]})")
+            require(launches["rb_sweep"] == iters[-1], f"3D sGS-inPALM: "
+                    f"rb_sweep launched {launches['rb_sweep']} times, not "
+                    f"once per sGS iteration ({iters[-1]})")
             for name in ("z_step", "q_step", "beta_step"):
                 require(launches[name] == iters[-1], f"3D sGS-inPALM: {name} "
                         f"launched {launches[name]} times, not once per sGS "
@@ -1314,8 +1466,8 @@ def kernel_bytes(geom):
         "qx_step_w": 4 * (nt * S + C * cells + 4 * cells + 4 * faces),
         "cx_step": 4 * (cells + faces + 4 * C * cells),
         "cx_final": 4 * (cells + faces + 4 * C * cells),
-        # phi, rhs read and out written by each of three half-sweeps
-        "rb_sweep": 3 * 3 * 4 * geom.n_centered,
+        # one symmetric sweep: phi, rhs read and out written once each
+        "rb_sweep": 3 * 4 * geom.n_centered,
         # q0, bs, beta -> z
         "z_step": 4 * (cells + faces + 2 * C * cells),
         # phi, z, beta, alpha -> q', alpha' (weighted: and w, once)
@@ -1406,8 +1558,9 @@ def time_weighted_iteration(torch):
 
 def time_sweep(torch):
     """The sweep kernel against the plain sweep at 513^2 x 65 on a state of
-    the sGS-inPALM kernels, and one sGS iteration (the sweep kernel and the
-    single-step kernels) against one with the plain post-phi passes."""
+    the sGS-inPALM kernels, one sGS iteration (the sweep kernel and the
+    single-step kernels) against one with the plain post-phi passes, and
+    the sweep at the sGS path's 129^2 x 33 on seeded inputs."""
     from dotsocp_tpu_torch.algorithms.core import LevelConfig
     from dotsocp_tpu_torch.algorithms.variants import SgsKernels
     from dotsocp_tpu_torch.models.examples import get_example_2d
@@ -1430,8 +1583,8 @@ def time_sweep(torch):
     nbytes = kernel_bytes(lv.geom)["rb_sweep"]
     gbs = nbytes / (k_ms * 1e-3) / 1e9
     log(f"  rb_sweep  kernel {k_ms:8.3f} ms  plain {p_ms:8.3f} ms  "
-        f"{nbytes / 1e9:.2f} GB -> {gbs:7.1f} GB/s "
-        f"({100 * gbs * 1e9 / HBM_PEAK:.0f}% of 3.35 TB/s)")
+        f"{nbytes / 1e9:.2f} GB (one pass) -> {gbs:7.1f} GB/s "
+        f"({share(nbytes, k_ms)})")
     state = {"s": s, "p": s.clone()}
 
     def sgs_iter():
@@ -1446,8 +1599,13 @@ def time_sweep(torch):
     log(f"  one sGS-inPALM iteration: sweep kernel + single-step kernels "
         f"{it_ms:.3f} ms, sweep kernel + plain post-phi passes "
         f"{plain_post_ms:.3f} ms")
+    del state, kern, s, phi, rhs
+    # the sGS path's finest level (phase 4b), where t is cut into chunks
+    small_ms, small_plain_ms = sweep_ms(torch, 33, (129, 129))
     return (k_ms, p_ms), dict(sweep_gbs=gbs, sgs_iter_ms=it_ms,
-                              sgs_iter_plain_post_ms=plain_post_ms)
+                              sgs_iter_plain_post_ms=plain_post_ms,
+                              sweep_129x33_ms=small_ms,
+                              sweep_129x33_plain_ms=small_plain_ms)
 
 
 def time_kernels(torch, kern, s, wdinv, reps):
@@ -1514,10 +1672,65 @@ def log_times(times, nbytes, geom, reps):
         f"kernel, kernel, plain):")
     for name, (k_ms, p_ms) in times.items():
         gbs = nbytes[name] / (k_ms * 1e-3) / 1e9
+        bound = bound_ms(nbytes[name])
         log(f"  {name:17s} kernel {k_ms:8.3f} ms  plain {p_ms:8.3f} ms  "
             f"{nbytes[name] / 1e9:.2f} GB -> {gbs:7.1f} GB/s "
-            f"({100 * gbs * 1e9 / HBM_PEAK:.0f}% of 3.35 TB/s; bound "
-            f"{1e3 * nbytes[name] / HBM_PEAK:.3f} ms)")
+            f"({share(nbytes[name], k_ms)}; bound "
+            f"{'-' if bound is None else f'{bound:.3f}'} ms)")
+
+
+def sweep_ms(torch, nt, space, reps=50):
+    """(kernel ms, plain ms) of one sweep on seeded inputs of the shape
+    (nt, *space), the kernel's times between two of the plain version's."""
+    from dotsocp_tpu_torch.ops import sgs_sweep
+    from dotsocp_tpu_torch.ops.geometry import Geometry
+    from dotsocp_tpu_torch.ops.sgs import make_sgs
+
+    geom = Geometry(nt, space)
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    phi, rhs = (torch.randn(geom.phi_shape, generator=gen, device=DEVICE)
+                for _ in range(2))
+    sgs = make_sgs(geom, dtype=torch.float32, device=DEVICE)
+    d2 = level_scalars(geom)[0] ** 2
+    times = paired(torch, lambda: sgs.sweep(phi, rhs, 1, d2=d2),
+                   lambda: sgs_sweep.rb_sweep(sgs, phi, rhs, d2), reps)
+    log(f"  rb_sweep at {space} x {nt}: kernel {times[0]:.4f} ms, plain "
+        f"{times[1]:.4f} ms")
+    return times
+
+
+def time_sweep_3d(torch, lv=None, reps=10):
+    """The sweep kernel against the plain sweep at the 3D scale level
+    129^3 x 33 (gaussian) on a state of the sGS-inPALM kernels, and one
+    sGS-inPALM iteration; returns ((kernel ms, plain ms), iteration ms)."""
+    from dotsocp_tpu_torch.algorithms.core import LevelConfig
+    from dotsocp_tpu_torch.algorithms.variants import SgsKernels
+    from dotsocp_tpu_torch.ops.sgs_sweep import rb_sweep
+
+    if lv is None:
+        lv = gaussian_3d_level(torch, SCALE_3D[1], SCALE_3D[0], DEVICE)
+    sk = SgsKernels(LevelConfig(geom=lv.geom, D=lv.D, E=lv.E, tau=1.9,
+                                dtype=torch.float32, device=DEVICE))
+    s = sk.run_segment(sk.prep(lv.as_dict(), 0.1), 5)
+    phi = sk.ops.phi_from_internal(s.phi)
+    rhs = sk.ops.phi_from_internal(sk._rhs(s))
+    d2 = s.D * s.D
+    times = paired(torch, lambda: sk.sgs.sweep(phi, rhs, 1, d2=d2),
+                   lambda: rb_sweep(sk.sgs, phi, rhs, d2), reps)
+    del phi, rhs
+    state = {"sgs": s}
+
+    def sgs_iter():
+        state["sgs"] = sk._step(state["sgs"])
+
+    del s
+    sgs_ms = event_ms(torch, sgs_iter, reps)
+    del state, sk
+    torch.cuda.empty_cache()
+    log(f"  rb_sweep at {lv.geom.space} x {lv.geom.nt}: kernel "
+        f"{times[0]:8.3f} ms  plain {times[1]:8.3f} ms; one sGS-inPALM "
+        f"iteration {sgs_ms:.3f} ms")
+    return times, sgs_ms
 
 
 def time_scale_3d(torch):
@@ -1526,10 +1739,7 @@ def time_scale_3d(torch):
     seeded walls), the sweep kernel, and one CA, one single-step and one
     sGS iteration against one plain step; at most two level states live
     at a time."""
-    from dotsocp_tpu_torch.algorithms.core import LevelConfig
-    from dotsocp_tpu_torch.algorithms.variants import SgsKernels
     from dotsocp_tpu_torch.ops import fused_step as fs
-    from dotsocp_tpu_torch.ops.sgs_sweep import rb_sweep
 
     nt, n = SCALE_3D
     torch.cuda.empty_cache()
@@ -1569,22 +1779,7 @@ def time_scale_3d(torch):
     del rhs, kern, s
     torch.cuda.empty_cache()
 
-    sk = SgsKernels(LevelConfig(geom=lv.geom, D=lv.D, E=lv.E, tau=1.9,
-                                dtype=torch.float32, device=DEVICE))
-    s = sk.run_segment(sk.prep(lv.as_dict(), 0.1), 5)
-    phi = sk.ops.phi_from_internal(s.phi)
-    rhs = sk.ops.phi_from_internal(sk._rhs(s))
-    d2 = s.D * s.D
-    times["rb_sweep"] = paired(torch, lambda: sk.sgs.sweep(phi, rhs, 1, d2=d2),
-                               lambda: rb_sweep(sk.sgs, phi, rhs, d2), reps)
-    del phi, rhs
-    state["sgs"] = s
-
-    def sgs_iter():
-        state["sgs"] = sk._step(state["sgs"])
-
-    sgs_ms = event_ms(torch, sgs_iter, reps)
-    del state["sgs"], s, sk
+    times["rb_sweep"], sgs_ms = time_sweep_3d(torch, lv, reps)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     torch.cuda.empty_cache()
     log_times(times, nbytes, lv.geom, reps)
@@ -1672,6 +1867,7 @@ def main(argv=None):
         check_shift(torch, cmp, Geometry(nt, space), seed)
         torch.cuda.empty_cache()
     kernel_err = dict(cmp.max_abs)
+    check_sweep_shapes(torch)
     check_segment(torch)
     check_run_one(torch)
     phase("3b", "the DIM = 3 kernels at 17 x 33 x 65 x 9, 33^3 x 17, "
@@ -1707,6 +1903,9 @@ def main(argv=None):
           "default 33^3 x 17 (gaussian, split8), sGS-inPALM and acc-ADMM at "
           "17^3 x 9")
     launches_3d, solves3d = solves_3d(torch)
+    phase("4g", "the headline in float64 on the card (the plain route)")
+    run_launches, headline64 = headline_f64(torch)
+    add_counts(launches, run_launches)
     log(f"  main-path launches, 2D {launches}; 3D {launches_3d}")
     for k in REPLACES:
         require(k in OFF_PATH or launches[k] > 0, f"{k} was launched no time "
@@ -1736,7 +1935,7 @@ def main(argv=None):
         "ms": times[k][0],
         "plain_ms": times[k][1],
         "bytes": nbytes[k],
-        "bound_ms": 1e3 * nbytes[k] / HBM_PEAK,
+        "bound_ms": bound_ms(nbytes[k]),
         "bound_by": "bytes",
         # one PyTorch call computes only the shift (F.pad of a slice)
         "library_ms": library.get(k),
@@ -1749,7 +1948,7 @@ def main(argv=None):
             "ms": times_3d[k][0],
             "plain_ms": times_3d[k][1],
             "bytes": nbytes_3d[k],
-            "bound_ms": 1e3 * nbytes_3d[k] / HBM_PEAK,
+            "bound_ms": bound_ms(nbytes_3d[k]),
             "library_ms": library_3d.get(k),
         },
     } for k in REPLACES]
@@ -1759,7 +1958,9 @@ def main(argv=None):
                       "profile_513x65": profiles, "scale_513x65": others,
                       "registers": registers, "peak_gib_3d": peaks_3d,
                       "steps_3d": steps_3d, "solves_3d": solves3d,
-                      "scale_129x3x33": others_3d}))
+                      "scale_129x3x33": others_3d,
+                      "headline_f64": headline64, "hbm_peak": HBM_PEAK,
+                      "sweep_max_abs_by_shape": SWEEP_ERRS}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}))

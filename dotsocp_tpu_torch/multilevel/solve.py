@@ -11,9 +11,15 @@ algorithm per level with warm-started sigma and E2 feedback, prolongates
 between levels, and recovers (rho, E, q). With ``opts={"profile": True}``
 each level report also holds ``phases``, the per-phase times of
 ``utils/profiling.profile_phases`` on the level's final state. The JAX
-package's solver cache, prewarm, Pallas size gate and tracing options have
-no counterpart here: eager PyTorch compiles nothing, and the CUDA kernels
-run at every size.
+package's options are taken as follows (``_check_request``): its compile
+and cache knobs (``IGNORED_OPTS``: prewarm, reuse_solvers, chunk_iters,
+max_chunks) are accepted and ignored, since eager PyTorch compiles
+nothing; ``use_pallas`` takes "auto" or True (the CUDA kernels run at
+every size for float32, float64 takes the plain route by dtype),
+``layout`` "auto" or "flat" ("shaped" is TPU-only), ``driver`` "auto" or
+"host" ("device" waits for CUDA graphs); the refine, NaN-tripwire, trace,
+checkpoint and mesh options raise, naming the ROADMAP.md queue where each
+waits (``QUEUED_OPTS``).
 """
 from __future__ import annotations
 
@@ -70,18 +76,50 @@ ALG2_STEPSIZE = 1.0
 KNOWN_OPTS = {"tol", "maxit", "sigma", "time_limit", "scaling",
               "ifCheckStepByStep", "checkPrimDualFeas", "restart", "rho",
               "theta", "profile"}
+# the JAX package's compile and cache knobs: eager PyTorch compiles and
+# caches nothing, so they are accepted and ignored
+IGNORED_OPTS = {"prewarm", "reuse_solvers", "chunk_iters", "max_chunks"}
+# JAX options of which the port runs some values (_check_choice)
+CHOICE_OPTS = {"use_pallas", "layout", "driver"}
 QUEUED_OPTS = {
-    "refine_tol": "queue 1 (refine tail)",
-    "refine_dtype": "queue 1 (refine tail)",
-    "refine_method": "queue 1 (refine tail)",
-    "refine_dct_split": "queue 1 (refine tail)",
-    "mesh": "queue 1 (multi-device, last)",
-    "checkpoint_dir": "queue 1 (the rest: checkpointing)",
+    "refine_tol": "queue 1 item 1 (refine tail)",
+    "refine_dtype": "queue 1 item 1 (refine tail)",
+    "refine_method": "queue 1 item 1 (refine tail)",
+    "refine_dct_split": "queue 1 item 1 (refine tail)",
+    "refine_sigma_scale": "queue 1 item 1 (refine tail)",
+    "refine_tau": "queue 1 item 1 (refine tail)",
+    "debug_nans": "queue 1 item 5 (the rest: the NaN tripwire)",
+    "trace_dir": "queue 1 item 5 (the rest: the profiler trace)",
+    "mesh": "queue 1 item 7 (multi-device, last)",
+    "checkpoint_dir": "queue 1 item 5 (the rest: checkpointing)",
 }
 
 
 def _is_sgs(method: str) -> bool:
     return method in ("sGS-inPALM", "acc-sGS-ADMM")
+
+
+def _check_choice(key, value):
+    """Raises, with the reason, for a value of a ``CHOICE_OPTS`` option
+    the port does not run."""
+    if key == "use_pallas" and value not in ("auto", True):
+        raise ValueError(f"use_pallas={value!r}: the port's CUDA kernels "
+                         f"always run on the card for float32 (float64 takes "
+                         f"the plain route); they cannot be turned off")
+    if key == "layout" and value not in ("auto", "flat"):
+        if value == "shaped":
+            raise ValueError("layout='shaped': the shaped layout is "
+                             "TPU-only; the port runs the flat engine only")
+        raise ValueError(f"layout={value!r}: not one of 'auto', 'flat', "
+                         f"'shaped'")
+    if key == "driver" and value not in ("auto", "host"):
+        if value == "device":
+            raise NotImplementedError(
+                "driver='device': the device driver waits in ROADMAP.md "
+                "queue 1 item 3 (CUDA-graph segments); the port runs the "
+                "host driver")
+        raise ValueError(f"driver={value!r}: not one of 'auto', 'host', "
+                         f"'device'")
 
 
 def _check_request(rho0, method, weight, opts):
@@ -91,11 +129,13 @@ def _check_request(rho0, method, weight, opts):
     if weight is not None and not isinstance(weight, Staggered):
         raise TypeError("weight must be a dotsocp_tpu_torch Staggered (see "
                         "models/wdot2d.py, utils/interop.weight_from_numpy)")
-    for key in opts:
+    for key, value in opts.items():
         if key in QUEUED_OPTS:
             raise NotImplementedError(
                 f"option {key!r} waits in ROADMAP.md {QUEUED_OPTS[key]}")
-        if key not in KNOWN_OPTS:
+        if key in CHOICE_OPTS:
+            _check_choice(key, value)
+        elif key not in KNOWN_OPTS | IGNORED_OPTS:
             raise ValueError(f"unknown option {key!r}")
     if np.ndim(rho0) not in (1, 2, 3):
         raise ValueError(f"rho0 has {np.ndim(rho0)} axes; solve_dot takes "

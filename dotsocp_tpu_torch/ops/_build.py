@@ -44,7 +44,10 @@ SOURCES = {
         "dotsocp_cone_project_diff": [_P, _P, _P, _I, _I, _P],
     },
     "sgs_sweep.cu": {
-        "dotsocp_rb_half_sweep": [_P] * 3 + [_I] * 6 + [_F, _I, _I, _P],
+        # (dim, nt, n0..n2): the sizes of the space axes
+        "dotsocp_rb_sweep": [_P] * 3 + [_I] * 5 + [_F, _P],
+        "dotsocp_rb_sweep_smem_bytes": [_I],
+        "dotsocp_rb_sweep_blocks_per_sm": [_I],
     },
     "flat_shift.cu": {
         "dotsocp_flat_shift": [_P, _P, _I, _I, _I, _I, _I, _P],

@@ -45,11 +45,14 @@ not, and the cone projection, whose plain version sums the squares left
 to right. Shared-memory tiling, TMA and merging passes are left for later
 work.
 
-Dispatch: a wrapper runs the plain version only because the tensors it was
-given lie on the CPU. On CUDA tensors it checks device, dtype (f32 only),
-shape, contiguity and aliasing, launches the kernel, and raises on any
-error; there is no fallback. Every launch adds one to ``LAUNCHES[name]``;
-the weighted q-steps count under ``qx_step_w`` and ``q_step_w``.
+Dispatch (``_use_kernel``): a wrapper runs the plain version only because
+the tensors it was given lie on the CPU, or are float64 (on the card too:
+the route by dtype, as the JAX package's float64 runs jnp). On float32
+CUDA tensors it checks device, shape, contiguity and aliasing, launches
+the kernel, and raises on any error; there is no fallback. Mixed dtypes
+and any other dtype on the card raise. Every launch adds one to
+``LAUNCHES[name]``; the weighted q-steps count under ``qx_step_w`` and
+``q_step_w``.
 
 In-place outputs: ``qx_step`` updates alpha, and ``cx_step`` / ``cx_final``
 update beta and x, in the buffers they were given (each thread reads those
@@ -173,8 +176,16 @@ def cone_project_diff_plain(z2, beta):
 # -- kernel launch plumbing --------------------------------------------------
 
 def _use_kernel(*tensors: torch.Tensor) -> bool:
-    """False for CPU tensors (plain version); True for f32 CUDA tensors on
-    one device; raises for anything else."""
+    """Which version a wrapper runs, by device and dtype alone.
+
+    False (the plain version) for CPU tensors, and for CUDA tensors that
+    are all float64: the kernels are float32, and float64 on the card takes
+    the plain PyTorch route, as the JAX package's float64 takes jnp where
+    its Pallas kernels are gated to float32. This is a route, not a
+    fallback: True for float32 CUDA tensors on one device, and the wrapper
+    then launches its kernel or raises. Raises for tensors on several
+    devices, for mixed dtypes, for any other dtype on the card, and for
+    non-contiguous float32 CUDA tensors."""
     dev = tensors[0].device
     if any(t.device != dev for t in tensors):
         raise ValueError(f"tensors on several devices: "
@@ -183,11 +194,14 @@ def _use_kernel(*tensors: torch.Tensor) -> bool:
         return False
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"CUDA kernels take float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("CUDA kernels take contiguous tensors")
+    dtypes = {t.dtype for t in tensors}
+    if dtypes == {torch.float64}:
+        return False
+    if dtypes != {torch.float32}:
+        raise TypeError(f"CUDA kernels take float32 (float64 runs the plain "
+                        f"version), got {sorted(map(str, dtypes))}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("CUDA kernels take contiguous tensors")
     return True
 
 

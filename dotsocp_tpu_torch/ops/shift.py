@@ -15,9 +15,9 @@ bit-equal. As in the JAX package no solver path calls it: the step kernels
 read their shifted operands at offsets themselves.
 
 Dispatch as in ``ops/fused_step.py``: the plain version runs only because
-the tensor lies on the CPU; on a CUDA tensor the wrapper checks dtype (f32
-only), shape and contiguity, launches, and raises on any error. Every
-launch adds one to ``LAUNCHES["flat_shift"]``.
+the tensor lies on the CPU or is float64; on a float32 CUDA tensor the
+wrapper checks shape and contiguity, launches, and raises on any error.
+Every launch adds one to ``LAUNCHES["flat_shift"]``.
 """
 from __future__ import annotations
 

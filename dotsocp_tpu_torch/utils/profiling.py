@@ -7,9 +7,10 @@ KKT, Total_Time, Iters: ``solver_socp_inPALM.m:124-128,339-341``). Here each
 phase runs ``iters`` times chained through its own output (so every call
 consumes the last one's result), timed with CUDA events on a card and with
 the host clock on the CPU. Each row has the phase's milliseconds a call
-and, where the phase's bytes are counted, its achieved GB/s; on an H100 also
-its share of the card's 3.35 TB/s (NVIDIA's data sheet, SXM part). No
-roofline is reported for any other device.
+and, where the phase's bytes are counted, its achieved GB/s; on a card
+whose full name ``hbm_peak_for`` knows (the H100 SXM, PCIe and NVL parts)
+also its share of that card's HBM peak. No roofline is reported for any
+other device.
 
 The phase bodies are the port's counterparts of the JAX bodies:
 ``phi_dct_solve`` the DCT solve, ``phi_sgs_sweep`` the sweep kernel
@@ -32,10 +33,20 @@ import torch
 from ..algorithms.variants import AccState, NesterovState
 from ..ops.fused_step import cone_project_diff
 
-# HBM bandwidth of the one card this module reports a share for (bytes/s),
-# matched by device name
-H100_NAME = "H100"
-H100_HBM = 3.35e12
+# HBM bandwidth (bytes/s) of the cards this module reports a share for, by
+# the full name torch.cuda.get_device_name gives (NVIDIA's data sheets)
+HBM_PEAKS = {
+    "NVIDIA H100 80GB HBM3": 3.35e12,  # SXM
+    "NVIDIA H100 PCIe": 2.0e12,
+    "NVIDIA H100 NVL": 3.9e12,
+}
+
+
+def hbm_peak_for(name: str):
+    """The HBM peak in bytes/s of the card named ``name`` (exactly as
+    ``torch.cuda.get_device_name`` gives it), or None for a card this
+    module does not know: no share is reported against a guessed peak."""
+    return HBM_PEAKS.get(name)
 
 
 def _nbytes(*tensors) -> int:
@@ -68,12 +79,11 @@ def _time_ms(fn: Callable, x, iters: int, device: torch.device) -> float:
 
 
 def _hbm_peak(device: torch.device):
-    """The card's HBM bandwidth in bytes/s where this module holds it (an
-    H100), else None."""
+    """The card's HBM bandwidth in bytes/s where this module holds it,
+    else None (and None off the card)."""
     if device.type != "cuda":
         return None
-    name = torch.cuda.get_device_name(device)
-    return H100_HBM if H100_NAME in name else None
+    return hbm_peak_for(torch.cuda.get_device_name(device))
 
 
 def profile_phases(kernels, state, iters: int = 30) -> Dict[str, dict]:
@@ -114,8 +124,9 @@ def profile_phases(kernels, state, iters: int = 30) -> Dict[str, dict]:
         # rhs build: read q, alpha, c; write/read rhs through the DCT
         # matmul chain (6 transforms, each read + write) + write phi
         "phi_dct_solve": q_bytes * 2 + c_bytes * (1 + 12 + 1),
-        # rhs build (q, alpha read; rhs write) + 3 half-sweeps over phi
-        "phi_sgs_sweep": q_bytes * 2 + c_bytes + phi_bytes * (1 + 2 * 3),
+        # rhs build (q, alpha, c read; rhs write) + one sweep (phi, rhs
+        # read; the new phi written)
+        "phi_sgs_sweep": q_bytes * 2 + c_bytes + phi_bytes * (1 + 3),
         # read z2, beta; write z
         "cone_projection": z_bytes * 3,
         # read phi, z, beta, alpha, diag; write q

@@ -17,7 +17,10 @@ single-step kernels) is held against plain steps as the CA segment is.
 The DIM = 3 forms (C = 14) run on a grid with a different size on each
 axis; in 3D the CA segment and ``run_one`` are held to 1e-5 of the largest
 entry (``chip_smoke.SEG_REL_3D``). The flat shift is bit-equal to its
-plain version.
+plain version. The sweep kernel (one launch a sweep) is also held on grids
+its tiles and halos do not divide. float64 on the card takes the plain
+route: an f64 solve checks KKT at the CPU's iterations, with residuals
+within 1e-6, and launches nothing; float16 and mixed dtypes raise.
 """
 import math
 
@@ -175,12 +178,21 @@ def test_solve_on_card_matches_cpu(dev, dim):
 
 # -- the sGS sweep kernel ----------------------------------------------------------
 
-@pytest.mark.parametrize("name", list(SHAPES))
+# shapes where the sweep kernel's tiles and 3-cell halos do not divide the
+# grid: axes of 3 to 5 cells, nt = 3 and 5, a 1D field below one tile
+SWEEP_SHAPES = dict(SHAPES, **{
+    "1d-short": (3, (5,)), "1d-ragged": (5, (251,)), "2d-thin": (3, (4, 3)),
+    "2d-ragged": (5, (3, 70)), "3d-small": (3, (5, 4, 3)),
+    "3d-ragged": (5, (3, 17, 30))})
+
+
+@pytest.mark.parametrize("name", list(SWEEP_SHAPES))
 @pytest.mark.parametrize("its", [1, 2])
 def test_sweep_kernel_matches_plain(dev, name, its):
-    """Within the kernel tolerance; the input phi is left as it was and
-    each sweep is three launches."""
-    nt, space = SHAPES[name]
+    """Within the kernel tolerance, for ``its`` sweeps in one call and for
+    two chained calls; the input phi is left as it was and each sweep is
+    one launch."""
+    nt, space = SWEEP_SHAPES[name]
     geom = Geometry(nt, space)
     rng = np.random.default_rng(5)
     phi, rhs = (torch.from_numpy(rng.standard_normal(
@@ -190,12 +202,19 @@ def test_sweep_kernel_matches_plain(dev, name, its):
     n0 = sgs_sweep.LAUNCHES["rb_sweep"]
     got = sgs_sweep.rb_sweep(sgs, phi, rhs, 0.3, its)
     torch.cuda.synchronize()
-    assert sgs_sweep.LAUNCHES["rb_sweep"] == n0 + 3 * its
+    assert sgs_sweep.LAUNCHES["rb_sweep"] == n0 + its
     close(got, sgs.sweep(phi, rhs, its, d2=0.3))
+    chained = phi
+    for _ in range(its):
+        chained = sgs_sweep.rb_sweep(sgs, chained, rhs, 0.3)
+    close(chained, sgs.sweep(phi, rhs, its, d2=0.3))
     assert torch.equal(phi, before)
 
 
 def test_sweep_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    """Aliased operands, wrong shapes and a dtype the card has no route for
+    (float16, or float32 mixed with float64) raise; float64 takes the plain
+    version without a launch."""
     geom = Geometry(*SHAPES["2d"])
     sgs = make_sgs(geom, dtype=F32, device=dev)
     phi = torch.zeros(geom.phi_shape, dtype=F32, device=dev)
@@ -204,14 +223,21 @@ def test_sweep_wrapper_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="shape"):
         sgs_sweep.rb_sweep(sgs, phi[:-1], phi[1:].clone(), 0.3)
     with pytest.raises(TypeError, match="float32"):
-        sgs_sweep.rb_sweep(sgs, phi.double(), phi.double() + 1, 0.3)
+        sgs_sweep.rb_sweep(sgs, phi.half(), phi.half() + 1, 0.3)
+    with pytest.raises(TypeError, match="float32"):
+        sgs_sweep.rb_sweep(sgs, phi, phi.double() + 1, 0.3)
+    n0 = sgs_sweep.LAUNCHES["rb_sweep"]
+    rhs = torch.ones(geom.phi_shape, dtype=torch.float64, device=dev)
+    got = sgs_sweep.rb_sweep(sgs, phi.double(), rhs, 0.3)
+    assert got.dtype == torch.float64
+    assert sgs_sweep.LAUNCHES["rb_sweep"] == n0
 
 
 @pytest.mark.parametrize("method", ["sGS-inPALM", "acc-sGS-ADMM"])
 def test_sgs_solve_on_card_matches_cpu(dev, method):
     """The same small f32 sGS solve on the card and on the CPU: equal
     iteration counts on every level; the card's sGS level swept with the
-    kernel, three launches per iteration."""
+    kernel, one launch per iteration."""
     r0, r1 = get_example_2d("example2", 17, 17)
     runs = {}
     for device in ("cpu", dev):
@@ -222,8 +248,65 @@ def test_sgs_solve_on_card_matches_cpu(dev, method):
     (cpu, cpu_n), (gpu, gpu_n) = runs["cpu"], runs[str(dev)]
     iters = [lv["iters"] for lv in gpu["levels"]]
     assert iters == [lv["iters"] for lv in cpu["levels"]]
-    assert cpu_n == 0 and gpu_n == 3 * iters[-1]
+    assert cpu_n == 0 and gpu_n == iters[-1]
     close(gpu["rho"].cpu(), cpu["rho"], 1e-3, 1e-4)
+
+
+# -- float64 on the card -----------------------------------------------------------
+
+def _reset_all_launches():
+    fs.reset_launches()
+    sgs_sweep.reset_launches()
+    shift.reset_launches()
+
+
+def _all_launches():
+    return dict(fs.LAUNCHES, **sgs_sweep.LAUNCHES, **shift.LAUNCHES)
+
+
+@pytest.mark.parametrize("method", ["inPALM", "sGS-inPALM", "acc-ADMM"])
+def test_f64_solve_on_card_matches_cpu(dev, method):
+    """float64 on the card takes the plain route, by dtype: the same small
+    float64 solve on the card and on the CPU checks KKT at the same
+    iterations, with the same counts on every level and residuals that
+    agree to 1e-6, and launches no kernel."""
+    r0, r1 = get_example_2d("example2", 17, 17)
+    runs = {}
+    for device in ("cpu", dev):
+        _reset_all_launches()
+        out, hist, _ = solve_dot(r0, r1, 7, 2, {"tol": 1e-4}, method,
+                                 device=device, dtype=torch.float64,
+                                 verbose=False)
+        runs[str(device)] = out, hist, _all_launches()
+    (cpu, cpu_h, _), (gpu, gpu_h, gpu_n) = runs["cpu"], runs[str(dev)]
+    assert ([lv["iters"] for lv in gpu["levels"]]
+            == [lv["iters"] for lv in cpu["levels"]])
+    assert np.array_equal(gpu_h["iter"], cpu_h["iter"])
+    np.testing.assert_allclose(gpu_h["kkt"], cpu_h["kkt"], rtol=1e-6,
+                               atol=1e-12)
+    assert set(gpu_n.values()) == {0}
+    assert gpu["rho"].dtype == torch.float64 and gpu["mass_ok"]
+
+
+def test_wrappers_refuse_float16_and_mixed_dtypes(dev):
+    """float32 launches and float64 takes the plain route; float16 on the
+    card, and float32 mixed with float64, raise in every wrapper."""
+    ops, v = _inputs("2d", dev)
+    h = v["beta"].half()
+    with pytest.raises(TypeError, match="float32"):
+        fs.cone_project_diff(h, h.clone())
+    with pytest.raises(TypeError, match="float32"):
+        fs.cone_project_diff(v["x"], v["beta"].double())
+    with pytest.raises(TypeError, match="float32"):
+        shift.flat_shift(v["phi"].half(), 1, True)
+    with pytest.raises(TypeError, match="float32"):
+        fs.z_step(ops, v["q"], h, v["sbf"], v["sd"])
+    _reset_all_launches()
+    z2, beta = v["x"].double(), v["beta"].double()
+    torch.testing.assert_close(fs.cone_project_diff(z2, beta),
+                               fs.cone_project_diff_plain(z2, beta),
+                               rtol=0, atol=0)
+    assert set(_all_launches().values()) == {0}
 
 
 # -- the weighted q-step ---------------------------------------------------------
@@ -438,7 +521,7 @@ def test_run_one_matches_plain_steps(dev, weighted):
 
 @pytest.mark.parametrize("method", ["sGS-inPALM", "acc-ADMM"])
 def test_segment_launch_counts(dev, method):
-    """A 5-iteration segment: sGS-inPALM runs one sweep (3 launches) and one
+    """A 5-iteration segment: sGS-inPALM runs one sweep (one launch) and one
     z_step, q_step and beta_step an iteration; acc-ADMM one
     cone_project_diff an iteration; neither runs a plain version."""
     r0, r1 = get_example_2d("example2", 17, 17)
@@ -458,7 +541,7 @@ def test_segment_launch_counts(dev, method):
     want = dict.fromkeys(fs.LAUNCHES, 0)
     if method == "sGS-inPALM":
         want.update(z_step=5, q_step=5, beta_step=5)
-        assert sgs_sweep.LAUNCHES["rb_sweep"] == 15
+        assert sgs_sweep.LAUNCHES["rb_sweep"] == 5
     else:
         want.update(cone_project_diff=5)
     assert fs.LAUNCHES == want
