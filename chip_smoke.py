@@ -71,6 +71,21 @@ Phases, each raising on failure:
 4g. The headline in float64 on the card, the plain route by dtype: exactly
    the float64 CPU anchor's 189 + 174 + 159 iterations, mass conservation,
    and no kernel launched.
+4h. The refine tail (``opts["refine_tol"]``): the north star, the headline
+   to KKT 1e-6 with a float64 tail under the port's
+   ``refine_dct_split="auto"`` (``REFINE_ANCHOR``: the levels exactly
+   189 + 174 + 159, the tail and the total within +-10% of the JAX
+   package's; stop residuals below 1e-6, mass conservation, float64 rho,
+   the CA kernels launched as often as in phase 4, so the tail launched
+   none); dot1d gaussian 1025 x 33 to 1e-5, with float32 levels (stop
+   residuals, mass, float64 rho; its count printed beside the JAX TPU
+   count, as float32 rounding sets it in 1D) and with float64 levels
+   (``DOT1D_F64_ANCHOR``, +-10%, no launch). Then
+   the measurement behind "auto", printed on a JSON line of its own: one
+   float64 tail iteration and one DCT solve under False, "ir" and "ir1" at
+   129^2 x 33 and 513^2 x 65, the IR solves' error against the f64 solve,
+   the north star under the other two modes, and a pure float64 solve to
+   1e-6.
 5. Times at 513^2 x 65 with CUDA events: each kernel against its plain
    version (the weighted q-steps with love-heart weights), with its bytes
    and share of the card's HBM peak (the sweep against its one-pass bytes:
@@ -83,7 +98,7 @@ Phases, each raising on failure:
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on the main path: the sum over every solve and profile of phases
-4-4e and 4g, each run with every count set to 0 just before and read just
+4-4e, 4g and 4h, each run with every count set to 0 just before and read just
 after; its largest error against its plain version, its time and its
 plain version's at 513^2 x 65, its bytes and the bound bytes / the HBM
 peak; and under ``dim3`` the same for its DIM = 3 form at 129^3 x 33,
@@ -191,6 +206,29 @@ VARIANT_3D_ANCHORS = {("sGS-inPALM", "split8"): (529, 1506),
 # steps at 17^3 x 9 after 4 iterations, as SEG_REL_129 in 2D
 SEG_REL_3D = 1e-5
 STEPS_3D = (17, 9)
+# the north star (``bench.py:137-155``, BASELINE.json's metric): the headline
+# to KKT 1e-6, float32 levels and a float64 tail. The JAX package took
+# 189 + 174 + 159 float32 iterations and a 4,409-iteration tail, 4,931 in
+# all, final KKT 9.98e-7 (BENCH_r05.json)
+REFINE_OPTS = {"tol": 1e-4, "maxit": 6000, "refine_tol": 1e-6}
+REFINE_ANCHOR = {"levels": (189, 174, 159), "tail": 4409, "total": 4931}
+# dot1d (``bench.py:158-177``, ``demo_dot1d.m``): gaussian 1025 x 33, 3
+# levels, to 1e-5 through the tail. The JAX package took 4,671 iterations on
+# its TPU, final KKT 9.91e-6 (BENCH_r05.json). Its float32 levels stop at
+# 5e-5, 7.1e-5 and 1e-4, at the float32 floor in 1D, so their counts follow
+# the rounding: the same JAX solve takes 1489 + 1049 + 3000 + 609 = 6,147 on
+# the CPU, the port's 7,707 there (PERF.md section 6). So the float32 run is
+# held to its tolerance, mass and float64 rho, its count printed beside
+# DOT1D_TPU_COUNT; the count is held on float64 levels, where both packages
+# take 1329 + 389 + 114 + 1129 on the CPU (DOT1D_F64_ANCHOR), +-10% as the
+# other anchors
+DOT1D_OPTS = {"tol": 1e-4, "maxit": 3000, "refine_tol": 1e-5}
+DOT1D_TPU_COUNT = 4671
+DOT1D_F64_ANCHOR = (1329, 389, 114, 1129)
+# (nt, n) of the f64 tail-iteration times behind refine_dct_split="auto",
+# and the modes timed
+REFINE_TIME_SHAPES = ((33, 129), (65, 513))
+REFINE_MODES = (False, "ir", "ir1")
 FUSED_CU = "dotsocp_tpu_torch/csrc/fused_step.cu"
 SOURCES = {"x_step": FUSED_CU, "qx_step": FUSED_CU, "qx_step_w": FUSED_CU,
            "cx_step": FUSED_CU, "cx_final": FUSED_CU,
@@ -955,6 +993,186 @@ def headline_f64(torch):
             f"kernels: {launches}")
     return launches, dict(iters=iters, total=sum(iters), wall_s=wall,
                           mass_ok=bool(out["mass_ok"]))
+
+
+def refine_run(torch, r0, r1, nt, opts, dtype=None):
+    """One 3-level solve on the card (float32 levels unless ``dtype``),
+    every launch count set to 0 just before; returns (output, last history,
+    launches, wall seconds, the tail's report or None)."""
+    from dotsocp_tpu_torch.multilevel.solve import solve_dot
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out, _, hist = solve_dot(r0, r1, nt, 3, opts, "inPALM", device=DEVICE,
+                             dtype=dtype or torch.float32, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    tail = out["levels"][-1] if out["levels"][-1].get("refine") else None
+    return out, hist, launch_counts(), wall, tail
+
+
+def refine_result(out, wall, tail):
+    """The numbers phase 4h keeps of a refine run."""
+    levels = [lv["iters"] for lv in out["levels"] if not lv.get("refine")]
+    return dict(levels=levels, tail_iters=tail["iters"],
+                total=sum(levels) + tail["iters"], wall_s=wall,
+                tail_s=tail["time"], method=tail["method"],
+                final_kkt=[float(x) for x in tail["final_kkt"]],
+                mass_ok=bool(out["mass_ok"]))
+
+
+def refine_solves(torch, headline_launches):
+    """Phase 4h: the refine tail. The north-star run (the headline to KKT
+    1e-6: float32 levels, a float64 tail under the port's "auto") against
+    REFINE_ANCHOR, the CA launches equal to the phase-4 headline's (the
+    tail launches nothing); dot1d 1025 x 33 to 1e-5 with float32 levels
+    (tolerance, mass, float64 rho; its count beside DOT1D_TPU_COUNT) and
+    with float64 levels (against DOT1D_F64_ANCHOR, no launch). Returns the
+    launches of the three runs and their results."""
+    import numpy as np
+
+    from dotsocp_tpu_torch.models.examples import get_example_1d, get_example_2d
+    from dotsocp_tpu_torch.multilevel.solve import AUTO_DCT_SPLIT
+
+    r0, r1 = get_example_2d("DOTmark_4stitch", 129, 129)
+    out, hist, launches, wall, tail = refine_run(torch, r0, r1, 33,
+                                                 REFINE_OPTS)
+    res = refine_result(out, wall, tail)
+    stop = max(res["final_kkt"][i] for i in (0, 2, 5, 6))
+    log(f"  north star ('auto' = {AUTO_DCT_SPLIT!r}): levels {res['levels']}, "
+        f"tail {res['tail_iters']} ({res['method']}), total {res['total']} "
+        f"(anchor {REFINE_ANCHOR['tail']} / {REFINE_ANCHOR['total']}); wall "
+        f"{wall:.3f} s, tail {res['tail_s']:.3f} s; final KKT "
+        f"{np.array2string(np.asarray(res['final_kkt']), precision=3)}, "
+        f"mass_ok {res['mass_ok']}; launches {launches}")
+    require(tuple(res["levels"]) == REFINE_ANCHOR["levels"],
+            f"north star: levels {res['levels']}, not "
+            f"{list(REFINE_ANCHOR['levels'])}")
+    for key in ("tail", "total"):
+        got = res["tail_iters" if key == "tail" else "total"]
+        require(abs(got - REFINE_ANCHOR[key]) <= 0.1 * REFINE_ANCHOR[key],
+                f"north star: {key} {got} outside +-10% of "
+                f"{REFINE_ANCHOR[key]}")
+    require(stop < 1e-6, f"north star: stop residual {stop:.3e}")
+    require(res["mass_ok"], "north star: mass conservation violated")
+    rho = out["rho"]
+    require(rho.dtype == torch.float64 and tuple(rho.shape) == (33, 129, 129)
+            and bool(torch.isfinite(rho).all()),
+            f"north star: rho {rho.dtype} {tuple(rho.shape)}")
+    for name in ("x_step", "qx_step", "cx_step", "cx_final"):
+        require(launches[name] == headline_launches[name],
+                f"north star: {name} launched {launches[name]} times, the "
+                f"headline {headline_launches[name]}: the tail launched it")
+
+    d0, d1 = get_example_1d("gaussian", 1025)
+    dot1d = {}
+    for dtype in (torch.float32, torch.float64):
+        out1, _, launches1, wall1, tail1 = refine_run(torch, d0, d1, 33,
+                                                      DOT1D_OPTS, dtype)
+        add_counts(launches, launches1)
+        res1 = refine_result(out1, wall1, tail1)
+        stop1 = max(res1["final_kkt"][i] for i in (0, 2, 5, 6))
+        what = f"dot1d 1025 x 33, {str(dtype)[6:]} levels"
+        if dtype == torch.float32:
+            anchor, source = DOT1D_TPU_COUNT, "the JAX count on its TPU"
+        else:
+            anchor, source = sum(DOT1D_F64_ANCHOR), list(DOT1D_F64_ANCHOR)
+        log(f"  {what}: levels {res1['levels']}, tail {res1['tail_iters']}, "
+            f"total {res1['total']} ({anchor}: {source}); wall "
+            f"{wall1:.3f} s, tail {res1['tail_s']:.3f} s; stop residual "
+            f"{stop1:.3e}, mass_ok {res1['mass_ok']}; launches {launches1}")
+        if dtype == torch.float64:
+            require(abs(res1["total"] - anchor) <= 0.1 * anchor,
+                    f"{what}: total {res1['total']} outside +-10% of "
+                    f"{anchor}")
+            require(sum(launches1.values()) == 0,
+                    f"{what}: a kernel was launched: {launches1}")
+        require(stop1 < 1e-5, f"{what}: stop residual {stop1:.3e}")
+        require(res1["mass_ok"], f"{what}: mass conservation violated")
+        require(out1["rho"].dtype == torch.float64,
+                f"{what}: rho not float64")
+        dot1d[str(dtype)[6:]] = res1
+    return launches, dict(north_star=res, dot1d=dot1d["float32"],
+                          dot1d_f64_levels=dot1d["float64"])
+
+
+def refine_modes(torch):
+    """The measurement behind the port's refine_dct_split="auto": one f64
+    tail iteration (a 20-iteration segment of the plain route, CUDA events)
+    and one DCT solve at REFINE_TIME_SHAPES under each mode, in turns
+    (False, ir, ir1, ir1, ir, False); the IR solves' largest error against
+    the card's f64 solve, relative to its largest entry; the whole north
+    star under the two modes 'auto' does not pick, and a pure float64 solve
+    to 1e-6. Nothing about speed is asserted."""
+    from dotsocp_tpu_torch.algorithms.core import Kernels, LevelConfig
+    from dotsocp_tpu_torch.models.examples import get_example_2d
+    from dotsocp_tpu_torch.multilevel.level import initial_scaling, initialize
+    from dotsocp_tpu_torch.multilevel.solve import AUTO_DCT_SPLIT
+
+    f64 = torch.float64
+    result = {"tail_iter_ms": {}, "dct_ms": {}, "ir_rel_err": {}}
+    for nt, n in REFINE_TIME_SHAPES:
+        r0, r1 = get_example_2d("DOTmark_4stitch" if n == 129 else "example2",
+                                n, n)
+        lv = initialize(r0, r1, nt, dtype=f64, device=DEVICE)
+        initial_scaling(lv, scaling=True)
+        kerns = {m: Kernels(LevelConfig(geom=lv.geom, D=lv.D, E=lv.E,
+                                        device=DEVICE, dtype=f64,
+                                        dct_split=m))
+                 for m in REFINE_MODES}
+        s0 = kerns[False].run_segment(kerns[False].prep(lv.as_dict(), 1.0), 5)
+        rhs = kerns[False]._rhs(s0)
+        exact = kerns[False]._poisson_solve(s0, rhs)
+        it_ms = {m: [] for m in REFINE_MODES}
+        dct_ms = {m: [] for m in REFINE_MODES}
+        for m in REFINE_MODES + REFINE_MODES[::-1]:
+            kern = kerns[m]
+            state = {"s": s0.clone()}
+
+            def segment():
+                state["s"] = kern.run_segment(state["s"], 20)
+
+            it_ms[m].append(event_ms(torch, segment, 3) / 20)
+            dct_ms[m].append(event_ms(
+                torch, lambda: kern._poisson_solve(s0, rhs), 10))
+        shape = f"{n}^2x{nt}"
+        result["tail_iter_ms"][shape] = {str(m): sum(v) / 2
+                                         for m, v in it_ms.items()}
+        result["dct_ms"][shape] = {str(m): sum(v) / 2
+                                   for m, v in dct_ms.items()}
+        span = float(exact.abs().max())
+        result["ir_rel_err"][shape] = {
+            m: float((kerns[m]._poisson_solve(s0, rhs) - exact).abs().max())
+            / span for m in ("ir", "ir1")}
+        log(f"  {shape} float64: one tail iteration (ms) "
+            f"{result['tail_iter_ms'][shape]}, DCT solve (ms) "
+            f"{result['dct_ms'][shape]}; IR error against the f64 solve "
+            f"{result['ir_rel_err'][shape]}")
+        del kerns, s0, rhs, exact, state
+        torch.cuda.empty_cache()
+
+    r0, r1 = get_example_2d("DOTmark_4stitch", 129, 129)
+    runs = {}
+    for mode in REFINE_MODES:
+        if mode == AUTO_DCT_SPLIT:
+            continue  # phase 4h's north-star run
+        out, _, _, wall, tail = refine_run(
+            torch, r0, r1, 33, dict(REFINE_OPTS, refine_dct_split=mode))
+        runs[str(mode)] = refine_result(out, wall, tail)
+        log(f"  north star under {mode!r}: tail {tail['iters']} "
+            f"({tail['method']}), {tail['time']:.3f} s; wall {wall:.3f} s")
+    out, hist, _, wall, _ = refine_run(
+        torch, r0, r1, 33, {"tol": 1e-6, "maxit": 6000}, dtype=f64)
+    pure = dict(levels=[lv["iters"] for lv in out["levels"]], wall_s=wall,
+                final_kkt=[float(x) for x in hist["kkt"][-1]],
+                mass_ok=bool(out["mass_ok"]))
+    log(f"  pure float64 to 1e-6: levels {pure['levels']} "
+        f"({sum(pure['levels'])}), wall {wall:.3f} s, mass_ok "
+        f"{pure['mass_ok']}")
+    result.update(north_star_by_mode=runs, pure_f64_1e6=pure,
+                  auto=str(AUTO_DCT_SPLIT))
+    return result
 
 
 def solve_levels(torch, method, problem, n, nt, levels, **opts):
@@ -1795,44 +2013,71 @@ def time_scale_3d(torch):
                                 dct_ms=dct_ms, peak_gib=peak)
 
 
-def profile_window(torch, trace_dir):
-    """Device busy share over 20 CA iterations at the headline finest level:
-    kernel time from torch.profiler, wall time from an unprofiled run of the
-    same 20 iterations. Writes a chrome trace into ``trace_dir`` if given."""
+def busy_share(torch, what, window, trace_path):
+    """Device busy share of ``window()`` (which ends in a synchronize):
+    kernel time from torch.profiler, wall time from an unprofiled run of
+    the same window. Writes a chrome trace to ``trace_path`` if given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    lv = headline_level(torch, torch.device(DEVICE))
-    kern = make_kernels(torch, lv)
-    s = kern.run_segment(kern.prep(lv.as_dict(), 1.0), 20)
-    s = s.replace(z=kern._fresh_x(s))
-
-    def window(st):
-        for _ in range(20):
-            st = kern._step_fused_x(st, final=False)
-        torch.cuda.synchronize()
-        return st
-
-    s = window(s)
+    window()
     t0 = time.monotonic()
-    s = window(s)
+    window()
     wall = time.monotonic() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        window(s)
+        window()
     events = prof.key_averages()
     log(events.table(sort_by="self_cuda_time_total", row_limit=12))
     busy_us = sum(e.self_device_time_total for e in events
                   if e.device_type == DeviceType.CUDA
                   and not e.is_user_annotation)
-    log(f"  20 CA iterations at 129^2 x 33: wall {1e3 * wall:.3f} ms "
-        f"unprofiled, kernels {busy_us / 1e3:.3f} ms -> device busy "
-        f"{100 * busy_us / 1e6 / wall:.0f}%, idle "
-        f"{100 - 100 * busy_us / 1e6 / wall:.0f}%")
+    busy = 100 * busy_us / 1e6 / wall
+    log(f"  {what}: wall {1e3 * wall:.3f} ms unprofiled, kernels "
+        f"{busy_us / 1e3:.3f} ms -> device busy {busy:.0f}%, idle "
+        f"{100 - busy:.0f}%")
+    if trace_path:
+        prof.export_chrome_trace(trace_path)
+    return dict(wall_ms=1e3 * wall, kernel_ms=busy_us / 1e3, busy_pct=busy)
+
+
+def profile_window(torch, trace_dir):
+    """Device busy share over 20 CA iterations at the headline finest level,
+    and over 20 float64 tail iterations there (the plain route, the port's
+    'auto' DCT); with ``trace_dir``, a chrome trace of each."""
+    from dotsocp_tpu_torch.algorithms.core import Kernels, LevelConfig
+    from dotsocp_tpu_torch.multilevel.solve import AUTO_DCT_SPLIT
+
     if trace_dir:
         os.makedirs(trace_dir, exist_ok=True)
-        prof.export_chrome_trace(
-            os.path.join(trace_dir, "ca_iterations_trace.json"))
+    lv = headline_level(torch, torch.device(DEVICE))
+    kern = make_kernels(torch, lv)
+    s = kern.run_segment(kern.prep(lv.as_dict(), 1.0), 20)
+    state = {"s": s.replace(z=kern._fresh_x(s))}
+
+    def window():
+        for _ in range(20):
+            state["s"] = kern._step_fused_x(state["s"], final=False)
+        torch.cuda.synchronize()
+
+    ca = busy_share(torch, "20 CA iterations at 129^2 x 33", window,
+                    trace_dir and os.path.join(trace_dir,
+                                               "ca_iterations_trace.json"))
+    kern64 = Kernels(LevelConfig(geom=lv.geom, D=lv.D, E=lv.E, tau=1.9,
+                                 dtype=torch.float64, device=DEVICE,
+                                 dct_split=AUTO_DCT_SPLIT))
+    tail = {"s": kern64.run_segment(kern64.prep(lv.as_dict(), 1.0), 20)}
+
+    def tail_window():
+        tail["s"] = kern64.run_segment(tail["s"], 20)
+        torch.cuda.synchronize()
+
+    f64 = busy_share(torch, "20 float64 tail iterations at 129^2 x 33",
+                     tail_window,
+                     trace_dir and os.path.join(trace_dir,
+                                                "f64_tail_trace.json"))
+    print(json.dumps({"busy": {"ca_129x33": ca, "f64_tail_129x33": f64}}),
+          flush=True)
 
 
 def main(argv=None):
@@ -1880,6 +2125,7 @@ def main(argv=None):
     launches = {}
     phase(4, "headline solve")
     run_launches, headline = headline_solve(torch)
+    headline_launches = dict(run_launches)
     add_counts(launches, run_launches)
     phase("4b", "the sGS path: sGS-inPALM at 129^2 x 33")
     run_launches, sgs_path = sgs_solve(torch)
@@ -1906,6 +2152,12 @@ def main(argv=None):
     phase("4g", "the headline in float64 on the card (the plain route)")
     run_launches, headline64 = headline_f64(torch)
     add_counts(launches, run_launches)
+    phase("4h", "the refine tail: the north star (the headline to KKT 1e-6) "
+          "and dot1d 1025 x 33 to 1e-5; the times behind 'auto'")
+    run_launches, refine = refine_solves(torch, headline_launches)
+    add_counts(launches, run_launches)
+    refine_auto = refine_modes(torch)
+    print(json.dumps({"refine_dct_split_auto": refine_auto}), flush=True)
     log(f"  main-path launches, 2D {launches}; 3D {launches_3d}")
     for k in REPLACES:
         require(k in OFF_PATH or launches[k] > 0, f"{k} was launched no time "
@@ -1959,7 +2211,8 @@ def main(argv=None):
                       "registers": registers, "peak_gib_3d": peaks_3d,
                       "steps_3d": steps_3d, "solves_3d": solves3d,
                       "scale_129x3x33": others_3d,
-                      "headline_f64": headline64, "hbm_peak": HBM_PEAK,
+                      "headline_f64": headline64, "refine": refine,
+                      "hbm_peak": HBM_PEAK,
                       "sweep_max_abs_by_shape": SWEEP_ERRS}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

@@ -113,6 +113,10 @@ class LevelConfig:
     device: str
     tau: float = 1.9
     dtype: torch.dtype = torch.float32
+    # the f64 strategy of the phi-step DCT solve (``ops/poisson.SPLITS``):
+    # False = matmuls in ``dtype``; "ir" / "ir1" = f32 transforms with
+    # f64-residual refinement (two rounds / one)
+    dct_split: object = False
 
 
 class Kernels:
@@ -124,7 +128,7 @@ class Kernels:
         self.geom = cfg.geom
         self.ops = OpsFlat(cfg.geom, cfg.dtype, cfg.device)
         # unit-D build: the solve multiplies by 1/D^2 at use time
-        self.poisson = self.ops.make_poisson(1.0)
+        self.poisson = self.ops.make_poisson(1.0, split=cfg.dct_split)
         # the shaped weight of a weighted level, flat, in the level's dtype
         self.weight = None
         if weight is not None:

@@ -131,6 +131,11 @@ class SolveOptions:
     # Halpern branch only (theta = 2), so it keeps no theta
     restart: int = 100
     rho: float = 2.0
+    # NaN tripwire: a KKT check that reads a residual that is not finite
+    # raises FloatingPointError naming ``label`` (the level), the iteration
+    # and the residual. It reads the residuals the check fetches anyway.
+    debug_nans: bool = False
+    label: str = "level 1"
 
 
 @dataclasses.dataclass
@@ -285,6 +290,11 @@ class SegmentSolver:
             kkt_org = res["kkt_org"]
             kkt5 = res["kkt"]
             hist.append(kkt_org, elapsed, it, float(res["pdGap"]))
+            if opts.debug_nans and not np.isfinite(kkt_org).all():
+                bad = int(np.flatnonzero(~np.isfinite(kkt_org))[0])
+                raise FloatingPointError(
+                    f"{opts.label}: KKT residual {bad + 1} is "
+                    f"{kkt_org[bad]} at iteration {it}")
 
             if (max(kkt_org[i] for i in stop_idx) < opts.tol
                     or elapsed > opts.time_limit):

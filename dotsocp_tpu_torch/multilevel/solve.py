@@ -17,13 +17,22 @@ max_chunks) are accepted and ignored, since eager PyTorch compiles
 nothing; ``use_pallas`` takes "auto" or True (the CUDA kernels run at
 every size for float32, float64 takes the plain route by dtype),
 ``layout`` "auto" or "flat" ("shaped" is TPU-only), ``driver`` "auto" or
-"host" ("device" waits for CUDA graphs); the refine, NaN-tripwire, trace,
-checkpoint and mesh options raise, naming the ROADMAP.md queue where each
-waits (``QUEUED_OPTS``).
+"host" ("device" waits for CUDA graphs); the checkpoint and mesh options
+raise, naming the ROADMAP.md queue where each waits (``QUEUED_OPTS``).
+
+``opts["refine_tol"]`` continues the finest level in float64 to a tighter
+tolerance (the mixed-precision refine tail of
+``dotsocp_tpu/multilevel/solve.py:681-819``), with ``refine_dtype``,
+``refine_method``, ``refine_dct_split`` (False, "auto", "ir", "ir1"),
+``refine_sigma_scale`` and ``refine_tau``; ``debug_nans`` raises
+FloatingPointError at a KKT check that reads a residual that is not
+finite; ``trace_dir`` writes a ``torch.profiler`` Chrome trace of the
+whole solve there.
 """
 from __future__ import annotations
 
 import math
+import os
 import time
 from typing import Optional
 
@@ -38,10 +47,12 @@ from ..algorithms.solvers import (AccADMMSolver, AccSgsADMMSolver,
 from ..algorithms.variants import (AccADMMKernels, AccADMMNesterovKernels,
                                    AccSgsADMMKernels, PALMKernels, SgsKernels)
 from ..ops.engine import OpsFlat
+from ..ops.poisson import is_split
 from .level import (
     LevelVar,
     initial_scaling,
     initialize,
+    make_c,
     recover_org_var,
     recover_solution,
 )
@@ -75,24 +86,30 @@ ALG2_STEPSIZE = 1.0
 # ROADMAP.md queue
 KNOWN_OPTS = {"tol", "maxit", "sigma", "time_limit", "scaling",
               "ifCheckStepByStep", "checkPrimDualFeas", "restart", "rho",
-              "theta", "profile"}
+              "theta", "profile", "refine_tol", "refine_dtype",
+              "refine_method", "refine_dct_split", "refine_sigma_scale",
+              "refine_tau", "debug_nans", "trace_dir"}
 # the JAX package's compile and cache knobs: eager PyTorch compiles and
 # caches nothing, so they are accepted and ignored
 IGNORED_OPTS = {"prewarm", "reuse_solvers", "chunk_iters", "max_chunks"}
 # JAX options of which the port runs some values (_check_choice)
 CHOICE_OPTS = {"use_pallas", "layout", "driver"}
 QUEUED_OPTS = {
-    "refine_tol": "queue 1 item 1 (refine tail)",
-    "refine_dtype": "queue 1 item 1 (refine tail)",
-    "refine_method": "queue 1 item 1 (refine tail)",
-    "refine_dct_split": "queue 1 item 1 (refine tail)",
-    "refine_sigma_scale": "queue 1 item 1 (refine tail)",
-    "refine_tau": "queue 1 item 1 (refine tail)",
-    "debug_nans": "queue 1 item 5 (the rest: the NaN tripwire)",
-    "trace_dir": "queue 1 item 5 (the rest: the profiler trace)",
     "mesh": "queue 1 item 7 (multi-device, last)",
-    "checkpoint_dir": "queue 1 item 5 (the rest: checkpointing)",
+    # the JAX package checkpoints the device driver's chunks
+    # (``dotsocp_tpu/algorithms/device_driver.py:402-443``)
+    "checkpoint_dir": "queue 1 item 3 (CUDA-graph segments, whose chunks "
+                      "the checkpoint lives in)",
 }
+# the port's refine_dct_split="auto", a fixed rule: the plain float64 DCT.
+# The JAX package picks the IR solve because the TPU emulates f64 matmuls
+# (its solve.py:746-760); the H100 runs them natively. Measured on an H100
+# 80GB HBM3 at 700 W (chip_smoke.py phase 4h, PERF.md section 6): one f64
+# tail iteration 3.25 / 5.56 / 4.47 ms under False / "ir" / "ir1" at
+# 129^2 x 33 and 26.5 / 36.2 / 31.3 ms at 513^2 x 65 (the DCT solve alone
+# 0.29 / 2.53 / 1.55 and 2.72 / 12.4 / 7.50 ms); the north star's tail took
+# 4,409 iterations under each, in 14.5 / 24.9 / 19.8 s
+AUTO_DCT_SPLIT = False
 
 
 def _is_sgs(method: str) -> bool:
@@ -120,6 +137,38 @@ def _check_choice(key, value):
                 "host driver")
         raise ValueError(f"driver={value!r}: not one of 'auto', 'host', "
                          f"'device'")
+
+
+def _refine_dtype(value) -> torch.dtype:
+    """``opts["refine_dtype"]`` as a torch dtype: torch.float64 or float32,
+    or their numpy or string names (a JAX user passes jnp.float64)."""
+    dtype = value
+    if not isinstance(value, torch.dtype):
+        try:
+            dtype = {np.dtype(np.float64): torch.float64,
+                     np.dtype(np.float32): torch.float32}.get(np.dtype(value))
+        except TypeError:
+            dtype = None
+    if dtype not in (torch.float64, torch.float32):
+        raise ValueError(f"refine_dtype={value!r}: not float64 or float32")
+    return dtype
+
+
+def _refine_split(value):
+    """``opts["refine_dct_split"]`` checked, "auto" resolved to the port's
+    rule (``AUTO_DCT_SPLIT``)."""
+    if value is True:
+        raise ValueError(
+            "refine_dct_split=True: the split-f32 DCT (double-word f32 "
+            "matmuls) works around the TPU's emulated f64; the H100 runs "
+            "f64 matmuls natively, so the port has no split path (use "
+            "False, 'auto', 'ir' or 'ir1')")
+    if isinstance(value, str) and value == "auto":
+        return AUTO_DCT_SPLIT
+    if not is_split(value):
+        raise ValueError(f"refine_dct_split={value!r}: not one of False, "
+                         f"'auto', 'ir', 'ir1'")
+    return value
 
 
 def _check_request(rho0, method, weight, opts):
@@ -190,12 +239,12 @@ def _jump_next_level(lv: LevelVar, rho0_f, rho1_f, nt_f: int, dtype,
 
 
 def _make_solver(method: str, lv: LevelVar, o: SolveOptions, device,
-                 dtype, theta: float = 2.0):
+                 dtype, theta: float = 2.0, dct_split=False):
     """The level solver of ``method`` (``dotsocp_tpu/multilevel/solve.py:
     236-313``, host driver); acc-ADMM with ``theta`` != 2 runs its Nesterov
-    branch."""
+    branch; ``dct_split`` is the DCT solve's f64 strategy."""
     cfg = LevelConfig(geom=lv.geom, D=lv.D, E=lv.E, device=str(device),
-                      tau=o.tau, dtype=dtype)
+                      tau=o.tau, dtype=dtype, dct_split=dct_split)
     w = lv.weight
     if method == "inPALM":
         return InPALMSolver(Kernels(cfg, w), o)
@@ -242,13 +291,40 @@ def solve_dot(
 
     output: rho (nt, *space), E (list per axis; Ex/Ey aliases in 2D, Ex
     in 1D, none in 3D), q0, b (list per axis, aliased alike), mass_ok,
-    per-level reports, total_time.
+    per-level reports (with ``opts["refine_tol"]`` one more, the float64
+    tail's, ``"refine": True``; rho and the fields are then float64),
+    total_time.
     """
     opts = dict(opts or {})
     _check_request(rho0, method, weight, opts)
     if not (isinstance(level_n, int) and level_n >= 1):
         raise ValueError("level_n must be a positive integer")
     device = torch.device(device)
+    args = (rho0, rho1, nt, level_n, opts, method, weight, barrier, device,
+            dtype, verbose)
+    trace_dir = opts.get("trace_dir")
+    if not trace_dir:
+        return _solve_dot_impl(*args)
+    # a torch.profiler trace of the whole solve (the JAX package's
+    # jax.profiler trace, ``solve.py:494-507``), written in the finally so
+    # that a solve that raises still leaves one
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    try:
+        return _solve_dot_impl(*args)
+    finally:
+        prof.stop()
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            trace_dir, f"solve_dot_{os.getpid()}_{time.time_ns()}"
+                       f".pt.trace.json"))
+
+
+def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
+                    device, dtype, verbose):
     if dtype == torch.float32 and float(opts.get("tol", 1e-4)) < 5e-5 \
             and verbose:
         print("WARNING: float32 stalls around KKT ~1e-4; tolerances below "
@@ -268,6 +344,7 @@ def solve_dot(
     check_pdf = bool(opts.get("checkPrimDualFeas", not weighted))
     theta = float(opts.get("theta", 2.0))
     profile = bool(opts.get("profile", False))
+    debug_nans = bool(opts.get("debug_nans", False))
     if method in ("PALM", "inPALM", "sGS-inPALM"):
         tau = ALM_STEPSIZE
     elif method == "ALG2":
@@ -326,7 +403,8 @@ def solve_dot(
                          check_step_by_step=check_sbs,
                          check_prim_dual_feas=check_pdf,
                          restart=int(opts.get("restart", 100)),
-                         rho=float(opts.get("rho", 2.0)))
+                         rho=float(opts.get("rho", 2.0)),
+                         debug_nans=debug_nans, label=f"level {lev + 1}")
         lev_method = method
         if sgs_method and lev < level_n - 1:
             # non-final levels of sGS methods run inPALM
@@ -362,6 +440,57 @@ def solve_dot(
             last_kkt = hist["kkt"][-1]
             lv = _jump_next_level(lv, rho0s[lev + 1], rho1s[lev + 1],
                                   nts[lev + 1], dtype, weights[lev + 1])
+
+    refine_tol = opts.get("refine_tol")
+    if refine_tol is not None:
+        # mixed-precision refinement (``dotsocp_tpu/multilevel/solve.py:
+        # 681-819``): continue the finest level in float64 to a tighter
+        # tolerance. The options are checked where they are read.
+        refine_tol = float(refine_tol)
+        refine_dtype = _refine_dtype(opts.get("refine_dtype", torch.float64))
+        refine_method = str(opts.get("refine_method", method))
+        methods_ok = WDOT_METHODS if weighted else METHODS
+        if refine_method not in methods_ok:
+            raise ValueError(
+                f"refine_method {refine_method!r} not in {methods_ok}")
+        split = _refine_split(opts.get("refine_dct_split", "auto"))
+        time_limit -= out["solve_time"]
+        sigma = 10.0 ** (math.log10(sigma * out["sigma_out"]) / 2.0)
+        sigma *= float(opts.get("refine_sigma_scale", 1.0))
+        tau = float(opts.get("refine_tau", tau))
+        last_kkt = hist["kkt"][-1]
+        # same-geometry warm restart: keep (phi, q, z, alpha, beta), rebuild
+        # c in the level's dtype (recover_org_var does not unscale it), then
+        # InitialScaling with E2 feedback; the solver's prep casts to
+        # refine_dtype
+        lv.c = make_c(lv.geom, rho0s[-1], rho1s[-1])
+        initial_scaling(lv, scaling, last_kkt, prev_e2)
+        # one phase: the JAX package's second phase follows only its
+        # split-f32 DCT, which the port does not have
+        o = SolveOptions(tol=refine_tol, maxit=maxit, sigma=sigma, tau=tau,
+                         time_limit=max(time_limit, 0.0), scaling=scaling,
+                         check_step_by_step=check_sbs,
+                         check_prim_dual_feas=check_pdf,
+                         restart=int(opts.get("restart", 100)),
+                         rho=float(opts.get("rho", 2.0)),
+                         debug_nans=debug_nans,
+                         label=f"level {level_n} (f64 refine)")
+        solver = _make_solver(refine_method, lv, o, device, refine_dtype,
+                              theta, dct_split=split)
+        hist, out = solver.solve(lv.as_dict())
+        hist["method"] = solver.name + (
+            " (f64 refine, IR-DCT)" if split else " (f64 refine)")
+        hists.append(hist)
+        recover_org_var(lv, out)
+        level_reports.append({
+            "level": level_n, "geom": lv.geom, "iters": out["iters"],
+            "time": out["solve_time"], "method": hist["method"],
+            "refine": True,
+            "final_kkt": hist["kkt"][-1] if hist["len"] else None})
+        if verbose:
+            print(f"f64 refine (tol={refine_tol:g}, 1 phase(s)): "
+                  f"{out['iters']} iters, {out['solve_time']:.2f}s, final KKT "
+                  f"max={np.max(hist['kkt'][-1][[0, 2, 5]]):.2e}")
 
     total_time = time.monotonic() - t_start
     rho, Es, q0, bs, mass_ok = recover_solution(lv)

@@ -156,9 +156,9 @@ class OpsFlat:
         diag = Staggered(q0=q0, bs=bs)
         return diag if weight is None else diag + weight * weight
 
-    def make_poisson(self, D: float = 1.0) -> "FlatPoisson":
+    def make_poisson(self, D: float = 1.0, split=False) -> "FlatPoisson":
         inner = make_dct_poisson(self.geom, D=D, dtype=self.dtype,
-                                 device=self.device)
+                                 split=split, device=self.device)
         return FlatPoisson(inner, self.geom)
 
     def face_interp(self, x: torch.Tensor, a: int) -> torch.Tensor:

@@ -20,7 +20,10 @@ entry (``chip_smoke.SEG_REL_3D``). The flat shift is bit-equal to its
 plain version. The sweep kernel (one launch a sweep) is also held on grids
 its tiles and halos do not divide. float64 on the card takes the plain
 route: an f64 solve checks KKT at the CPU's iterations, with residuals
-within 1e-6, and launches nothing; float16 and mixed dtypes raise.
+within 1e-6, and launches nothing; float16 and mixed dtypes raise. The
+refine tail: the IR-DCT solve on the card against the float64 CPU solve at
+129^2 x 33 and 513^2 x 65, and a small solve whose float64 tail launches
+no kernel and reaches its refine_tol.
 """
 import math
 
@@ -40,6 +43,7 @@ from dotsocp_tpu_torch.ops import fused_step as fs
 from dotsocp_tpu_torch.ops import sgs_sweep, shift
 from dotsocp_tpu_torch.ops.engine import OpsFlat, diag_values
 from dotsocp_tpu_torch.ops.geometry import Geometry
+from dotsocp_tpu_torch.ops.poisson import make_dct_poisson
 from dotsocp_tpu_torch.ops.sgs import make_sgs
 from dotsocp_tpu_torch.ops.staggered import Staggered
 
@@ -603,3 +607,51 @@ def test_flat_shift_kernel_matches_plain(dev, name):
                        torch.zeros_like(v["phi"]))
     torch.cuda.synchronize()
     assert shift.LAUNCHES["flat_shift"] == n0 + count + 1
+
+
+# -- the refine tail -------------------------------------------------------------
+
+@pytest.mark.parametrize("split,bound", [("ir", 1e-11), ("ir1", 1e-8)])
+@pytest.mark.parametrize("nt,n", [(33, 129), (65, 513)])
+def test_ir_solve_on_card_matches_f64_cpu(dev, nt, n, split, bound):
+    """The IR solve of a float64 rhs on the card (float32 transforms, the
+    float64 stencil residual) against the plain float64 solve on the CPU,
+    relative to its largest entry, with a use-time scale (as tests/
+    test_torch_refine.py on the CPU)."""
+    rhs = torch.from_numpy(
+        np.random.default_rng(nt).standard_normal((nt, n, n)))
+    scale = 1.0 / 0.37 ** 2
+    geom = Geometry(nt, (n, n))
+    want = make_dct_poisson(geom, dtype=torch.float64,
+                            device="cpu").solve(rhs, scale=scale)
+    ir = make_dct_poisson(geom, split=split, device=dev)
+    assert ir.mats[0].dtype == F32 and ir.mats[0].device.type == dev.type
+    got = ir.solve(rhs.to(dev), scale=scale)
+    assert got.dtype == torch.float64
+    err = float((got.cpu() - want).abs().max()) / float(want.abs().max())
+    assert err < bound, err
+
+
+@pytest.mark.parametrize("split", ["auto", "ir"])
+def test_refine_tail_on_card_launches_nothing(dev, split):
+    """A float32 solve on the card, and the same solve with a float64 tail:
+    the levels take the same iterations and every kernel is launched as
+    often, so the tail (the plain route by dtype) launched none; the tail
+    reaches its refine_tol, with float64 rho and mass conserved."""
+    r0, r1 = get_example_2d("example2", 33, 33)
+    runs = []
+    levels = {"tol": 1e-4, "maxit": 10000}
+    for opts in (levels,
+                 dict(levels, refine_tol=1e-5, refine_dct_split=split)):
+        _reset_all_launches()
+        out, _, last = solve_dot(r0, r1, 9, 2, opts, "inPALM", device=dev,
+                                 verbose=False)
+        torch.cuda.synchronize()
+        runs.append((out, last, _all_launches()))
+    (base, _, n_base), (ref, last, n_ref) = runs
+    assert ([lv["iters"] for lv in ref["levels"][:-1]]
+            == [lv["iters"] for lv in base["levels"]])
+    assert n_ref == n_base and n_base["qx_step"] > 0
+    assert ref["levels"][-1]["refine"] is True
+    assert max(last["kkt"][-1][[0, 2, 5, 6]]) < 1e-5
+    assert ref["rho"].dtype == torch.float64 and ref["mass_ok"]

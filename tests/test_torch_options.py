@@ -4,27 +4,42 @@ card's HBM peak by name, on the CPU.
 The JAX package's compile and cache knobs (prewarm, reuse_solvers,
 chunk_iters, max_chunks) are accepted and change nothing; ``use_pallas``,
 ``layout`` and ``driver`` take the values the port runs and refuse the
-others with a message that says why; the refine, NaN-tripwire and trace
-options raise, naming the ROADMAP.md queue where each waits. A solve with
-every accepted option takes the JAX package's iteration counts with the same
-options (both float64 on the CPU, the JAX host driver on the flat layout).
-``utils.profiling.hbm_peak_for`` maps a card's full name to its HBM peak,
-and knows no other card.
+others with a message that says why; the checkpoint and mesh options
+raise, naming the ROADMAP.md queue where each waits. The refine options,
+the NaN tripwire (``debug_nans``) and the profiler trace (``trace_dir``)
+are taken, each changing what it should; the trace is written even when
+the solve raises. A solve with every accepted option takes the JAX
+package's iteration counts with the same options (both float64 on the CPU,
+the JAX host driver on the flat layout), and ``w2_distance`` the JAX
+function's value. ``utils.profiling.hbm_peak_for`` maps a card's full name
+to its HBM peak, and knows no other card.
 """
+import json
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from dotsocp_tpu import w2_distance as jw2_distance
 from dotsocp_tpu.models.examples import get_example_2d as jget_example_2d
 from dotsocp_tpu.multilevel.solve import solve_dot as jsolve_dot
 
+from dotsocp_tpu_torch import w2_distance
+from dotsocp_tpu_torch.algorithms.core import Kernels, LevelConfig
+from dotsocp_tpu_torch.algorithms.driver import SolveOptions
+from dotsocp_tpu_torch.algorithms.solvers import InPALMSolver
 from dotsocp_tpu_torch.models.examples import get_example_2d
+from dotsocp_tpu_torch.multilevel import level as tlevel
 from dotsocp_tpu_torch.multilevel import solve as tsolve
 from dotsocp_tpu_torch.utils.profiling import hbm_peak_for
 
 torch.set_num_threads(2)
 
 N, NT, TOL = 9, 5, 1e-3
+# the JAX host driver on the flat layout without Pallas
+ACCEPTED_JAX = {"driver": "host", "layout": "flat", "use_pallas": False,
+                "reuse_solvers": False}
 ACCEPTED = {"prewarm": True, "reuse_solvers": False, "chunk_iters": 100,
             "max_chunks": 4, "use_pallas": "auto", "layout": "flat",
             "driver": "host"}
@@ -68,14 +83,73 @@ def test_refused_option_says_why(key, value, error, match):
         _solve({key: value})
 
 
-@pytest.mark.parametrize("key,item", [
-    ("refine_tol", 1), ("refine_dtype", 1), ("refine_method", 1),
-    ("refine_dct_split", 1), ("refine_sigma_scale", 1), ("refine_tau", 1),
-    ("debug_nans", 5), ("trace_dir", 5), ("checkpoint_dir", 5), ("mesh", 7)])
+@pytest.mark.parametrize("key,item", [("checkpoint_dir", 3), ("mesh", 7)])
 def test_queued_option_names_its_queue(key, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md queue 1 item {item} "):
         _solve({key: 1})
+
+
+REFINE = {"refine_tol": 1e-4}
+
+
+@pytest.fixture(scope="module")
+def refined():
+    return _solve(REFINE)
+
+
+def _tail_kkt(out, hist):
+    """The KKT rows of the refine tail (after the level's checks)."""
+    n_level = np.searchsorted(hist["iter"], out["levels"][0]["iters"],
+                              side="right")
+    return hist["kkt"][n_level:]
+
+
+@pytest.mark.parametrize("key", [
+    "refine_tol", "refine_dtype", "refine_method", "refine_dct_split",
+    "refine_sigma_scale", "refine_tau", "debug_nans", "trace_dir"])
+def test_option_is_taken(refined, key, tmp_path):
+    """Each option the port used to refuse as queued is now taken: it
+    changes what it should, and nothing else."""
+    r_out, r_hist = refined
+    if key == "refine_tol":
+        out, hist = _solve({key: 1e-6})
+        assert out["levels"][-1]["refine"] is True
+        assert max(hist["kkt"][-1][[0, 2, 5, 6]]) < 1e-6
+    elif key == "refine_dtype":
+        # a JAX user's dtype (the default's), and a name
+        out, hist = _solve(dict(REFINE, refine_dtype=jnp.float64))
+        assert np.array_equal(hist["kkt"], r_hist["kkt"])
+        out, hist = _solve(dict(REFINE, refine_dtype="float32"))
+        assert not np.array_equal(_tail_kkt(out, hist),
+                                  _tail_kkt(r_out, r_hist))
+        with pytest.raises(ValueError, match="not float64 or float32"):
+            _solve(dict(REFINE, refine_dtype="float16"))
+    elif key == "refine_method":
+        out, hist = _solve(dict(REFINE, refine_method="ALG2"))
+        assert out["levels"][-1]["method"] == "ALG2 (f64 refine)"
+    elif key == "refine_dct_split":
+        out, hist = _solve(dict(REFINE, refine_dct_split="ir1"))
+        assert out["levels"][-1]["method"].endswith("(f64 refine, IR-DCT)")
+    elif key in ("refine_sigma_scale", "refine_tau"):
+        value = 10.0 if key == "refine_sigma_scale" else 1.0
+        out, hist = _solve(dict(REFINE, **{key: value}))
+        assert out["levels"][0]["iters"] == r_out["levels"][0]["iters"]
+        assert not np.array_equal(_tail_kkt(out, hist),
+                                  _tail_kkt(r_out, r_hist))
+    elif key == "debug_nans":
+        out, hist = _solve(dict(REFINE, debug_nans=True))
+        assert np.array_equal(hist["kkt"], r_hist["kkt"])
+        r0, r1 = get_example_2d("example2", N, N)
+        r0[4, 4] = np.nan
+        with pytest.raises(FloatingPointError, match="level 1: KKT residual"):
+            tsolve.solve_dot(r0, r1, NT, 1, {"debug_nans": True}, "inPALM",
+                             device="cpu", dtype=torch.float64,
+                             verbose=False)
+    else:
+        out, hist = _solve(dict(REFINE, trace_dir=str(tmp_path)))
+        assert np.array_equal(hist["kkt"], r_hist["kkt"])
+        assert len(list(tmp_path.glob("solve_dot_*.pt.trace.json"))) == 1
 
 
 def test_unknown_option_is_refused():
@@ -104,3 +178,51 @@ def test_accepted_options_match_jax():
     ("NVIDIA H100", None), ("NVIDIA H200", None)])
 def test_hbm_peak_by_full_name(name, peak):
     assert hbm_peak_for(name) == peak
+
+
+def test_nan_tripwire_names_level_iteration_and_residual():
+    """A state seeded with a NaN: with ``debug_nans`` the first KKT check
+    raises; without, the solve runs to maxit as before."""
+    r0, r1 = get_example_2d("example2", N, N)
+    lv = tlevel.initialize(r0, r1, NT, dtype=torch.float64, device="cpu")
+    tlevel.initial_scaling(lv, True)
+    lv.q.q0[2, 3, 3] = float("nan")
+    kern = Kernels(LevelConfig(geom=lv.geom, D=lv.D, E=lv.E, device="cpu",
+                               dtype=torch.float64))
+    with pytest.raises(FloatingPointError,
+                       match=r"^level 2: KKT residual \d is nan at "
+                             r"iteration 1$"):
+        InPALMSolver(kern, SolveOptions(maxit=20, debug_nans=True,
+                                        label="level 2")).solve(lv.as_dict())
+    _, out = InPALMSolver(kern, SolveOptions(maxit=20)).solve(lv.as_dict())
+    assert out["iters"] == 20
+
+
+def test_trace_written_when_the_solve_raises(tmp_path):
+    with pytest.raises(ValueError, match="refine_method"):
+        _solve({"trace_dir": str(tmp_path / "t"), "refine_tol": 1e-4,
+                "refine_method": "nonsense"})
+    traces = list((tmp_path / "t").glob("solve_dot_*.pt.trace.json"))
+    assert len(traces) == 1
+    assert json.loads(traces[0].read_text())["traceEvents"]
+
+
+def test_w2_distance_matches_jax():
+    """example2 17^2, nt 9, 2 levels, both in float64 on the CPU (the JAX
+    host driver on the flat layout)."""
+    r0, r1 = get_example_2d("example2", 17, 17)
+    want = jw2_distance(r0, r1, 9, 2, dict(ACCEPTED_JAX), dtype=jnp.float64)
+    got, out = w2_distance(r0, r1, 9, 2, {"driver": "host"},
+                           dtype=torch.float64, return_solution=True,
+                           device="cpu")
+    assert got == pytest.approx(want, rel=1e-9)
+    assert out["mass_ok"] and out["rho"].dtype == torch.float64
+
+
+@pytest.mark.parametrize("rho0,match", [
+    (np.zeros((9, 9)), "rho0 has mean 0.0"),
+    (np.full((9, 9), np.nan), "rho0 has mean nan"),
+    (np.ones((5, 5, 5)), "1-D or 2-D densities")])
+def test_w2_distance_refuses(rho0, match):
+    with pytest.raises(ValueError, match=match):
+        w2_distance(rho0, np.ones(rho0.shape), 5, 1, device="cpu")

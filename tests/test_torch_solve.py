@@ -317,7 +317,7 @@ def test_solve_dot_refuses_what_waits():
         run(weight=weight, method="PALM")
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
         twdot2d.barrier_maze14()
-    for key in ("refine_tol", "mesh"):
+    for key in ("checkpoint_dir", "mesh"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
             run(opts={key: 1e-6})
     with pytest.raises(ValueError, match="unknown option"):
