@@ -8,7 +8,11 @@ mirror it one to one, on 1D, 2D and 3D grids. The post-DCT passes of
 the inPALM loop, the sGS sweep and the cone projection are hand-written
 CUDA kernels for Hopper (``csrc/*.cu``, bound in ``ops/fused_step.py``,
 ``ops/sgs_sweep.py`` and ``ops/shift.py``); on CPU tensors the same
-wrappers run their plain PyTorch versions.
+wrappers run their plain PyTorch versions. Each level's loop runs on the
+device driver (``algorithms/device_driver.py``, ``device_sgs.py``: the
+decision state on the card, event-free pieces replayed from CUDA graphs,
+``algorithms/graphs.py``) or, with ``opts={"driver": "host"}``, on the
+host driver (``algorithms/driver.py``), by the JAX package's rule.
 
 The entry points run on the card (``solve_dot``'s ``device`` defaults to
 ``"cuda"``) unless the caller asks for the CPU with ``device="cpu"``; they

@@ -17,13 +17,17 @@ Two paths run the iteration after the phi-step on hand-written kernels
 single step ``_step`` (z_step, q_step, beta_step), which ``run_one``, the
 profiler and sGS-inPALM's step run.
 
-The iteration state lives on the caller's device. The level scalars
-(sigma, cScale, dScale, norm_c, norm_d, D, E) are Python floats on the
-host: only the host driver's events change them (the sigma update and the
-rescale, which read norms back anyway), so every kernel gets sbf = E/D,
-sd = E/dScale, tau and D by value and no step copies anything from the
-device. (The JAX package keeps them as traced f32; in f32 runs the two
-differ by at most 1 ulp in these scalars.)
+The iteration state lives on the caller's device. Under the host driver
+the level scalars (sigma, cScale, dScale, norm_c, norm_d, D, E) are
+Python floats on the host: only its events change them (the sigma update
+and the rescale, which read norms back anyway), so every kernel gets
+sbf = E/D, sd = E/dScale, tau and D by value and no step copies anything
+from the device. The device driver (``device_driver.py``) keeps sigma,
+cScale, dScale, norm_c, norm_d and sigmaScale as 0-d tensors in the
+state's dtype on the card instead, as the JAX package keeps them traced,
+and the same methods run on them (sd is then a tensor the kernels read
+from memory); D and E stay floats, constant through a level. (In f32 runs
+the two forms differ by at most 1 ulp in these scalars.)
 
 The variables alpha, beta, c are stored pre-divided by sigma, exactly like
 the reference (``solver_socp_inPALM.m:102-104``).

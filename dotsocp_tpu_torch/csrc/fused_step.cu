@@ -143,7 +143,7 @@ __global__ void x_kernel(const float* __restrict__ q0,
                          const float* __restrict__ bs,
                          const float* __restrict__ beta, float* __restrict__ x,
                          int nt, int S, const Axes<DIM> ax, float sbf,
-                         float sd) {
+                         float sd, const float* __restrict__ sd_at) {
   constexpr int C = 2 + 4 * DIM;
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   const int t = blockIdx.y;
@@ -151,7 +151,7 @@ __global__ void x_kernel(const float* __restrict__ q0,
   const int64_t plane = (int64_t)(nt - 1) * S;
   const int64_t cell = (int64_t)t * S + s;
   float col[C];
-  bfd_cols<DIM>(col, q0, bs, nt, S, ax, t, s, sbf, sd);
+  bfd_cols<DIM>(col, q0, bs, nt, S, ax, t, s, sbf, sd_at ? *sd_at : sd);
   float bt[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
@@ -328,7 +328,8 @@ __global__ void cx_kernel(const float* __restrict__ q0n,
                           const float* __restrict__ bsn, const float* beta,
                           const float* x, float* beta_out, float* x_out,
                           int nt, int S, const Axes<DIM> ax, float sbf,
-                          float sd, float tau) {
+                          float sd, const float* __restrict__ sd_at,
+                          float tau) {
   constexpr int C = 2 + 4 * DIM;
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   const int t = blockIdx.y;
@@ -336,7 +337,7 @@ __global__ void cx_kernel(const float* __restrict__ q0n,
   const int64_t plane = (int64_t)(nt - 1) * S;
   const int64_t cell = (int64_t)t * S + s;
   float col[C];
-  bfd_cols<DIM>(col, q0n, bsn, nt, S, ax, t, s, sbf, sd);
+  bfd_cols<DIM>(col, q0n, bsn, nt, S, ax, t, s, sbf, sd_at ? *sd_at : sd);
   float zs[C], br[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
@@ -417,21 +418,21 @@ inline AxesIn make_axes(int k0, int k1, int k2, int n0 = 1, int n1 = 1,
 template <bool PLUS_BETA>
 int launch_x(const float* q0, const float* bs, const float* beta, float* x,
              int dim, int nt, int S, const AxesIn& ax, float sbf, float sd,
-             void* stream) {
+             const float* sd_at, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid = grid_for(S, nt - 1);
   switch (dim) {
     case 1:
       x_kernel<1, PLUS_BETA><<<grid, kThreads, 0, st>>>(
-          q0, bs, beta, x, nt, S, axes_for<1>(ax), sbf, sd);
+          q0, bs, beta, x, nt, S, axes_for<1>(ax), sbf, sd, sd_at);
       break;
     case 2:
       x_kernel<2, PLUS_BETA><<<grid, kThreads, 0, st>>>(
-          q0, bs, beta, x, nt, S, axes_for<2>(ax), sbf, sd);
+          q0, bs, beta, x, nt, S, axes_for<2>(ax), sbf, sd, sd_at);
       break;
     case 3:
       x_kernel<3, PLUS_BETA><<<grid, kThreads, 0, st>>>(
-          q0, bs, beta, x, nt, S, axes_for<3>(ax), sbf, sd);
+          q0, bs, beta, x, nt, S, axes_for<3>(ax), sbf, sd, sd_at);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -473,25 +474,25 @@ int launch_qx(const float* phi, const float* x, const float* beta,
 template <int MODE>
 int launch_cx(const float* q0n, const float* bsn, const float* beta,
               const float* x, float* beta_out, float* x_out, int dim, int nt,
-              int S, const AxesIn& ax, float sbf, float sd, float tau,
-              void* stream) {
+              int S, const AxesIn& ax, float sbf, float sd,
+              const float* sd_at, float tau, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid = grid_for(S, nt - 1);
   switch (dim) {
     case 1:
       cx_kernel<1, MODE><<<grid, kThreads, 0, st>>>(
           q0n, bsn, beta, x, beta_out, x_out, nt, S, axes_for<1>(ax), sbf, sd,
-          tau);
+          sd_at, tau);
       break;
     case 2:
       cx_kernel<2, MODE><<<grid, kThreads, 0, st>>>(
           q0n, bsn, beta, x, beta_out, x_out, nt, S, axes_for<2>(ax), sbf, sd,
-          tau);
+          sd_at, tau);
       break;
     case 3:
       cx_kernel<3, MODE><<<grid, kThreads, 0, st>>>(
           q0n, bsn, beta, x, beta_out, x_out, nt, S, axes_for<3>(ax), sbf, sd,
-          tau);
+          sd_at, tau);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -511,7 +512,7 @@ int dotsocp_x_step(const float* q0, const float* bs, const float* beta,
                    float* x, int dim, int nt, int S, int k0, int k1, int k2,
                    float sbf, float sd, void* stream) {
   return launch_x<true>(q0, bs, beta, x, dim, nt, S, make_axes(k0, k1, k2),
-                        sbf, sd, stream);
+                        sbf, sd, nullptr, stream);
 }
 
 // z = Pi_K(BF_d q - beta) into the fresh z.
@@ -519,7 +520,7 @@ int dotsocp_z_step(const float* q0, const float* bs, const float* beta,
                    float* z, int dim, int nt, int S, int k0, int k1, int k2,
                    float sbf, float sd, void* stream) {
   return launch_x<false>(q0, bs, beta, z, dim, nt, S, make_axes(k0, k1, k2),
-                         sbf, sd, stream);
+                         sbf, sd, nullptr, stream);
 }
 
 // alpha (a0, ab) updated in place; sv is the host's s_bf / sqrt2, which
@@ -584,10 +585,10 @@ int dotsocp_cx_step(const float* q0n, const float* bsn, float* beta, float* x,
   const AxesIn ax = make_axes(k0, k1, k2);
   if (final_step) {
     return launch_cx<kCxFinal>(q0n, bsn, beta, x, beta, x, dim, nt, S, ax,
-                               sbf, sd, tau, stream);
+                               sbf, sd, nullptr, tau, stream);
   }
   return launch_cx<kCx>(q0n, bsn, beta, x, beta, x, dim, nt, S, ax, sbf, sd,
-                        tau, stream);
+                        nullptr, tau, stream);
 }
 
 // beta' = beta + tau (z - BF_d q') into the fresh beta_out.
@@ -596,7 +597,47 @@ int dotsocp_beta_step(const float* q0n, const float* bsn, const float* beta,
                       int k0, int k1, int k2, float sbf, float sd, float tau,
                       void* stream) {
   return launch_cx<kBeta>(q0n, bsn, beta, z, beta_out, nullptr, dim, nt, S,
-                          make_axes(k0, k1, k2), sbf, sd, tau, stream);
+                          make_axes(k0, k1, k2), sbf, sd, nullptr, tau, stream);
+}
+
+// The four entries above that take sd, with sd read from device memory
+// instead of passed by value (a float32 scalar of the device driver's
+// state, which a captured CUDA graph must not freeze): the same arithmetic
+// on the same float.
+int dotsocp_x_step_dev(const float* q0, const float* bs, const float* beta,
+                       float* x, int dim, int nt, int S, int k0, int k1,
+                       int k2, float sbf, const float* sd_at, void* stream) {
+  return launch_x<true>(q0, bs, beta, x, dim, nt, S, make_axes(k0, k1, k2),
+                        sbf, 0.f, sd_at, stream);
+}
+
+int dotsocp_z_step_dev(const float* q0, const float* bs, const float* beta,
+                       float* z, int dim, int nt, int S, int k0, int k1,
+                       int k2, float sbf, const float* sd_at, void* stream) {
+  return launch_x<false>(q0, bs, beta, z, dim, nt, S, make_axes(k0, k1, k2),
+                         sbf, 0.f, sd_at, stream);
+}
+
+int dotsocp_cx_step_dev(const float* q0n, const float* bsn, float* beta,
+                        float* x, int dim, int nt, int S, int k0, int k1,
+                        int k2, float sbf, const float* sd_at, float tau,
+                        int final_step, void* stream) {
+  const AxesIn ax = make_axes(k0, k1, k2);
+  if (final_step) {
+    return launch_cx<kCxFinal>(q0n, bsn, beta, x, beta, x, dim, nt, S, ax,
+                               sbf, 0.f, sd_at, tau, stream);
+  }
+  return launch_cx<kCx>(q0n, bsn, beta, x, beta, x, dim, nt, S, ax, sbf, 0.f,
+                        sd_at, tau, stream);
+}
+
+int dotsocp_beta_step_dev(const float* q0n, const float* bsn,
+                          const float* beta, const float* z, float* beta_out,
+                          int dim, int nt, int S, int k0, int k1, int k2,
+                          float sbf, const float* sd_at, float tau,
+                          void* stream) {
+  return launch_cx<kBeta>(q0n, bsn, beta, z, beta_out, nullptr, dim, nt, S,
+                          make_axes(k0, k1, k2), sbf, 0.f, sd_at, tau, stream);
 }
 
 // z = Pi_K(z2 - beta) over flat (C, M) views, into the fresh z.

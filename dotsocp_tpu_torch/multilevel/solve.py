@@ -12,13 +12,18 @@ between levels, and recovers (rho, E, q). With ``opts={"profile": True}``
 each level report also holds ``phases``, the per-phase times of
 ``utils/profiling.profile_phases`` on the level's final state. The JAX
 package's options are taken as follows (``_check_request``): its compile
-and cache knobs (``IGNORED_OPTS``: prewarm, reuse_solvers, chunk_iters,
-max_chunks) are accepted and ignored, since eager PyTorch compiles
-nothing; ``use_pallas`` takes "auto" or True (the CUDA kernels run at
-every size for float32, float64 takes the plain route by dtype),
-``layout`` "auto" or "flat" ("shaped" is TPU-only), ``driver`` "auto" or
-"host" ("device" waits for CUDA graphs); the checkpoint and mesh options
-raise, naming the ROADMAP.md queue where each waits (``QUEUED_OPTS``).
+and cache knobs (``IGNORED_OPTS``: prewarm, reuse_solvers) are accepted
+and ignored, since the port compiles nothing ahead; ``use_pallas`` takes
+"auto" or True (the CUDA kernels run at every size for float32, float64
+takes the plain route by dtype), ``layout`` "auto" or "flat" ("shaped" is
+TPU-only); ``driver`` takes "auto", "device" and "host" with the JAX
+package's rule (``_make_solver``): the device driver
+(``algorithms/device_driver.py``, CUDA-graph segments) unless the caller
+asks for the host driver, or "auto" meets ``ifCheckStepByStep``, or
+acc-ADMM runs its Nesterov branch (theta != 2, host only);
+``chunk_iters``, ``max_chunks`` and ``checkpoint_dir``
+(``<dir>/level<n>.npz``, resumed from) are the device driver's; ``mesh``
+raises, naming the ROADMAP.md queue where it waits (``QUEUED_OPTS``).
 
 ``opts["refine_tol"]`` continues the finest level in float64 to a tighter
 tolerance (the mixed-precision refine tail of
@@ -40,6 +45,8 @@ import numpy as np
 import torch
 
 from ..algorithms.core import Kernels, LevelConfig
+from ..algorithms.device_driver import AccDeviceDriver, DeviceDriver
+from ..algorithms.device_sgs import AccSgsDeviceDriver, SgsDeviceDriver
 from ..algorithms.driver import SolveOptions
 from ..algorithms.solvers import (AccADMMSolver, AccSgsADMMSolver,
                                   ALG2Solver, InPALMSolver, PALMSolver,
@@ -88,18 +95,15 @@ KNOWN_OPTS = {"tol", "maxit", "sigma", "time_limit", "scaling",
               "ifCheckStepByStep", "checkPrimDualFeas", "restart", "rho",
               "theta", "profile", "refine_tol", "refine_dtype",
               "refine_method", "refine_dct_split", "refine_sigma_scale",
-              "refine_tau", "debug_nans", "trace_dir"}
-# the JAX package's compile and cache knobs: eager PyTorch compiles and
-# caches nothing, so they are accepted and ignored
-IGNORED_OPTS = {"prewarm", "reuse_solvers", "chunk_iters", "max_chunks"}
+              "refine_tau", "debug_nans", "trace_dir", "chunk_iters",
+              "max_chunks", "checkpoint_dir"}
+# the JAX package's compile and cache knobs: the port compiles nothing
+# ahead and caches no solver, so they are accepted and ignored
+IGNORED_OPTS = {"prewarm", "reuse_solvers"}
 # JAX options of which the port runs some values (_check_choice)
 CHOICE_OPTS = {"use_pallas", "layout", "driver"}
 QUEUED_OPTS = {
     "mesh": "queue 1 item 7 (multi-device, last)",
-    # the JAX package checkpoints the device driver's chunks
-    # (``dotsocp_tpu/algorithms/device_driver.py:402-443``)
-    "checkpoint_dir": "queue 1 item 3 (CUDA-graph segments, whose chunks "
-                      "the checkpoint lives in)",
 }
 # the port's refine_dct_split="auto", a fixed rule: the plain float64 DCT.
 # The JAX package picks the IR solve because the TPU emulates f64 matmuls
@@ -129,12 +133,7 @@ def _check_choice(key, value):
                              "TPU-only; the port runs the flat engine only")
         raise ValueError(f"layout={value!r}: not one of 'auto', 'flat', "
                          f"'shaped'")
-    if key == "driver" and value not in ("auto", "host"):
-        if value == "device":
-            raise NotImplementedError(
-                "driver='device': the device driver waits in ROADMAP.md "
-                "queue 1 item 3 (CUDA-graph segments); the port runs the "
-                "host driver")
+    if key == "driver" and value not in ("auto", "host", "device"):
         raise ValueError(f"driver={value!r}: not one of 'auto', 'host', "
                          f"'device'")
 
@@ -182,6 +181,9 @@ def _check_request(rho0, method, weight, opts):
         if key in QUEUED_OPTS:
             raise NotImplementedError(
                 f"option {key!r} waits in ROADMAP.md {QUEUED_OPTS[key]}")
+        if key == "checkpoint_dir" and value is not None and \
+                not isinstance(value, (str, os.PathLike)):
+            raise TypeError(f"checkpoint_dir={value!r}: not a directory path")
         if key in CHOICE_OPTS:
             _check_choice(key, value)
         elif key not in KNOWN_OPTS | IGNORED_OPTS:
@@ -238,29 +240,54 @@ def _jump_next_level(lv: LevelVar, rho0_f, rho1_f, nt_f: int, dtype,
     return lv_f
 
 
+def uses_device_driver(method: str, driver: str, o: SolveOptions,
+                       theta: float = 2.0) -> bool:
+    """The JAX package's rule (``dotsocp_tpu/multilevel/solve.py:255-312``):
+    "device" and "auto" run the device driver, except that "auto" keeps the
+    host driver under ``ifCheckStepByStep`` and acc-ADMM's Nesterov branch
+    (theta != 2) runs on the host driver only."""
+    if method == "acc-ADMM" and theta != 2.0:
+        return False
+    return driver == "device" or (driver == "auto"
+                                  and not o.check_step_by_step)
+
+
 def _make_solver(method: str, lv: LevelVar, o: SolveOptions, device,
-                 dtype, theta: float = 2.0, dct_split=False):
+                 dtype, theta: float = 2.0, dct_split=False,
+                 driver: str = "auto", checkpoint_path=None,
+                 device_kw=None):
     """The level solver of ``method`` (``dotsocp_tpu/multilevel/solve.py:
-    236-313``, host driver); acc-ADMM with ``theta`` != 2 runs its Nesterov
-    branch; ``dct_split`` is the DCT solve's f64 strategy."""
+    236-313``): the device driver or the host driver by
+    :func:`uses_device_driver`; acc-ADMM with ``theta`` != 2 runs its
+    Nesterov branch; ``dct_split`` is the DCT solve's f64 strategy;
+    ``checkpoint_path`` and ``device_kw`` (chunk_iters, max_chunks) are
+    the device driver's."""
     cfg = LevelConfig(geom=lv.geom, D=lv.D, E=lv.E, device=str(device),
                       tau=o.tau, dtype=dtype, dct_split=dct_split)
     w = lv.weight
-    if method == "inPALM":
-        return InPALMSolver(Kernels(cfg, w), o)
-    if method == "ALG2":
-        return ALG2Solver(Kernels(cfg, w), o)
     if method == "acc-ADMM" and theta != 2.0:
         return AccADMMSolver(AccADMMNesterovKernels(cfg, w, o.restart, o.rho,
                                                     theta), o)
-    if method == "acc-ADMM":
-        return AccADMMSolver(AccADMMKernels(cfg, w, o.restart, o.rho), o)
+    if method in ("inPALM", "ALG2"):
+        k = Kernels(cfg, w)
+        host, dev = (ALG2Solver if method == "ALG2" else InPALMSolver,
+                     DeviceDriver)
+    elif method == "acc-ADMM":
+        k = AccADMMKernels(cfg, w, o.restart, o.rho)
+        host, dev = AccADMMSolver, AccDeviceDriver
     # the methods below are not in WDOT_METHODS: w is None
-    if method == "PALM":
-        return PALMSolver(PALMKernels(cfg), o)
-    if method == "sGS-inPALM":
-        return SgsInPALMSolver(SgsKernels(cfg), o)
-    return AccSgsADMMSolver(AccSgsADMMKernels(cfg, o.restart, o.rho), o)
+    elif method == "PALM":
+        k = PALMKernels(cfg)
+        host, dev = PALMSolver, DeviceDriver
+    elif method == "sGS-inPALM":
+        k = SgsKernels(cfg)
+        host, dev = SgsInPALMSolver, SgsDeviceDriver
+    else:
+        k = AccSgsADMMKernels(cfg, o.restart, o.rho)
+        host, dev = AccSgsADMMSolver, AccSgsDeviceDriver
+    if uses_device_driver(method, driver, o, theta):
+        return dev(k, o, checkpoint_path=checkpoint_path, **(device_kw or {}))
+    return host(k, o)
 
 
 def solve_dot(
@@ -345,6 +372,10 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
     theta = float(opts.get("theta", 2.0))
     profile = bool(opts.get("profile", False))
     debug_nans = bool(opts.get("debug_nans", False))
+    driver = str(opts.get("driver", "auto"))
+    ckpt_dir = opts.get("checkpoint_dir")
+    device_kw = {k: int(opts[k]) for k in ("chunk_iters", "max_chunks")
+                 if k in opts}
     if method in ("PALM", "inPALM", "sGS-inPALM"):
         tau = ALM_STEPSIZE
     elif method == "ALG2":
@@ -412,7 +443,11 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
             lev_method = "inPALM"
             o.maxit = ADMM_MAXIT
             o.tau = ALM_STEPSIZE
-        solver = _make_solver(lev_method, lv, o, device, dtype, theta)
+        solver = _make_solver(
+            lev_method, lv, o, device, dtype, theta, driver=driver,
+            checkpoint_path=(os.path.join(ckpt_dir, f"level{lev + 1}.npz")
+                             if ckpt_dir else None),
+            device_kw=device_kw)
         hist, out = solver.solve(lv.as_dict())
         hist["method"] = solver.name
         hists.append(hist)
@@ -421,6 +456,10 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
         report = {"level": lev + 1, "geom": lv.geom, "iters": out["iters"],
                   "time": out["solve_time"], "method": solver.name,
                   "final_kkt": hist["kkt"][-1] if hist["len"] else None}
+        if hasattr(solver, "stats"):
+            # the device driver's: host syncs and checks of the level loop,
+            # graph captures and replays
+            report["driver"] = dict(solver.stats)
         if profile:
             # per-phase times on the level's final state (the reference's
             # record_time, ``solver_socp_inPALM.m:339-341``); a phase that
@@ -475,8 +514,11 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
                          rho=float(opts.get("rho", 2.0)),
                          debug_nans=debug_nans,
                          label=f"level {level_n} (f64 refine)")
+        # the tail takes the driver rule and the chunk options, and no
+        # checkpoint (as the JAX package's tail)
         solver = _make_solver(refine_method, lv, o, device, refine_dtype,
-                              theta, dct_split=split)
+                              theta, dct_split=split, driver=driver,
+                              device_kw=device_kw)
         hist, out = solver.solve(lv.as_dict())
         hist["method"] = solver.name + (
             " (f64 refine, IR-DCT)" if split else " (f64 refine)")
@@ -487,6 +529,8 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
             "time": out["solve_time"], "method": hist["method"],
             "refine": True,
             "final_kkt": hist["kkt"][-1] if hist["len"] else None})
+        if hasattr(solver, "stats"):
+            level_reports[-1]["driver"] = dict(solver.stats)
         if verbose:
             print(f"f64 refine (tol={refine_tol:g}, 1 phase(s)): "
                   f"{out['iters']} iters, {out['solve_time']:.2f}s, final KKT "

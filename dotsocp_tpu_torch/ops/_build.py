@@ -42,6 +42,11 @@ SOURCES = {
         "dotsocp_q_step_w": [_P] * 11 + [_I] * 9 + [_F] * 10 + [_P],
         "dotsocp_beta_step": [_P] * 5 + [_I] * 6 + [_F] * 3 + [_P],
         "dotsocp_cone_project_diff": [_P, _P, _P, _I, _I, _P],
+        # the entries that read sd from device memory (a pointer after sbf)
+        "dotsocp_x_step_dev": [_P] * 4 + [_I] * 6 + [_F, _P, _P],
+        "dotsocp_z_step_dev": [_P] * 4 + [_I] * 6 + [_F, _P, _P],
+        "dotsocp_cx_step_dev": [_P] * 4 + [_I] * 6 + [_F, _P, _F, _I, _P],
+        "dotsocp_beta_step_dev": [_P] * 5 + [_I] * 6 + [_F, _P, _F, _P],
     },
     "sgs_sweep.cu": {
         # (dim, nt, n0..n2): the sizes of the space axes

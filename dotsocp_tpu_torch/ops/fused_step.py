@@ -52,7 +52,11 @@ CUDA tensors it checks device, shape, contiguity and aliasing, launches
 the kernel, and raises on any error; there is no fallback. Mixed dtypes
 and any other dtype on the card raise. Every launch adds one to
 ``LAUNCHES[name]``; the weighted q-steps count under ``qx_step_w`` and
-``q_step_w``.
+``q_step_w``. The scalar sd = E / dScale of ``x_step``, ``cx_step``,
+``cx_final``, ``z_step`` and ``beta_step`` is a Python float, or a
+one-element float32 tensor on the card (the device driver's state), which
+the ``*_dev`` entry of the same kernel reads from memory, so that a
+captured CUDA graph replays with the value the tensor holds then.
 
 In-place outputs: ``qx_step`` updates alpha, and ``cx_step`` / ``cx_final``
 update beta and x, in the buffers they were given (each thread reads those
@@ -114,8 +118,10 @@ def times_dinv(ops: OpsFlat, st: Staggered, dinv) -> Staggered:
     d_in, d_bd = dinv
     row = torch.full((ops.geom.nt, 1), d_in, dtype=st.q0.dtype,
                      device=st.q0.device)
-    row[0] = d_bd
-    row[-1] = d_bd
+    # fill_ takes the value as a kernel argument: no copy from the host,
+    # which a CUDA graph capture (the device driver's) would refuse
+    row[0].fill_(d_bd)
+    row[-1].fill_(d_bd)
     return Staggered(st.q0 * d_in, st.bs * row)
 
 
@@ -227,6 +233,23 @@ def _dims(ops: OpsFlat):
     return d, g.nt, ops.S, k, n, hs
 
 
+def _sd_args(lib, entry: str, sd, beta: torch.Tensor):
+    """The C entry point and the sd argument for a scalar ``sd``: a Python
+    float goes by value to ``entry``; a one-element float32 tensor on
+    ``beta``'s device (the device driver's state, see
+    ``algorithms/device_driver.py``) goes by address to ``entry + "_dev"``,
+    which reads the same float from memory, so a captured CUDA graph
+    replays with the value the tensor holds then."""
+    if not isinstance(sd, torch.Tensor):
+        return getattr(lib, entry), float(sd)
+    if sd.device != beta.device or sd.dtype != torch.float32 \
+            or sd.numel() != 1:
+        raise ValueError(f"{entry}: sd must be a float or a one-element "
+                         f"float32 tensor on {beta.device}, got "
+                         f"{sd.dtype} {tuple(sd.shape)} on {sd.device}")
+    return getattr(lib, entry + "_dev"), sd.data_ptr()
+
+
 def _launch(counts: dict, name: str, fn, device: torch.device,
             *args) -> None:
     """Launch on the current stream of ``device``, raise on a CUDA error,
@@ -262,9 +285,10 @@ def x_step(ops: OpsFlat, q: Staggered, beta, sbf: float, sd: float):
     _check_cone(ops, beta)
     x = torch.empty_like(beta)
     d, nt, S, k, _, _ = _dims(ops)
-    _launch(LAUNCHES, "x_step", _build.library().dotsocp_x_step,
-            beta.device, q.q0.data_ptr(), q.bs.data_ptr(), beta.data_ptr(),
-            x.data_ptr(), d, nt, S, *k, sbf, sd)
+    fn, sd_arg = _sd_args(_build.library(), "dotsocp_x_step", sd, beta)
+    _launch(LAUNCHES, "x_step", fn, beta.device, q.q0.data_ptr(),
+            q.bs.data_ptr(), beta.data_ptr(), x.data_ptr(), d, nt, S, *k, sbf,
+            sd_arg)
     return x
 
 
@@ -330,9 +354,10 @@ def _cx(name: str, final: bool, ops: OpsFlat, beta, x, q: Staggered, sbf,
     _check_stag(ops, q)
     _check_distinct(beta, x, q.q0, q.bs)
     d, nt, S, k, _, _ = _dims(ops)
-    _launch(LAUNCHES, name, _build.library().dotsocp_cx_step, beta.device,
-            q.q0.data_ptr(), q.bs.data_ptr(), beta.data_ptr(), x.data_ptr(),
-            d, nt, S, *k, sbf, sd, tau, int(final))
+    fn, sd_arg = _sd_args(_build.library(), "dotsocp_cx_step", sd, beta)
+    _launch(LAUNCHES, name, fn, beta.device, q.q0.data_ptr(),
+            q.bs.data_ptr(), beta.data_ptr(), x.data_ptr(), d, nt, S, *k, sbf,
+            sd_arg, tau, int(final))
     return beta, x
 
 
@@ -362,9 +387,10 @@ def z_step(ops: OpsFlat, q: Staggered, beta, sbf: float, sd: float):
     _check_cone(ops, beta)
     z = torch.empty_like(beta)
     d, nt, S, k, _, _ = _dims(ops)
-    _launch(LAUNCHES, "z_step", _build.library().dotsocp_z_step,
-            beta.device, q.q0.data_ptr(), q.bs.data_ptr(), beta.data_ptr(),
-            z.data_ptr(), d, nt, S, *k, sbf, sd)
+    fn, sd_arg = _sd_args(_build.library(), "dotsocp_z_step", sd, beta)
+    _launch(LAUNCHES, "z_step", fn, beta.device, q.q0.data_ptr(),
+            q.bs.data_ptr(), beta.data_ptr(), z.data_ptr(), d, nt, S, *k, sbf,
+            sd_arg)
     return z
 
 
@@ -397,9 +423,10 @@ def beta_step(ops: OpsFlat, beta, z, q: Staggered, sbf: float, sd: float,
     _check_stag(ops, q)
     out = torch.empty_like(beta)
     d, nt, S, k, _, _ = _dims(ops)
-    _launch(LAUNCHES, "beta_step", _build.library().dotsocp_beta_step,
-            beta.device, q.q0.data_ptr(), q.bs.data_ptr(), beta.data_ptr(),
-            z.data_ptr(), out.data_ptr(), d, nt, S, *k, sbf, sd, tau)
+    fn, sd_arg = _sd_args(_build.library(), "dotsocp_beta_step", sd, beta)
+    _launch(LAUNCHES, "beta_step", fn, beta.device, q.q0.data_ptr(),
+            q.bs.data_ptr(), beta.data_ptr(), z.data_ptr(), out.data_ptr(), d,
+            nt, S, *k, sbf, sd_arg, tau)
     return out
 
 

@@ -497,7 +497,8 @@ def test_solve_dot_3d_matches_jax(method, iters):
         r0, r1, 5, 2, {"tol": 1e-4, "driver": "host", "layout": "flat",
                        "use_pallas": False, "reuse_solvers": False},
         method, dtype=jnp.float64, verbose=False)
-    tout, th, _ = tsolve.solve_dot(r0, r1, 5, 2, {"tol": 1e-4}, method,
+    tout, th, _ = tsolve.solve_dot(r0, r1, 5, 2,
+                                   {"tol": 1e-4, "driver": "host"}, method,
                                    device="cpu", dtype=F64, verbose=False)
     assert [lv["iters"] for lv in jout["levels"]] == iters
     assert [lv["iters"] for lv in tout["levels"]] == iters

@@ -23,7 +23,13 @@ route: an f64 solve checks KKT at the CPU's iterations, with residuals
 within 1e-6, and launches nothing; float16 and mixed dtypes raise. The
 refine tail: the IR-DCT solve on the card against the float64 CPU solve at
 129^2 x 33 and 513^2 x 65, and a small solve whose float64 tail launches
-no kernel and reaches its refine_tol.
+no kernel and reaches its refine_tol. The device driver: 40 iterations replayed from
+its CUDA graphs bit-equal to the same iterations eager (inPALM's x-carry
+segment, acc-ADMM across an anchor restart, sGS-inPALM, the float64 plain
+route), also after a rescale and after a sigma change; no host sync inside
+its loop but one a check; ``LAUNCHES`` counting each replay's kernels; a
+capture that fails raising; the kernels that take sd bit-equal with sd
+read from memory (the ``*_dev`` entries the graphs launch).
 """
 import math
 
@@ -655,3 +661,118 @@ def test_refine_tail_on_card_launches_nothing(dev, split):
     assert ref["levels"][-1]["refine"] is True
     assert max(last["kkt"][-1][[0, 2, 5, 6]]) < 1e-5
     assert ref["rho"].dtype == torch.float64 and ref["mass_ok"]
+
+
+# -- the device driver's CUDA graphs ---------------------------------------------
+
+def _driver_case(name, dev):
+    """(make, var, counter) of a device driver at example2 33^2 x 9."""
+    from dotsocp_tpu_torch.algorithms.device_driver import (AccDeviceDriver,
+                                                            DeviceDriver)
+    from dotsocp_tpu_torch.algorithms.device_sgs import SgsDeviceDriver
+    from dotsocp_tpu_torch.algorithms.driver import SolveOptions
+
+    dtype = torch.float64 if name == "f64" else F32
+    r0, r1 = get_example_2d("example2", 33, 33)
+    lv = initialize(r0, r1, 9, dtype=dtype, device=dev)
+    initial_scaling(lv, True)
+    cfg = LevelConfig(geom=lv.geom, D=lv.D, E=lv.E, device=str(dev),
+                      tau=1.9, dtype=dtype)
+    o = SolveOptions()
+    if name == "acc":
+        return (lambda: AccDeviceDriver(AccADMMKernels(cfg), o),
+                lv.as_dict(), 80)
+    if name == "sgs":
+        return lambda: SgsDeviceDriver(SgsKernels(cfg), o), lv.as_dict(), None
+    return lambda: DeviceDriver(Kernels(cfg), o), lv.as_dict(), None
+
+
+@pytest.mark.parametrize("name", ["ca", "acc", "sgs", "f64"])
+def test_graph_replay_matches_eager(dev, name):
+    """40 iterations replayed from CUDA graphs against the same run eager,
+    then again after a rescale and after a sigma change (the scalars the
+    kernels read from memory, not frozen in the graph); acc-ADMM crosses an
+    anchor restart. Bit-equal."""
+    from dotsocp_tpu_torch.algorithms.device_driver import replay_against_eager
+
+    make, var, counter = _driver_case(name, dev)
+    for what, gap, first, _ in replay_against_eager(make, var, 40, counter):
+        assert first is None, f"{what}: tensor {first} differs by {gap}"
+
+
+def test_device_driver_syncs_once_per_check(dev):
+    """A 2-level solve under torch.cuda.set_sync_debug_mode('error') inside
+    the level loops: no host sync but the one read of each check."""
+    from dotsocp_tpu_torch.algorithms.device_driver import DeviceDriver
+
+    r0, r1 = get_example_2d("example2", 33, 33)
+    DeviceDriver.sync_debug = "error"
+    try:
+        out, _, _ = solve_dot(r0, r1, 9, 2, {"tol": 1e-4}, "inPALM",
+                              device=dev, verbose=False)
+    finally:
+        DeviceDriver.sync_debug = None
+    for lv in out["levels"]:
+        stats = lv["driver"]
+        assert stats["syncs"] == stats["checks"] > 0
+        assert stats["replays"] > stats["captures"] > 0
+
+
+def test_launches_count_replays(dev):
+    """A k-iteration CA segment from graphs adds one x_step and one
+    cx_final, k qx_step and k-1 cx_step, as the eager segment does."""
+    make, var, _ = _driver_case("ca", dev)
+    d = make()
+    d.prepare(var)
+    d.segment(3)    # each kind's first use (eager), then capture
+    torch.cuda.synchronize()
+    for k in (5, 9):
+        before = dict(fs.LAUNCHES)
+        d.segment(k)
+        torch.cuda.synchronize()
+        got = {n: fs.LAUNCHES[n] - before[n] for n in CA_KERNELS}
+        assert got == {"x_step": 1, "qx_step": k, "cx_step": k - 1,
+                       "cx_final": 1}
+    assert d.graphs.replays > 0
+
+
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_sd_from_memory_matches_sd_by_value(dev, name):
+    """The ``*_dev`` entries (sd read from a float32 tensor on the card, as
+    the device driver's graphs launch them) bit-equal to the by-value
+    entries with the same float."""
+    ops, v = _inputs(name, dev)
+    sbf, tau = 0.9, 1.9
+    sd_t = torch.full((), 0.37, dtype=F32, device=dev)
+    sd = float(sd_t)
+    q, beta, x = v["q"], v["beta"], v["x"]
+    for run in (lambda s: [fs.x_step(ops, q, beta, sbf, s)],
+                lambda s: [fs.z_step(ops, q, beta, sbf, s)],
+                lambda s: [fs.beta_step(ops, beta, x, q, sbf, s, tau)],
+                lambda s: fs.cx_step(ops, beta.clone(), x.clone(), q, sbf, s,
+                                     tau),
+                lambda s: fs.cx_final(ops, beta.clone(), x.clone(), q, sbf, s,
+                                      tau)):
+        for a, b in zip(run(sd), run(sd_t)):
+            assert torch.equal(a, b)
+
+
+def test_failing_capture_raises(dev):
+    """A piece that reads a value back to the host cannot be captured: the
+    capture raises, and the stream takes work again after it."""
+    from dotsocp_tpu_torch.algorithms.graphs import SegmentGraphs
+
+    graphs = SegmentGraphs(dev)
+    x = torch.ones(4, device=dev)
+
+    def reads_back():
+        x.add_(float(x.sum()))
+
+    with graphs.context():
+        graphs.run("reads", reads_back)      # the eager first use
+        with pytest.raises(RuntimeError):
+            graphs.run("reads", reads_back)  # the capture
+        graphs.run("fine", lambda: x.mul_(2.0))
+        graphs.run("fine", lambda: x.mul_(2.0))
+    torch.cuda.synchronize()
+    assert graphs.captures == 1 and graphs.replays == 1

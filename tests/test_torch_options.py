@@ -1,11 +1,14 @@
 """How the port's ``solve_dot`` takes the JAX package's options, and the
 card's HBM peak by name, on the CPU.
 
-The JAX package's compile and cache knobs (prewarm, reuse_solvers,
-chunk_iters, max_chunks) are accepted and change nothing; ``use_pallas``,
-``layout`` and ``driver`` take the values the port runs and refuse the
-others with a message that says why; the checkpoint and mesh options
-raise, naming the ROADMAP.md queue where each waits. The refine options,
+The JAX package's compile and cache knobs (prewarm, reuse_solvers) are
+accepted and change nothing; ``use_pallas``, ``layout`` and ``driver`` take
+the values the port runs and refuse the others with a message that says
+why; the device driver's ``chunk_iters``, ``max_chunks`` and
+``checkpoint_dir`` change nothing in a run that ends inside one chunk;
+``mesh`` raises, naming the ROADMAP.md queue where it waits. The solves
+here hold the host driver, unless a case asks for the device driver (as
+"auto" does). The refine options,
 the NaN tripwire (``debug_nans``) and the profiler trace (``trace_dir``)
 are taken, each changing what it should; the trace is written even when
 the solve raises. A solve with every accepted option takes the JAX
@@ -47,7 +50,9 @@ ACCEPTED = {"prewarm": True, "reuse_solvers": False, "chunk_iters": 100,
 
 def _solve(opts):
     r0, r1 = get_example_2d("example2", N, N)
-    out, hist, _ = tsolve.solve_dot(r0, r1, NT, 1, dict(opts, tol=TOL),
+    out, hist, _ = tsolve.solve_dot(r0, r1, NT, 1,
+                                    dict({"driver": "host"}, **opts,
+                                         tol=TOL),
                                     "inPALM", device="cpu",
                                     dtype=torch.float64, verbose=False)
     return out, hist
@@ -55,17 +60,31 @@ def _solve(opts):
 
 @pytest.fixture(scope="module")
 def baseline():
-    return _solve({})
+    return {"host": _solve({}), "device": _solve({"driver": "device"})}
+
+
+# the device driver's options, each run under it
+DEVICE_OPTS = ("chunk_iters", "max_chunks", "checkpoint_dir")
 
 
 @pytest.mark.parametrize("key,value", [
     ("prewarm", True), ("prewarm", False), ("reuse_solvers", False),
-    ("chunk_iters", 100), ("max_chunks", 4), ("use_pallas", "auto"),
-    ("use_pallas", True), ("layout", "auto"), ("layout", "flat"),
-    ("driver", "auto"), ("driver", "host")])
-def test_accepted_option_changes_nothing(baseline, key, value):
-    out, hist = _solve({key: value})
-    want, want_hist = baseline
+    ("chunk_iters", 100), ("chunk_iters", 7), ("max_chunks", 4),
+    ("checkpoint_dir", "ck"), ("use_pallas", "auto"), ("use_pallas", True),
+    ("layout", "auto"), ("layout", "flat"), ("driver", "auto"),
+    ("driver", "host"), ("driver", "device")])
+def test_accepted_option_changes_nothing(baseline, key, value, tmp_path):
+    """Against the run of its driver without the option ("auto" is the
+    device driver here); the 79 iterations end inside one chunk of 100,
+    and a chunk of 7 splits segments where the check cadence does not."""
+    if key == "checkpoint_dir":
+        value = str(tmp_path / value)
+    opts = {key: value}
+    if key in DEVICE_OPTS:
+        opts["driver"] = "device"
+    out, hist = _solve(opts)
+    want, want_hist = baseline[
+        "host" if opts.get("driver", "host") == "host" else "device"]
     assert [lv["iters"] for lv in out["levels"]] == \
         [lv["iters"] for lv in want["levels"]]
     assert torch.equal(out["rho"], want["rho"])
@@ -76,14 +95,14 @@ def test_accepted_option_changes_nothing(baseline, key, value):
     ("use_pallas", False, ValueError, "always run on the card"),
     ("layout", "shaped", ValueError, "TPU-only"),
     ("layout", "tiled", ValueError, "not one of"),
-    ("driver", "device", NotImplementedError, "queue 1 item 3"),
+    ("chunk_iters", 0, ValueError, "chunk_iters=0"),
     ("driver", "graph", ValueError, "not one of")])
 def test_refused_option_says_why(key, value, error, match):
     with pytest.raises(error, match=match):
-        _solve({key: value})
+        _solve(dict({"driver": "device"}, **{key: value}))
 
 
-@pytest.mark.parametrize("key,item", [("checkpoint_dir", 3), ("mesh", 7)])
+@pytest.mark.parametrize("key,item", [("mesh", 7)])
 def test_queued_option_names_its_queue(key, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md queue 1 item {item} "):

@@ -56,8 +56,8 @@ def test_profile_every_level_and_the_jax_phase_names():
     """Two levels of sGS-inPALM: level 1 runs inPALM (the DCT solve),
     level 2 the sweep; the JAX package's profile names the same phases."""
     rho0, rho1 = get_example_2d("example2", 17, 17)
-    out, _, _ = solve_dot(rho0, rho1, 9, 2, dict(OPTS), "sGS-inPALM",
-                          device="cpu", verbose=False)
+    out, _, _ = solve_dot(rho0, rho1, 9, 2, dict(OPTS, driver="host"),
+                          "sGS-inPALM", device="cpu", verbose=False)
     assert [("phi_sgs_sweep" in lv["phases"]) for lv in out["levels"]] \
         == [False, True]
     for lv in out["levels"]:

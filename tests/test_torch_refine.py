@@ -55,8 +55,9 @@ def _problem(n, seed=0):
 
 
 def _solve(r0, r1, opts, dtype=F32, method="inPALM", **kw):
-    return tsolve.solve_dot(r0, r1, 5, 1, dict(opts), method, device="cpu",
-                            dtype=dtype, verbose=False, **kw)
+    """The port's solve on the host driver (the JAX oracle's)."""
+    return tsolve.solve_dot(r0, r1, 5, 1, dict(opts, driver="host"), method,
+                            device="cpu", dtype=dtype, verbose=False, **kw)
 
 
 # -- the IR-DCT Poisson solve ----------------------------------------------------
@@ -177,8 +178,9 @@ def test_refine_1d_matches_jax_f64():
     opts = {"tol": 1e-4, "refine_tol": 1e-5, "refine_dct_split": False}
     jout, jh, _ = jsolve.solve_dot(r0, r1, 9, 2, dict(opts, **JAX_OPTS),
                                    "inPALM", dtype=jnp.float64, verbose=False)
-    tout, th, _ = tsolve.solve_dot(r0, r1, 9, 2, opts, "inPALM",
-                                   device="cpu", dtype=F64, verbose=False)
+    tout, th, _ = tsolve.solve_dot(r0, r1, 9, 2, dict(opts, driver="host"),
+                                   "inPALM", device="cpu", dtype=F64,
+                                   verbose=False)
     _assert_same_run(jout, jh, tout, th)
     assert tout["Ex"].dtype == F64
     assert max(th["kkt"][-1][STOP]) < 1e-5

@@ -167,7 +167,8 @@ def _solve_pair(method, opts, n=17, nt=7, levels=2):
         dict(opts, driver="host", layout="flat", use_pallas=False,
              reuse_solvers=False),
         method, dtype=jnp.float64, verbose=False)
-    tout, th, _ = tsolve.solve_dot(r0, r1, nt, levels, dict(opts), method,
+    tout, th, _ = tsolve.solve_dot(r0, r1, nt, levels,
+                                   dict(opts, driver="host"), method,
                                    device="cpu", dtype=F64, verbose=False)
     return jout, jh, tout, th
 
@@ -199,7 +200,8 @@ def test_golden_sgs_inpalm():
     ref = np.load(os.path.join(GOLDEN,
                                "dot2d_example2_65x17_l2_sgsinpalm.npz"))
     r0, r1 = texamples.get_example_2d("example2", 65, 65)
-    out, hml, _ = tsolve.solve_dot(r0, r1, 17, 2, {"tol": 1e-4},
+    out, hml, _ = tsolve.solve_dot(r0, r1, 17, 2,
+                                   {"tol": 1e-4, "driver": "host"},
                                    "sGS-inPALM", device="cpu", dtype=F64,
                                    verbose=False)
     assert [lv["iters"] for lv in out["levels"]] == ref["level_iters"].tolist()

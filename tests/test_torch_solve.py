@@ -265,9 +265,9 @@ def _solve_pair(method, rho0, rho1, nt, levels, opts):
         dict(opts, driver="host", layout="flat", use_pallas=False,
              reuse_solvers=False),
         method, dtype=jnp.float64, verbose=False)
-    tout, th, _ = tsolve.solve_dot(rho0, rho1, nt, levels, dict(opts),
-                                   method, device="cpu", dtype=F64,
-                                   verbose=False)
+    tout, th, _ = tsolve.solve_dot(rho0, rho1, nt, levels,
+                                   dict(opts, driver="host"), method,
+                                   device="cpu", dtype=F64, verbose=False)
     return jout, jh, tout, th
 
 
@@ -317,8 +317,10 @@ def test_solve_dot_refuses_what_waits():
         run(weight=weight, method="PALM")
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
         twdot2d.barrier_maze14()
-    for key in ("checkpoint_dir", "mesh"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
+    # the mesh waits; a checkpoint_dir that is not a path is refused
+    for key, error, match in (("mesh", NotImplementedError, "ROADMAP.md queue"),
+                              ("checkpoint_dir", TypeError, "a directory")):
+        with pytest.raises(error, match=match):
             run(opts={key: 1e-6})
     with pytest.raises(ValueError, match="unknown option"):
         run(opts={"tolerance": 1e-6})

@@ -245,8 +245,10 @@ def test_golden_acc_admm():
     the tolerances of ``tests/test_golden.py``."""
     ref = np.load(os.path.join(GOLDEN, "dot2d_example2_65x17_l2_accadmm.npz"))
     r0, r1 = texamples.get_example_2d("example2", 65, 65)
-    out, hml, _ = tsolve.solve_dot(r0, r1, 17, 2, {"tol": 1e-4}, "acc-ADMM",
-                                   device="cpu", dtype=F64, verbose=False)
+    out, hml, _ = tsolve.solve_dot(r0, r1, 17, 2,
+                                   {"tol": 1e-4, "driver": "host"},
+                                   "acc-ADMM", device="cpu", dtype=F64,
+                                   verbose=False)
     assert [lv["iters"] for lv in out["levels"]] == ref["level_iters"].tolist()
     assert hml["iter"].tolist() == ref["iter"].tolist()
     assert bool(out["mass_ok"]) == bool(ref["mass_ok"])

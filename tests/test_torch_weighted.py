@@ -407,7 +407,8 @@ def _solve_pair(method, n, nt, levels, barrier, problem, opts):
         dict(opts, driver="host", layout="flat", use_pallas=False,
              reuse_solvers=False),
         method, weight=jw, barrier=jb, dtype=jnp.float64, verbose=False)
-    tout, th, _ = tsolve.solve_dot(r0, r1, nt, levels, dict(opts), method,
+    tout, th, _ = tsolve.solve_dot(r0, r1, nt, levels,
+                                   dict(opts, driver="host"), method,
                                    _tweight(jw), tb, device="cpu", dtype=F64,
                                    verbose=False)
     return jout, jh, tout, th
