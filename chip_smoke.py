@@ -120,13 +120,48 @@ the device driver (CUDA-graph segments, ``algorithms/device_driver.py``).
    ``max_chunks=1`` and resumed ends with the uninterrupted run's
    iterations.
 
+8. The fleet (``parallel/batch.py``). 8a: the batched x-carry kernels
+   (``x_step_b``, ``qx_step_b``, ``cx_step_b``, ``cx_final_b``) on stacked
+   seeded inputs with ragged per-instance sd and every third instance
+   inactive, at B = 8 x 129^2 x 33, 32 x 65^2 x 17 and 3 x 17^3 x 9: each
+   bit-equal per active instance to B launches of its single-instance
+   kernel, the inactive instances and the ghost face slots untouched,
+   within rtol 2e-5 / atol 2e-6 of its plain version; then each timed
+   against its plain version and against B single-instance launches at the
+   first two shapes. 8b: the fleet's finest level (fleet_bench's eight
+   problems at 129^2 x 33), 40-iteration segments replayed from graphs
+   bit-equal to eager, again after a per-instance rescale and a sigma
+   change, a done instance frozen bit for bit; then one instance bit-equal
+   to the single-instance device driver's segment from the same state.
+   8c: that fleet (3 levels, tol 1e-4, inPALM, float32) through
+   ``solve_fleet(mode="lockstep")``: every instance done, stop residuals
+   below tol, mass conservation, the total iterations within +-10% of
+   ``FLEET_ANCHOR`` (the JAX ``solve_batch`` on the CPU in float32; each
+   instance's ``done_it`` printed against it), each rho within 1e-2 of
+   ``mode="sequential"``'s (or, where the JAX package's own lockstep and
+   single-instance solves differ by more, ``FLEET_REL_JAX``, within 1.1
+   times that gap), at most one host sync a check (the loops under
+   ``set_sync_debug_mode("error")``); the same fleet in float64 (the plain
+   route) takes ``FLEET_ANCHOR_F64``'s ``done_it`` and iterations exactly
+   and launches no kernel; the homogeneous fleet (8 x DOTmark) gives eight
+   identical instances: the same done_it, rho within 1e-4 of its largest
+   entry, bit-equal or not printed. 8d: instances/s of lockstep and
+   sequential at B = 8 for ``demos/demo_batch.py``'s fleet at 33^2 x 9 and
+   65^2 x 17 (2 levels), 129^2 x 33, 257^2 x 65 and 385^2 x 49 (3 levels),
+   and 8c's at 129^2 x 33, one batched CA iteration against B single ones,
+   peak memory of each, and the crossover in cells where lockstep stops
+   winning on demo_batch's fleet (``parallel/batch.SATURATION_CELLS``).
+
 The line before the last is a JSON object with one entry per kernel (its
 launches on the main path: the sum over every solve and profile of phases
 4-4e, 4g and 4h, each run with every count set to 0 just before and read just
 after; its largest error against its plain version, its time and its
 plain version's at 513^2 x 65, its bytes and the bound bytes / the HBM
 peak; and under ``dim3`` the same for its DIM = 3 form at 129^3 x 33,
-with its launches summed over the 3D solves of phase 4f); the last line
+with its launches summed over the 3D solves of phase 4f; the batched
+kernels' launches summed over the lockstep solves of phases 8c and 8d,
+their times at B = 8 x 129^2 x 33, beside B single launches, and under
+``b32_65x17`` at B = 32 x 65^2 x 17); the last line
 is ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero before printing any result.
@@ -2464,6 +2499,609 @@ def resume_check(torch):
     return dict(full=full, cut=cut, resumed=resumed)
 
 
+# -- phase 8: the fleet ---------------------------------------------------------
+
+# The lockstep fleet's kernels: the batched forms of TPU kernels 7-10
+# (under the JAX package's jax.vmap), one launch for B instances
+BATCHED = {"x_step_b": "x_step", "qx_step_b": "qx_step",
+           "cx_step_b": "cx_step", "cx_final_b": "cx_final"}
+# (B, nt, space) of the batched kernel checks; the first two are also timed
+BATCH_SHAPES = ((8, 33, (129, 129)), (32, 17, (65, 65)), (3, 9, (17, 17, 17)))
+# The fleet of scripts/fleet_bench.py (eight different problems at
+# 129^2 x 33, 3 levels, tol 1e-4, inPALM). FLEET_ANCHOR is the JAX
+# package's solve_batch on the CPU at this configuration in float32 (JAX
+# 0.9.0, x64 off as fleet_bench runs; ``python tests/test_torch_batch.py
+# --fleet-anchor``): the total iterations are held to +-10% of it, each
+# instance's done_it printed against it. Per instance, float32 counts turn
+# on sigma-table decisions at a threshold: example2's level 2 applies a
+# factor at iteration 414 in JAX and not in the port (CPU and card), and
+# its level 3 then stops at 464 in JAX, 529 in the port on the CPU (PERF.md
+# section 6). FLEET_ANCHOR_F64 is the same JAX run in float64 (x64 on,
+# ``--fleet-anchor --f64``): the port's float64 fleet on the card (the
+# plain route by dtype) is held to it exactly, instance by instance.
+FLEET = (129, 33, 3, 1e-4)
+FLEET_ANCHOR = {"done_it": (79, 464, 99, 144, 314, 159, 214, 89),
+                "iters": 2282}
+FLEET_ANCHOR_F64 = {"done_it": (79, 414, 99, 144, 264, 159, 189, 89),
+                    "iters": 2232}
+# each instance's rho gap, relative, between the JAX package's solve_batch
+# and its solve_dot (device driver) of the instance alone, float32 on the
+# CPU (``--fleet-anchor --rel``): the lockstep fleet's documented
+# deviations (rescales at the cadence, no E2 feedback) move DOTmark's rho
+# by 1.4e-2 in the reference itself, so each instance is held to 1e-2 or,
+# where the reference's own gap is larger, to 1.1 times that gap
+FLEET_REL_JAX = (6.178e-04, 2.224e-04, 2.481e-03, 6.515e-03, 3.209e-04,
+                 1.402e-02, 1.997e-04, 1.626e-04)
+# the crossover's fleet: demos/demo_batch.py's (example2 shifted, seeded),
+# B = 8 at (n, nt, levels); phase 8c's fleet is reported beside it
+CROSSOVER = ((33, 9, 2), (65, 17, 2), (129, 33, 3), (257, 65, 3),
+             (385, 49, 3))
+FLEET_B = 8
+
+
+def batch_inputs(torch, geom, B, seed, dev):
+    """Seeded stacked inputs of the batched kernels: per-instance sd in
+    [0.5, 2) (ragged, as instances rescale on their own) and every third
+    instance inactive."""
+    import numpy as np
+
+    from dotsocp_tpu_torch.ops.engine import OpsFlat
+    from dotsocp_tpu_torch.ops.staggered import Staggered
+
+    ops = OpsFlat(geom, torch.float32, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d, nt, S, C = geom.ndim_space, geom.nt, ops.S, geom.cone_cols
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def stag():
+        return Staggered(rand(B, nt - 1, S), rand(B, d, nt, S) * ops.masks)
+
+    rng = np.random.default_rng(seed)
+    sd = torch.from_numpy(rng.uniform(0.5, 2.0, B).astype(np.float32)).to(dev)
+    active = torch.tensor([b % 3 != 1 for b in range(B)], device=dev)
+    return ops, dict(q=stag(), alpha=stag(), q_out=stag(), phi=rand(B, nt, S),
+                     beta=rand(B, C, nt - 1, S), x=rand(B, C, nt - 1, S),
+                     sd=sd, active=active)
+
+
+def check_batched(torch, cmp, B, nt, space, seed):
+    """Phase 8a at one shape: each batched kernel against B launches of
+    its single-instance kernel (bit-equal per active instance, sd by
+    value), an inactive instance left bit-equal, q' ghost face slots
+    exactly zero, and against its plain version (rtol 2e-5 / atol 2e-6)."""
+    from dotsocp_tpu_torch.ops import fused_step as fs
+    from dotsocp_tpu_torch.ops.engine import diag_values
+    from dotsocp_tpu_torch.ops.geometry import Geometry
+    from dotsocp_tpu_torch.ops.staggered import Staggered
+
+    geom = Geometry(nt, space)
+    ops, v = batch_inputs(torch, geom, B, seed, torch.device(DEVICE))
+    D, E, _ = level_scalars(geom)
+    sbf, tau = E / D, 1.9
+    dinv = tuple(1.0 / x for x in diag_values(D, E))
+    sd, active = v["sd"], v["active"]
+    live = [b for b in range(B) if bool(active[b])]
+    sds = sd.tolist()
+
+    def at(st, b):
+        return Staggered(st.q0[b], st.bs[b])
+
+    def same(a, b):
+        return bool(torch.equal(a, b))
+
+    x = fs.x_step_batched(ops, v["q"], v["beta"], sbf, sd, active,
+                          v["x"].clone())
+    cmp("x_step_b", x, fs.x_step_batched_plain(ops, v["q"], v["beta"], sbf,
+                                               sd, active, v["x"]))
+    require(all(same(x[b], fs.x_step(ops, at(v["q"], b), v["beta"][b], sbf,
+                                      sds[b])) for b in live),
+            f"x_step_b differs from x_step at {space} x {nt}, B {B}")
+    frozen = all(same(x[b], v["x"][b]) for b in range(B) if b not in live)
+    alpha = Staggered(v["alpha"].q0.clone(), v["alpha"].bs.clone())
+    q_out = Staggered(v["q_out"].q0.clone(), v["q_out"].bs.clone())
+    q, a = fs.qx_step_batched(ops, v["phi"], v["x"], alpha, q_out, dinv, D,
+                              sbf, tau, active)
+    wq, wa = fs.qx_step_batched_plain(ops, v["phi"], v["x"], v["alpha"],
+                                      v["q_out"], dinv, D, sbf, tau, active)
+    exact = geom.ndim_space == 3
+    for got, want in ((q.q0, wq.q0), (q.bs, wq.bs), (a.q0, wa.q0),
+                      (a.bs, wa.bs)):
+        cmp("qx_step_b", got, want, exact=exact)
+    for b in live:
+        sq, sa = fs.qx_step(ops, v["phi"][b], v["x"][b],
+                            Staggered(v["alpha"].q0[b].clone(),
+                                      v["alpha"].bs[b].clone()),
+                            dinv, D, sbf, tau)
+        require(all(same(g, w) for g, w in ((q.q0[b], sq.q0),
+                                            (q.bs[b], sq.bs),
+                                            (a.q0[b], sa.q0),
+                                            (a.bs[b], sa.bs))),
+                f"qx_step_b differs from qx_step at {space} x {nt}, B {B}, "
+                f"instance {b}")
+    frozen &= all(same(q.q0[b], v["q_out"].q0[b])
+                  and same(q.bs[b], v["q_out"].bs[b])
+                  and same(a.q0[b], v["alpha"].q0[b])
+                  and same(a.bs[b], v["alpha"].bs[b])
+                  for b in range(B) if b not in live)
+    ghost = (q.bs[live] * (1.0 - ops.masks)).abs().max()
+    require(float(ghost) == 0.0, "qx_step_b wrote a non-zero ghost face "
+            "slot")
+    for name, final in (("cx_step_b", False), ("cx_final_b", True)):
+        fn = fs.cx_final_batched if final else fs.cx_step_batched
+        single = fs.cx_final if final else fs.cx_step
+        bb, xx = fn(ops, v["beta"].clone(), v["x"].clone(), v["q"], sbf, sd,
+                    tau, active)
+        wb, wx = fs.cx_step_batched_plain(ops, v["beta"], v["x"], v["q"], sbf,
+                                          sd, tau, active, final)
+        cmp(name, bb, wb)
+        cmp(name, xx, wx)
+        for b in live:
+            sb, sx = single(ops, v["beta"][b].clone(), v["x"][b].clone(),
+                            at(v["q"], b), sbf, sds[b], tau)
+            require(same(bb[b], sb) and same(xx[b], sx),
+                    f"{name} differs from {BATCHED[name]} at {space} x {nt}, "
+                    f"B {B}, instance {b}")
+        frozen &= all(same(bb[b], v["beta"][b]) and same(xx[b], v["x"][b])
+                      for b in range(B) if b not in live)
+    torch.cuda.synchronize()
+    require(frozen, f"a batched kernel wrote an inactive instance at {space} "
+            f"x {nt}, B {B}")
+    log(f"  B {B} x {space} x {nt}: every batched kernel bit-equal to its "
+        f"single-instance kernel on the {len(live)} active instances, the "
+        f"{B - len(live)} inactive ones untouched; against the plain "
+        f"versions " + ", ".join(f"{k} {cmp.max_abs[k]:.2e}" for k in BATCHED))
+
+
+def batched_bytes(geom, B):
+    """Bytes each batched kernel moves for B instances: B times the
+    single kernel's, plus sd (4 B) and the mask (1 B) an instance."""
+    nb = kernel_bytes(geom)
+    return {k: B * nb[single] + B * (1 + (4 if k != "qx_step_b" else 0))
+            for k, single in BATCHED.items()}
+
+
+def time_batched(torch, B, nt, space, seed):
+    """Each batched kernel (all instances active) against its plain version
+    and against B launches of its single-instance kernel, means of 20
+    (plain, kernel, kernel, plain); {name: (kernel ms, plain ms, B single
+    launches ms)}."""
+    from dotsocp_tpu_torch.ops import fused_step as fs
+    from dotsocp_tpu_torch.ops.engine import diag_values
+    from dotsocp_tpu_torch.ops.geometry import Geometry
+    from dotsocp_tpu_torch.ops.staggered import Staggered
+
+    geom = Geometry(nt, space)
+    ops, v = batch_inputs(torch, geom, B, seed, torch.device(DEVICE))
+    v["active"].fill_(True)
+    D, E, _ = level_scalars(geom)
+    sbf, tau = E / D, 1.9
+    dinv = tuple(1.0 / x for x in diag_values(D, E))
+    sd, act = v["sd"], v["active"]
+    sds = sd.tolist()
+    q, phi, beta, x = v["q"], v["phi"], v["beta"], v["x"]
+    work = {"alpha": Staggered(v["alpha"].q0.clone(), v["alpha"].bs.clone()),
+            "q": v["q_out"], "beta": beta.clone(), "x": x.clone(),
+            "xo": x.clone()}
+    qs = [Staggered(q.q0[b], q.bs[b]) for b in range(B)]
+    alphas = [Staggered(work["alpha"].q0[b], work["alpha"].bs[b])
+              for b in range(B)]
+    reps = 20
+    out = {}
+
+    def trio(plain, kernel, singles):
+        k_ms, p_ms = paired(torch, plain, kernel, reps)
+        return k_ms, p_ms, event_ms(torch, singles, reps)
+
+    out["x_step_b"] = trio(
+        lambda: fs.x_step_batched_plain(ops, q, beta, sbf, sd, act, x),
+        lambda: fs.x_step_batched(ops, q, beta, sbf, sd, act, work["xo"]),
+        lambda: [fs.x_step(ops, qs[b], beta[b], sbf, sds[b])
+                 for b in range(B)])
+    out["qx_step_b"] = trio(
+        lambda: fs.qx_step_batched_plain(ops, phi, x, v["alpha"], v["q_out"],
+                                         dinv, D, sbf, tau, act),
+        lambda: fs.qx_step_batched(ops, phi, x, work["alpha"], work["q"],
+                                   dinv, D, sbf, tau, act),
+        lambda: [fs.qx_step(ops, phi[b], x[b], alphas[b], dinv, D, sbf, tau)
+                 for b in range(B)])
+    for name, final in (("cx_step_b", False), ("cx_final_b", True)):
+        fn = fs.cx_final_batched if final else fs.cx_step_batched
+        single = fs.cx_final if final else fs.cx_step
+        out[name] = trio(
+            lambda: fs.cx_step_batched_plain(ops, beta, x, q, sbf, sd, tau,
+                                             act, final),
+            lambda: fn(ops, work["beta"], work["x"], q, sbf, sd, tau, act),
+            lambda: [single(ops, work["beta"][b], work["x"][b], qs[b], sbf,
+                            sds[b], tau) for b in range(B)])
+    nbytes = batched_bytes(geom, B)
+    log(f"  B {B} x {space} x {nt} f32, means of {reps} launches (plain, "
+        f"kernel, kernel, plain), and {B} single-instance launches:")
+    for name, (k_ms, p_ms, s_ms) in out.items():
+        bound = bound_ms(nbytes[name])
+        log(f"  {name:11s} batched {k_ms:8.3f} ms  plain {p_ms:8.3f} ms  "
+            f"{B} singles {s_ms:8.3f} ms  {nbytes[name] / 1e9:.3f} GB "
+            f"({share(nbytes[name], k_ms)}; bound "
+            f"{'-' if bound is None else f'{bound:.3f}'} ms)")
+    return out, nbytes
+
+
+def batched_kernels(torch):
+    """Phase 8a: the batched kernels at ``BATCH_SHAPES``, then their times
+    at the first two."""
+    cmp = Compare(torch)
+    for seed, (B, nt, space) in enumerate(BATCH_SHAPES):
+        check_batched(torch, cmp, B, nt, space, 100 + seed)
+        torch.cuda.empty_cache()
+    times = {}
+    for seed, (B, nt, space) in enumerate(BATCH_SHAPES[:2]):
+        times[(B, nt, space)] = time_batched(torch, B, nt, space, 200 + seed)
+        torch.cuda.empty_cache()
+    return dict(cmp.max_abs), times
+
+
+def fleet_problems(n):
+    """The eight problems of ``scripts/fleet_bench.py:make_fleet`` from the
+    port's generators (example1-4, circle, DOTmark-4stitch, two gaussian
+    pairs)."""
+    import numpy as np
+
+    from dotsocp_tpu_torch.models.examples import (_gaussian2d, _normalize,
+                                                   get_example_2d)
+
+    probs = ["example1", "example2", "example3", "example4", "circle",
+             "DOTmark_4stitch"]
+    pairs = [get_example_2d(p, n, n) for p in probs]
+    for a, b, s in (((0.3, 0.3), (0.7, 0.7), 0.08),
+                    ((0.2, 0.5), (0.8, 0.5), 0.12)):
+        pairs.append((_normalize(_gaussian2d(n, n, a[0], a[1], s)),
+                      _normalize(_gaussian2d(n, n, b[0], b[1], s))))
+    return (np.stack([np.asarray(a) for a, _ in pairs]),
+            np.stack([np.asarray(b) for _, b in pairs]))
+
+
+def demo_fleet(n, B=FLEET_B):
+    """``demos/demo_batch.py``'s fleet: example2 with seeded shifts."""
+    import numpy as np
+
+    from dotsocp_tpu_torch.models.examples import get_example_2d
+
+    rng = np.random.default_rng(0)
+    base0, base1 = get_example_2d("example2", n, n)
+    r0s, r1s = [], []
+    for _ in range(B):
+        shift = int(rng.integers(0, n // 4))
+        r0s.append(np.roll(base0, shift, axis=1))
+        r1s.append(np.roll(base1, -shift, axis=0))
+    return np.stack(r0s), np.stack(r1s)
+
+
+def fleet_level(torch, r0, r1, nt):
+    """(kernels, levels, batched state) of one level of the fleet (r0, r1)
+    after InitialScaling, sigma 1."""
+    from dotsocp_tpu_torch.multilevel.level import initial_scaling, initialize
+    from dotsocp_tpu_torch.parallel.batch import stack_states
+
+    lvs = []
+    for a, b in zip(r0, r1):
+        lv = initialize(a, b, nt, dtype=torch.float32, device=DEVICE)
+        initial_scaling(lv, scaling=True)
+        lvs.append(lv)
+    kern = make_kernels(torch, lvs[0])
+    return kern, lvs, stack_states([kern.prep(lv.as_dict(), 1.0)
+                                    for lv in lvs])
+
+
+def fleet_replays(torch):
+    """Phase 8b: 40-iteration segments of the fleet's finest level replayed
+    from graphs against the same segments eager, after a per-instance
+    rescale and a sigma change, instance 1 frozen (done); then instance 2
+    against the single-instance device driver from the same state. Every
+    one bit-equal."""
+    from dotsocp_tpu_torch.algorithms.device_driver import DeviceDriver
+    from dotsocp_tpu_torch.algorithms.driver import SolveOptions
+    from dotsocp_tpu_torch.parallel.batch import (BatchedDeviceDriver,
+                                                  replay_against_eager)
+
+    n, nt, _, _ = FLEET
+    r0, r1 = fleet_problems(n)
+    kern, lvs, bstate = fleet_level(torch, r0, r1, nt)
+    o = SolveOptions()
+    single = DeviceDriver(kern, o)
+    single.prepare(lvs[2].as_dict())
+    rows = replay_against_eager(lambda: BatchedDeviceDriver(kern, o), bstate,
+                                SEG_REPLAY, inactive=(1,), instance_b=2,
+                                single=single)
+    torch.cuda.synchronize()
+    out = {}
+    for i, (what, gap, first, extra) in enumerate(rows):
+        frozen = extra if i < 3 else None
+        log(f"  {FLEET_B} x {n}^2 x {nt}, {SEG_REPLAY} iterations {what}: "
+            + ("bit-equal" if first is None else
+               f"{first} differs first, largest gap {gap:.3e}")
+            + ("" if frozen is None else
+               f"; the done instance {'frozen' if frozen else 'CHANGED'}"))
+        require(first is None, f"fleet {what}: not bit-equal (gap {gap:.3e})")
+        require(frozen in (None, True), f"fleet {what}: the done instance "
+                f"changed")
+        out[what] = dict(bit_equal=first is None, gap=gap, frozen=frozen)
+    del single, bstate
+    torch.cuda.empty_cache()
+    return out
+
+
+def lockstep(torch, r0, r1, nt, levels, tol, method="inPALM", dtype=None):
+    """One ``solve_fleet(mode="lockstep")`` (float32 unless ``dtype``) with
+    its loops under ``set_sync_debug_mode("error")`` (the one record read
+    a check allowed): (result, wall s, launches counted from 0, peak
+    GiB)."""
+    from dotsocp_tpu_torch.parallel.batch import (BatchedDeviceDriver,
+                                                  solve_fleet)
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    BatchedDeviceDriver.sync_debug = "error"
+    try:
+        t0 = time.monotonic()
+        out = solve_fleet(r0, r1, nt, {"tol": tol, "maxit": 3000}, method,
+                          dtype=dtype or torch.float32, level_n=levels,
+                          mode="lockstep", verbose=False, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    finally:
+        BatchedDeviceDriver.sync_debug = None
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for lv in out["levels"]:
+        st = lv["driver"]
+        require(st["syncs"] <= st["checks"], f"lockstep level {lv['level']}: "
+                f"{st['syncs']} host syncs in the loop for {st['checks']} "
+                f"checks")
+    return out, wall, launch_counts(), peak
+
+
+def sequential(torch, r0, r1, nt, levels, tol):
+    from dotsocp_tpu_torch.parallel.batch import solve_fleet
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    out = solve_fleet(r0, r1, nt, {"tol": tol, "maxit": 3000}, "inPALM",
+                      dtype=torch.float32, level_n=levels,
+                      mode="sequential", verbose=False, device=DEVICE)
+    torch.cuda.synchronize()
+    return out, time.monotonic() - t0, \
+        torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def fleet_solves(torch):
+    """Phase 8c: the fleet_bench fleet under ``mode="lockstep"`` against
+    FLEET_ANCHOR and against ``mode="sequential"``; the homogeneous fleet
+    (8 x DOTmark)."""
+    import numpy as np
+
+    from dotsocp_tpu_torch.multilevel.level import mass_error
+
+    n, nt, levels, tol = FLEET
+    r0, r1 = fleet_problems(n)
+    # warm-up: libraries, cuBLAS on the loop's stream, allocator pools
+    lockstep(torch, r0[:2, ::8, ::8], r1[:2, ::8, ::8], 9, 1, 1e-3)
+    out, wall, launches, peak = lockstep(torch, r0, r1, nt, levels, tol)
+    done_it = [int(v) for v in out["done_it"]]
+    stops = out["kkt"][:, [0, 2, 5, 6]].max(axis=1)
+    masses = [mass_error(out["rho"][b]) for b in range(FLEET_B)]
+    log(f"  lockstep: iterations per level "
+        f"{[lv['iters'] for lv in out['levels']]}, total {out['iters']} "
+        f"(anchor {FLEET_ANCHOR['iters']}), done_it {done_it} (anchor "
+        f"{list(FLEET_ANCHOR['done_it'])}), wall {wall:.3f} s, "
+        f"{FLEET_B / wall:.3f} instances/s, peak {peak:.3f} GiB")
+    log(f"  stop residuals {np.array2string(stops, precision=2)}, mass "
+        f"errors {np.array2string(np.array(masses), precision=2)}")
+    syncs = [(lv["driver"]["syncs"], lv["driver"]["checks"])
+             for lv in out["levels"]]
+    log(f"  loop host syncs / checks per level {syncs}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    require(tuple(out["rho"].shape) == (FLEET_B, nt, n, n),
+            f"rho shape {tuple(out['rho'].shape)}")
+    require(bool(torch.isfinite(out["rho"]).all()), "non-finite density")
+    require(bool(out["done"].all()), f"not every instance done: "
+            f"{out['done']}")
+    require(bool((stops < tol).all()), f"stop residuals {stops}")
+    require(all(m <= 1e-2 for m in masses), f"mass errors {masses}")
+    dev = [100.0 * (got - want) / want
+           for got, want in zip(done_it, FLEET_ANCHOR["done_it"])]
+    total_dev = 100.0 * (out["iters"] / FLEET_ANCHOR["iters"] - 1.0)
+    log(f"  done_it against FLEET_ANCHOR, per instance: "
+        f"{', '.join(f'{v:+.1f}%' for v in dev)}; total {total_dev:+.1f}%")
+    require(abs(out["iters"] - FLEET_ANCHOR["iters"])
+            <= 0.1 * FLEET_ANCHOR["iters"], f"iters {out['iters']} not "
+            f"within 10% of {FLEET_ANCHOR['iters']}")
+    for k in BATCHED:
+        require(launches[k] > 0, f"{k} was launched no time in the fleet "
+                f"solve")
+    for k in BATCHED.values():
+        require(launches[k] == 0, f"the lockstep fleet launched the "
+                f"single-instance {k}")
+    seq, seq_wall, seq_peak = sequential(torch, r0, r1, nt, levels, tol)
+    rel = [float(torch.linalg.norm(out["rho"][b] - seq["rho"][b])
+                 / torch.linalg.norm(seq["rho"][b])) for b in range(FLEET_B)]
+    log(f"  sequential: final-level iterations "
+        f"{[int(v) for v in seq['done_it']]}, total {seq['iters']}, wall "
+        f"{seq_wall:.3f} s, {FLEET_B / seq_wall:.3f} instances/s, peak "
+        f"{seq_peak:.3f} GiB; rho against lockstep, relative "
+        f"{', '.join(f'{v:.2e}' for v in rel)}")
+    bound = [max(1e-2, 1.1 * r) for r in FLEET_REL_JAX]
+    log(f"  bound per instance (1e-2, or 1.1 x the JAX package's own gap "
+        f"{', '.join(f'{v:.2e}' for v in FLEET_REL_JAX)}): "
+        f"{', '.join(f'{v:.2e}' for v in bound)}")
+    require(all(r < b for r, b in zip(rel, bound)), f"lockstep rho differs "
+            f"from sequential by {rel}, bounds {bound}")
+    # the homogeneous fleet: eight copies of the headline problem
+    h0 = np.repeat(r0[5:6], FLEET_B, axis=0)
+    h1 = np.repeat(r1[5:6], FLEET_B, axis=0)
+    hom, hom_wall, hom_launches, _ = lockstep(torch, h0, h1, nt, levels, tol)
+    add_counts(launches, hom_launches)
+    bit_equal = all(bool(torch.equal(hom["rho"][b], hom["rho"][0]))
+                    for b in range(FLEET_B))
+    spread = max(float((hom["rho"][b] - hom["rho"][0]).abs().max())
+                 for b in range(FLEET_B))
+    log(f"  homogeneous fleet ({FLEET_B} x DOTmark): done_it "
+        f"{[int(v) for v in hom['done_it']]}, total {hom['iters']}, wall "
+        f"{hom_wall:.3f} s; the eight rho bit-equal: {bit_equal} (largest "
+        f"gap {spread:.3e})")
+    require(len(set(int(v) for v in hom["done_it"])) == 1 and
+            bool(hom["done"].all()), f"homogeneous fleet: done_it "
+            f"{hom['done_it']}")
+    # the kernels are bit-equal per instance; cuBLAS's products over the
+    # stack may round an instance's rows by their place in it, so the
+    # eight are held to the solve's own tolerance, 1e-4 of the largest
+    # entry, and their bit-equality printed
+    require(spread <= tol * float(hom["rho"][0].abs().max()),
+            f"homogeneous fleet: instances differ by {spread:.3e}")
+    # the same fleet in float64 (the plain route by dtype: no kernel)
+    f64, f64_wall, f64_launches, _ = lockstep(torch, r0, r1, nt, levels, tol,
+                                              dtype=torch.float64)
+    f64_done_it = [int(v) for v in f64["done_it"]]
+    log(f"  float64 lockstep: done_it {f64_done_it}, total {f64['iters']} "
+        f"(FLEET_ANCHOR_F64 {FLEET_ANCHOR_F64}), wall {f64_wall:.3f} s, "
+        f"launches {sum(f64_launches.values())}")
+    require(bool(f64["done"].all()), f"float64 fleet: not every instance "
+            f"done: {f64['done']}")
+    require(f64_done_it == list(FLEET_ANCHOR_F64["done_it"])
+            and f64["iters"] == FLEET_ANCHOR_F64["iters"],
+            f"float64 fleet: done_it {f64_done_it}, iters {f64['iters']}, "
+            f"not FLEET_ANCHOR_F64's {FLEET_ANCHOR_F64}")
+    require(sum(f64_launches.values()) == 0, f"the float64 fleet launched "
+            f"{f64_launches}")
+    del f64
+    res = dict(done_it=done_it, iters=out["iters"], done_it_dev_pct=dev,
+               f64_done_it=f64_done_it, f64_wall_s=f64_wall,
+               level_iters=[lv["iters"] for lv in out["levels"]],
+               wall_s=wall, instances_per_s=FLEET_B / wall, peak_gib=peak,
+               syncs_checks=syncs, seq_wall_s=seq_wall,
+               seq_instances_per_s=FLEET_B / seq_wall, seq_peak_gib=seq_peak,
+               seq_done_it=[int(v) for v in seq["done_it"]],
+               seq_iters=seq["iters"], rho_rel_vs_seq=rel,
+               rho_rel_bound=bound,
+               homogeneous=dict(done_it=[int(v) for v in hom["done_it"]],
+                                wall_s=hom_wall, bit_equal=bit_equal,
+                                gap=spread))
+    del out, seq, hom
+    torch.cuda.empty_cache()
+    return launches, res
+
+
+def iteration_times(torch, r0, r1, nt):
+    """One batched CA iteration of the fleet's finest level (replayed from
+    its graph) against B single-instance CA iterations (each replayed from
+    its driver's graph), ms from CUDA events."""
+    from dotsocp_tpu_torch.algorithms.device_driver import DeviceDriver
+    from dotsocp_tpu_torch.algorithms.driver import SolveOptions
+    from dotsocp_tpu_torch.parallel.batch import BatchedDeviceDriver
+
+    kern, lvs, bstate = fleet_level(torch, r0, r1, nt)
+    o = SolveOptions()
+    d = BatchedDeviceDriver(kern, o)
+    d.prepare(bstate)
+    singles = []
+    for lv in lvs:
+        s = DeviceDriver(kern, o)
+        s.prepare(lv.as_dict())
+        singles.append(s)
+
+    def batched():
+        d.graphs.run("ca_iteration", lambda: d._ca_iteration(False))
+
+    def each():
+        for s in singles:
+            s.graphs.run("ca_iteration", lambda s=s: s._ca_iteration(False))
+
+    with d._on_stream():
+        d._ca_prologue()
+        for s in singles:
+            s._ca_prologue()
+        batched()  # the eager first use; event_ms's warm-up captures
+        each()
+        b_ms = event_ms(torch, batched, 20)
+        s_ms = event_ms(torch, each, 20)
+    del d, singles, bstate
+    torch.cuda.empty_cache()
+    return b_ms, s_ms
+
+
+def crossover(torch, fleet):
+    """Phase 8d: instances/s of lockstep and sequential at B = 8 for
+    demo_batch's fleet at ``CROSSOVER`` and the fleet_bench fleet at
+    129^2 x 33 (phase 8c's walls), one batched CA iteration against B
+    single ones, peak memory of each mode; the crossover in cells where
+    lockstep stops winning, on demo_batch's fleet."""
+    import math
+
+    from dotsocp_tpu_torch.parallel.batch import SATURATION_CELLS
+
+    rows = []
+    for i, (n, nt, levels) in enumerate(CROSSOVER):
+        r0, r1 = demo_fleet(n)
+        if i == 0:  # warm-up: the loop's first use of the batched path
+            lockstep(torch, r0, r1, nt, levels, 1e-4)
+        lk, lk_wall, lk_launches, lk_peak = lockstep(torch, r0, r1, nt,
+                                                     levels, 1e-4)
+        sq, sq_wall, sq_peak = sequential(torch, r0, r1, nt, levels, 1e-4)
+        b_ms, s_ms = iteration_times(torch, r0, r1, nt)
+        require(bool(lk["done"].all()) and bool(sq["done"].all()),
+                f"crossover {n}^2 x {nt}: not every instance done")
+        rows.append(dict(n=n, nt=nt, levels=levels,
+                         cells=(nt - 1) * n * n, lockstep_s=lk_wall,
+                         sequential_s=sq_wall, lockstep_iters=lk["iters"],
+                         sequential_iters=sq["iters"],
+                         lockstep_peak_gib=lk_peak,
+                         sequential_peak_gib=sq_peak,
+                         batched_iter_ms=b_ms, singles_iter_ms=s_ms,
+                         launches=lk_launches))
+        torch.cuda.empty_cache()
+    n, nt, levels, _ = FLEET
+    r0, r1 = fleet_problems(n)
+    b_ms, s_ms = iteration_times(torch, r0, r1, nt)
+    bench = dict(n=n, nt=nt, levels=levels, cells=(nt - 1) * n * n,
+                 fleet="fleet_bench", lockstep_s=fleet["wall_s"],
+                 sequential_s=fleet["seq_wall_s"],
+                 lockstep_iters=fleet["iters"],
+                 sequential_iters=fleet["seq_iters"],
+                 lockstep_peak_gib=fleet["peak_gib"],
+                 sequential_peak_gib=fleet["seq_peak_gib"],
+                 batched_iter_ms=b_ms, singles_iter_ms=s_ms)
+    for r in rows + [bench]:
+        r.setdefault("fleet", "demo_batch")
+        r["lockstep_inst_s"] = FLEET_B / r["lockstep_s"]
+        r["sequential_inst_s"] = FLEET_B / r["sequential_s"]
+        log(f"  {r['fleet']} {r['n']}^2 x {r['nt']} ({r['levels']} levels, "
+            f"{r['cells']} cells): lockstep {r['lockstep_inst_s']:.3f} "
+            f"instances/s ({r['lockstep_iters']} its, peak "
+            f"{r['lockstep_peak_gib']:.3f} GiB), sequential "
+            f"{r['sequential_inst_s']:.3f} ({r['sequential_iters']} its, peak "
+            f"{r['sequential_peak_gib']:.3f} GiB); one CA iteration batched "
+            f"{r['batched_iter_ms']:.3f} ms against {FLEET_B} single "
+            f"{r['singles_iter_ms']:.3f} ms")
+    # the crossover: where the lockstep / sequential rate ratio crosses 1,
+    # log-linear in cells between the two measured sizes around it (or
+    # through the two largest, extrapolated, where lockstep wins at all)
+    ratio = [(r["cells"], r["lockstep_inst_s"] / r["sequential_inst_s"])
+             for r in rows]
+    pair = next(((a, b) for a, b in zip(ratio, ratio[1:])
+                 if a[1] >= 1.0 > b[1]), None)
+    extrapolated = pair is None
+    (c0, q0), (c1, q1) = pair or ratio[-2:]
+    t = math.log(q0) / (math.log(q0) - math.log(q1))
+    cross = math.exp(math.log(c0) + t * (math.log(c1) - math.log(c0)))
+    how = "extrapolated from" if extrapolated else "between"
+    log(f"  lockstep / sequential instances/s by cells {ratio}; crossover "
+        f"{cross:.0f} cells ({how} {c0} and {c1}); the port's "
+        f"SATURATION_CELLS {SATURATION_CELLS}")
+    return dict(rows=rows + [bench], crossover_cells=cross,
+                extrapolated=extrapolated)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", nargs="?", const="", default=None,
@@ -2564,6 +3202,22 @@ def main(argv=None):
     device_driver["pairs"] = driver_pairs(torch, args.profile is not None)
     phase("7c", "the device driver: a resume from a checkpoint")
     device_driver["resume"] = resume_check(torch)
+    phase("8a", "the fleet: the batched kernels against B single-instance "
+          "launches and their plain versions")
+    batched_err, batched_times = batched_kernels(torch)
+    phase("8b", "the fleet: lockstep segments replayed from graphs against "
+          "eager, an instance against the single-instance driver")
+    fleet = {"replays": fleet_replays(torch)}
+    phase("8c", "the fleet: fleet_bench's eight problems at 129^2 x 33 "
+          "under lockstep and sequential; the homogeneous fleet")
+    fleet_launches, fleet["solve"] = fleet_solves(torch)
+    phase("8d", "the fleet: lockstep against sequential at 33^2 x 9, "
+          "65^2 x 17 and 129^2 x 33")
+    fleet["crossover"] = crossover(torch, fleet["solve"])
+    for row in fleet["crossover"]["rows"]:
+        add_counts(fleet_launches, row.pop("launches", {}))
+    log(f"  fleet launches (phases 8c, 8d) "
+        f"{ {k: fleet_launches[k] for k in BATCHED} }")
     log(f"\nall phases passed in {time.monotonic() - t_start:.1f} s")
 
     nbytes = kernel_bytes(Geometry(SCALE[0], (SCALE[1], SCALE[1])))
@@ -2595,6 +3249,29 @@ def main(argv=None):
             "library_ms": library_3d.get(k),
         },
     } for k in REPLACES]
+    (b8, b8_nt, b8_space), (b32, b32_nt, b32_space) = BATCH_SHAPES[:2]
+    t8, bytes8 = batched_times[(b8, b8_nt, b8_space)]
+    t32, bytes32 = batched_times[(b32, b32_nt, b32_space)]
+    kernels += [{
+        "name": k,
+        "route": "cuda",
+        "source": FUSED_CU,
+        "replaces": REPLACES[single],
+        # summed over the lockstep solves of phases 8c and 8d
+        "launches": fleet_launches[k],
+        "max_abs_err": batched_err[k],
+        # B = 8 x 129^2 x 33
+        "ms": t8[k][0],
+        "plain_ms": t8[k][1],
+        "bytes": bytes8[k],
+        "bound_ms": bound_ms(bytes8[k]),
+        "bound_by": "bytes",
+        "library_ms": None,
+        "singles_ms": t8[k][2],
+        "b32_65x17": {"ms": t32[k][0], "plain_ms": t32[k][1],
+                      "singles_ms": t32[k][2], "bytes": bytes32[k],
+                      "bound_ms": bound_ms(bytes32[k])},
+    } for k, single in BATCHED.items()]
     print(json.dumps({"kernels": kernels, "headline": headline,
                       "sgs_path": sgs_path, "variants": variants,
                       "weighted": weighted, "profile_headline": profiled,
@@ -2605,7 +3282,7 @@ def main(argv=None):
                       "headline_f64": headline64, "refine": refine,
                       "hbm_peak": HBM_PEAK,
                       "sweep_max_abs_by_shape": SWEEP_ERRS,
-                      "device_driver": device_driver}))
+                      "device_driver": device_driver, "fleet": fleet}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}))

@@ -13,6 +13,9 @@ device driver (``algorithms/device_driver.py``, ``device_sgs.py``: the
 decision state on the card, event-free pieces replayed from CUDA graphs,
 ``algorithms/graphs.py``) or, with ``opts={"driver": "host"}``, on the
 host driver (``algorithms/driver.py``), by the JAX package's rule.
+Fleets of same-shaped instances go through ``solve_fleet`` /
+``solve_batch`` (``parallel/batch.py``): one instance after another, or
+all in lockstep on the batched forms of the x-carry kernels.
 
 The entry points run on the card (``solve_dot``'s ``device`` defaults to
 ``"cuda"``) unless the caller asks for the CPU with ``device="cpu"``; they
@@ -23,6 +26,7 @@ import torch
 
 from .ops.geometry import Geometry
 from .ops.staggered import Staggered
+from .parallel.batch import pick_fleet_mode, solve_batch, solve_fleet
 
 __version__ = "0.1.0"
 
@@ -66,4 +70,5 @@ def w2_distance(rho0, rho1, nt: int = 33, level_n: int = 3,
     return (w2, out) if return_solution else w2
 
 
-__all__ = ["Geometry", "Staggered", "w2_distance", "__version__"]
+__all__ = ["Geometry", "Staggered", "pick_fleet_mode", "solve_batch",
+           "solve_fleet", "w2_distance", "__version__"]

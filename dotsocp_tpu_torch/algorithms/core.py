@@ -15,7 +15,10 @@ Two paths run the iteration after the phi-step on hand-written kernels
 (``ops/fused_step.py``): the CA x-carry segment of inPALM / ALG2
 (``segment_impl``: x_step, then qx_step + cx_step per iteration), and the
 single step ``_step`` (z_step, q_step, beta_step), which ``run_one``, the
-profiler and sGS-inPALM's step run.
+profiler and sGS-inPALM's step run. The lockstep fleet
+(``parallel/batch.py``) runs the CA segment over B instances stacked on a
+leading axis (``segment_batched``: the batched forms of the x-carry
+kernels, the phi-step's rhs and DCT over the whole stack).
 
 The iteration state lives on the caller's device. Under the host driver
 the level scalars (sigma, cScale, dScale, norm_c, norm_d, D, E) are
@@ -42,9 +45,12 @@ import torch
 
 from ..ops.cone import proj_soc
 from ..ops.engine import OpsFlat, diag_values
-from ..ops.fused_step import (beta_step, beta_step_plain, cx_final, cx_step,
-                              q_step, q_step_plain, qx_step, times_dinv,
-                              weighted_dinv, x_step, z_step, z_step_plain)
+from ..ops.fused_step import (beta_step, beta_step_plain, cx_final,
+                              cx_final_batched, cx_step, cx_step_batched,
+                              q_step, q_step_plain, qx_step, qx_step_batched,
+                              select_instance, times_dinv, weighted_dinv,
+                              x_step,
+                              x_step_batched, z_step, z_step_plain)
 from ..ops.geometry import Geometry
 from ..ops.staggered import Staggered
 from ..utils.norms import norm_l2
@@ -104,6 +110,34 @@ class SolverState:
         return self.replace(phi=self.phi.clone(), q=self.q.clone(),
                             z=self.z.clone(), alpha=self.alpha.clone(),
                             beta=self.beta.clone(), c=self.c.clone())
+
+
+# the state's scalars a batched state holds as (B,) tensors
+BATCH_SCALARS = ("sigma", "cScale", "dScale", "norm_c", "norm_d",
+                 "sigmaScale")
+
+
+def stack_fields(states, fields) -> dict:
+    """The ``fields`` of per-instance states, each stacked on a leading
+    axis (a Staggered field block by block)."""
+    out = {}
+    for f in fields:
+        parts = [getattr(st, f) for st in states]
+        if isinstance(parts[0], Staggered):
+            out[f] = Staggered(torch.stack([p.q0 for p in parts]),
+                               torch.stack([p.bs for p in parts]))
+        else:
+            out[f] = torch.stack(parts)
+    return out
+
+
+def instance(s: SolverState, b: int) -> SolverState:
+    """Instance b of a batched state as views (no copy): its tensors and
+    its scalars as 0-d tensors; D and E are the level's."""
+    return s.replace(phi=s.phi[b], q=Staggered(s.q.q0[b], s.q.bs[b]),
+                     z=s.z[b], alpha=Staggered(s.alpha.q0[b], s.alpha.bs[b]),
+                     beta=s.beta[b], c=s.c[b],
+                     **{f: getattr(s, f)[b] for f in BATCH_SCALARS})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -255,6 +289,75 @@ class Kernels:
 
     def run_segment(self, s: SolverState, k: int) -> SolverState:
         return self.segment_impl(s, int(k))
+
+    # -- the batched CA segment (the lockstep fleet) -------------------------
+    # ``s`` holds B instances: every tensor with a leading (B,) axis, the
+    # scalars sigma .. sigmaScale as (B,) tensors, D and E the level's
+    # floats (the fleet shares its geometry, so its D and E). ``active`` is
+    # a (B,) bool tensor: an inactive instance's fields are left exactly as
+    # they were, phi included (the counterpart of the JAX package's
+    # ``_tree_where(ls.done, ls.s, s_new)``, ``parallel/batch.py:225``).
+
+    def _fresh_x_batched(self, s: SolverState, active):
+        """x = proj_soc(bfd(q) - beta) + beta for each active instance,
+        into the z slot (on CUDA in place)."""
+        return x_step_batched(self.ops, s.q, s.beta, s.E / s.D,
+                              s.E / s.dScale, active, s.z)
+
+    def _step_fused_x_batched(self, s: SolverState, final: bool,
+                              active) -> SolverState:
+        """One x-carry iteration of every active instance (``s.z`` holds
+        x): the phi-step over the stack, then the batched qx and cx (or
+        cx_final) kernels, which write q', alpha', beta' and the z slot
+        into the state's buffers. phi, which no iteration reads, is kept
+        from the boundary iteration only, selected where ``active``."""
+        sbf = s.E / s.D
+        sd = s.E / s.dScale
+        tau = self.cfg.tau
+        phi = self._poisson_solve(s, self._rhs(s))
+        q, alpha = qx_step_batched(self.ops, phi, s.z, s.alpha, s.q,
+                                   self._diag_inv(s), s.D, sbf, tau, active)
+        step = cx_final_batched if final else cx_step_batched
+        beta, znew = step(self.ops, s.beta, s.z, q, sbf, sd, tau, active)
+        if final:
+            keep = active.reshape((-1,) + (1,) * (phi.ndim - 1))
+            phi = torch.where(keep, phi, s.phi)
+        else:
+            phi = s.phi
+        return s.replace(phi=phi, q=q, z=znew, alpha=alpha, beta=beta)
+
+    def _step_batched(self, s: SolverState, active) -> SolverState:
+        """One step of the variant's own ``_step`` (PALM) on each
+        instance's view, the result selected where ``active``: plain
+        PyTorch, as the JAX package runs PALM's step in jnp."""
+        fields = ("phi", "q", "z", "alpha", "beta")
+        steps = []
+        for b in range(s.phi.shape[0]):
+            cur = instance(s, b)
+            new = self._step(cur)
+            steps.append(cur.replace(**{
+                f: select_instance(active, b, getattr(new, f),
+                                   getattr(cur, f)) for f in fields}))
+        return s.replace(**stack_fields(steps, fields))
+
+    def segment_batched(self, s: SolverState, k: int,
+                        active) -> SolverState:
+        """k event-free iterations of a stack of instances, the active ones
+        advanced and the others left as they were (the JAX package's
+        ``jax.vmap(k.segment_impl, in_axes=(0, None))`` under its freeze).
+        inPALM / ALG2: one x-step prologue, k-1 x-carry CA iterations and a
+        boundary iteration, on the batched kernels (on CUDA in place, so
+        ``s`` is consumed); PALM: k of its own steps."""
+        if k < 1:
+            return s
+        if not self.segment_ca:
+            for _ in range(k):
+                s = self._step_batched(s, active)
+            return s
+        s = s.replace(z=self._fresh_x_batched(s, active))
+        for _ in range(k - 1):
+            s = self._step_fused_x_batched(s, False, active)
+        return self._step_fused_x_batched(s, True, active)
 
     # -- diagnostics -----------------------------------------------------
     def _norms(self, s: SolverState) -> dict:

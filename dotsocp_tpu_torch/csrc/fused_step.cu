@@ -51,6 +51,19 @@
 // (the acc-ADMM anchors hold the very tensors of the state). Either way a
 // thread reads an array it writes only at its own position, before writing.
 //
+// Batched forms (the lockstep fleet of dotsocp_tpu_torch/parallel/batch.py,
+// TPU kernels 7-10 under the JAX package's jax.vmap): x_step, qx_step,
+// cx_step and cx_final take B instances in one launch over contiguous
+// (B, ...) fields, blockIdx.z the instance (B <= 65535), each instance's
+// arrays at its own base offset. sd = E / dScale is read per instance from
+// a (B,) float32 array on the card (sd_at[b]: each instance rescales on its
+// own); sbf, D, tau and the q-step diagonal are the level's, shared by the
+// fleet. A (B,) byte mask ``active`` is read first: the blocks of an
+// instance whose byte is 0 return at once, so a converged instance's slots
+// are left untouched. The single-instance entries are the same templates
+// with gridDim.z = 1 and no mask (instance 0, offset 0: the arithmetic is
+// unchanged).
+//
 // Every entry point launches on the given stream, synchronises nothing, and
 // returns cudaGetLastError().
 
@@ -143,15 +156,21 @@ __global__ void x_kernel(const float* __restrict__ q0,
                          const float* __restrict__ bs,
                          const float* __restrict__ beta, float* __restrict__ x,
                          int nt, int S, const Axes<DIM> ax, float sbf,
-                         float sd, const float* __restrict__ sd_at) {
+                         float sd, const float* __restrict__ sd_at,
+                         const uint8_t* __restrict__ active) {
   constexpr int C = 2 + 4 * DIM;
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   const int t = blockIdx.y;
-  if (s >= S) return;
+  const int b = blockIdx.z;
+  if (s >= S || (active != nullptr && !active[b])) return;
   const int64_t plane = (int64_t)(nt - 1) * S;
   const int64_t cell = (int64_t)t * S + s;
+  q0 += b * plane;
+  bs += b * (DIM * (int64_t)nt * S);
+  beta += b * (C * plane);
+  x += b * (C * plane);
   float col[C];
-  bfd_cols<DIM>(col, q0, bs, nt, S, ax, t, s, sbf, sd_at ? *sd_at : sd);
+  bfd_cols<DIM>(col, q0, bs, nt, S, ax, t, s, sbf, sd_at ? sd_at[b] : sd);
   float bt[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
@@ -225,7 +244,8 @@ __device__ __forceinline__ float xval(const float* __restrict__ x,
 // columns summed left to right and s_bf / sqrt2 as the host rounds it
 // (sv_host); with weighted_update or exact_update the kernel and its plain
 // version then round alike everywhere. The 1D and 2D unweighted kernels
-// keep the Pallas association and FMA contraction.
+// keep the Pallas association and FMA contraction. Batched (blockIdx.z the
+// instance, unweighted only), every array but the weight is the instance's.
 template <int DIM, bool WEIGHTED, bool SPLIT>
 __global__ void qx_kernel(const float* __restrict__ phi,
                           const float* __restrict__ x,
@@ -236,15 +256,29 @@ __global__ void qx_kernel(const float* __restrict__ phi,
                           const float* __restrict__ wb, int nt, int S,
                           const Axes<DIM> ax, float D, float sbf, float tau,
                           float ht, float diag_in, float diag_bd,
-                          float sv_host) {
+                          float sv_host, const uint8_t* __restrict__ active) {
   constexpr int C = 2 + 4 * DIM;
   constexpr bool EXACT = WEIGHTED || DIM == 3;
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   const int t = blockIdx.y;
-  if (s >= S) return;
+  const int b = blockIdx.z;
+  if (s >= S || (active != nullptr && !active[b])) return;
   const int last = nt - 1;
   const int64_t plane = (int64_t)last * S;
   const int64_t node = (int64_t)t * S + s;
+  {
+    const int64_t nodes = (int64_t)nt * S;
+    const int64_t faces = DIM * nodes;
+    phi += b * nodes;
+    x += b * (C * plane);
+    if (SPLIT) beta += b * (C * plane);
+    a0 += b * plane;
+    a0n += b * plane;
+    q0n += b * plane;
+    ab += b * faces;
+    abn += b * faces;
+    bsn += b * faces;
+  }
   const float sv = EXACT ? sv_host : sbf * kInvSqrt2;
   const float p = phi[node];
   if (t < last) {
@@ -329,15 +363,25 @@ __global__ void cx_kernel(const float* __restrict__ q0n,
                           const float* x, float* beta_out, float* x_out,
                           int nt, int S, const Axes<DIM> ax, float sbf,
                           float sd, const float* __restrict__ sd_at,
-                          float tau) {
+                          float tau, const uint8_t* __restrict__ active) {
   constexpr int C = 2 + 4 * DIM;
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   const int t = blockIdx.y;
-  if (s >= S) return;
+  const int b = blockIdx.z;
+  if (s >= S || (active != nullptr && !active[b])) return;
   const int64_t plane = (int64_t)(nt - 1) * S;
   const int64_t cell = (int64_t)t * S + s;
+  {
+    const int64_t cone = C * plane;
+    q0n += b * plane;
+    bsn += b * (DIM * (int64_t)nt * S);
+    beta += b * cone;
+    x += b * cone;
+    beta_out += b * cone;
+    if (MODE != kBeta) x_out += b * cone;
+  }
   float col[C];
-  bfd_cols<DIM>(col, q0n, bsn, nt, S, ax, t, s, sbf, sd_at ? *sd_at : sd);
+  bfd_cols<DIM>(col, q0n, bsn, nt, S, ax, t, s, sbf, sd_at ? sd_at[b] : sd);
   float zs[C], br[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
@@ -405,9 +449,13 @@ __global__ void cone_kernel(const float* __restrict__ z2,
   }
 }
 
-inline dim3 grid_for(int S, int rows) {
-  return dim3((unsigned)((S + kThreads - 1) / kThreads), (unsigned)rows);
+// (S / 256 blocks, rows, B instances)
+inline dim3 grid_for(int S, int rows, int B = 1) {
+  return dim3((unsigned)((S + kThreads - 1) / kThreads), (unsigned)rows,
+              (unsigned)B);
 }
+
+constexpr int kMaxBatch = 65535;  // gridDim.z
 
 inline AxesIn make_axes(int k0, int k1, int k2, int n0 = 1, int n1 = 1,
                         int n2 = 1, float hs0 = 1.f, float hs1 = 1.f,
@@ -418,21 +466,23 @@ inline AxesIn make_axes(int k0, int k1, int k2, int n0 = 1, int n1 = 1,
 template <bool PLUS_BETA>
 int launch_x(const float* q0, const float* bs, const float* beta, float* x,
              int dim, int nt, int S, const AxesIn& ax, float sbf, float sd,
-             const float* sd_at, void* stream) {
+             const float* sd_at, void* stream, int B = 1,
+             const uint8_t* active = nullptr) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid = grid_for(S, nt - 1);
+  if (B < 1 || B > kMaxBatch) return (int)cudaErrorInvalidValue;
+  const dim3 grid = grid_for(S, nt - 1, B);
   switch (dim) {
     case 1:
       x_kernel<1, PLUS_BETA><<<grid, kThreads, 0, st>>>(
-          q0, bs, beta, x, nt, S, axes_for<1>(ax), sbf, sd, sd_at);
+          q0, bs, beta, x, nt, S, axes_for<1>(ax), sbf, sd, sd_at, active);
       break;
     case 2:
       x_kernel<2, PLUS_BETA><<<grid, kThreads, 0, st>>>(
-          q0, bs, beta, x, nt, S, axes_for<2>(ax), sbf, sd, sd_at);
+          q0, bs, beta, x, nt, S, axes_for<2>(ax), sbf, sd, sd_at, active);
       break;
     case 3:
       x_kernel<3, PLUS_BETA><<<grid, kThreads, 0, st>>>(
-          q0, bs, beta, x, nt, S, axes_for<3>(ax), sbf, sd, sd_at);
+          q0, bs, beta, x, nt, S, axes_for<3>(ax), sbf, sd, sd_at, active);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -446,24 +496,29 @@ int launch_qx(const float* phi, const float* x, const float* beta,
               float* q0n, float* bsn, const float* w0, const float* wb,
               int dim, int nt, int S, const AxesIn& ax, float D, float sbf,
               float tau, float ht, float diag_in, float diag_bd,
-              float sv_host, void* stream) {
+              float sv_host, void* stream, int B = 1,
+              const uint8_t* active = nullptr) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid = grid_for(S, nt);
+  if (B < 1 || B > kMaxBatch) return (int)cudaErrorInvalidValue;
+  const dim3 grid = grid_for(S, nt, B);
   switch (dim) {
     case 1:
       qx_kernel<1, WEIGHTED, SPLIT><<<grid, kThreads, 0, st>>>(
           phi, x, beta, a0, ab, a0n, abn, q0n, bsn, w0, wb, nt, S,
-          axes_for<1>(ax), D, sbf, tau, ht, diag_in, diag_bd, sv_host);
+          axes_for<1>(ax), D, sbf, tau, ht, diag_in, diag_bd, sv_host,
+          active);
       break;
     case 2:
       qx_kernel<2, WEIGHTED, SPLIT><<<grid, kThreads, 0, st>>>(
           phi, x, beta, a0, ab, a0n, abn, q0n, bsn, w0, wb, nt, S,
-          axes_for<2>(ax), D, sbf, tau, ht, diag_in, diag_bd, sv_host);
+          axes_for<2>(ax), D, sbf, tau, ht, diag_in, diag_bd, sv_host,
+          active);
       break;
     case 3:
       qx_kernel<3, WEIGHTED, SPLIT><<<grid, kThreads, 0, st>>>(
           phi, x, beta, a0, ab, a0n, abn, q0n, bsn, w0, wb, nt, S,
-          axes_for<3>(ax), D, sbf, tau, ht, diag_in, diag_bd, sv_host);
+          axes_for<3>(ax), D, sbf, tau, ht, diag_in, diag_bd, sv_host,
+          active);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -475,24 +530,26 @@ template <int MODE>
 int launch_cx(const float* q0n, const float* bsn, const float* beta,
               const float* x, float* beta_out, float* x_out, int dim, int nt,
               int S, const AxesIn& ax, float sbf, float sd,
-              const float* sd_at, float tau, void* stream) {
+              const float* sd_at, float tau, void* stream, int B = 1,
+              const uint8_t* active = nullptr) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid = grid_for(S, nt - 1);
+  if (B < 1 || B > kMaxBatch) return (int)cudaErrorInvalidValue;
+  const dim3 grid = grid_for(S, nt - 1, B);
   switch (dim) {
     case 1:
       cx_kernel<1, MODE><<<grid, kThreads, 0, st>>>(
           q0n, bsn, beta, x, beta_out, x_out, nt, S, axes_for<1>(ax), sbf, sd,
-          sd_at, tau);
+          sd_at, tau, active);
       break;
     case 2:
       cx_kernel<2, MODE><<<grid, kThreads, 0, st>>>(
           q0n, bsn, beta, x, beta_out, x_out, nt, S, axes_for<2>(ax), sbf, sd,
-          sd_at, tau);
+          sd_at, tau, active);
       break;
     case 3:
       cx_kernel<3, MODE><<<grid, kThreads, 0, st>>>(
           q0n, bsn, beta, x, beta_out, x_out, nt, S, axes_for<3>(ax), sbf, sd,
-          sd_at, tau);
+          sd_at, tau, active);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -638,6 +695,43 @@ int dotsocp_beta_step_dev(const float* q0n, const float* bsn,
                           void* stream) {
   return launch_cx<kBeta>(q0n, bsn, beta, z, beta_out, nullptr, dim, nt, S,
                           make_axes(k0, k1, k2), sbf, 0.f, sd_at, tau, stream);
+}
+
+// The batched forms: B instances over contiguous (B, ...) fields, sd_at the
+// (B,) per-instance sd, active the (B,) byte mask (0: the instance's blocks
+// return at once). x into x (which no thread reads); alpha (a0, ab) updated
+// in place and q' into (q0n, bsn); beta and x updated in place.
+int dotsocp_x_step_b(const float* q0, const float* bs, const float* beta,
+                     float* x, const float* sd_at, const uint8_t* active,
+                     int B, int dim, int nt, int S, int k0, int k1, int k2,
+                     float sbf, void* stream) {
+  return launch_x<true>(q0, bs, beta, x, dim, nt, S, make_axes(k0, k1, k2),
+                        sbf, 0.f, sd_at, stream, B, active);
+}
+
+int dotsocp_qx_step_b(const float* phi, const float* x, float* a0, float* ab,
+                      float* q0n, float* bsn, const uint8_t* active, int B,
+                      int dim, int nt, int S, int k0, int k1, int k2, int n0,
+                      int n1, int n2, float D, float sbf, float tau, float ht,
+                      float hs0, float hs1, float hs2, float dinv_in,
+                      float dinv_bd, float sv, void* stream) {
+  return launch_qx<false, false>(
+      phi, x, nullptr, a0, ab, a0, ab, q0n, bsn, nullptr, nullptr, dim, nt, S,
+      make_axes(k0, k1, k2, n0, n1, n2, hs0, hs1, hs2), D, sbf, tau, ht,
+      dinv_in, dinv_bd, sv, stream, B, active);
+}
+
+int dotsocp_cx_step_b(const float* q0n, const float* bsn, float* beta,
+                      float* x, const float* sd_at, const uint8_t* active,
+                      int B, int dim, int nt, int S, int k0, int k1, int k2,
+                      float sbf, float tau, int final_step, void* stream) {
+  const AxesIn ax = make_axes(k0, k1, k2);
+  if (final_step) {
+    return launch_cx<kCxFinal>(q0n, bsn, beta, x, beta, x, dim, nt, S, ax,
+                               sbf, 0.f, sd_at, tau, stream, B, active);
+  }
+  return launch_cx<kCx>(q0n, bsn, beta, x, beta, x, dim, nt, S, ax, sbf, 0.f,
+                        sd_at, tau, stream, B, active);
 }
 
 // z = Pi_K(z2 - beta) over flat (C, M) views, into the fresh z.

@@ -47,6 +47,11 @@ SOURCES = {
         "dotsocp_z_step_dev": [_P] * 4 + [_I] * 6 + [_F, _P, _P],
         "dotsocp_cx_step_dev": [_P] * 4 + [_I] * 6 + [_F, _P, _F, _I, _P],
         "dotsocp_beta_step_dev": [_P] * 5 + [_I] * 6 + [_F, _P, _F, _P],
+        # the batched forms: (sd_at, active) pointers after the arrays, B
+        # before dim
+        "dotsocp_x_step_b": [_P] * 6 + [_I] * 7 + [_F, _P],
+        "dotsocp_qx_step_b": [_P] * 7 + [_I] * 10 + [_F] * 10 + [_P],
+        "dotsocp_cx_step_b": [_P] * 6 + [_I] * 7 + [_F] * 2 + [_I, _P],
     },
     "sgs_sweep.cu": {
         # (dim, nt, n0..n2): the sizes of the space axes

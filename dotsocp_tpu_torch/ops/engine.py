@@ -87,12 +87,14 @@ class OpsFlat:
 
     def grad_T(self, st: Staggered) -> torch.Tensor:
         """A^T. Ghost-zero faces supply the boundary zeros of the adjoint
-        differences, so no masks are needed here."""
+        differences, so no masks are needed here. Leading axes (a batch of
+        instances: q0 ``(..., nt-1, S)``, bs ``(..., d, nt, S)``) pass
+        through."""
         geom = self.geom
         q0 = st.q0
         out = (F.pad(q0, (0, 0, 1, 0)) - F.pad(q0, (0, 0, 0, 1))) / geom.ht
         for a in range(geom.ndim_space):
-            b = st.bs[a]
+            b = st.bs[..., a, :, :]
             out = out + (self._sfwd(b, a) - b) / geom.hs(a)
         return out
 
@@ -236,12 +238,13 @@ def base_values(D: float, E: float):
 
 class FlatPoisson:
     """DCT Poisson solve on the flat layout: reshape to the shaped axes for
-    the per-axis matmuls and back."""
+    the per-axis matmuls and back. Leading axes before ``(nt, S)`` (a
+    batch of instances) pass through."""
 
     def __init__(self, inner, geom: Geometry):
         self.inner = inner
         self.geom = geom
 
     def solve(self, rhs: torch.Tensor, scale=None) -> torch.Tensor:
-        shaped = rhs.reshape((rhs.shape[0],) + self.geom.space)
+        shaped = rhs.reshape(tuple(rhs.shape[:-1]) + self.geom.space)
         return self.inner.solve(shaped, scale=scale).reshape(rhs.shape)

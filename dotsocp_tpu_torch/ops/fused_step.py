@@ -58,6 +58,19 @@ one-element float32 tensor on the card (the device driver's state), which
 the ``*_dev`` entry of the same kernel reads from memory, so that a
 captured CUDA graph replays with the value the tensor holds then.
 
+Batched forms (the lockstep fleet, ``parallel/batch.py``):
+``x_step_batched``, ``qx_step_batched``, ``cx_step_batched`` and
+``cx_final_batched`` take B instances stacked on a leading axis (phi
+``(B, nt, S)``, q and alpha ``(B, nt-1, S)`` / ``(B, d, nt, S)``, cone
+arrays ``(B, C, nt-1, S)``), sd as a ``(B,)`` tensor (each instance's own
+E / dScale) and a ``(B,)`` bool mask ``active``, and run as one launch for
+the fleet (``LAUNCHES`` keys ``x_step_b``, ``qx_step_b``, ``cx_step_b``,
+``cx_final_b``). Where ``active`` is False an instance's slots are left
+as they were: the kernels skip its blocks, the plain versions (the
+per-instance plain versions over the leading axis) select the old values.
+Every output goes to the caller's buffers: x into ``x``, q' into ``q``
+(which the q-step does not read), alpha, beta and x in place as below.
+
 In-place outputs: ``qx_step`` updates alpha, and ``cx_step`` / ``cx_final``
 update beta and x, in the buffers they were given (each thread reads those
 arrays only at its own position, so concurrent blocks cannot race). Callers
@@ -80,7 +93,8 @@ from .staggered import Staggered
 
 LAUNCHES = {"x_step": 0, "qx_step": 0, "qx_step_w": 0, "cx_step": 0,
             "cx_final": 0, "z_step": 0, "q_step": 0, "q_step_w": 0,
-            "beta_step": 0, "cone_project_diff": 0}
+            "beta_step": 0, "cone_project_diff": 0, "x_step_b": 0,
+            "qx_step_b": 0, "cx_step_b": 0, "cx_final_b": 0}
 
 
 def reset_launches() -> None:
@@ -446,3 +460,164 @@ def cone_project_diff(z2, beta):
             _build.library().dotsocp_cone_project_diff, z2.device,
             z2.data_ptr(), beta.data_ptr(), z.data_ptr(), C, M)
     return z
+
+
+# -- batched forms: B instances in one launch --------------------------------
+
+def _stag_at(st: Staggered, b: int) -> Staggered:
+    return Staggered(st.q0[b], st.bs[b])
+
+
+def select_instance(active, b: int, new, old):
+    """Instance b's ``new`` where ``active[b]``, else ``old`` (tensors or
+    Staggered): the mask as a select, on the card with no host read."""
+    if isinstance(new, Staggered):
+        return Staggered(torch.where(active[b], new.q0, old.q0),
+                         torch.where(active[b], new.bs, old.bs))
+    return torch.where(active[b], new, old)
+
+
+def _stack_stag(parts) -> Staggered:
+    return Staggered(torch.stack([p.q0 for p in parts]),
+                     torch.stack([p.bs for p in parts]))
+
+
+def x_step_batched_plain(ops: OpsFlat, q: Staggered, beta, sbf, sd, active,
+                         x):
+    return torch.stack([
+        select_instance(active, b, x_step_plain(ops, _stag_at(q, b), beta[b],
+                                                sbf, sd[b]), x[b])
+        for b in range(beta.shape[0])])
+
+
+def qx_step_batched_plain(ops: OpsFlat, phi, x, alpha: Staggered,
+                          q: Staggered, dinv, D, sbf, tau, active):
+    qs, alphas = [], []
+    for b in range(phi.shape[0]):
+        al = _stag_at(alpha, b)
+        qn, an = qx_step_plain(ops, phi[b], x[b], al, dinv, D, sbf, tau)
+        qs.append(select_instance(active, b, qn, _stag_at(q, b)))
+        alphas.append(select_instance(active, b, an, al))
+    return _stack_stag(qs), _stack_stag(alphas)
+
+
+def cx_step_batched_plain(ops: OpsFlat, beta, x, q: Staggered, sbf, sd, tau,
+                          active, final: bool = False):
+    betas, xs = [], []
+    for b in range(beta.shape[0]):
+        bn, xn = cx_step_plain(ops, beta[b], x[b], _stag_at(q, b), sbf,
+                               sd[b], tau, final)
+        betas.append(select_instance(active, b, bn, beta[b]))
+        xs.append(select_instance(active, b, xn, x[b]))
+    return torch.stack(betas), torch.stack(xs)
+
+
+def _check_batch(ops: OpsFlat, B: int, sd=None, active=None, phi=None,
+                 cones=(), stags=()) -> None:
+    """Shapes of the batched operands: every field (B, ...) as one
+    instance's with B in 1..65535 (gridDim.z), sd a (B,) float32 tensor,
+    active a (B,) bool tensor, both contiguous on the fields' device."""
+    g = ops.geom
+    if not 1 <= B <= 65535:
+        raise ValueError(f"batch of {B} instances: the kernels take 1 to "
+                         f"65535")
+    for c in cones:
+        _check_shape(c, (B, g.cone_cols, g.nt - 1, ops.S), "cone array")
+    for st in stags:
+        _check_shape(st.q0, (B, g.nt - 1, ops.S), "q0 block")
+        _check_shape(st.bs, (B, g.ndim_space, g.nt, ops.S), "face blocks")
+    if phi is not None:
+        _check_shape(phi, (B, g.nt, ops.S), "phi")
+    for t, what, dtype in ((sd, "sd", torch.float32),
+                           (active, "active", torch.bool)):
+        if t is None:
+            continue
+        _check_shape(t, (B,), what)
+        if t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{what}: a contiguous {dtype} tensor, got "
+                             f"{t.dtype}")
+
+
+def _active_operand(active, device) -> torch.Tensor:
+    if not isinstance(active, torch.Tensor) or active.device != device:
+        raise ValueError(f"active must be a (B,) bool tensor on {device}")
+    return active
+
+
+def x_step_batched(ops: OpsFlat, q: Staggered, beta, sbf: float, sd, active,
+                   x):
+    """x = Pi_K(BF_d q - beta) + beta for each active instance, into ``x``
+    (``(B, C, nt-1, S)``; an inactive instance's slots keep their values);
+    ``sd`` (B,). On CUDA ``x`` itself, written in place (no thread reads
+    it); the plain version returns a new tensor."""
+    if not _use_kernel(q.q0, q.bs, beta, x, sd):
+        return x_step_batched_plain(ops, q, beta, sbf, sd, active, x)
+    B = beta.shape[0]
+    _check_batch(ops, B, sd, _active_operand(active, beta.device),
+                 cones=(beta, x), stags=(q,))
+    _check_distinct(q.q0, q.bs, beta, x)
+    d, nt, S, k, _, _ = _dims(ops)
+    _launch(LAUNCHES, "x_step_b", _build.library().dotsocp_x_step_b,
+            beta.device, q.q0.data_ptr(), q.bs.data_ptr(), beta.data_ptr(),
+            x.data_ptr(), sd.data_ptr(), active.data_ptr(), B, d, nt, S, *k,
+            sbf)
+    return x
+
+
+def qx_step_batched(ops: OpsFlat, phi, x, alpha: Staggered, q: Staggered,
+                    dinv, D: float, sbf: float, tau: float, active):
+    """:func:`qx_step` (unweighted) for each active instance: q' into
+    ``q``, which the step does not read, alpha' into alpha. Returns (q',
+    alpha'); on CUDA they are ``q`` and ``alpha``, written in place, an
+    inactive instance's slots untouched."""
+    if isinstance(dinv, WeightedDinv):
+        raise ValueError("qx_step_batched: the lockstep fleet is "
+                         "unweighted")
+    operands = (phi, x, alpha.q0, alpha.bs, q.q0, q.bs)
+    if not _use_kernel(*operands):
+        return qx_step_batched_plain(ops, phi, x, alpha, q, dinv, D, sbf,
+                                     tau, active)
+    B = phi.shape[0]
+    _check_batch(ops, B, active=_active_operand(active, phi.device), phi=phi,
+                 cones=(x,), stags=(alpha, q))
+    _check_distinct(*operands)
+    g = ops.geom
+    d, nt, S, k, n, hs = _dims(ops)
+    _launch(LAUNCHES, "qx_step_b", _build.library().dotsocp_qx_step_b,
+            phi.device, phi.data_ptr(), x.data_ptr(), alpha.q0.data_ptr(),
+            alpha.bs.data_ptr(), q.q0.data_ptr(), q.bs.data_ptr(),
+            active.data_ptr(), B, d, nt, S, *k, *n, D, sbf, tau, g.ht, *hs,
+            *dinv, sbf * _INV_SQRT2)
+    return q, alpha
+
+
+def _cx_batched(name: str, final: bool, ops: OpsFlat, beta, x, q: Staggered,
+                sbf, sd, tau, active):
+    if not _use_kernel(beta, x, q.q0, q.bs, sd):
+        return cx_step_batched_plain(ops, beta, x, q, sbf, sd, tau, active,
+                                     final)
+    B = beta.shape[0]
+    _check_batch(ops, B, sd, _active_operand(active, beta.device),
+                 cones=(beta, x), stags=(q,))
+    _check_distinct(beta, x, q.q0, q.bs)
+    d, nt, S, k, _, _ = _dims(ops)
+    _launch(LAUNCHES, name, _build.library().dotsocp_cx_step_b, beta.device,
+            q.q0.data_ptr(), q.bs.data_ptr(), beta.data_ptr(), x.data_ptr(),
+            sd.data_ptr(), active.data_ptr(), B, d, nt, S, *k, sbf, tau,
+            int(final))
+    return beta, x
+
+
+def cx_step_batched(ops: OpsFlat, beta, x, q: Staggered, sbf: float, sd,
+                    tau: float, active):
+    """:func:`cx_step` for each active instance; on CUDA beta and x in
+    place, an inactive instance's slots untouched."""
+    return _cx_batched("cx_step_b", False, ops, beta, x, q, sbf, sd, tau,
+                       active)
+
+
+def cx_final_batched(ops: OpsFlat, beta, x, q: Staggered, sbf: float, sd,
+                     tau: float, active):
+    """:func:`cx_final` for each active instance: (beta', z)."""
+    return _cx_batched("cx_final_b", True, ops, beta, x, q, sbf, sd, tau,
+                       active)

@@ -109,16 +109,19 @@ class DctPoisson(NamedTuple):
     def solve(self, rhs: torch.Tensor, scale=None) -> torch.Tensor:
         """phi = idctn(dctn(rhs) * inv_kernel) (``oper_poisson3dim.m:4``).
         ``scale`` multiplies the inverse kernel at use time (1/D^2 against
-        a unit-D build). An IR build solves a float64 rhs by refinement."""
+        a unit-D build). An IR build solves a float64 rhs by refinement.
+        Leading axes before the grid's (a batch of instances) fold into
+        the batch of each axis's matmul."""
         if self.ir is not None and rhs.dtype == torch.float64:
             return self._solve_ir(rhs, scale)
+        lead = rhs.ndim - len(self.mats)
         y = rhs
         for ax, C in enumerate(self.mats):
-            y = _apply_axis(C, y, ax)
+            y = _apply_axis(C, y, lead + ax)
         inv_k = self.inv_kernel if scale is None else self.inv_kernel * scale
         y = y * inv_k
         for ax, C in enumerate(self.mats):
-            y = _apply_axis(C.T, y, ax)
+            y = _apply_axis(C.T, y, lead + ax)
         return y
 
     def _base32(self, r: torch.Tensor, scale32) -> torch.Tensor:

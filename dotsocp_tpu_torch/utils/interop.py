@@ -1,7 +1,8 @@
 """Build the port's level variables and solver state from numpy arrays laid
 out as the JAX package lays them out, and back.
 
-The tests start both packages from the same state: they take
+The tests start both packages from the same state (a lockstep fleet's
+too: :func:`batch_state_from_numpy` stacks per-instance states): they take
 ``LevelVar.as_dict()`` or the ``SolverState`` / ``AccState`` /
 ``NesterovState`` fields of
 ``dotsocp_tpu`` as numpy arrays (``jax.device_get``), hand them to these
@@ -147,3 +148,24 @@ def state_to_numpy(state: SolverState) -> dict:
         out[k] = (st.q0.cpu().numpy(), tuple(b.cpu().numpy() for b in st.bs))
     out.update({k: float(getattr(state, k)) for k in STATE_SCALARS})
     return out
+
+
+def batch_state_from_numpy(fields_list, *, device,
+                           dtype: torch.dtype) -> SolverState:
+    """The port's batched state (the lockstep fleet's,
+    ``parallel/batch.py``) from the fields of B per-instance JAX
+    ``SolverState``s as numpy (``state._asdict()`` after
+    ``jax.device_get``; one level, so one D and one E)."""
+    from ..parallel.batch import stack_states
+
+    return stack_states([state_from_numpy(f, device=device, dtype=dtype)
+                         for f in fields_list])
+
+
+def batch_state_to_numpy(state: SolverState) -> list:
+    """The inverse of :func:`batch_state_from_numpy`: one
+    :func:`state_to_numpy` dict per instance."""
+    from ..algorithms.core import instance
+
+    return [state_to_numpy(instance(state, b))
+            for b in range(state.phi.shape[0])]

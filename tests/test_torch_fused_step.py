@@ -261,4 +261,5 @@ def test_launch_counter_reset():
     assert set(fs.LAUNCHES.values()) == {0}
     assert set(fs.LAUNCHES) == {"x_step", "qx_step", "qx_step_w", "cx_step",
                                 "cx_final", "z_step", "q_step", "q_step_w",
-                                "beta_step", "cone_project_diff"}
+                                "beta_step", "cone_project_diff", "x_step_b",
+                                "qx_step_b", "cx_step_b", "cx_final_b"}
