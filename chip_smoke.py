@@ -152,6 +152,25 @@ the device driver (CUDA-graph segments, ``algorithms/device_driver.py``).
    peak memory of each, and the crossover in cells where lockstep stops
    winning on demo_batch's fleet (``parallel/batch.SATURATION_CELLS``).
 
+9. User problems on the card, through the port's demos
+   (``dotsocp_tpu_torch.demos``), each run counted from 0. 9a: the scale
+   config, DOTmark-4stitch 513^2 x 65 from the committed data, 3 levels,
+   inPALM, tol 1e-4, float32, ``driver="auto"``: mass conservation, stop
+   residuals below 1e-4, the total within +-10% of the JAX package's 407
+   (``SCALE_ANCHOR``); per-level counts, ``solve_dot``'s wall around a
+   synchronize, the device busy share of a second, profiled solve, the
+   peak memory, the launches. 9b: the maze (``demo_wdot2d --problem maze14
+   --barrier maze14``, 129^2 x 129, 3 levels, tol 1e-3): no density in the
+   eroded barrier, stop residuals 1, 3, 6 below the tolerance (a level
+   short of its pyramid tolerance only at maxit where the JAX run stopped
+   there too), the total within +-10% of ``MAZE_ANCHOR``, one
+   ``qx_step_w`` an iteration; the same in float64 (the plain route, no
+   launch) takes ``MAZE_F64_ANCHOR`` exactly. 9c: example5 129^2 x 33
+   within +-10% of ``EXAMPLE5_ANCHOR``. 9d: every demo at its defaults
+   prints ``Mass conservation: OK`` and a final KKT below its tolerance;
+   ``demo_batch`` runs lockstep. Every kernel of this path (the x-carry
+   kernels, ``qx_step_w``, the batched forms) launched at least once.
+
 The line before the last is a JSON object with one entry per kernel (its
 launches on the main path: the sum over every solve and profile of phases
 4-4e, 4g and 4h, each run with every count set to 0 just before and read just
@@ -161,7 +180,8 @@ peak; and under ``dim3`` the same for its DIM = 3 form at 129^3 x 33,
 with its launches summed over the 3D solves of phase 4f; the batched
 kernels' launches summed over the lockstep solves of phases 8c and 8d,
 their times at B = 8 x 129^2 x 33, beside B single launches, and under
-``b32_65x17`` at B = 32 x 65^2 x 17); the last line
+``b32_65x17`` at B = 32 x 65^2 x 17; every kernel's
+``phase9_launches`` summed over phase 9's runs); the last line
 is ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero before printing any result.
@@ -2372,21 +2392,12 @@ def driver_solve(torch, name, driver, profile):
                    syncs_per_check=loop_syncs / max(checks, 1),
                    declined_rescales=declined, chunk_cuts=cuts)
     if profile:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile as tprofile
-
-        # the card's activity alone, summed from the raw events: a whole
-        # host-driver solve records hundreds of thousands of kernels, which
-        # the CPU-side recording and key_averages() take minutes over
-        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        def synced():
             run()
             torch.cuda.synchronize()
-        busy_ns = sum(e.duration_ns()
-                      for e in prof.profiler.kineto_results.events()
-                      if e.device_type() == DeviceType.CUDA
-                      and not e.is_user_annotation())
-        res.update(kernel_ms=busy_ns / 1e6,
-                   busy_pct=100 * busy_ns / 1e9 / wall)
+
+        kernel_ms, busy = device_busy(torch, synced, wall)
+        res.update(kernel_ms=kernel_ms, busy_pct=busy)
     log(f"  {name}, {driver} driver: iterations {res['iters']}, wall "
         f"{wall:.3f} s, host syncs {res['solve_syncs']}"
         + (f" (loops {loop_syncs} for {checks} checks, "
@@ -3102,6 +3113,300 @@ def crossover(torch, fleet):
                 extrapolated=extrapolated)
 
 
+# -- phase 9: user problems on the card ------------------------------------------
+
+# 9a, the scale config (``bench.py:180-185``): DOTmark-4stitch 513^2 x 65, 3
+# levels (129^2 x 17 -> 257^2 x 33 -> 513^2 x 65), inPALM, tol 1e-4,
+# float32, through demo_dot2d; the JAX package took 407 iterations on its
+# TPU (BENCH_r05.json scale_513_iters), an iteration count and no time
+SCALE_CONFIG = (513, 65, 3, 1e-4)   # (n, nt, levels, tol)
+SCALE_ANCHOR = 407
+# 9b, the maze at demo_wdot2d's defaults (129^2 x 129, 3 levels, tol 1e-3,
+# inPALM, maxit 10000): the JAX package on the CPU in float32, its default
+# driver (``python tests/test_torch_images.py --anchors``); level 2 stops at
+# maxit with stop residual 5.16e-4, short of its pyramid tolerance 5e-4
+MAZE_ARGV = ["--problem", "maze14", "--barrier", "maze14"]
+MAZE_ANCHOR = (6209, 10000, 1529)
+# the same in float64 (x64 on), which the card's float64 plain route takes
+# exactly: the 1e6 walls make the float32 counts follow the rounding
+MAZE_F64_ANCHOR = (609, 289, 79)
+# 9c, example5 at demo_dot2d's defaults (129^2 x 33, 3 levels, tol 1e-4):
+# the JAX package on the CPU in float32, as MAZE_ANCHOR
+EXAMPLE5_ARGV = ["--problem", "example5"]
+EXAMPLE5_ANCHOR = (464, 339, 264)
+# 9d, every demo at its defaults: (module, argv, tolerance, weighted);
+# demo_dot1d's default is float64 (the plain route: no launch)
+DEMOS = (("demo_dot1d", [], 1e-5, False),
+         ("demo_dot2d", [], 1e-4, False),
+         ("demo_dot3d", [], 1e-4, False),
+         ("demo_wdot2d", [], 1e-3, True),
+         ("demo_batch", [], 1e-4, False))
+# the kernels phase 9's solves run: the x-carry path, its weighted q-step
+# (the maze, love-heart) and its batched forms (demo_batch's lockstep fleet)
+PHASE9_KERNELS = ("x_step", "qx_step", "qx_step_w", "cx_step", "cx_final",
+                  "x_step_b", "qx_step_b", "cx_step_b", "cx_final_b")
+
+
+def device_busy(torch, run, wall):
+    """The card's kernel time over a second, profiled ``run()`` (which ends
+    in a synchronize), against the unprofiled ``wall``: (kernel ms, busy
+    %). Sums the raw device events: a whole solve records hundreds of
+    thousands of kernels, which key_averages() takes minutes over."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+    busy_ns = sum(e.duration_ns()
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA
+                  and not e.is_user_annotation())
+    return busy_ns / 1e6, 100 * busy_ns / 1e9 / wall
+
+
+def run_demo(torch, name, argv):
+    """``dotsocp_tpu_torch.demos.<name>.main(argv)`` on the card with every
+    launch count set to 0 just before: (result, wall s, launches, what it
+    printed). Its report lines are logged."""
+    import contextlib
+    import importlib
+    import io
+
+    demo = importlib.import_module(f"dotsocp_tpu_torch.demos.{name}")
+    argv = list(argv) + (["--cpu"] if DEVICE == "cpu" else [])
+    buf = io.StringIO()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        result = demo.main(argv)
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = launch_counts()
+    printed = buf.getvalue()
+    for line in printed.splitlines():
+        if line.startswith(("Completed level", "Mass conservation", "mode:",
+                            "W2^2", "converged:", "fleet time")):
+            log(f"  | {line}")
+    return result, wall, launches, printed
+
+
+def demo_final_kkt(printed, weighted):
+    """The largest stop residual of a demo's printed final KKT row (the
+    fleet prints its largest over the instances)."""
+    import numpy as np
+
+    rest = printed.split("Final KKT:")[-1].lstrip()
+    if not rest.startswith("["):
+        return float(rest.split()[0])
+    vals = np.array(rest[1:rest.index("]")].split(), float)
+    return float(vals[[0, 2, 5] if weighted else [0, 2, 5, 6]].max())
+
+
+def require_demo(what, printed, tol, weighted):
+    require("Mass conservation: OK" in printed, f"{what}: mass conservation "
+            f"not OK")
+    stop = demo_final_kkt(printed, weighted)
+    require(stop < tol, f"{what}: final KKT {stop:.3e} not below {tol:g}")
+    return stop
+
+
+def require_levels(what, out, tol, anchor, maxit, weighted):
+    """Every level below ``tol``; below its own pyramid tolerance unless it
+    stopped at ``maxit`` on a level where the JAX run did too; the total
+    within +-10% of the anchor's."""
+    iters = [lv["iters"] for lv in out["levels"]]
+    for lv, lev_tol, want in zip(out["levels"],
+                                 level_tols(tol, len(iters)), anchor):
+        stop = stop_residual(lv, weighted)
+        require(stop < tol, f"{what} level {lv['level']} stopped at KKT "
+                f"{stop:.3e} (requested tolerance {tol:g})")
+        require(stop < lev_tol or (lv["iters"] == maxit == want),
+                f"{what} level {lv['level']} stopped at KKT {stop:.3e} after "
+                f"{lv['iters']} iterations (level tolerance {lev_tol:g}; the "
+                f"JAX run took {want})")
+    total, ref = sum(iters), sum(anchor)
+    log(f"  {what}: iterations {iters}, total {total} (anchor {list(anchor)}"
+        f" = {ref}, {100.0 * (total - ref) / ref:+.1f}%)")
+    require(abs(total - ref) <= 0.1 * ref, f"{what}: total iterations "
+            f"{total} not within 10% of {ref}")
+    return iters
+
+
+def scale_config(torch):
+    """9a: the scale config through demo_dot2d (its checks, per-level
+    counts against the JAX anchor, peak memory, launches, the demo's wall
+    with its report), then ``solve_dot`` on the same densities alone: its
+    wall around a synchronize and the busy share of a second, profiled
+    run."""
+    from dotsocp_tpu_torch.models.examples import get_example_2d
+    from dotsocp_tpu_torch.multilevel.solve import solve_dot
+
+    n, nt, levels, tol = SCALE_CONFIG
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (out, _, _), demo_wall, launches, printed = run_demo(
+        torch, "demo_dot2d", ["--nx", str(n), "--nt", str(nt), "--levels",
+                              str(levels), "--tol", str(tol)])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rho = out["rho"]
+    require(tuple(rho.shape) == (nt, n, n), f"rho shape {rho.shape}")
+    require(bool(torch.isfinite(rho).all()), "non-finite density")
+    require(out["mass_ok"], "scale config: mass conservation violated")
+    require_demo("scale config", printed, tol, False)
+    iters = [lv["iters"] for lv in out["levels"]]
+    for lv in out["levels"]:
+        stop = stop_residual(lv)
+        require(stop < tol, f"scale config level {lv['level']} stopped at "
+                f"KKT {stop:.3e}")
+    total = sum(iters)
+    for name in ("x_step", "qx_step", "cx_step", "cx_final"):
+        require(launches[name] > 0, f"scale config: {name} never launched")
+    require(launches["qx_step"] == total, f"scale config: qx_step launched "
+            f"{launches['qx_step']} times for {total} iterations")
+    del out, rho
+    r0, r1 = get_example_2d("DOTmark_4stitch", n, n)
+
+    def solve():
+        res = solve_dot(r0, r1, nt, levels, {"tol": tol, "maxit": 3000},
+                        "inPALM", device=DEVICE, dtype=torch.float32,
+                        verbose=False)
+        torch.cuda.synchronize()
+        return res
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    again, _, _ = solve()
+    wall = time.monotonic() - t0
+    require([lv["iters"] for lv in again["levels"]] == iters,
+            f"scale config: solve_dot took {[lv['iters'] for lv in again['levels']]}"
+            f" after the demo's {iters}")
+    level_s = [round(lv["time"], 4) for lv in again["levels"]]
+    del again
+    kernel_ms, busy = device_busy(torch, solve, wall)
+    log(f"  scale config {n}^2 x {nt}: iterations {iters}, total {total} "
+        f"(anchor {SCALE_ANCHOR}, "
+        f"{100.0 * (total - SCALE_ANCHOR) / SCALE_ANCHOR:+.1f}%); solve_dot "
+        f"wall {wall:.3f} s (levels {level_s} s), device busy {busy:.0f}% "
+        f"({kernel_ms:.1f} ms of kernels, profiled run); the demo with its "
+        f"report {demo_wall:.3f} s; peak {peak:.3f} GiB; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    require(abs(total - SCALE_ANCHOR) <= 0.1 * SCALE_ANCHOR,
+            f"scale config: total iterations {total} not within 10% of "
+            f"{SCALE_ANCHOR}")
+    return launches, dict(iters=iters, total=total, wall_s=wall,
+                          level_s=level_s, demo_wall_s=demo_wall,
+                          busy_pct=busy, kernel_ms=kernel_ms, peak_gib=peak,
+                          mass_ok=True)
+
+
+def maze_solve(torch):
+    """9b: demo_wdot2d on the maze: the count against MAZE_ANCHOR, no
+    density inside the eroded barrier, one weighted q-step a
+    iteration."""
+    from scipy.ndimage import binary_erosion
+
+    from dotsocp_tpu_torch.models import wdot2d as W
+
+    (out, _, _), wall, launches, printed = run_demo(torch, "demo_wdot2d",
+                                                    MAZE_ARGV)
+    require(out["mass_ok"], "maze: mass conservation violated")
+    require_demo("maze", printed, 1e-3, True)
+    iters = require_levels("maze 129^2 x 129", out, 1e-3, MAZE_ANCHOR,
+                           WDOT_MAXIT, True)
+    rho = out["rho"]
+    n = rho.shape[-1]
+    _, _, mask = W.ensure_barrier_validity(
+        *W.get_example_w2d("maze14", n, n), W.barrier_maze14())
+    interior = binary_erosion(mask, iterations=2)
+    require(interior.any(), f"maze: no barrier node is two nodes inside the "
+            f"walls at {n}^2")
+    leak = float(rho[:, torch.as_tensor(interior, device=rho.device)]
+                 .abs().amax(dim=1).max()) if interior.any() else 0.0
+    log(f"  maze: wall {wall:.3f} s, max |rho| inside the eroded barrier "
+        f"({int(interior.sum())} nodes) {leak:.3e}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    require(leak < 0.1, f"maze: density {leak:.3e} inside the barrier")
+    require(launches["qx_step_w"] == sum(iters), f"maze: qx_step_w launched "
+            f"{launches['qx_step_w']} times for {sum(iters)} iterations")
+    require(launches["qx_step"] == 0, "maze: the unweighted q-step launched")
+    (out64, _, _), wall64, launches64, printed = run_demo(
+        torch, "demo_wdot2d", MAZE_ARGV + ["--f64"])
+    iters64 = [lv["iters"] for lv in out64["levels"]]
+    log(f"  maze in float64 (the plain route): iterations {iters64} in "
+        f"{wall64:.3f} s (anchor {list(MAZE_F64_ANCHOR)}), launches "
+        f"{ {k: v for k, v in launches64.items() if v} }")
+    require(out64["mass_ok"], "maze float64: mass conservation violated")
+    require_demo("maze float64", printed, 1e-3, True)
+    require(tuple(iters64) == MAZE_F64_ANCHOR, f"maze float64: iterations "
+            f"{iters64}, not {list(MAZE_F64_ANCHOR)}")
+    require(not any(launches64.values()), f"maze float64 launched "
+            f"{launches64}")
+    return launches, dict(iters=iters, total=sum(iters), wall_s=wall,
+                          barrier_max_rho=leak, mass_ok=bool(out["mass_ok"]),
+                          f64_iters=iters64, f64_wall_s=wall64)
+
+
+def example5_solve(torch):
+    """9c: demo_dot2d on example5 against EXAMPLE5_ANCHOR."""
+    (out, _, _), wall, launches, printed = run_demo(torch, "demo_dot2d",
+                                                    EXAMPLE5_ARGV)
+    require(out["mass_ok"], "example5: mass conservation violated")
+    require_demo("example5", printed, 1e-4, False)
+    iters = require_levels("example5 129^2 x 33", out, 1e-4, EXAMPLE5_ANCHOR,
+                           3000, False)
+    log(f"  example5: wall {wall:.3f} s")
+    return launches, dict(iters=iters, total=sum(iters), wall_s=wall,
+                          mass_ok=bool(out["mass_ok"]))
+
+
+def demo_defaults(torch):
+    """9d: every demo at its defaults: mass conservation and a final KKT
+    below its tolerance, as each prints them."""
+    launches, results = {}, {}
+    for name, argv, tol, weighted in DEMOS:
+        result, wall, counts, printed = run_demo(torch, name, argv)
+        stop = require_demo(name, printed, tol, weighted)
+        out = result if name == "demo_batch" else result[0]
+        iters = (out["iters"] if name == "demo_batch"
+                 else [lv["iters"] for lv in out["levels"]])
+        log(f"  {name} {' '.join(argv) or '(defaults)'}: {wall:.3f} s, "
+            f"iterations {iters}, final stop residual {stop:.3e}; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        if name == "demo_batch":
+            require(out["mode"] == "lockstep", f"demo_batch ran "
+                    f"{out['mode']}, not lockstep")
+        results[name] = dict(wall_s=wall, iters=iters, stop=stop)
+        add_counts(launches, counts)
+        torch.cuda.empty_cache()
+    return launches, results
+
+
+def user_problems(torch):
+    """Phase 9: the scale config, the maze, example5 and every demo, each
+    counted from 0; returns the launches summed over its runs and the
+    results. Fails if a kernel of this path was launched no time."""
+    from dotsocp_tpu_torch.models.examples import get_example_2d
+    from dotsocp_tpu_torch.multilevel.solve import solve_dot
+
+    # warm-up: library load, cuBLAS handles, allocator pools
+    w0, w1 = get_example_2d("example2", 17, 17)
+    solve_dot(w0, w1, 9, 2, {"tol": 1e-3}, device=DEVICE, verbose=False)
+    launches, results = {}, {}
+    for key, run in (("scale_513x65", scale_config), ("maze", maze_solve),
+                     ("example5", example5_solve),
+                     ("demos", demo_defaults)):
+        counts, results[key] = run(torch)
+        add_counts(launches, counts)
+        torch.cuda.empty_cache()
+    log(f"  phase 9 launches "
+        f"{ {k: launches.get(k, 0) for k in PHASE9_KERNELS} }")
+    for k in PHASE9_KERNELS:
+        require(launches.get(k, 0) > 0, f"{k} was launched no time in "
+                f"phase 9")
+    return launches, results
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", nargs="?", const="", default=None,
@@ -3218,6 +3523,9 @@ def main(argv=None):
         add_counts(fleet_launches, row.pop("launches", {}))
     log(f"  fleet launches (phases 8c, 8d) "
         f"{ {k: fleet_launches[k] for k in BATCHED} }")
+    phase(9, "user problems on the card: the scale config (DOTmark 513^2 x "
+          "65), the maze, example5, every demo at its defaults")
+    launches_9, user = user_problems(torch)
     log(f"\nall phases passed in {time.monotonic() - t_start:.1f} s")
 
     nbytes = kernel_bytes(Geometry(SCALE[0], (SCALE[1], SCALE[1])))
@@ -3236,6 +3544,8 @@ def main(argv=None):
         "bound_by": "bytes",
         # one PyTorch call computes only the shift (F.pad of a slice)
         "library_ms": library.get(k),
+        # summed over phase 9's solves, each counted from 0
+        "phase9_launches": launches_9.get(k, 0),
         # the DIM = 3 form at the 3D scale level; its launches on the 3D
         # path (phase 4f), its error over the 3D check shapes
         "dim3": {
@@ -3267,6 +3577,7 @@ def main(argv=None):
         "bound_ms": bound_ms(bytes8[k]),
         "bound_by": "bytes",
         "library_ms": None,
+        "phase9_launches": launches_9.get(k, 0),
         "singles_ms": t8[k][2],
         "b32_65x17": {"ms": t32[k][0], "plain_ms": t32[k][1],
                       "singles_ms": t32[k][2], "bytes": bytes32[k],
@@ -3282,7 +3593,8 @@ def main(argv=None):
                       "headline_f64": headline64, "refine": refine,
                       "hbm_peak": HBM_PEAK,
                       "sweep_max_abs_by_shape": SWEEP_ERRS,
-                      "device_driver": device_driver, "fleet": fleet}))
+                      "device_driver": device_driver, "fleet": fleet,
+                      "user_problems": user}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,66 @@
+"""Demo: fleet solve, many independent 2D transport problems through
+``solve_fleet`` (a capability the reference lacks; the port of
+``demos/demo_batch.py``). ``--mode auto`` (the default) picks sequential or
+lockstep from the problem size on the one card; ``--mode sharded`` waits in
+ROADMAP.md queue 1 item 7 and raises.
+
+    python -m dotsocp_tpu_torch.demos.demo_batch [--cpu] [--batch 4]
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+
+from ._common import add_device_flags, device_of, dtype_of
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--nx", type=int, default=65)
+    ap.add_argument("--nt", type=int, default=17)
+    ap.add_argument("--levels", type=int, default=2)
+    ap.add_argument("--tol", type=float, default=1e-4)
+    add_device_flags(ap)
+    ap.add_argument("--mode", default="auto",
+                    choices=["auto", "sequential", "lockstep", "sharded"],
+                    help="fleet execution mode (auto = decision table)")
+    args = ap.parse_args(argv)
+
+    from ..models.examples import get_example_2d
+    from ..multilevel.level import check_mass_conservation
+    from ..parallel.batch import solve_fleet
+
+    if args.mode == "sharded":
+        raise NotImplementedError(
+            "--mode sharded (the batch axis over a mesh) waits in ROADMAP.md "
+            "queue 1 item 7 (multi-device)")
+    rng = np.random.default_rng(0)
+    r0s, r1s = [], []
+    base0, base1 = get_example_2d("example2", args.nx, args.nx)
+    for _ in range(args.batch):
+        shift = int(rng.integers(0, args.nx // 4))
+        r0s.append(np.roll(base0, shift, axis=1))
+        r1s.append(np.roll(base1, -shift, axis=0))
+
+    out = solve_fleet(
+        np.stack(r0s), np.stack(r1s), args.nt,
+        {"tol": args.tol, "maxit": 3000},
+        level_n=args.levels, dtype=dtype_of(args), mode=args.mode,
+        device=device_of(args),
+    )
+    rho = out["rho"].detach().cpu()
+    mass_ok = all(check_mass_conservation(r) for r in rho)
+    kkt = np.asarray(out["kkt"])[:, [0, 2, 5, 6]].max(axis=1)
+    print("mode:", out["mode"])
+    print(f"Mass conservation: {'OK' if mass_ok else 'VIOLATED'}")
+    print("per-instance max KKT:", kkt)
+    print("Final KKT:", float(kkt.max()))
+    print("converged:", out["done"], "at final-level iteration", out["done_it"])
+    print(f"fleet time: {out['time']:.2f}s ({args.batch / out['time']:.2f} inst/s)")
+    return dict(out, mass_ok=mass_ok)
+
+
+if __name__ == "__main__":
+    main()

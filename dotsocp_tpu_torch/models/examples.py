@@ -1,24 +1,27 @@
 """Problem generators for 1D, 2D and 3D DOT; a numpy copy of
 ``dotsocp_tpu/models/examples.py`` (``get_example_1d``, ``get_example_2d``,
-``get_example_3d``).
+``get_example_3d``, ``get_example_from_images``, ``density_source``).
 
 Array convention: densities are (ny, nx) with rows = the first spatial axis
 (y) and columns = x; 1D densities are (nx,), 3D ones (nz, ny, nx). All generators normalize to
 unit mean with an optional lower bound:
 rho <- (rho / mean(rho) + lb) / (1 + lb)  (``get_example.m:45-47``).
 
-``DOTmark_4stitch`` reads its stitched densities (square grids) from a
-committed ``.npz`` under ``resources/`` (made by
-``scripts/make_dotmark_npz.py``) instead of decoding the PNG tiles, so no
-image library is needed. A size with no
-``.npz`` raises: the JAX package's procedural tiles are a different problem
-under the same name, and the port never substitutes them.
-``example5`` (bitmap silhouettes) waits for the same treatment.
+The image problems (``DOTmark_4stitch``, ``example5``) read the gray values
+the JAX package decodes from its bundled images, committed as uint8 ``.npz``
+files under ``resources/`` (``scripts/make_dotmark_npz.py``), and rebuild
+its float64 arrays from them bit for bit, so no image library is needed. A
+size or stitch with no file raises FileNotFoundError naming the command that
+writes it: the JAX package's procedural stand-ins are a different problem
+under the same name, and the port never substitutes them. An explicit
+``resources`` directory of image files, and ``get_example_from_images``,
+decode with PIL, imported only then.
 """
 from __future__ import annotations
 
 import math
 import os
+from typing import Optional
 
 import numpy as np
 
@@ -170,25 +173,116 @@ def gene_example7(nx, ny):
 
 
 # ---------------------------------------------------------------------------
-# DOTmark stitch from committed data
+# image problems from committed data
 # ---------------------------------------------------------------------------
 
-def dotmark_npz_path(n: int) -> str:
-    return os.path.join(RESOURCES, f"dotmark_4stitch_{n}.npz")
+DOTMARK_DEFAULT = ("ClassicImages", (1, 2, 3, 4), (5, 6, 7, 8))
+SCRIPT = "python scripts/make_dotmark_npz.py"
 
 
-def gene_example_dotmark_4stitch(nx, ny):
-    """2x2 stitch of DOTmark ClassicImages 1-4 -> 5-8
-    (``gene_example_DOTmark_4stitch.m``), read from the committed ``.npz``.
-    Raises FileNotFoundError for a size that has none."""
-    path = dotmark_npz_path(nx)
+def decode_gray(u8: np.ndarray, invert: bool = False) -> np.ndarray:
+    """The JAX package's float64 density from 8-bit gray values:
+    ``u8 / 255.0 + 1e-12`` (DOTmark), ``1.0 - u8 / 255.0 + 1e-12`` with
+    ``invert`` (example5), rounded as the JAX generators round them."""
+    gray = np.asarray(u8, np.float64) / 255.0
+    return (1.0 - gray if invert else gray) + 1e-12
+
+
+def dotmark_npz_path(n: int, dotmark_type: str = "ClassicImages",
+                     stitch1=(1, 2, 3, 4), stitch2=(5, 6, 7, 8)) -> str:
+    """The data file of a DOTmark 4-stitch on an n x n grid."""
+    if (dotmark_type, tuple(stitch1), tuple(stitch2)) == DOTMARK_DEFAULT:
+        return os.path.join(RESOURCES, f"dotmark_4stitch_{n}.npz")
+    tag = "_".join([dotmark_type, "-".join(map(str, stitch1)),
+                    "-".join(map(str, stitch2))])
+    return os.path.join(RESOURCES, f"dotmark_4stitch_{tag}_{n}.npz")
+
+
+def example5_npz_path(n: int) -> str:
+    return os.path.join(RESOURCES, f"example5_{n}.npz")
+
+
+def _load_pair(path: str, nx: int, ny: int, what: str, command: str,
+               invert: bool):
     if nx != ny or not os.path.isfile(path):
         raise FileNotFoundError(
-            f"no DOTmark_4stitch data for {ny}x{nx}: {path} is missing. "
-            f"Generate it from the JAX package with "
-            f"`python scripts/make_dotmark_npz.py --n {nx}`")
+            f"no {what} data for {ny}x{nx}: {path} is missing. Write it "
+            f"from the JAX package's images with `{command}` (square grids "
+            f"only)")
     with np.load(path) as f:
-        return f["rho0"], f["rho1"]
+        return decode_gray(f["rho0"], invert), decode_gray(f["rho1"], invert)
+
+
+def _load_image_gray(path: str, shape) -> np.ndarray:
+    """An image file's gray values in [0, 1], resized to ``shape`` with
+    PIL's default resampling, as the JAX package decodes it."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError("PIL is needed to read an arbitrary image file; "
+                          "the committed problems need none") from e
+    img = Image.open(path).convert("L")
+    img = img.resize((shape[1], shape[0]))  # PIL size = (width, height)
+    return np.asarray(img, np.float64) / 255.0
+
+
+def get_example_from_images(path0: str, path1: str, nx: int, ny: int,
+                            invert: bool = False, lower_bound: float = 0.0):
+    """Any two images as densities (``get_example_from_images.m``); needs
+    PIL."""
+    rho0 = _load_image_gray(path0, (ny, nx))
+    rho1 = _load_image_gray(path1, (ny, nx))
+    if invert:
+        rho0, rho1 = 1.0 - rho0, 1.0 - rho1
+    return _normalize(rho0, lower_bound), _normalize(rho1, lower_bound)
+
+
+def gene_example5(nx, ny, resources: Optional[str] = None):
+    """centaur.bmp -> man.bmp, color-inverted (``gene_example5.m``), from
+    the committed data; from ``resources``' bitmaps (PIL) where given."""
+    if resources is not None:
+        c, m = (os.path.join(resources, f) for f in ("centaur.bmp", "man.bmp"))
+        return (1.0 - _load_image_gray(c, (ny, nx)) + 1e-12,
+                1.0 - _load_image_gray(m, (ny, nx)) + 1e-12)
+    return _load_pair(example5_npz_path(nx), nx, ny, "example5",
+                      f"{SCRIPT} --example5 --n {nx}", invert=True)
+
+
+def gene_example_dotmark_4stitch(nx, ny, dotmark_type: str = "ClassicImages",
+                                 stitch1=(1, 2, 3, 4), stitch2=(5, 6, 7, 8),
+                                 resources: Optional[str] = None):
+    """2x2 stitch of DOTmark images (``gene_example_DOTmark_4stitch.m``),
+    from the committed data; from the PNG tiles under
+    ``<resources>/DOTmark/<type>/`` (PIL) where ``resources`` is given."""
+    if resources is not None:
+        hy, hx = (ny + 1) // 2, (nx + 1) // 2
+
+        def stitch(indices):
+            t = [_load_image_gray(os.path.join(resources, "DOTmark",
+                                               dotmark_type, f"{i}.png"),
+                                  (hy, hx)) for i in indices]
+            full = np.concatenate([np.concatenate(t[:2], axis=1),
+                                   np.concatenate(t[2:], axis=1)], axis=0)
+            return full[:ny, :nx] + 1e-12
+
+        return stitch(stitch1), stitch(stitch2)
+    command = f"{SCRIPT} --n {nx}"
+    if (dotmark_type, tuple(stitch1), tuple(stitch2)) != DOTMARK_DEFAULT:
+        command += (f" --type {dotmark_type} --stitch1 "
+                    f"{' '.join(map(str, stitch1))} --stitch2 "
+                    f"{' '.join(map(str, stitch2))}")
+    return _load_pair(dotmark_npz_path(nx, dotmark_type, stitch1, stitch2),
+                      nx, ny, "DOTmark_4stitch", command, invert=False)
+
+
+def density_source(problem: str = "DOTmark_4stitch",
+                   resources: Optional[str] = None) -> str:
+    """Provenance of an image example's densities, for stamping results
+    (``dotsocp_tpu/models/examples.py:density_source``): ``assets:<dir>``,
+    the port's data directory or ``resources``. The JAX function's other
+    value, 'procedural', never applies: the port raises where it has no
+    data."""
+    return f"assets:{resources if resources is not None else RESOURCES}"
 
 
 # ---------------------------------------------------------------------------
@@ -244,7 +338,12 @@ def get_example_3d(problem: str, nx: int, ny: int, nz: int,
 # dispatch (``examples/dot2d/get_example.m``)
 # ---------------------------------------------------------------------------
 
-def get_example_2d(problem: str, nx: int, ny: int, lower_bound: float = 0.0):
+def get_example_2d(problem: str, nx: int, ny: int, lower_bound: float = 0.0,
+                   **kwargs):
+    """The 2D problems by name (``get_example.m``); ``DOTmark_4stitch``
+    takes the JAX keywords ``DOTmark_type``, ``stitch1_indices``,
+    ``stitch2_indices`` and ``resources``, ``example5`` takes
+    ``resources``."""
     gens = {
         "example1": gene_example1,
         "example2": gene_example2,
@@ -252,13 +351,19 @@ def get_example_2d(problem: str, nx: int, ny: int, lower_bound: float = 0.0):
         "example4": gene_example4,
         "example7": gene_example7,
         "circle": gene_example_circle,
-        "DOTmark_4stitch": gene_example_dotmark_4stitch,
     }
-    if problem == "example5":
-        raise NotImplementedError(
-            "example5 (bitmap silhouettes) waits in ROADMAP.md queue 1 "
-            "(the rest: demos and image examples)")
-    if problem not in gens:
+    if problem in gens:
+        rho0, rho1 = gens[problem](nx, ny)
+    elif problem == "example5":
+        rho0, rho1 = gene_example5(nx, ny, kwargs.get("resources"))
+    elif problem == "DOTmark_4stitch":
+        rho0, rho1 = gene_example_dotmark_4stitch(
+            nx, ny,
+            kwargs.get("DOTmark_type", "ClassicImages"),
+            kwargs.get("stitch1_indices", (1, 2, 3, 4)),
+            kwargs.get("stitch2_indices", (5, 6, 7, 8)),
+            kwargs.get("resources"),
+        )
+    else:
         raise ValueError(f"unknown 2D problem {problem!r}")
-    rho0, rho1 = gens[problem](nx, ny)
     return _normalize(rho0, lower_bound), _normalize(rho1, lower_bound)

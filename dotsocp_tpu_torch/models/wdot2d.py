@@ -9,13 +9,15 @@ on the staggered grid, shaped layout: ``q0`` ``(nt-1, ny, nx)`` and one face
 block per axis; the time block is identically 1
 (``get_weight_by_barrier.m:33-36``).
 
-The image barriers (``barrier_maze14``, ``barrier_example6``,
-``barrier_from_image``) decode PNG mazes with PIL, which the port does not
-depend on: they raise until their masks are committed as data, as the
-DOTmark densities are (ROADMAP.md queue 1).
+The maze of ``barrier_maze14`` is the wall mask of the JAX package's
+``maze-14.png``, committed bit-packed as ``resources/maze14_mask.npz``
+(``scripts/make_dotmark_npz.py --maze14``), so no image library is needed;
+``barrier_from_image`` and an explicit ``resources`` directory decode image
+files with PIL, imported only then.
 """
 from __future__ import annotations
 
+import os
 from typing import Callable, Optional
 
 import numpy as np
@@ -23,15 +25,14 @@ import torch
 
 from ..ops.geometry import Geometry
 from ..ops.staggered import Staggered
-from .examples import (_grid2d, _normalize, gene_example1, gene_example2,
-                       gene_example3, gene_example4, gene_example_circle)
+from .examples import (RESOURCES, _grid2d, _normalize, gene_example1,
+                       gene_example2, gene_example3, gene_example4,
+                       gene_example_circle)
 
 BARRIER_WEIGHT = 1e6  # wall weight (``get_weight_by_barrier.m:8-10``; the
 # reference's barrierWeight argument is dead code: 1e6 always wins)
 
-IMAGE_BARRIERS_QUEUE = ("the image barriers (maze14, example6) wait in "
-                        "ROADMAP.md queue 1 (the rest: demos and image "
-                        "examples as committed data)")
+MAZE14_MASK = os.path.join(RESOURCES, "maze14_mask.npz")
 
 
 # ---------------------------------------------------------------------------
@@ -139,17 +140,101 @@ def barrier_love_heart() -> Callable:
     return barrier
 
 
+def _mask_barrier(mask: np.ndarray) -> Callable:
+    """Nearest-neighbour predicate of a boolean (h, w) image mask over
+    [0, 1]^2, row 0 at y = 0 (``dotsocp_tpu/models/wdot2d.py:146-153``)."""
+    h, w = mask.shape
+
+    def barrier(x, y):
+        x = np.clip(np.asarray(x), 0.0, 1.0)
+        y = np.clip(np.asarray(y), 0.0, 1.0)
+        i = np.round(y * (h - 1)).astype(int)
+        j = np.round(x * (w - 1)).astype(int)
+        return mask[i, j]
+
+    return barrier
+
+
 def barrier_from_image(path: str, threshold: float = 0.5,
                        invert: bool = False) -> Callable:
-    raise NotImplementedError(IMAGE_BARRIERS_QUEUE)
+    """Nearest-neighbour barrier interpolant from a maze image
+    (``gene_barrier_of_maze14.m`` / ``gene_barrier_of_example6.m``); needs
+    PIL."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError("PIL is needed to read an arbitrary image file; "
+                          "barrier_maze14 reads its committed mask") from e
+    img = np.asarray(Image.open(path).convert("L"), np.float64) / 255.0
+    return _mask_barrier((img < threshold) if not invert
+                         else (img > threshold))
+
+
+def _maze_procedural() -> Callable:
+    """The JAX package's procedural labyrinth: concentric square walls with
+    alternating gaps (``dotsocp_tpu/models/wdot2d.py:156-174``)."""
+
+    def barrier(x, y):
+        x = np.asarray(x)
+        y = np.asarray(y)
+        d = np.maximum(np.abs(x - 0.5), np.abs(y - 0.5))
+        ring = ((d > 0.12) & (d < 0.15)) | ((d > 0.24) & (d < 0.27)) | (
+            (d > 0.36) & (d < 0.39)
+        )
+        gap1 = (np.abs(y - 0.5) < 0.03) & (x > 0.5) & (d > 0.1) & (d < 0.16)
+        gap2 = (np.abs(x - 0.5) < 0.03) & (y < 0.5) & (d > 0.22) & (d < 0.28)
+        gap3 = (np.abs(y - 0.5) < 0.03) & (x < 0.5) & (d > 0.34) & (d < 0.40)
+        return ring & ~(gap1 | gap2 | gap3)
+
+    return barrier
+
+
+def _image_in(resources: Optional[str], maze: bool) -> Optional[str]:
+    """The first PNG (``maze``: any file) of ``resources`` whose name does
+    (``maze``) or does not contain 'maze', in sorted order, as the JAX
+    package picks it."""
+    if not (resources and os.path.isdir(resources)):
+        return None
+    for name in sorted(os.listdir(resources)):
+        if maze and "maze" in name.lower():
+            return os.path.join(resources, name)
+        if (not maze and name.lower().endswith(".png")
+                and "maze" not in name.lower()):
+            return os.path.join(resources, name)
+    return None
 
 
 def barrier_maze14(resources: Optional[str] = None) -> Callable:
-    raise NotImplementedError(IMAGE_BARRIERS_QUEUE)
+    """The maze of [Papadakis-Peyre-Oudet 2014] (``gene_barrier_of_maze14.m``,
+    ``maze-14.png``): the committed wall mask, or a maze image of an
+    explicit ``resources`` directory (PIL)."""
+    path = _image_in(resources, maze=True)
+    if path is not None:
+        return barrier_from_image(path)
+    with np.load(MAZE14_MASK) as f:
+        shape = tuple(int(v) for v in f["shape"])
+        bits = f["bits"]
+    mask = np.unpackbits(bits, count=shape[0] * shape[1]).reshape(shape)
+    return _mask_barrier(mask.astype(bool))
 
 
 def barrier_example6(resources: Optional[str] = None) -> Callable:
-    raise NotImplementedError(IMAGE_BARRIERS_QUEUE)
+    """The obstacle of ``gene_barrier_of_example6.m``: the first non-maze
+    PNG of an explicit ``resources`` directory (PIL); else the procedural
+    labyrinth, which the JAX function also returns with its bundled images
+    (they hold no non-maze PNG)."""
+    path = _image_in(resources, maze=False)
+    return barrier_from_image(path) if path is not None else _maze_procedural()
+
+
+def wdot_provenance(problem: str = "love-heart") -> str:
+    """Provenance of the wdot2d densities and barrier, for stamping results
+    (``dotsocp_tpu/models/wdot2d.py:wdot_provenance``): the image barriers
+    (maze14, example6) report ``assets:<the port's data directory>``,
+    every other problem 'analytic'."""
+    if problem in ("maze14", "example6"):
+        return f"assets:{RESOURCES}"
+    return "analytic"
 
 
 # ---------------------------------------------------------------------------

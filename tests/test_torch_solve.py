@@ -310,13 +310,11 @@ def test_solve_dot_refuses_what_waits():
         kw.pop("weight", None), device="cpu", verbose=False)
     with pytest.raises(ValueError, match="not in"):
         run(method="sGS-ADMM")
-    # weighted: only WDOT_METHODS; the image barriers wait
+    # weighted: only WDOT_METHODS
     weight = twdot2d.get_weight_by_barrier(9, 9, 5,
                                            twdot2d.barrier_love_heart())
     with pytest.raises(ValueError, match="not in"):
         run(weight=weight, method="PALM")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
-        twdot2d.barrier_maze14()
     # the mesh waits; a checkpoint_dir that is not a path is refused
     for key, error, match in (("mesh", NotImplementedError, "ROADMAP.md queue"),
                               ("checkpoint_dir", TypeError, "a directory")):
@@ -401,9 +399,9 @@ def test_dotmark_data_matches_jax_package():
     path = texamples.dotmark_npz_path(129)
     assert os.path.isfile(path)
     raw0, raw1 = jexamples.gene_example_dotmark_4stitch(129, 129)
-    with np.load(path) as f:
-        np.testing.assert_array_equal(f["rho0"], raw0)
-        np.testing.assert_array_equal(f["rho1"], raw1)
+    got0, got1 = texamples.gene_example_dotmark_4stitch(129, 129)
+    np.testing.assert_array_equal(got0, raw0)
+    np.testing.assert_array_equal(got1, raw1)
     assert jexamples.density_source("DOTmark_4stitch") != "procedural"
     want = jexamples.get_example_2d("DOTmark_4stitch", 129, 129)
     got = texamples.get_example_2d("DOTmark_4stitch", 129, 129)

@@ -3,7 +3,8 @@ package on the CPU.
 
 - Problem layer (``models/wdot2d.py``): densities, barrier masks, weights
   and the barrier validity helpers equal the JAX package's exactly (the same
-  numpy arithmetic); the image barriers refuse.
+  numpy arithmetic); the image barriers against the JAX predicates are in
+  ``tests/test_torch_images.py``.
 - Level plumbing in float64 at 1e-12: ``restrict_staggered`` (log space and
   linear), the weighted ``initial_scaling`` and ``update_e2``,
   ``weight_to_internal`` and the weighted q-step diagonal, the level jump
@@ -143,12 +144,6 @@ def test_barrier_masks_weights_and_validity_match(barrier):
 def test_radial_weights_match(name):
     equal_stag(getattr(TW, name)(5, 13, 11, dtype=F64),
                getattr(JW, name)(5, 13, 11, dtype=jnp.float64))
-
-
-@pytest.mark.parametrize("name", ["barrier_maze14", "barrier_example6"])
-def test_image_barriers_refuse(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        getattr(TW, name)()
 
 
 # -- level plumbing --------------------------------------------------------------
