@@ -171,6 +171,32 @@ the device driver (CUDA-graph segments, ``algorithms/device_driver.py``).
    ``demo_batch`` runs lockstep. Every kernel of this path (the x-carry
    kernels, ``qx_step_w``, the batched forms) launched at least once.
 
+10. Multi-device (``opts={"mesh": ...}``, the sharded fleet), each rank a
+   process spawned on this one card with ``backend="gloo"`` (NCCL refuses
+   two ranks on one card) by ``dotsocp_tpu_torch.parallel.launch``: every
+   rank has the world's deadline, and a rank that fails fails the phase.
+   Its times are those of N ranks sharing one card over gloo, not a
+   scaling figure. A world of 4 ranks: 10d, the comm layer on CUDA tensors
+   (``shift`` along y and x, ``psum``, ``all_gather``, ``gather_blocks``)
+   against one process's answers, exactly; 10a, the headline on a (y=2,
+   x=2) mesh (the halo engine, plain PyTorch per rank, no kernel launched,
+   as the JAX package under a mesh: inPALM's kernels all read
+   neighbouring cells): identical ``DIST_RESULT`` records on every rank,
+   the total within 470-574, mass conservation, stop residuals below the
+   tolerance; wall and peak memory a rank; 10e, acc-ADMM at 129^2 x 33,
+   one level, 100 iterations on the same mesh: identical records on every
+   rank, cone_project_diff launched once an iteration on every rank and
+   nothing else, and on a block of the rank's shape the kernel bit-equal
+   to its plain version, within rtol 2e-5 / atol 2e-6 of ``proj_soc`` and
+   its pads zero. A world of 2 ranks:
+   10b, the scale config on a (y=2,) mesh within +-10% of the JAX 407, with
+   the bytes the comm layer sent a rank per iteration; 10c, the
+   fleet_bench fleet under ``solve_fleet(mode="sharded")``: the shared
+   total within +-10% of ``FLEET_ANCHOR``, each instance's rho within
+   ``FLEET_GAP`` of the one-process lockstep run's, the batched kernels
+   launched on every rank; the same fleet in float64 exactly
+   ``FLEET_ANCHOR_F64``'s.
+
 The line before the last is a JSON object with one entry per kernel (its
 launches on the main path: the sum over every solve and profile of phases
 4-4e, 4g and 4h, each run with every count set to 0 just before and read just
@@ -181,8 +207,8 @@ with its launches summed over the 3D solves of phase 4f; the batched
 kernels' launches summed over the lockstep solves of phases 8c and 8d,
 their times at B = 8 x 129^2 x 33, beside B single launches, and under
 ``b32_65x17`` at B = 32 x 65^2 x 17; every kernel's
-``phase9_launches`` summed over phase 9's runs); the last line
-is ``{"ok": true, "device": {...}}``.
+``phase9_launches`` summed over phase 9's runs; phase 10's figures under
+``multi_device``); the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero before printing any result.
 """
@@ -3407,6 +3433,371 @@ def user_problems(torch):
     return launches, results
 
 
+
+# -- phase 10: multi-device, ranks sharing the one card over gloo ---------------
+
+DIST_LABEL = "N ranks sharing one card over gloo, not a scaling figure"
+# a world's deadline: a rank that hangs in a collective ends the world
+DIST_TIMEOUT = 600.0
+# 10a: the headline (the total's band: the anchor 522 +-10%, the halo
+# path's plain ops round otherwise than the kernels) on a (y=2, x=2) mesh;
+# 10b: the scale config on a (y=2,) mesh
+DIST_HEADLINE = ("DOTmark_4stitch", 129, 33, 3, 1e-4, ("y", "x"))
+DIST_HEADLINE_BAND = (470, 574)
+DIST_SCALE = ("DOTmark_4stitch",) + SCALE_CONFIG + (("y",),)
+# 10e: acc-ADMM on the headline's finest grid, one level, 100 iterations
+DIST_ACC = ("DOTmark_4stitch", 129, 33, 100)
+# the one-process lockstep fleet against sequential solves differs by up to
+# 1.4e-2 on rho (FLEET_REL_JAX, phase 8c): the sharded fleet is held to it
+FLEET_GAP = 1.4e-2
+
+
+def _rank_solve(problem, n, nt, levels, tol, axis_names):
+    """This rank's meshed solve_dot in float32 on the card (a warm-up solve
+    on the same mesh first): its ``DIST_RESULT`` record, printed, and its
+    own wall, peak memory, comm traffic and launches."""
+    import numpy as np
+    import torch
+
+    from dotsocp_tpu_torch.models.examples import get_example_2d
+    from dotsocp_tpu_torch.multilevel.solve import solve_dot
+    from dotsocp_tpu_torch.parallel.distributed import print_record
+    from dotsocp_tpu_torch.parallel.sharding import make_mesh
+
+    mesh = make_mesh(axis_names=axis_names)
+    w0, w1 = get_example_2d("example2", 17, 17)
+    solve_dot(w0, w1, 9, 1, {"tol": 1e-3, "mesh": mesh}, device=DEVICE,
+              verbose=False)
+    r0, r1 = get_example_2d(problem, n, n)
+    reset_launch_counts()
+    mesh.stats.update(calls=0, bytes=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    out, _, _ = solve_dot(r0, r1, nt, levels, {"tol": tol, "mesh": mesh},
+                          "inPALM", device=DEVICE, dtype=torch.float32,
+                          verbose=False)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    rho = out["rho"]
+    iters = [lv["iters"] for lv in out["levels"]]
+    rec = {"mesh": dict(mesh.shape), "iters": iters,
+           "stops": [stop_residual(lv) for lv in out["levels"]],
+           "mass_ok": bool(out["mass_ok"]), "shape": list(rho.shape),
+           "finite": bool(torch.isfinite(rho).all()),
+           "rho_sum": float(rho.double().sum())}
+    print_record(dict(rec, rank=mesh.rank))
+    return rec, dict(wall_s=wall,
+                     peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                     comm_calls=mesh.stats["calls"],
+                     comm_bytes=mesh.stats["bytes"],
+                     comm_bytes_per_iter=mesh.stats["bytes"] / sum(iters),
+                     launches={k: v for k, v in launch_counts().items()
+                               if v},
+                     level_s=[round(lv["time"], 4) for lv in out["levels"]],
+                     rank=mesh.rank)
+
+
+def _rank_comm_check():
+    """10d: the comm layer on CUDA tensors over a (y, x) mesh against the
+    answers one process computes from the whole field."""
+    import torch
+
+    from dotsocp_tpu_torch.parallel import comm
+    from dotsocp_tpu_torch.parallel.sharding import make_mesh
+
+    mesh = make_mesh(axis_names=("y", "x"))
+    ky, kx = mesh.shape["y"], mesh.shape["x"]
+    cy, cx = mesh.coords["y"], mesh.coords["x"]
+    ny, nx = 6 * ky, 8 * kx
+    full = torch.randn(5, ny, nx, dtype=torch.float32, device=DEVICE,
+                       generator=torch.Generator(DEVICE).manual_seed(10))
+    rows, cols = slice(cy * 6, cy * 6 + 6), slice(cx * 8, cx * 8 + 8)
+    block = full[:, rows, cols].contiguous()
+    pad = torch.nn.functional.pad
+    errs = {
+        "shift_y": comm.shift(block, 1, mesh, "y", True)
+        - pad(full[:, :-1], (0, 0, 1, 0))[:, rows, cols],
+        "shift_x": comm.shift(block, 2, mesh, "x", False)
+        - pad(full[:, :, 1:], (0, 1))[:, rows, cols],
+        "all_gather": comm.all_gather(block, 1, mesh, "y") - full[:, :, cols],
+        "gather_blocks": comm.gather_blocks(block, mesh, {"y": 1, "x": 2})
+        - full,
+    }
+    out = {k: float(v.abs().max()) for k, v in errs.items()}
+    # psum: every rank's block summed in rank order against the same sum
+    # over the gathered blocks, and equal bits on every rank
+    total = comm.psum(block.double().sum(), mesh)
+    parts = [full[:, r * 6:r * 6 + 6, c * 8:c * 8 + 8].double().sum()
+             for r in range(ky) for c in range(kx)]
+    ref = parts[0]
+    for p in parts[1:]:
+        ref = ref + p
+    out["psum"] = float((total - ref).abs())
+    out["psum_bits"] = float(total)
+    out["devices"] = [str(block.device), str(total.device)]
+    return out
+
+
+def _rank_acc(problem, n, nt, maxit):
+    """10e: acc-ADMM on a (y, x) mesh of the world, one level at n^2 x nt,
+    ``maxit`` iterations in float32, the cone projection kernel on the
+    rank's block (the steps that read neighbouring cells run plain); then
+    the kernel against its plain versions on a seeded block of the same
+    shape, its pads zero as the halo layout holds them."""
+    import torch
+
+    from dotsocp_tpu_torch.models.examples import get_example_2d
+    from dotsocp_tpu_torch.multilevel.solve import solve_dot
+    from dotsocp_tpu_torch.ops import fused_step as fs
+    from dotsocp_tpu_torch.ops.cone import proj_soc
+    from dotsocp_tpu_torch.ops.geometry import Geometry
+    from dotsocp_tpu_torch.ops.halo_engine import OpsHalo
+    from dotsocp_tpu_torch.parallel.sharding import make_mesh
+
+    mesh = make_mesh(axis_names=("y", "x"))
+    r0, r1 = get_example_2d(problem, n, n)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out, _, _ = solve_dot(r0, r1, nt, 1,
+                          {"tol": 1e-4, "maxit": maxit, "mesh": mesh},
+                          "acc-ADMM", device=DEVICE, dtype=torch.float32,
+                          verbose=False)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {k: v for k, v in launch_counts().items() if v}
+    rho = out["rho"]
+    rec = {"mesh": dict(mesh.shape), "iters": out["levels"][0]["iters"],
+           "stop": stop_residual(out["levels"][0]),
+           "finite": bool(torch.isfinite(rho).all()),
+           "rho_sum": float(rho.double().sum())}
+    # the kernel on a block of the path's shape, against the plain
+    # version it is bit-equal to and the solver's plain projection
+    oh = OpsHalo(Geometry(nt, (n, n)), torch.float32, DEVICE, mesh)
+    gen = torch.Generator(DEVICE).manual_seed(12)
+    C = oh.geom.cone_cols
+    z2, beta = (oh.z_to_internal(torch.randn(
+        C, nt - 1, n, n, generator=gen, device=DEVICE)) for _ in range(2))
+    real = oh.z_to_internal(torch.ones(C, nt - 1, n, n, device=DEVICE))
+    got = fs.cone_project_diff(z2, beta)
+    ref = proj_soc(z2 - beta)
+    tol = 2e-6 + 2e-5 * ref.abs()
+    return rec, dict(
+        wall_s=wall, launches=launches, rank=mesh.rank,
+        block=list(z2.shape),
+        exact=bool(torch.equal(got, fs.cone_project_diff_plain(z2, beta))),
+        max_abs_err=float((got - ref).abs().max()),
+        within=bool(((got - ref).abs() <= tol).all()),
+        pads_max=float((got * (1.0 - real)).abs().max()))
+
+
+def _world_a(headline, acc):
+    """The 4-rank world: 10d, then 10a, then 10e."""
+    return _rank_comm_check(), _rank_solve(*headline), _rank_acc(*acc)
+
+
+def _rank_fleet(n, nt, levels, tol, dtype_name):
+    """10c: this rank's part of ``solve_fleet(mode="sharded")`` over the
+    whole world, with the launches this rank made."""
+    import torch
+
+    from dotsocp_tpu_torch.parallel.batch import solve_fleet
+
+    r0, r1 = fleet_problems(n)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    out = solve_fleet(r0, r1, nt, {"tol": tol, "maxit": 3000}, "inPALM",
+                      dtype=getattr(torch, dtype_name), level_n=levels,
+                      mode="sharded", verbose=False, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    return dict(mode=out["mode"], iters=out["iters"],
+                done=[bool(v) for v in out["done"]],
+                done_it=[int(v) for v in out["done_it"]],
+                kkt=out["kkt"].tolist(), rho=out["rho"].float().cpu().numpy(),
+                launches={k: v for k, v in launch_counts().items() if v},
+                wall_s=wall,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _world_b(scale):
+    """The 2-rank world: 10b, then 10c in float32 and in float64."""
+    fleet = FLEET
+    return (_rank_solve(*scale), _rank_fleet(*fleet, "float32"),
+            _rank_fleet(*fleet, "float64"))
+
+
+def multi_device(torch):
+    """Phase 10 (see the module docstring): two spawned worlds on this card.
+    Returns the figures phase 10 keeps."""
+    import numpy as np
+
+    from dotsocp_tpu_torch.parallel.launch import run_world
+
+    label = DIST_LABEL
+    res = {"label": label}
+    # the one-process lockstep fleet that 10c's rho is held to, before the
+    # ranks take the card
+    n, nt, levels, tol = FLEET
+    r0, r1 = fleet_problems(n)
+    lock, lock_wall, _, _ = lockstep(torch, r0, r1, nt, levels, tol)
+    lock_rho = lock["rho"].float().cpu().numpy()
+    del lock
+    torch.cuda.empty_cache()
+
+    t0 = time.monotonic()
+    ranks = run_world(_world_a, 4, (DIST_HEADLINE, DIST_ACC),
+                      backend="gloo", device=DEVICE, timeout=DIST_TIMEOUT)
+    world_a_s = time.monotonic() - t0
+    # 10d
+    for r, (comm_errs, _, _) in enumerate(ranks):
+        log(f"  10d rank {r}: comm layer against one process on "
+            f"{comm_errs['devices']}: "
+            f"{ {k: v for k, v in comm_errs.items() if k not in ('devices', 'psum_bits')} }")
+        for k in ("shift_y", "shift_x", "all_gather", "gather_blocks",
+                  "psum"):
+            require(comm_errs[k] == 0.0, f"10d rank {r}: {k} differs by "
+                    f"{comm_errs[k]}")
+        require(comm_errs["devices"] == ["cuda:0", "cuda:0"],
+                f"10d rank {r}: tensors on {comm_errs['devices']}")
+    require(len({r[0]["psum_bits"] for r in ranks}) == 1,
+            "10d: psum differs between ranks")
+    res["comm_check"] = ranks[0][0]
+    # 10a
+    recs = [r[1][0] for r in ranks]
+    own = [r[1][1] for r in ranks]
+    require(all(rec == recs[0] for rec in recs), f"10a: the ranks' records "
+            f"differ: {recs}")
+    rec = recs[0]
+    total = sum(rec["iters"])
+    log(f"  10a headline on a {rec['mesh']} mesh ({label}): iterations "
+        f"{rec['iters']}, total {total} (band {DIST_HEADLINE_BAND}, anchor "
+        f"{HEADLINE_ANCHOR}), stop residuals "
+        f"{[f'{v:.2e}' for v in rec['stops']]}, mass_ok {rec['mass_ok']}")
+    for o in own:
+        log(f"    rank {o['rank']}: wall {o['wall_s']:.3f} s (levels "
+            f"{o['level_s']} s), peak {o['peak_gib']:.3f} GiB, comm "
+            f"{o['comm_calls']} calls {o['comm_bytes'] / 1e6:.2f} MB sent "
+            f"({o['comm_bytes_per_iter'] / 1e3:.2f} kB an iteration), "
+            f"launches {o['launches']}")
+    require(DIST_HEADLINE_BAND[0] <= total <= DIST_HEADLINE_BAND[1],
+            f"10a: total iterations {total} outside {DIST_HEADLINE_BAND}")
+    n_h, nt_h = DIST_HEADLINE[1:3]
+    require(rec["mass_ok"] and rec["finite"]
+            and rec["shape"] == [nt_h, n_h, n_h], f"10a: {rec}")
+    require(all(v < DIST_HEADLINE[4] for v in rec["stops"]),
+            f"10a stops {rec['stops']}")
+    # every kernel inPALM runs reads neighbouring cells: under a mesh they
+    # all run plain on the block (ROADMAP.md queue 2 item 10)
+    require(all(not o["launches"] for o in own), "10a: a kernel that reads "
+            "neighbouring cells was launched under the halo engine")
+    res["headline"] = dict(rec, total=total, ranks=own,
+                           world_s=world_a_s)
+    # 10e
+    recs = [r[2][0] for r in ranks]
+    own = [r[2][1] for r in ranks]
+    require(all(rec == recs[0] for rec in recs), f"10e: the ranks' records "
+            f"differ: {recs}")
+    rec = recs[0]
+    log(f"  10e acc-ADMM on a {rec['mesh']} mesh ({label}), "
+        f"{DIST_ACC[1]}^2 x {DIST_ACC[2]}, one level: {rec['iters']} "
+        f"iterations, stop residual {rec['stop']:.2e}")
+    for o in own:
+        log(f"    rank {o['rank']}: wall {o['wall_s']:.3f} s, launches "
+            f"{o['launches']}; cone_project_diff on its block "
+            f"{o['block']}: bit-equal to its plain version {o['exact']}, "
+            f"{o['max_abs_err']:.2e} from proj_soc, pads "
+            f"{o['pads_max']:.1e}")
+        require(o["launches"] == {"cone_project_diff": rec["iters"]},
+                f"10e rank {o['rank']}: launches {o['launches']}, not "
+                f"cone_project_diff once an iteration ({rec['iters']})")
+        require(o["exact"] and o["within"] and o["pads_max"] == 0.0,
+                f"10e rank {o['rank']}: cone_project_diff on the block: "
+                f"{o}")
+    require(rec["finite"] and rec["iters"] > 0, f"10e: {rec}")
+    res["acc"] = dict(rec, ranks=own)
+
+    t0 = time.monotonic()
+    stol = DIST_SCALE[4]
+    ranks = run_world(_world_b, 2, (DIST_SCALE,), backend="gloo",
+                      device=DEVICE, timeout=DIST_TIMEOUT)
+    world_b_s = time.monotonic() - t0
+    # 10b
+    recs = [r[0][0] for r in ranks]
+    own = [r[0][1] for r in ranks]
+    require(recs[0] == recs[1], f"10b: the ranks' records differ: {recs}")
+    rec = recs[0]
+    total = sum(rec["iters"])
+    log(f"  10b scale config on a {rec['mesh']} mesh ({label}): iterations "
+        f"{rec['iters']}, total {total} (anchor {SCALE_ANCHOR}, "
+        f"{100.0 * (total - SCALE_ANCHOR) / SCALE_ANCHOR:+.1f}%), stop "
+        f"residuals {[f'{v:.2e}' for v in rec['stops']]}, mass_ok "
+        f"{rec['mass_ok']}")
+    for o in own:
+        log(f"    rank {o['rank']}: wall {o['wall_s']:.3f} s (levels "
+            f"{o['level_s']} s), peak {o['peak_gib']:.3f} GiB, comm "
+            f"{o['comm_calls']} calls {o['comm_bytes'] / 1e9:.3f} GB sent "
+            f"({o['comm_bytes_per_iter'] / 1e6:.2f} MB an iteration)")
+    require(abs(total - SCALE_ANCHOR) <= 0.1 * SCALE_ANCHOR,
+            f"10b: total {total} not within 10% of {SCALE_ANCHOR}")
+    require(rec["mass_ok"] and rec["finite"] and all(
+        v < stol for v in rec["stops"]), f"10b: {rec}")
+    res["scale"] = dict(rec, total=total, ranks=own, world_s=world_b_s)
+    # 10c
+    for which, anchor in (("float32", FLEET_ANCHOR),
+                          ("float64", FLEET_ANCHOR_F64)):
+        i = 1 if which == "float32" else 2
+        got = [r[i] for r in ranks]
+        for key in ("iters", "done", "done_it", "kkt", "mode"):
+            require(got[0][key] == got[1][key], f"10c {which}: the ranks' "
+                    f"{key} differ")
+        require(np.array_equal(got[0]["rho"], got[1]["rho"]),
+                f"10c {which}: the ranks' rho differ")
+        g = got[0]
+        log(f"  10c fleet {which} sharded over 2 ranks ({label}): done_it "
+            f"{g['done_it']}, total {g['iters']} (anchor {anchor['iters']}, "
+            f"{100.0 * (g['iters'] / anchor['iters'] - 1.0):+.1f}%), walls "
+            f"{[round(x['wall_s'], 3) for x in got]} s, peaks "
+            f"{[round(x['peak_gib'], 3) for x in got]} GiB, launches per "
+            f"rank {[x['launches'] for x in got]}")
+        require(g["mode"] == "sharded" and all(g["done"]),
+                f"10c {which}: {g['mode']}, done {g['done']}")
+        require(all(max(k[j] for j in (0, 2, 5, 6)) < tol for k in g["kkt"]),
+                f"10c {which}: stop residuals above {tol}")
+        entry = dict(done_it=g["done_it"], iters=g["iters"],
+                     walls_s=[x["wall_s"] for x in got],
+                     peaks_gib=[x["peak_gib"] for x in got],
+                     launches=[x["launches"] for x in got])
+        if which == "float32":
+            require(abs(g["iters"] - anchor["iters"]) <= 0.1 * anchor["iters"],
+                    f"10c: iters {g['iters']} not within 10% of "
+                    f"{anchor['iters']}")
+            rel = [float(np.linalg.norm(g["rho"][b] - lock_rho[b])
+                         / np.linalg.norm(lock_rho[b]))
+                   for b in range(FLEET_B)]
+            log(f"    rho against the one-process lockstep run (wall "
+                f"{lock_wall:.3f} s), relative "
+                f"{', '.join(f'{v:.2e}' for v in rel)} (bound {FLEET_GAP})")
+            require(all(v <= FLEET_GAP for v in rel), f"10c: rho gaps {rel}")
+            for x in got:
+                for k in BATCHED:
+                    require(x["launches"].get(k, 0) > 0, f"10c: {k} was "
+                            f"launched no time on a rank")
+            entry.update(rho_rel_vs_lockstep=rel, lockstep_wall_s=lock_wall)
+        else:
+            require(g["done_it"] == list(anchor["done_it"])
+                    and g["iters"] == anchor["iters"], f"10c float64: "
+                    f"done_it {g['done_it']}, iters {g['iters']}, not "
+                    f"{anchor}")
+            require(all(not x["launches"] for x in got),
+                    "10c float64: a kernel was launched")
+        res[f"fleet_{which}"] = entry
+    res["world_b_s"] = world_b_s
+    return res
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", nargs="?", const="", default=None,
@@ -3526,6 +3917,10 @@ def main(argv=None):
     phase(9, "user problems on the card: the scale config (DOTmark 513^2 x "
           "65), the maze, example5, every demo at its defaults")
     launches_9, user = user_problems(torch)
+    phase(10, "multi-device: the comm layer, the headline on a (y=2, x=2) "
+          "mesh, the scale config on a (y=2,) mesh, the fleet sharded over "
+          "2 ranks; " + DIST_LABEL)
+    multi = multi_device(torch)
     log(f"\nall phases passed in {time.monotonic() - t_start:.1f} s")
 
     nbytes = kernel_bytes(Geometry(SCALE[0], (SCALE[1], SCALE[1])))
@@ -3594,7 +3989,7 @@ def main(argv=None):
                       "hbm_peak": HBM_PEAK,
                       "sweep_max_abs_by_shape": SWEEP_ERRS,
                       "device_driver": device_driver, "fleet": fleet,
-                      "user_problems": user}))
+                      "user_problems": user, "multi_device": multi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}))

@@ -34,6 +34,17 @@ the two forms differ by at most 1 ulp in these scalars.)
 
 The variables alpha, beta, c are stored pre-divided by sigma, exactly like
 the reference (``solver_socp_inPALM.m:102-104``).
+
+Under a mesh (``LevelConfig.mesh``, ``dotsocp_tpu/algorithms/core.py:
+114-149``) the level's engine is the halo engine and each tensor is one
+rank's block (``ops/halo_engine.py``). The steps whose kernels read
+neighbouring cells (the single-step and x-carry kernels, the sGS sweep)
+run their plain versions on the block, as the JAX package launches no
+Pallas kernel there (``dotsocp_tpu/multilevel/solve.py:228``); the cone
+projection, pointwise, runs its kernel on the block as on one process.
+Every norm and dot product of a check sums its block's part over the mesh,
+all of them in one collective (``_mesh_sums``), so every rank holds the
+same KKT values.
 """
 from __future__ import annotations
 
@@ -44,16 +55,15 @@ import numpy as np
 import torch
 
 from ..ops.cone import proj_soc
-from ..ops.engine import OpsFlat, diag_values
+from ..ops.engine import diag_values, make_ops
 from ..ops.fused_step import (beta_step, beta_step_plain, cx_final,
                               cx_final_batched, cx_step, cx_step_batched,
                               q_step, q_step_plain, qx_step, qx_step_batched,
                               select_instance, times_dinv, weighted_dinv,
-                              x_step,
-                              x_step_batched, z_step, z_step_plain)
+                              x_step, x_step_batched, z_step, z_step_plain)
 from ..ops.geometry import Geometry
 from ..ops.staggered import Staggered
-from ..utils.norms import norm_l2
+from ..utils.norms import sqsum
 
 # the KKT battery's scalars computed on the device, packed after the 7 + 5
 # residuals into one vector, so a check costs one device-to-host transfer;
@@ -155,6 +165,9 @@ class LevelConfig:
     # False = matmuls in ``dtype``; "ir" / "ir1" = f32 transforms with
     # f64-residual refinement (two rounds / one)
     dct_split: object = False
+    # the rank's mesh (``parallel/sharding.Mesh``): the level runs on the
+    # halo engine, one block a rank; None: the flat engine, one process
+    mesh: object = None
 
 
 class Kernels:
@@ -164,7 +177,10 @@ class Kernels:
     def __init__(self, cfg: LevelConfig, weight: Optional[Staggered] = None):
         self.cfg = cfg
         self.geom = cfg.geom
-        self.ops = OpsFlat(cfg.geom, cfg.dtype, cfg.device)
+        self.ops = make_ops(cfg.geom, cfg.dtype, cfg.device, cfg.mesh)
+        # under a mesh the steps that read neighbouring cells run their
+        # plain versions on the rank's block (the module docstring)
+        self.plain = cfg.mesh is not None
         # unit-D build: the solve multiplies by 1/D^2 at use time
         self.poisson = self.ops.make_poisson(1.0, split=cfg.dct_split)
         # the shaped weight of a weighted level, flat, in the level's dtype
@@ -207,7 +223,8 @@ class Kernels:
         the CPU the wrappers run their plain versions, which compose to the
         JAX plain ``_step`` (:198-222) operation for operation. Every
         output is a fresh tensor: ``s`` is left as it was."""
-        return self._step_from_phi(s, self._poisson_solve(s, self._rhs(s)))
+        return self._step_from_phi(s, self._poisson_solve(s, self._rhs(s)),
+                                   plain=self.plain)
 
     def _step_plain(self, s: SolverState) -> SolverState:
         """:meth:`_step` from the kernels' plain versions, on any device:
@@ -238,6 +255,17 @@ class Kernels:
         beta = bs(ops, s.beta, z, q, sbf, sd, tau)
         return s.replace(phi=phi, q=q, z=z, alpha=alpha, beta=beta)
 
+    def _mesh_sums(self, parts: dict) -> dict:
+        """``parts``, 0-d sums over the rank's block, each summed over the
+        mesh, all in one collective (on one process the identity)."""
+        tot = self.ops.psum(torch.stack(list(parts.values())))
+        return dict(zip(parts, tot.unbind(0)))
+
+    def _norms_of(self, *xs) -> list:
+        """sqrt(h) ||x|| over the whole field, for each of ``xs``."""
+        tot = self._mesh_sums({i: sqsum(x) for i, x in enumerate(xs)})
+        return [torch.sqrt(self.geom.h * tot[i]) for i in range(len(xs))]
+
     def _q_solve(self, s: SolverState, tmp_q: Staggered,
                  q2: Staggered) -> Staggered:
         """The q-step: (w (tmp_q + alpha) + q2) * diag^-1."""
@@ -267,8 +295,9 @@ class Kernels:
     def segment_ca(self) -> bool:
         """True when segments run the x-carry kernels: the subclass has not
         replaced the inPALM step (PALM and the acc and sGS variants run
-        their own step in a plain loop)."""
-        return type(self)._step is Kernels._step
+        their own step in a plain loop), and the level runs on one process
+        (under a mesh the JAX package's segment is its plain step loop)."""
+        return type(self)._step is Kernels._step and not self.plain
 
     def segment_impl(self, s: SolverState, k: int) -> SolverState:
         """k event-free iterations. inPALM / ALG2: one x-step prologue,
@@ -363,13 +392,14 @@ class Kernels:
     def _norms(self, s: SolverState) -> dict:
         """Block norms for the dynamic rescaling checks
         (``solver_socp_inPALM.m:139-148``), as 0-d tensors."""
-        h = self.geom.h
+        phi, q, z, alpha, beta = self._norms_of(s.phi, s.q, s.z, s.alpha,
+                                                s.beta)
         return {
-            "normPhi": norm_l2(s.phi, h),
-            "normQ": norm_l2(s.q, h),
-            "normZ": norm_l2(s.z, h),
-            "normAlpha": s.sigma * norm_l2(s.alpha, h),
-            "normBeta": s.sigma * norm_l2(s.beta, h),
+            "normPhi": phi,
+            "normQ": q,
+            "normZ": z,
+            "normAlpha": s.sigma * alpha,
+            "normBeta": s.sigma * beta,
         }
 
     def norms(self, s: SolverState) -> dict:
@@ -379,7 +409,9 @@ class Kernels:
         return dict(zip(res.keys(), vals))
 
     def _kkt(self, s: SolverState) -> dict:
-        """Full KKT battery (``solver_socp_inPALM.m:223-267``)."""
+        """Full KKT battery (``solver_socp_inPALM.m:223-267``). Its sums
+        over the rank's block are formed first and summed over the mesh in
+        one collective, then combined."""
         geom = self.geom
         ops = self.ops
         h = geom.h
@@ -392,20 +424,52 @@ class Kernels:
         q2b = ops.bfd_T(s.beta, s.E / s.D)
         d_alpha = self._w(s.alpha)
 
-        norm_q = norm_l2(s.q, h)
-        norm_z = norm_l2(s.z, h)
-        norm_aphi = norm_l2(tmp_q, h)
-        norm_alpha = s.sigma * norm_l2(s.alpha, h)
-        norm_beta = s.sigma * norm_l2(s.beta, h)
-        norm_fbbeta = s.sigma * norm_l2(q2b, h)
+        fields = {
+            "q": s.q, "z": s.z, "aphi": tmp_q, "alpha": s.alpha,
+            "beta": s.beta, "fbbeta": q2b, "prim1": resi_alpha,
+            "prim2": resi_beta, "dual1": s.D * ops.grad_T(s.alpha) - s.c,
+            "dual2": q2b + d_alpha,
+            "complem": s.z - proj_soc(s.z - s.sigma * s.beta),
+            "phi": s.phi,
+        }
+        parts = {k: sqsum(x) for k, x in fields.items()}
+        parts["pri"] = s.q.dot(s.alpha)
+        parts["dual"] = torch.sum(s.c * s.phi)
+        d = geom.ndim_space
+        parts.update(self._dot_complement(s, d_alpha, z2))
+        tot = self._mesh_sums(parts)
 
-        prim_fea1 = norm_l2(resi_alpha, h)
-        prim_fea2 = norm_l2(resi_beta, h)
-        dual_fea1 = s.sigma * norm_l2(s.D * ops.grad_T(s.alpha) - s.c, h)
-        dual_fea2 = s.sigma * norm_l2(q2b + d_alpha, h)
-        complem = norm_l2(s.z - proj_soc(s.z - s.sigma * s.beta), h)
+        def nrm(k):
+            return torch.sqrt(h * tot[k])
 
-        dc = self._dot_complement(s, d_alpha, z2)
+        norm_q = nrm("q")
+        norm_z = nrm("z")
+        norm_aphi = nrm("aphi")
+        norm_alpha = s.sigma * nrm("alpha")
+        norm_beta = s.sigma * nrm("beta")
+        norm_fbbeta = s.sigma * nrm("fbbeta")
+
+        prim_fea1 = nrm("prim1")
+        prim_fea2 = nrm("prim2")
+        dual_fea1 = s.sigma * nrm("dual1")
+        dual_fea2 = s.sigma * nrm("dual2")
+        complem = nrm("complem")
+
+        # the original-DOT complementarity residuals: the face sums add up
+        # over the axes after the mesh's sum, each scaled by h
+        m_sq = rb_sq = diff_sq = 0.0
+        for a in range(d):
+            m_sq = m_sq + h * tot[f"m{a}"]
+            rb_sq = rb_sq + h * tot[f"rb{a}"]
+            diff_sq = diff_sq + h * tot[f"diff{a}"]
+        dc = {
+            "dotcomplem": nrm("dotcomplem"),
+            "normRho": nrm("rho"),
+            "norm_rhoFq": nrm("rhoFq"),
+            "mRhoB": torch.sqrt(diff_sq),
+            "normM": torch.sqrt(m_sq),
+            "normRhoB": torch.sqrt(rb_sq),
+        }
 
         E_over_dscale = s.E / s.dScale
         if self.weight is not None:
@@ -431,8 +495,8 @@ class Kernels:
         ])
 
         scale = s.sigma * s.cScale * s.dScale * h
-        pri_val = scale * s.q.dot(s.alpha)
-        dual_val = scale * torch.sum(s.c * s.phi)
+        pri_val = scale * tot["pri"]
+        dual_val = scale * tot["dual"]
         pd_gap = torch.abs(pri_val - dual_val) / (
             1 + torch.abs(pri_val) + torch.abs(dual_val))
         return {
@@ -441,7 +505,7 @@ class Kernels:
             "priVal": pri_val,
             "dualVal": dual_val,
             "pdGap": pd_gap,
-            "normPhi": norm_l2(s.phi, h),
+            "normPhi": nrm("phi"),
             "normQ": norm_q,
             "normZ": norm_z,
             "normAlpha": norm_alpha,
@@ -457,12 +521,11 @@ class Kernels:
         return out
 
     def _dot_complement(self, s: SolverState, d_alpha: Staggered, z2):
-        """Original-DOT complementarity residuals
-        (``socp/dot2d/utils/compute_kkt_dot_complement.m``; weighted:
-        ``d_alpha`` is D_w alpha)."""
-        geom = self.geom
-        h = geom.h
-        d = geom.ndim_space
+        """The block's sums of squares of the original-DOT complementarity
+        residuals (``socp/dot2d/utils/compute_kkt_dot_complement.m``;
+        weighted: ``d_alpha`` is D_w alpha), which :meth:`_kkt` sums over
+        the mesh and combines."""
+        d = self.geom.ndim_space
 
         rho_t = (s.sigma * s.cScale * s.D) * d_alpha.q0
         b_cols = z2[1:1 + 4 * d]
@@ -472,30 +535,20 @@ class Kernels:
             + torch.sum(torch.square((s.dScale / s.E) * b_cols), dim=0) / 4.0
         )
         rho_fq = torch.clamp(rho_fq, min=0.0)
-
-        dotcomplem = norm_l2(rho_t - rho_fq, h)
-        norm_rho = norm_l2(rho_t, h)
-        norm_rho_fq = norm_l2(rho_fq, h)
+        parts = {"dotcomplem": sqsum(rho_t - rho_fq), "rho": sqsum(rho_t),
+                 "rhoFq": sqsum(rho_fq)}
 
         # rho on time nodes (zero-padded ends), then on faces; flat ghost
         # garbage is annihilated by the ghost-zero face arrays it multiplies
         rho_nodes = self.ops.t_node_interp(rho_t)
-        m_sq = rb_sq = diff_sq = 0.0
         for a in range(d):
             rho_face = self.ops.face_interp(rho_nodes, a)
             rho_b = (s.dScale / s.D) * rho_face * s.q.bs[a]
             m_a = (s.sigma * s.cScale * s.D) * d_alpha.bs[a]
-            m_sq = m_sq + h * torch.sum(torch.square(m_a))
-            rb_sq = rb_sq + h * torch.sum(torch.square(rho_b))
-            diff_sq = diff_sq + h * torch.sum(torch.square(m_a - rho_b))
-        return {
-            "dotcomplem": dotcomplem,
-            "normRho": norm_rho,
-            "norm_rhoFq": norm_rho_fq,
-            "mRhoB": torch.sqrt(diff_sq),
-            "normM": torch.sqrt(m_sq),
-            "normRhoB": torch.sqrt(rb_sq),
-        }
+            parts[f"m{a}"] = torch.sum(torch.square(m_a))
+            parts[f"rb{a}"] = torch.sum(torch.square(rho_b))
+            parts[f"diff{a}"] = torch.sum(torch.square(m_a - rho_b))
+        return parts
 
     # -- host-driven state transforms ------------------------------------
     def sigma_mult(self, s: SolverState, factor: float) -> SolverState:

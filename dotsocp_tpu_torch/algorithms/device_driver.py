@@ -41,6 +41,14 @@ marks taken at chunk boundaries and checks.
 
 On the CPU there are no graphs and the same functions run eagerly, which
 is how the tests hold these drivers against the JAX package's.
+
+Under a mesh (the level's kernels on the halo engine, one block a rank;
+``dotsocp_tpu/algorithms/device_driver.py:119-158``) every norm and dot
+product of a check is summed over the mesh bit-identically on every rank,
+so every rank reads the same record and takes the same branch. The pieces
+run eagerly there: their halo exchanges are collectives, which a CUDA
+graph does not capture over gloo. The time limit is agreed on by every
+rank, so no rank stops a chunk before the others.
 """
 from __future__ import annotations
 
@@ -54,6 +62,7 @@ import numpy as np
 import torch
 
 from ..ops.staggered import Staggered
+from ..parallel import comm
 from ..utils.checkpoint import load_tensors, save_tensors
 from .core import Kernels, SolverState
 from .driver import RunHistory, SIGMA_BOUNDS, UPDATE_RULE, SolveOptions
@@ -533,28 +542,45 @@ class DeviceDriver:
                           "schedule": dataclasses.asdict(h)})
 
     def _resume(self) -> None:
-        try:
-            tensors, meta = load_tensors(self.checkpoint_path,
-                                         self._all_tensors())
-        except ValueError:
-            return  # stale checkpoint from another level/config: ignore
-        if meta.get("name") != self.name or "schedule" not in meta:
+        """Continue from the checkpoint when it is this level's. Under a
+        mesh each rank reads its own file, and the ranks resume only when
+        every one of them read the same iteration and schedule; else all
+        of them start afresh (a missing or stale file on one rank would
+        mix blocks of different iterations)."""
+        snap = None
+        if os.path.exists(self.checkpoint_path):
+            try:
+                tensors, meta = load_tensors(self.checkpoint_path,
+                                             self._all_tensors())
+                if meta.get("name") == self.name and "schedule" in meta:
+                    snap = tensors, meta
+            except ValueError:
+                pass  # stale checkpoint from another level/config: ignore
+        mesh = self.k.ops.mesh
+        if mesh is not None:
+            key = None if snap is None else (snap[1]["iters"],
+                                             snap[1]["schedule"])
+            if not comm.all_equal(key, mesh):
+                snap = None
+        if snap is None:
             return
-        for dst, src in zip(self._all_tensors(), tensors):
+        for dst, src in zip(self._all_tensors(), snap[0]):
             dst.copy_(src)
-        self.h = _Schedule(**meta["schedule"])
+        self.h = _Schedule(**snap[1]["schedule"])
 
     # -- lifecycle ---------------------------------------------------------
     def prepare(self, var, eager: bool = False) -> None:
         """The state from ``var`` and a fresh loop state (resumed from the
         checkpoint when there is one); ``eager`` runs every piece eagerly on
         the card too, with no graph."""
-        self.graphs = SegmentGraphs(self.device, eager=eager)
+        mesh = self.k.ops.mesh
+        self.graphs = SegmentGraphs(
+            self.device, eager=eager or (mesh is not None and mesh.size > 1))
         self.stats = {"syncs": 0, "checks": 0, "ratio_evals": 0,
                       "chunk_cuts": 0}
         self._init_state(var)
         self._init_loop()
-        if self.checkpoint_path and os.path.exists(self.checkpoint_path):
+        if self.checkpoint_path:
             self._resume()
         self.t0 = time.monotonic()
         self.marks = [(self.h.it, 0.0)]
@@ -588,7 +614,7 @@ class DeviceDriver:
         try:
             with self._on_stream(), self._sync_debug():
                 while not (self.h.it >= opts.maxit or self.h.done):
-                    if time.monotonic() - self.t0 > opts.time_limit:
+                    if self._out_of_time():
                         break
                     if (self.max_chunks is not None
                             and chunks >= self.max_chunks):
@@ -607,6 +633,12 @@ class DeviceDriver:
                               graph_kinds=self.graphs.kinds())
             self.graphs.release()
         return self._finish(var)
+
+    def _out_of_time(self) -> bool:
+        """The time limit, agreed on by every rank of a mesh."""
+        late = time.monotonic() - self.t0 > self.opts.time_limit
+        mesh = self.k.ops.mesh
+        return late if mesh is None else comm.any_true(late, mesh)
 
     @contextlib.contextmanager
     def _sync_debug(self):

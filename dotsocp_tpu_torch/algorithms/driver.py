@@ -29,6 +29,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..parallel import comm
 from .core import Kernels
 
 # sigma update table for inPALM / PALM / acc-ADMM
@@ -296,8 +297,11 @@ class SegmentSolver:
                     f"{opts.label}: KKT residual {bad + 1} is "
                     f"{kkt_org[bad]} at iteration {it}")
 
-            if (max(kkt_org[i] for i in stop_idx) < opts.tol
-                    or elapsed > opts.time_limit):
+            late = elapsed > opts.time_limit
+            if k.ops.mesh is not None:
+                # every rank of a mesh stops at the same check
+                late = comm.any_true(late, k.ops.mesh)
+            if max(kkt_org[i] for i in stop_idx) < opts.tol or late:
                 break
 
             if max(kkt5) < tol_feas_org:

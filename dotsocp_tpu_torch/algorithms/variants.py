@@ -25,10 +25,15 @@ beta_step kernels), and every acc step closes with the cone projection
 kernel ``cone_project_diff``. The rest of each step is plain PyTorch, as
 the JAX package runs it in jnp: acc-ADMM's q- and beta-steps form beta as
 (beta + z) - z2, not beta_step's beta + tau (z - z2), and PALM's steps wait
-for their own kernels (ROADMAP.md). All tensors are in the flat layout
-(``ops/engine.py``): the JAX package moves the sGS kernels to its shaped
-engine only because its TPU sweep wanted a shaped array, and the flat phi
-is that array reshaped.
+for their own kernels (ROADMAP.md). On one process all tensors are in the
+flat layout (``ops/engine.py``): the JAX package moves the sGS kernels to
+its shaped engine only because its TPU sweep wanted a shaped array, and
+the flat phi is that array reshaped. Under a mesh they are one rank's
+block of the halo layout, the sweep is ``ops/halo_engine.HaloSGS`` and
+the steps that read neighbouring cells run their plain versions
+(``Kernels.plain``), as the JAX package under a mesh
+(``dotsocp_tpu/algorithms/variants.py:347-356,485-492``); the cone
+projection kernel runs on the rank's block, whose pads it keeps at zero.
 """
 from __future__ import annotations
 
@@ -38,9 +43,9 @@ import torch
 
 from ..ops.cone import proj_soc
 from ..ops.fused_step import cone_project_diff
+from ..ops.halo_engine import HaloSGS
 from ..ops.sgs import make_sgs
 from ..ops.sgs_sweep import rb_sweep
-from ..utils.norms import norm_l2
 from .core import Kernels, LevelConfig, SolverState
 
 # the iterate blocks the Halpern averaging acts on, in the JAX order
@@ -292,13 +297,19 @@ class _SgsPhiStep:
     fetches each in one transfer."""
 
     def _build_sgs(self):
-        # the level's D^2 is passed per sweep
-        self.sgs = make_sgs(self.geom, dtype=self.cfg.dtype,
-                            device=self.ops.device)
+        # the level's D^2 is passed per sweep; under a mesh the halo sweep
+        # (``dotsocp_tpu/algorithms/variants.py:347-356,485-492``)
+        if self.plain:
+            self.sgs = HaloSGS(self.ops)
+        else:
+            self.sgs = make_sgs(self.geom, dtype=self.cfg.dtype,
+                                device=self.ops.device)
         self.with_feas = False
         self.last_aux = {}
 
     def _sweep(self, s: SolverState, rhs):
+        if self.plain:
+            return self.sgs.sweep(s.phi, rhs, d2=s.D * s.D)
         ops = self.ops
         phi = rb_sweep(self.sgs, ops.phi_from_internal(s.phi),
                        ops.phi_from_internal(rhs), s.D * s.D)
@@ -306,16 +317,16 @@ class _SgsPhiStep:
 
     def _resi_sgs(self, s: SolverState, phi, rhs):
         ops = self.ops
-        return self.sgs.residual_color_a_norm(
-            ops.phi_from_internal(phi), ops.phi_from_internal(rhs),
-            self.geom.h, d2=s.D * s.D)
+        if not self.plain:
+            phi, rhs = ops.phi_from_internal(phi), ops.phi_from_internal(rhs)
+        return self.sgs.residual_color_a_norm(phi, rhs, self.geom.h,
+                                              d2=s.D * s.D)
 
     def _feas_pair(self, s: SolverState) -> torch.Tensor:
-        h = self.geom.h
         tmp_q = s.D * self.ops.grad(s.phi)
-        prim_fea1 = norm_l2(tmp_q - s.q, h)
-        dual_fea1 = s.sigma * norm_l2(s.D * self.ops.grad_T(s.alpha) - s.c, h)
-        return torch.stack([prim_fea1, dual_fea1])
+        prim_fea1, dual1 = self._norms_of(
+            tmp_q - s.q, s.D * self.ops.grad_T(s.alpha) - s.c)
+        return torch.stack([prim_fea1, s.sigma * dual1])
 
     def _set_aux(self, resi_sgs, feas: list) -> None:
         self.last_aux = {"resi_sgs": resi_sgs}
@@ -326,18 +337,16 @@ class _SgsPhiStep:
         """KKT battery + the sGS-block error (``sGSinPALM.m:322``,
         ``accsGSADMM.m:358``)."""
         out = super()._kkt(s)
-        h = self.geom.h
         resi_alpha = s.D * self.ops.grad(s.phi) - s.q
-        t1 = norm_l2(s.D * self.ops.grad_T(resi_alpha), h)
-        dual1 = norm_l2(s.D * self.ops.grad_T(s.alpha) - s.c, h)
+        t1, dual1 = self._norms_of(s.D * self.ops.grad_T(resi_alpha),
+                                   s.D * self.ops.grad_T(s.alpha) - s.c)
         out["kkt_sgs_blocks"] = torch.sqrt(t1 * t1 + dual1 * dual1)
         return out
 
-    @staticmethod
-    def _demeaned(s: SolverState) -> SolverState:
+    def _demeaned(self, s: SolverState) -> SolverState:
         """phi minus its mean, once at prep (``sGSinPALM.m:144``,
         ``accsGSADMM.m:165``)."""
-        return s.replace(phi=s.phi - torch.mean(s.phi))
+        return s.replace(phi=self.ops.demean(s.phi))
 
 
 class SgsKernels(_SgsPhiStep, Kernels):
@@ -351,14 +360,16 @@ class SgsKernels(_SgsPhiStep, Kernels):
         self._build_sgs()
 
     def _step(self, s: SolverState) -> SolverState:
-        return self._step_from_phi(s, self._sweep(s, self._rhs(s)))
+        return self._step_from_phi(s, self._sweep(s, self._rhs(s)),
+                                   plain=self.plain)
 
     def _step_instrumented(self, s: SolverState):
         """The step, and the sGS block residual right after its sweep
         (``solver_socp_sGSinPALM.m:208-218``)."""
         rhs = self._rhs(s)
         phi = self._sweep(s, rhs)
-        return self._step_from_phi(s, phi), self._resi_sgs(s, phi, rhs)
+        return (self._step_from_phi(s, phi, plain=self.plain),
+                self._resi_sgs(s, phi, rhs))
 
     def segment_impl(self, s: SolverState, k: int) -> SolverState:
         if k < 1:

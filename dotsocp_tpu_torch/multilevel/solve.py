@@ -15,15 +15,26 @@ package's options are taken as follows (``_check_request``): its compile
 and cache knobs (``IGNORED_OPTS``: prewarm, reuse_solvers) are accepted
 and ignored, since the port compiles nothing ahead; ``use_pallas`` takes
 "auto" or True (the CUDA kernels run at every size for float32, float64
-takes the plain route by dtype), ``layout`` "auto" or "flat" ("shaped" is
-TPU-only); ``driver`` takes "auto", "device" and "host" with the JAX
-package's rule (``_make_solver``): the device driver
+takes the plain route by dtype; under a mesh only "auto", as the kernels
+that read neighbouring cells run plain there), ``layout`` "auto", "flat"
+and "halo" ("halo" without a mesh warns and runs flat, as in the JAX package; "3d",
+its GSPMD shaped engine, and the TPU-only "shaped" raise); ``driver``
+takes "auto", "device" and "host" with the JAX package's rule
+(``_make_solver``; a mesh forces the device driver): the device driver
 (``algorithms/device_driver.py``, CUDA-graph segments) unless the caller
 asks for the host driver, or "auto" meets ``ifCheckStepByStep``, or
 acc-ADMM runs its Nesterov branch (theta != 2, host only);
 ``chunk_iters``, ``max_chunks`` and ``checkpoint_dir``
-(``<dir>/level<n>.npz``, resumed from) are the device driver's; ``mesh``
-raises, naming the ROADMAP.md queue where it waits (``QUEUED_OPTS``).
+(``<dir>/level<n>.npz``, resumed from; under a mesh one file a rank,
+``level<n>.rank<r>.npz``) are the device driver's.
+
+``opts["mesh"]`` (a ``parallel/sharding.Mesh``, every rank of the world
+calling ``solve_dot`` with the same arguments) runs each level on the halo
+engine (``ops/halo_engine.py``), one block of the grid a rank, under the
+device driver (``dotsocp_tpu/multilevel/solve.py:158-194,239-262``);
+prolongation, ``recover_solution`` and the mass check run on the gathered
+fields, so every rank returns the same result dict. Only the coordinator
+(rank 0) prints and writes the ``trace_dir`` profile.
 
 ``opts["refine_tol"]`` continues the finest level in float64 to a tighter
 tolerance (the mixed-precision refine tail of
@@ -89,22 +100,18 @@ WDOT_MAXIT = 10000
 ALM_STEPSIZE = 1.9
 ALG2_STEPSIZE = 1.0
 
-# options of the JAX solve_dot this port takes, and those that wait in a
-# ROADMAP.md queue
+# options of the JAX solve_dot this port takes
 KNOWN_OPTS = {"tol", "maxit", "sigma", "time_limit", "scaling",
               "ifCheckStepByStep", "checkPrimDualFeas", "restart", "rho",
               "theta", "profile", "refine_tol", "refine_dtype",
               "refine_method", "refine_dct_split", "refine_sigma_scale",
               "refine_tau", "debug_nans", "trace_dir", "chunk_iters",
-              "max_chunks", "checkpoint_dir"}
+              "max_chunks", "checkpoint_dir", "mesh"}
 # the JAX package's compile and cache knobs: the port compiles nothing
 # ahead and caches no solver, so they are accepted and ignored
 IGNORED_OPTS = {"prewarm", "reuse_solvers"}
 # JAX options of which the port runs some values (_check_choice)
 CHOICE_OPTS = {"use_pallas", "layout", "driver"}
-QUEUED_OPTS = {
-    "mesh": "queue 1 item 7 (multi-device, last)",
-}
 # the port's refine_dct_split="auto", a fixed rule: the plain float64 DCT.
 # The JAX package picks the IR solve because the TPU emulates f64 matmuls
 # (its solve.py:746-760); the H100 runs them natively. Measured on an H100
@@ -127,12 +134,19 @@ def _check_choice(key, value):
         raise ValueError(f"use_pallas={value!r}: the port's CUDA kernels "
                          f"always run on the card for float32 (float64 takes "
                          f"the plain route); they cannot be turned off")
-    if key == "layout" and value not in ("auto", "flat"):
+    if key == "layout" and value not in ("auto", "flat", "halo"):
         if value == "shaped":
             raise ValueError("layout='shaped': the shaped layout is "
-                             "TPU-only; the port runs the flat engine only")
+                             "TPU-only; the port runs the flat engine on one "
+                             "process and the halo engine under a mesh")
+        if value == "3d":
+            raise ValueError("layout='3d': the JAX package's shaped engine, "
+                             "which XLA's GSPMD partitions under a mesh; the "
+                             "port runs the flat engine on one process and "
+                             "the halo engine under a mesh (layout 'auto' or "
+                             "'halo')")
         raise ValueError(f"layout={value!r}: not one of 'auto', 'flat', "
-                         f"'shaped'")
+                         f"'halo'")
     if key == "driver" and value not in ("auto", "host", "device"):
         raise ValueError(f"driver={value!r}: not one of 'auto', 'host', "
                          f"'device'")
@@ -170,6 +184,39 @@ def _refine_split(value):
     return value
 
 
+def _check_mesh(mesh, opts) -> None:
+    """A mesh for one instance's grid: a port Mesh this rank belongs to,
+    with no batch axis (a fleet's), and the options it runs with."""
+    from ..parallel.sharding import Mesh
+
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh={mesh!r}: not a dotsocp_tpu_torch mesh "
+                        f"(parallel/sharding.make_mesh)")
+    if not mesh.member:
+        raise ValueError(f"rank {mesh.rank} is not in the mesh "
+                         f"{mesh.shape}")
+    if mesh.shape.get("batch", 1) > 1:
+        raise ValueError(f"mesh {mesh.shape}: a batch axis carries a "
+                         f"fleet's instances (solve_batch); solve_dot splits "
+                         f"one grid over y/x/z/t")
+    if opts.get("layout", "auto") == "flat":
+        raise ValueError("layout='flat' under a mesh: the JAX package then "
+                         "runs its GSPMD shaped engine ('3d'), which the "
+                         "port does not have; under a mesh the port runs "
+                         "the halo engine (layout 'auto' or 'halo')")
+    if opts.get("use_pallas", "auto") is True:
+        raise NotImplementedError(
+            "use_pallas=True under a mesh: the kernels that read neighbouring "
+            "cells (the single-step and x-carry kernels, the sGS sweep) have "
+            "no halo-padded route yet (ROADMAP.md queue 2), so under a mesh "
+            "they run plain on each rank's block and only the cone "
+            "projection runs its kernel; pass use_pallas='auto'")
+    if opts.get("profile"):
+        raise ValueError("profile under a mesh: profile_phases times one "
+                         "card's kernels on the flat layout; profile the "
+                         "single-process solve")
+
+
 def _check_request(rho0, method, weight, opts):
     methods = METHODS if weight is None else WDOT_METHODS
     if method not in methods:
@@ -178,9 +225,8 @@ def _check_request(rho0, method, weight, opts):
         raise TypeError("weight must be a dotsocp_tpu_torch Staggered (see "
                         "models/wdot2d.py, utils/interop.weight_from_numpy)")
     for key, value in opts.items():
-        if key in QUEUED_OPTS:
-            raise NotImplementedError(
-                f"option {key!r} waits in ROADMAP.md {QUEUED_OPTS[key]}")
+        if key == "mesh" and value is not None:
+            _check_mesh(value, opts)
         if key == "checkpoint_dir" and value is not None and \
                 not isinstance(value, (str, os.PathLike)):
             raise TypeError(f"checkpoint_dir={value!r}: not a directory path")
@@ -241,29 +287,31 @@ def _jump_next_level(lv: LevelVar, rho0_f, rho1_f, nt_f: int, dtype,
 
 
 def uses_device_driver(method: str, driver: str, o: SolveOptions,
-                       theta: float = 2.0) -> bool:
+                       theta: float = 2.0, mesh=None) -> bool:
     """The JAX package's rule (``dotsocp_tpu/multilevel/solve.py:255-312``):
     "device" and "auto" run the device driver, except that "auto" keeps the
-    host driver under ``ifCheckStepByStep`` and acc-ADMM's Nesterov branch
-    (theta != 2) runs on the host driver only."""
+    host driver under ``ifCheckStepByStep``; a mesh forces the device
+    driver; acc-ADMM's Nesterov branch (theta != 2) runs on the host driver
+    only."""
     if method == "acc-ADMM" and theta != 2.0:
         return False
-    return driver == "device" or (driver == "auto"
-                                  and not o.check_step_by_step)
+    return driver == "device" or mesh is not None or (
+        driver == "auto" and not o.check_step_by_step)
 
 
 def _make_solver(method: str, lv: LevelVar, o: SolveOptions, device,
                  dtype, theta: float = 2.0, dct_split=False,
                  driver: str = "auto", checkpoint_path=None,
-                 device_kw=None):
+                 device_kw=None, mesh=None):
     """The level solver of ``method`` (``dotsocp_tpu/multilevel/solve.py:
     236-313``): the device driver or the host driver by
     :func:`uses_device_driver`; acc-ADMM with ``theta`` != 2 runs its
     Nesterov branch; ``dct_split`` is the DCT solve's f64 strategy;
     ``checkpoint_path`` and ``device_kw`` (chunk_iters, max_chunks) are
-    the device driver's."""
+    the device driver's; ``mesh`` puts the level on the halo engine."""
     cfg = LevelConfig(geom=lv.geom, D=lv.D, E=lv.E, device=str(device),
-                      tau=o.tau, dtype=dtype, dct_split=dct_split)
+                      tau=o.tau, dtype=dtype, dct_split=dct_split,
+                      mesh=mesh)
     w = lv.weight
     if method == "acc-ADMM" and theta != 2.0:
         return AccADMMSolver(AccADMMNesterovKernels(cfg, w, o.restart, o.rho,
@@ -285,7 +333,7 @@ def _make_solver(method: str, lv: LevelVar, o: SolveOptions, device,
     else:
         k = AccSgsADMMKernels(cfg, o.restart, o.rho)
         host, dev = AccSgsADMMSolver, AccSgsDeviceDriver
-    if uses_device_driver(method, driver, o, theta):
+    if uses_device_driver(method, driver, o, theta, mesh):
         return dev(k, o, checkpoint_path=checkpoint_path, **(device_kw or {}))
     return host(k, o)
 
@@ -327,6 +375,13 @@ def solve_dot(
     if not (isinstance(level_n, int) and level_n >= 1):
         raise ValueError("level_n must be a positive integer")
     device = torch.device(device)
+    if opts.get("mesh") is not None:
+        from ..parallel.distributed import is_coordinator
+
+        # one rank speaks for the mesh
+        verbose = verbose and is_coordinator()
+        if not is_coordinator():
+            opts.pop("trace_dir", None)
     args = (rho0, rho1, nt, level_n, opts, method, weight, barrier, device,
             dtype, verbose)
     trace_dir = opts.get("trace_dir")
@@ -373,7 +428,17 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
     profile = bool(opts.get("profile", False))
     debug_nans = bool(opts.get("debug_nans", False))
     driver = str(opts.get("driver", "auto"))
+    mesh = opts.get("mesh")
+    if mesh is None and opts.get("layout") == "halo":
+        import warnings
+
+        warnings.warn("layout='halo' requires a mesh (opts={'mesh': ...}); "
+                      "falling back to the single-process 'flat' layout",
+                      stacklevel=3)
     ckpt_dir = opts.get("checkpoint_dir")
+    # under a mesh each rank checkpoints its own block
+    ckpt_name = "level{}.npz" if mesh is None or mesh.size == 1 else \
+        f"level{{}}.rank{mesh.rank}.npz"
     device_kw = {k: int(opts[k]) for k in ("chunk_iters", "max_chunks")
                  if k in opts}
     if method in ("PALM", "inPALM", "sGS-inPALM"):
@@ -445,9 +510,9 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
             o.tau = ALM_STEPSIZE
         solver = _make_solver(
             lev_method, lv, o, device, dtype, theta, driver=driver,
-            checkpoint_path=(os.path.join(ckpt_dir, f"level{lev + 1}.npz")
+            checkpoint_path=(os.path.join(ckpt_dir, ckpt_name.format(lev + 1))
                              if ckpt_dir else None),
-            device_kw=device_kw)
+            device_kw=device_kw, mesh=mesh)
         hist, out = solver.solve(lv.as_dict())
         hist["method"] = solver.name
         hists.append(hist)
@@ -518,7 +583,7 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
         # checkpoint (as the JAX package's tail)
         solver = _make_solver(refine_method, lv, o, device, refine_dtype,
                               theta, dct_split=split, driver=driver,
-                              device_kw=device_kw)
+                              device_kw=device_kw, mesh=mesh)
         hist, out = solver.solve(lv.as_dict())
         hist["method"] = solver.name + (
             " (f64 refine, IR-DCT)" if split else " (f64 refine)")

@@ -12,6 +12,7 @@ compiled, so a build takes seconds.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -104,6 +105,19 @@ def build() -> list:
         return paths
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
+    # ranks of one machine that start together build once: the first holds
+    # the lock (released when its process ends, however it ends), the
+    # others find its libraries
+    with open(os.path.join(BUILD_DIR, "lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        todo = [(s, p) for s, p in todo if not os.path.isfile(p)]
+        build_info["cached"] = not todo
+        if todo:
+            _compile(nvcc, todo)
+    return paths
+
+
+def _compile(nvcc: str, todo) -> None:
     t0 = time.monotonic()
     jobs = []
     for source, path in todo:
@@ -123,7 +137,6 @@ def build() -> list:
     if failed:
         raise RuntimeError("\n".join(failed))
     build_info.update(seconds=time.monotonic() - t0, log="".join(logs))
-    return paths
 
 
 def library() -> types.SimpleNamespace:

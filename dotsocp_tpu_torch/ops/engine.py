@@ -11,8 +11,10 @@ their output by the ghost mask. All face blocks of a field are one
 ``(d, nt, S)`` tensor (see ``ops/staggered.py``).
 
 The shaped ``Ops3D`` engine is not ported: the sGS methods, which the JAX
-package runs on it, sweep the flat phi reshaped. The halo engine waits for
-the multi-device slice.
+package runs on it, sweep the flat phi reshaped. Under a mesh the halo
+engine (``ops/halo_engine.py``) takes this one's place, with the same
+methods (:func:`make_ops`); ``psum`` is where a norm's sum of squares would
+be summed over the mesh, the identity here.
 """
 from __future__ import annotations
 
@@ -49,6 +51,7 @@ class OpsFlat:
     """Flat-space engine: fields carry (time, S) with S = prod(space)."""
 
     layout = "flat"
+    mesh = None
 
     def __init__(self, geom: Geometry, dtype: torch.dtype, device):
         self.geom = geom
@@ -64,6 +67,11 @@ class OpsFlat:
         masks = np.stack([(c != geom.space[a] - 1) for a, c in enumerate(coords)])
         self.masks = torch.as_tensor(masks[:, None, :], dtype=dtype,
                                      device=self.device)
+
+    @staticmethod
+    def psum(t: torch.Tensor) -> torch.Tensor:
+        """A partial sum over the mesh: one process holds the whole field."""
+        return t
 
     # -- flat shifts --------------------------------------------------------
     def _sfwd(self, x: torch.Tensor, a: int) -> torch.Tensor:
@@ -163,6 +171,22 @@ class OpsFlat:
                                  split=split, device=self.device)
         return FlatPoisson(inner, self.geom)
 
+    def t_edge_row(self, d_in, d_bd, like: torch.Tensor) -> torch.Tensor:
+        """The per-time factor of the unweighted q-step diagonal's inverse
+        on face blocks: ``d_bd`` on the two boundary time slabs, ``d_in``
+        elsewhere, in ``like``'s dtype (``fused_step.times_dinv``)."""
+        row = torch.full((self.geom.nt, 1), d_in, dtype=like.dtype,
+                         device=like.device)
+        # fill_ takes the value as a kernel argument: no copy from the host,
+        # which a CUDA graph capture (the device driver's) would refuse
+        row[0].fill_(d_bd)
+        row[-1].fill_(d_bd)
+        return row
+
+    def demean(self, phi: torch.Tensor) -> torch.Tensor:
+        """phi minus its mean (the sGS methods' prep)."""
+        return phi - torch.mean(phi)
+
     def face_interp(self, x: torch.Tensor, a: int) -> torch.Tensor:
         """0.5 * (x[j] + x[j+1]) at face slot j. The ghost slot holds
         garbage from the next row; every consumer multiplies it by a
@@ -220,6 +244,16 @@ class OpsFlat:
 
     def phi_from_internal(self, phi: torch.Tensor) -> torch.Tensor:
         return phi.reshape((phi.shape[0],) + self.geom.space)
+
+
+def make_ops(geom: Geometry, dtype: torch.dtype, device, mesh=None):
+    """The level's engine: flat on one process, the halo engine on a mesh
+    (``dotsocp_tpu/ops/engine.py:336-343``)."""
+    if mesh is None:
+        return OpsFlat(geom, dtype, device)
+    from .halo_engine import OpsHalo
+
+    return OpsHalo(geom, dtype, device, mesh)
 
 
 def diag_values(D: float, E: float):

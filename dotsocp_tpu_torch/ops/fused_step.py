@@ -130,13 +130,7 @@ def times_dinv(ops: OpsFlat, st: Staggered, dinv) -> Staggered:
     if isinstance(dinv, WeightedDinv):
         return st * dinv.inv
     d_in, d_bd = dinv
-    row = torch.full((ops.geom.nt, 1), d_in, dtype=st.q0.dtype,
-                     device=st.q0.device)
-    # fill_ takes the value as a kernel argument: no copy from the host,
-    # which a CUDA graph capture (the device driver's) would refuse
-    row[0].fill_(d_bd)
-    row[-1].fill_(d_bd)
-    return Staggered(st.q0 * d_in, st.bs * row)
+    return Staggered(st.q0 * d_in, st.bs * ops.t_edge_row(d_in, d_bd, st.q0))
 
 
 def x_step_plain(ops: OpsFlat, q: Staggered, beta, sbf, sd):

@@ -31,6 +31,17 @@ Each kind of piece is captured once a level and replayed
 On the CPU there are no graphs and every piece runs eagerly on the plain
 versions, which is how ``tests/test_torch_batch.py`` holds this module to
 the JAX package's in float64.
+
+The sharded fleet (``solve_batch(mesh=)``, ``solve_fleet(mode=
+"sharded")``; ``dotsocp_tpu/parallel/batch.py:86-110,355-392,436-490``)
+splits the batch axis over the ranks of a mesh: each rank runs this same
+lockstep loop, kernels and graphs included, on its B/k instances. The
+schedule depends on the iteration counter alone, so it is the same on
+every rank; the loop ends on the instances' ``all_done`` agreed over the
+mesh, so every rank takes the iterations the one-process lockstep run
+takes, and the results are gathered to every rank. A mesh that also
+splits the grid (the JAX package's batch x spatial path on its "3d"
+layout) waits in ROADMAP.md queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -41,6 +52,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..algorithms.core import (BATCH_SCALARS, Kernels, LevelConfig,
                                SolverState, instance, stack_fields)
@@ -52,10 +64,11 @@ from ..algorithms.graphs import SegmentGraphs
 from ..algorithms.variants import ITERATE, PALMKernels
 from ..multilevel.level import (initial_scaling, initialize, recover_org_var,
                                 recover_rho_e)
-from ..multilevel.solve import (IGNORED_OPTS, QUEUED_OPTS, _check_choice,
-                                _jump_next_level)
+from ..multilevel.solve import IGNORED_OPTS, _check_choice, _jump_next_level
 from ..multilevel.transfer import restrict_density
 from ..ops.staggered import Staggered
+from . import comm
+from .sharding import Mesh, make_mesh, spatial_axes
 
 # the methods of the lockstep fleet and their multiplier step
 # (``dotsocp_tpu/parallel/batch.py:326,340``)
@@ -171,10 +184,10 @@ class BatchedDeviceDriver:
     _sync_debug = DeviceDriver._sync_debug
 
     def __init__(self, kernels: Kernels, opts: SolveOptions,
-                 chunk_iters: int = 600, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"mesh waits in ROADMAP.md {QUEUED_OPTS['mesh']}")
+                 chunk_iters: int = 600, mesh: Optional[Mesh] = None):
+        # the batch mesh this rank's instances are a block of: the loop's
+        # end and its time limit are agreed over it
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.k = kernels
         self.opts = opts
         self.chunk_iters = int(chunk_iters)
@@ -213,7 +226,7 @@ class BatchedDeviceDriver:
             record=torch.zeros(len(RECORD), dtype=torch.float64, device=dev))
         # the host's mirror of the schedule
         self.h_it, self.h_last, self.h_done = 0, -(10 ** 9), False
-        self.stats = {"syncs": 0, "checks": 0}
+        self.stats = {"syncs": 0, "checks": 0, "chunk_cuts": 0}
         self.t0 = time.monotonic()
 
     def _all_tensors(self) -> list:
@@ -348,6 +361,8 @@ class BatchedDeviceDriver:
                                f"{int(rec['it'])} is not the host's "
                                f"{self.h_it}")
         self.h_done = bool(rec["all_done"])
+        if self.mesh is not None:
+            self.h_done = comm.all_true(self.h_done, self.mesh)
         self.h_last = self.h_it
 
     def _chunk(self, it_end: int) -> None:
@@ -356,8 +371,10 @@ class BatchedDeviceDriver:
         ``it_end``."""
         maxit = self.opts.maxit
         while not self.h_done and self.h_it < it_end:
-            stop = min(_next_check_it(self.h_it, self.h_last),
-                       min(it_end, maxit))
+            event = min(_next_check_it(self.h_it, self.h_last), maxit)
+            stop = min(event, it_end)
+            # a segment the chunk's end cuts short
+            self.stats["chunk_cuts"] += stop < event
             k = max(stop - self.h_it, 0)
             self._segment(k)
             self.h_it += k
@@ -380,7 +397,10 @@ class BatchedDeviceDriver:
         try:
             with self._on_stream(), self._sync_debug():
                 while not (self.h_it >= opts.maxit or self.h_done):
-                    if time.monotonic() - self.t0 > opts.time_limit:
+                    late = time.monotonic() - self.t0 > opts.time_limit
+                    if self.mesh is not None:
+                        late = comm.any_true(late, self.mesh)
+                    if late:
                         break
                     self._chunk(min(self.h_it + self.chunk_iters,
                                     opts.maxit))
@@ -508,10 +528,22 @@ def replay_against_eager(make, bstate: SolverState, k: int = 40,
 
 # -- solve_batch --------------------------------------------------------------
 
-def _check_batch_request(method: str, opts: dict, mesh) -> None:
-    if mesh is not None:
+def _check_batch_mesh(mesh) -> None:
+    if mesh is None:
+        return
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh={mesh!r}: not a dotsocp_tpu_torch mesh "
+                        f"(parallel/sharding.make_mesh)")
+    if spatial_axes(mesh):
         raise NotImplementedError(
-            f"mesh waits in ROADMAP.md {QUEUED_OPTS['mesh']}")
+            f"mesh {mesh.shape}: a fleet whose mesh also splits the grid "
+            f"(batch x spatial; the JAX package's 'batch' + y/x/t mesh on "
+            f"its '3d' layout) waits in ROADMAP.md queue 1 item 8; split "
+            f"the batch axis alone")
+
+
+def _check_batch_request(method: str, opts: dict, mesh) -> None:
+    _check_batch_mesh(mesh)
     if method not in BATCH_METHODS:
         # the JAX solve_batch runs inPALM's step with tau = 1.0 for any
         # other method (``batch.py:326,340``); the port refuses
@@ -554,7 +586,11 @@ def solve_batch(rho0s, rho1s, nt: int, opts: Optional[dict] = None,
     """Multilevel lockstep solve of B same-shaped instances on ``device``
     (the card unless the caller asks for the CPU; without a card the
     default raises). ``rho0s`` / ``rho1s``: (B, *space). Methods inPALM,
-    PALM (tau 1.9) and ALG2 (tau 1.0); ``mesh`` raises (multi-device).
+    PALM (tau 1.9) and ALG2 (tau 1.0). ``mesh``: a mesh whose ``batch``
+    axis (extent k, dividing B) splits the instances over its ranks, each
+    rank solving B/k of them in lockstep; every rank of the world calls
+    ``solve_batch`` alike and gets the whole fleet's results (a rank the
+    mesh leaves out receives them from rank 0).
 
     Returns the JAX function's dict: ``rho`` (B, nt, *space) on ``device``,
     ``done`` (B,), ``done_it`` (B,) the final level's iteration at which
@@ -572,6 +608,50 @@ def solve_batch(rho0s, rho1s, nt: int, opts: Optional[dict] = None,
     if not (isinstance(level_n, int) and level_n >= 1):
         raise ValueError("level_n must be a positive integer")
     device = _device(device)
+    if mesh is not None and mesh.size > 1:
+        out = None
+        if mesh.member:
+            out = _solve_batch_sharded(rho0s, rho1s, nt, opts, method, dtype,
+                                       mesh, level_n, verbose, device)
+        if mesh.size < dist.get_world_size():
+            # the ranks the mesh leaves out learn the fleet's result
+            out = comm.broadcast_object(
+                None if out is None else dict(out, rho=out["rho"].cpu()))
+            out["rho"] = out["rho"].to(device)
+        return out
+    return _solve_batch(rho0s, rho1s, nt, opts, method, dtype, mesh,
+                        level_n, verbose, device)
+
+
+def _solve_batch_sharded(rho0s, rho1s, nt, opts, method, dtype, mesh,
+                         level_n, verbose, device):
+    """This rank's block of the fleet in lockstep, then every block's
+    results gathered along the batch axis."""
+    k = mesh.shape["batch"]
+    B = np.shape(rho0s)[0]
+    if B % k:
+        raise ValueError(f"{B} instances do not split over a batch axis of "
+                         f"{k} ranks")
+    lo = mesh.coords["batch"] * (B // k)
+    out = _solve_batch(np.asarray(rho0s)[lo:lo + B // k],
+                       np.asarray(rho1s)[lo:lo + B // k], nt, opts, method,
+                       dtype, mesh, level_n, False, device)
+
+    def gather(x):
+        return comm.all_gather(torch.as_tensor(x), 0, mesh, "batch").numpy()
+
+    out.update(rho=comm.all_gather(out["rho"], 0, mesh, "batch"),
+               done=gather(out["done"].astype(np.uint8)).astype(bool),
+               done_it=gather(out["done_it"]), kkt=gather(out["kkt"]))
+    if verbose and mesh.rank == mesh.ranks[0]:
+        print(f"batch solve: B={B} over {k} ranks, levels={level_n}, "
+              f"all_done={bool(out['done'].all())}, iters={out['iters']}, "
+              f"{out['time']:.2f}s")
+    return out
+
+
+def _solve_batch(rho0s, rho1s, nt, opts, method, dtype, mesh, level_n,
+                 verbose, device):
     rho0s = torch.as_tensor(np.asarray(rho0s), device=device).to(dtype)
     rho1s = torch.as_tensor(np.asarray(rho1s), device=device).to(dtype)
     B = rho0s.shape[0]
@@ -618,7 +698,7 @@ def solve_batch(rho0s, rho1s, nt: int, opts: Optional[dict] = None,
         kernels = kcls(cfg)
         bstate = stack_states([kernels.prep(lv.as_dict(), float(sigma_b[b]))
                                for b, lv in enumerate(lvs)])
-        driver = BatchedDeviceDriver(kernels, o)
+        driver = BatchedDeviceDriver(kernels, o, mesh=mesh)
         ls, elapsed = driver.solve(bstate)
         s = driver.s
         # one read: the counters, the decisions and every scalar
@@ -676,10 +756,10 @@ SATURATION_CELLS = 6_280_000
 
 
 def pick_fleet_mode(B: int, space, nt: int, n_devices: int) -> str:
-    """The fleet decision as code: 'sharded' for 2+ devices whose count
-    shares a factor with B (not yet run by the port: multi-device waits in
-    ROADMAP.md queue 1 item 7); on one device 'sequential' where one
-    instance has ``SATURATION_CELLS`` cells or more, else 'lockstep'."""
+    """The fleet decision as code (``dotsocp_tpu/parallel/batch.py:
+    436-452``): 'sharded' for 2+ ranks whose count shares a factor with B;
+    on one rank 'sequential' where one instance has ``SATURATION_CELLS``
+    cells or more, else 'lockstep'."""
     if n_devices >= 2 and math.gcd(B, n_devices) >= 2:
         return "sharded"
     cells = (nt - 1) * int(np.prod(space))
@@ -691,29 +771,35 @@ def solve_fleet(rho0s, rho1s, nt: int, opts: Optional[dict] = None,
                 level_n: int = 1, mode: str = "auto", mesh=None,
                 verbose: bool = True, *, device="cuda"):
     """Solve a fleet of B independent same-shaped instances on ``device``,
-    picking the mode (``mode="auto"``) from the instance's size: the port
-    runs on one card, so ``pick_fleet_mode`` is asked for one device.
+    picking the mode (``mode="auto"``) from the instance's size and the
+    number of ranks (``pick_fleet_mode``: the mesh's, else the world's).
     'sequential' runs the port's :func:`~..multilevel.solve.solve_dot`
     (``driver`` "auto" unless ``opts`` names one) one instance after
-    another, 'lockstep' :func:`solve_batch`; 'sharded' and ``mesh`` raise
-    (multi-device). Returns :func:`solve_batch`'s dict plus ``mode``;
+    another, 'lockstep' :func:`solve_batch` on this rank, 'sharded'
+    :func:`solve_batch` with the batch axis over ``mesh`` (default: a
+    ``("batch",)`` mesh of gcd(B, world) ranks, which every rank of the
+    world makes here). Returns :func:`solve_batch`'s dict plus ``mode``;
     sequential results carry each instance's final-level iterations in
     ``done_it`` and its final-level KKT row in ``kkt``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"mesh waits in ROADMAP.md {QUEUED_OPTS['mesh']}")
+    _check_batch_mesh(mesh)
     device = _device(device)
     rho0s = np.asarray(rho0s)
     rho1s = np.asarray(rho1s)
     B = rho0s.shape[0]
+    world = dist.get_world_size() if dist.is_initialized() else 1
     if mode == "auto":
-        mode = pick_fleet_mode(B, rho0s.shape[1:], nt, 1)
+        n_dev = mesh.size if mesh is not None else world
+        mode = pick_fleet_mode(B, rho0s.shape[1:], nt, n_dev)
     if verbose:
         print(f"solve_fleet: B={B}, mode={mode}")
     if mode == "sharded":
-        raise NotImplementedError(
-            f"mode='sharded' (the batch axis over a mesh) waits in "
-            f"ROADMAP.md {QUEUED_OPTS['mesh']}")
+        if mesh is None:
+            # the mesh's batch axis must divide B (``batch.py:474-477``)
+            mesh = make_mesh(math.gcd(B, world), axis_names=("batch",),
+                             device=device)
+        return dict(solve_batch(rho0s, rho1s, nt, opts, method, dtype=dtype,
+                                mesh=mesh, level_n=level_n, verbose=verbose,
+                                device=device), mode="sharded")
     if mode == "lockstep":
         return dict(solve_batch(rho0s, rho1s, nt, opts, method, dtype=dtype,
                                 level_n=level_n, verbose=verbose,

@@ -10,7 +10,8 @@ functions, and compare the results field by field. Staggered fields arrive
 as ``(q0, bs)`` pairs with ``bs`` a sequence of per-axis blocks; the flat
 solver state's face blocks, all ``(nt, S)``, become one ``(d, nt, S)``
 tensor here. A state in the JAX package's shaped layout (``"3d"``, where
-its sGS kernels run) is converted to the port's flat layout on the way.
+its sGS kernels run) is converted to the port's flat layout on the way,
+and, for a rank of a mesh, cut to that rank's block of the halo layout.
 """
 from __future__ import annotations
 
@@ -100,14 +101,24 @@ class _Layout:
         return ops.z_to_internal(t).contiguous()
 
 
-def state_from_numpy(fields: dict, *, device,
-                     dtype: torch.dtype) -> SolverState:
+def state_from_numpy(fields: dict, *, device, dtype: torch.dtype,
+                     mesh=None) -> SolverState:
     """A port ``SolverState`` from the fields of a JAX ``SolverState``, flat
-    or shaped layout (``state._asdict()`` after ``jax.device_get``)."""
+    or shaped layout (``state._asdict()`` after ``jax.device_get``); with
+    ``mesh``, this rank's block of it (``parallel/sharding.shard_state``)."""
     conv = _Layout(fields, device, dtype)
     kw = {k: conv(k, fields[k]) for k in STATE_ARRAYS + STATE_FIELDS}
     kw.update({k: float(fields[k]) for k in STATE_SCALARS})
-    return SolverState(**kw)
+    state = SolverState(**kw)
+    if mesh is None:
+        return state
+    if conv.ops is None:
+        raise ValueError("a state for a rank of a mesh arrives shaped (the "
+                         "JAX '3d' layout): flat fields do not carry the "
+                         "grid")
+    from ..parallel.sharding import shard_state
+
+    return shard_state(state, mesh, conv.ops.geom)
 
 
 def acc_state_from_numpy(fields: dict, *, device,

@@ -7,12 +7,16 @@ import torch
 from ..ops.staggered import Staggered
 
 
+def sqsum(x) -> torch.Tensor:
+    """The sum of squares of all elements; tensors or :class:`Staggered`
+    fields."""
+    return x.sqnorm() if isinstance(x, Staggered) else torch.sum(x * x)
+
+
 def norm_l2(x, h) -> torch.Tensor:
     """sqrt(h) * ||x||_2 over all elements; accepts tensors or
     :class:`Staggered` fields."""
-    if isinstance(x, Staggered):
-        return torch.sqrt(h * x.sqnorm())
-    return torch.sqrt(h * torch.sum(x * x))
+    return torch.sqrt(h * sqsum(x))
 
 
 def integral_l2(f: torch.Tensor, axis=None) -> torch.Tensor:

@@ -51,6 +51,7 @@ from dotsocp_tpu_torch.ops.engine import OpsFlat, diag_values
 from dotsocp_tpu_torch.ops.geometry import Geometry
 from dotsocp_tpu_torch.ops.staggered import Staggered
 from dotsocp_tpu_torch.parallel import batch as tb
+from dotsocp_tpu_torch.parallel.sharding import Mesh
 from dotsocp_tpu_torch.utils.interop import (batch_state_from_numpy,
                                              batch_state_to_numpy)
 
@@ -340,7 +341,7 @@ def test_solve_fleet_modes_agree(cpu_threads):
     r0, r1 = _pair()
     opts = {"tol": 1e-3, "maxit": 1500}
     outs = {}
-    for mode in ("sequential", "lockstep", "auto"):
+    for mode in ("sequential", "lockstep", "auto", "sharded"):
         out = tb.solve_fleet(r0, r1, 5, opts, "inPALM", dtype=F64,
                              mode=mode, verbose=False, device="cpu")
         assert out["done"].all(), (mode, out["kkt"])
@@ -348,6 +349,10 @@ def test_solve_fleet_modes_agree(cpu_threads):
     assert outs["auto"]["mode"] == tb.pick_fleet_mode(2, (17, 17), 5, 1)
     seq = outs["sequential"]["rho"].numpy()
     lock = outs["lockstep"]["rho"].numpy()
+    # "sharded" in a world of one: the batch axis over a one-rank mesh, the
+    # lockstep run itself (as the JAX package's one-device mesh)
+    assert outs["sharded"]["mode"] == "sharded"
+    assert np.array_equal(outs["sharded"]["rho"].numpy(), lock)
     for b in range(2):
         rel = np.linalg.norm(lock[b] - seq[b]) / np.linalg.norm(seq[b])
         assert rel < 1e-2, (b, rel)
@@ -356,11 +361,16 @@ def test_solve_fleet_modes_agree(cpu_threads):
 def test_refusals():
     r0, r1 = _pair()
     kw = dict(verbose=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    # the batch axis over ranks runs (tests/test_torch_parallel.py); a
+    # mesh that is not the port's, and one that splits the grid too (the
+    # JAX batch x spatial path), are refused
+    with pytest.raises(TypeError, match="not a dotsocp_tpu_torch mesh"):
         tb.solve_batch(r0, r1, 5, OPTS, mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        tb.solve_fleet(r0, r1, 5, OPTS, mode="sharded", **kw)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    spatial = Mesh(("batch", "y", "x"), (1, 2, 1), 0, (0, 1), {}, None,
+                   "gloo", "cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        tb.solve_batch(r0, r1, 5, OPTS, mesh=spatial, **kw)
+    with pytest.raises(TypeError, match="not a dotsocp_tpu_torch mesh"):
         tb.solve_fleet(r0, r1, 5, OPTS, mesh=object(), **kw)
     for method in ("acc-ADMM", "sGS-inPALM", "nonsense"):
         with pytest.raises(ValueError, match="inPALM, PALM, ALG2"):

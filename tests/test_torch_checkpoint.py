@@ -4,7 +4,10 @@ holds the JAX package's: a solve cut after one chunk and resumed from its
 snapshot ends with the uninterrupted run's iterations and density; the
 snapshot round trip and its ValueError; a stale snapshot (another level's
 shapes) is ignored; an acc-ADMM snapshot carries the Halpern anchor, the
-averaging counter and the iterate before the check.
+averaging counter and the iterate before the check. Under a mesh (a
+spawned gloo world of two ranks, one file a rank) a resume matches the
+uninterrupted run, and a stale file on one rank makes every rank start
+afresh.
 """
 import os
 
@@ -14,7 +17,10 @@ import torch
 
 from dotsocp_tpu_torch.models.examples import get_example_2d
 from dotsocp_tpu_torch.multilevel.solve import solve_dot
+from dotsocp_tpu_torch.parallel.launch import run_world
 from dotsocp_tpu_torch.utils.checkpoint import load_tensors, save_tensors
+
+from . import _torch_worlds as worlds
 
 torch.set_num_threads(2)
 
@@ -83,3 +89,24 @@ def test_stale_checkpoint_is_ignored(tmp_path):
     got, h_got = _solve({"tol": 1e-4, "maxit": 300, "checkpoint_dir": ck})
     assert got["levels"][0]["iters"] == want["levels"][0]["iters"]
     np.testing.assert_array_equal(h_got["kkt"], h_want["kkt"])
+
+
+def test_meshed_resume_agrees_across_ranks(tmp_path):
+    """Two ranks on a (y,) mesh, maxit 300 cut in chunks of 100: a resume
+    continues every rank from its own file; with the last rank's file put
+    back one chunk, the ranks disagree and all start afresh (ending as
+    the first cut did, not with blocks of two iterations); a resume to the
+    end matches the uninterrupted run."""
+    chunk = 100
+    res = run_world(worlds.mesh_resume, 2, (str(tmp_path), 300, chunk),
+                    timeout=300)
+    for key in res[0]:
+        assert res[1][key][0] == res[0][key][0]
+        np.testing.assert_array_equal(res[1][key][1], res[0][key][1])
+    r = res[0]
+    assert (r["cut"][0], r["resumed_cut"][0], r["stale_cut"][0]) == \
+        (chunk, 2 * chunk, chunk)
+    np.testing.assert_array_equal(r["stale_cut"][1], r["cut"][1])
+    assert r["resumed"][0] == r["full"][0] > 2 * chunk
+    np.testing.assert_allclose(r["resumed"][1], r["full"][1], rtol=1e-8,
+                               atol=1e-10)

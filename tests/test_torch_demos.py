@@ -63,7 +63,9 @@ def test_demo_batch(mode, capsys):
 
 
 def test_demo_batch_sharded_raises():
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    """A world of one rank has no batch axis to split (the spawned run is
+    ``tests/test_torch_parallel.py``'s)."""
+    with pytest.raises(ValueError, match="two ranks"):
         demo_batch.main(["--cpu", "--mode", "sharded"])
 
 

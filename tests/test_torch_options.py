@@ -6,7 +6,10 @@ accepted and change nothing; ``use_pallas``, ``layout`` and ``driver`` take
 the values the port runs and refuse the others with a message that says
 why; the device driver's ``chunk_iters``, ``max_chunks`` and
 ``checkpoint_dir`` change nothing in a run that ends inside one chunk;
-``mesh`` raises, naming the ROADMAP.md queue where it waits. The solves
+``layout="halo"`` without a mesh warns and runs the flat solve, as the JAX
+package does, and ``layout="3d"`` is refused by its own name (no option
+waits in a ROADMAP.md queue any more: ``mesh`` runs, in
+``tests/test_torch_parallel.py``, and takes only a port mesh). The solves
 here hold the host driver, unless a case asks for the device driver (as
 "auto" does). The refine options,
 the NaN tripwire (``debug_nans``) and the profiler trace (``trace_dir``)
@@ -95,6 +98,8 @@ def test_accepted_option_changes_nothing(baseline, key, value, tmp_path):
     ("use_pallas", False, ValueError, "always run on the card"),
     ("layout", "shaped", ValueError, "TPU-only"),
     ("layout", "tiled", ValueError, "not one of"),
+    ("layout", "3d", ValueError, "layout='3d'"),
+    ("mesh", 1, TypeError, "not a dotsocp_tpu_torch mesh"),
     ("chunk_iters", 0, ValueError, "chunk_iters=0"),
     ("driver", "graph", ValueError, "not one of")])
 def test_refused_option_says_why(key, value, error, match):
@@ -102,11 +107,36 @@ def test_refused_option_says_why(key, value, error, match):
         _solve(dict({"driver": "device"}, **{key: value}))
 
 
-@pytest.mark.parametrize("key,item", [("mesh", 7)])
+def test_use_pallas_true_under_a_mesh_is_refused():
+    """Under a mesh the kernels that read neighbouring cells run plain, so
+    an explicit use_pallas=True is refused, not ignored."""
+    from dotsocp_tpu_torch.parallel.sharding import make_mesh
+
+    mesh = make_mesh(axis_names=("y", "x"), device="cpu")
+    with pytest.raises(NotImplementedError, match="use_pallas=True under a "
+                                                  "mesh.*'auto'"):
+        _solve({"driver": "device", "mesh": mesh, "use_pallas": True})
+
+
+def test_halo_without_a_mesh_warns_and_runs_flat(baseline):
+    """The JAX package's rule (``multilevel/solve.py:170-178``): 'halo'
+    needs a mesh; without one it warns and runs the flat layout."""
+    with pytest.warns(UserWarning, match="requires a mesh"):
+        out, hist = _solve({"layout": "halo"})
+    want, want_hist = baseline["host"]
+    assert [lv["iters"] for lv in out["levels"]] == \
+        [lv["iters"] for lv in want["levels"]]
+    assert torch.equal(out["rho"], want["rho"])
+    assert np.array_equal(hist["kkt"], want_hist["kkt"])
+
+
+@pytest.mark.parametrize("key,item", [("layout", "3d")])
 def test_queued_option_names_its_queue(key, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md queue 1 item {item} "):
-        _solve({key: 1})
+    """No option waits in a ROADMAP.md queue now (the mesh runs); the JAX
+    layout that has no counterpart, '3d' (its shaped engine that GSPMD
+    partitions), is refused by its name, saying what the port runs."""
+    with pytest.raises(ValueError, match=f"layout='{item}'.*GSPMD.*halo"):
+        _solve({key: item})
 
 
 REFINE = {"refine_tol": 1e-4}

@@ -1,0 +1,177 @@
+"""Multi-device solving in the port (``opts={"mesh": ...}``, the sharded
+fleet, ``make_sharded_step``) against the JAX package's, in float64 on the
+CPU, the port's ranks spawned as gloo worlds (``tests/_torch_worlds.py``)
+and the JAX package on ``tests/conftest.py``'s virtual devices.
+
+- A 4-rank world, (y, x) mesh 2 x 2: the meshed ``solve_dot`` of inPALM,
+  sGS-inPALM, acc-ADMM and weighted inPALM (love-heart) on example2 33^2 x
+  9, as ``__graft_entry__.py:155-236`` runs them, and a float64 refine
+  tail (the plain f64 DCT under a mesh, ``dotsocp_tpu/multilevel/
+  solve.py:754-760``) after 2 levels at 17^2 x 5. Every rank returns the
+  same result; the per-level counts are the JAX meshed solve's (4-device
+  (y, x) mesh) and the port's one-process solve's, rho within 1e-9 of
+  both. Then ``make_sharded_step`` over a ("batch",) mesh and over the
+  (y, x) mesh, 3 steps against 3 of ``run_one`` (1e-10, as
+  ``tests/test_parallel.py``).
+- A 2-rank world: ``solve_fleet(mode="sharded")`` of 4 instances in
+  float64 takes exactly the iterations, done_it and chunk cuts of the
+  one-process lockstep run (rho within 1e-9) and the JAX ``solve_batch``'s
+  counts; ``mode="auto"`` picks "sharded" in a world of two.
+- ``demo_batch --mode sharded --spawn 2`` runs; in a world of one it
+  raises, saying that it needs two ranks.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dotsocp_tpu.models import wdot2d as jwdot2d
+from dotsocp_tpu.models.examples import get_example_2d as jget_example_2d
+from dotsocp_tpu.multilevel.solve import solve_dot as jsolve_dot
+from dotsocp_tpu.parallel.batch import solve_batch as jsolve_batch
+from dotsocp_tpu.parallel.sharding import make_mesh as jmake_mesh
+from dotsocp_tpu_torch.algorithms.core import Kernels, LevelConfig
+from dotsocp_tpu_torch.demos import demo_batch
+from dotsocp_tpu_torch.models.examples import get_example_2d
+from dotsocp_tpu_torch.multilevel.level import initial_scaling, initialize
+from dotsocp_tpu_torch.parallel import batch as tb
+from dotsocp_tpu_torch.parallel.launch import run_world
+
+from . import _torch_worlds as worlds
+
+F64 = torch.float64
+# (axis names, problem, n, nt, levels, opts, method, weighted)
+SOLVES = [(("y", "x"), "example2", 33, 9, 1, {"tol": 1e-3}, "inPALM", False),
+          (("y", "x"), "example2", 33, 9, 1, {"tol": 1e-3, "maxit": 400},
+           "sGS-inPALM", False),
+          (("y", "x"), "example2", 33, 9, 1, {"tol": 1e-3, "maxit": 400},
+           "acc-ADMM", False),
+          (("y", "x"), "love-heart", 33, 9, 1, {"tol": 1e-2, "maxit": 600},
+           "inPALM", True),
+          (("y", "x"), "example2", 17, 5, 2, {"tol": 1e-3, "refine_tol": 1e-5},
+           "inPALM", False)]
+SOLVE_IDS = ["inPALM", "sGS-inPALM", "acc-ADMM", "weighted", "refine_tail"]
+STEP = (17, 5, 3)   # (n, nt, steps) of make_sharded_step
+FLEET = dict(nt=5, opts={"tol": 1e-3, "maxit": 1500}, levels=2)
+
+
+def _fleet_problems():
+    """Four instances at 17^2: example2 and example1, each also rolled."""
+    a0, a1 = get_example_2d("example2", 17, 17)
+    b0, b1 = get_example_2d("example1", 17, 17)
+    r0s = np.stack([a0, b0, np.roll(a0, 3, axis=1), np.roll(b0, 2, axis=0)])
+    r1s = np.stack([a1, b1, np.roll(a1, -3, axis=0), np.roll(b1, 2, axis=1)])
+    return r0s, r1s
+
+
+@pytest.fixture(scope="module")
+def world4():
+    res = run_world(worlds.solves_and_steps, 4, (SOLVES,) + STEP,
+                    timeout=300)
+    return [r[0] for r in res], res[0][1]
+
+
+@pytest.fixture(scope="module")
+def world2():
+    r0s, r1s = _fleet_problems()
+    return run_world(worlds.fleet, 2, (r0s, r1s, FLEET["nt"], FLEET["opts"],
+                                       FLEET["levels"]), timeout=300)
+
+
+def _jax_solve(names, problem, n, nt, levels, opts, method, weighted):
+    mesh = jmake_mesh(4, axis_names=names)
+    kw = {}
+    if weighted:
+        r0, r1 = jwdot2d.get_example_w2d(problem, n, n)
+        barrier = jwdot2d.barrier_love_heart()
+        r0, r1, _ = jwdot2d.ensure_barrier_validity(r0, r1, barrier)
+        kw = {"weight": jwdot2d.get_weight_by_barrier(n, n, nt, barrier),
+              "barrier": barrier}
+    else:
+        r0, r1 = jget_example_2d(problem, n, n)
+    out, _, _ = jsolve_dot(r0, r1, nt, levels,
+                           dict(opts, driver="device", mesh=mesh), method,
+                           dtype=jnp.float64, verbose=False, **kw)
+    return [lv["iters"] for lv in out["levels"]], np.asarray(out["rho"])
+
+
+@pytest.mark.parametrize("which", range(len(SOLVES)), ids=SOLVE_IDS)
+def test_meshed_solve_matches_jax_and_one_process(world4, which):
+    ranks = world4[0]
+    iters, rho, kkt, mass_ok = ranks[0][which]
+    for r in ranks[1:]:
+        assert r[which][0] == iters
+        np.testing.assert_array_equal(r[which][1], rho)
+        np.testing.assert_array_equal(r[which][2], kkt)
+    names, problem, n, nt, levels, opts, method, weighted = SOLVES[which]
+    j_iters, j_rho = _jax_solve(*SOLVES[which])
+    assert iters == j_iters
+    one = worlds.solve_case(problem, n, nt, levels, opts, method, weighted)
+    assert iters == one[0]
+    np.testing.assert_allclose(rho, one[1], rtol=0, atol=1e-9)
+    np.testing.assert_allclose(rho, j_rho, rtol=0, atol=1e-9)
+    # the mass check on the gathered rho, as the one-process solve's (the
+    # sGS run stops at maxit short of it)
+    assert mass_ok == one[3]
+
+
+@pytest.fixture(scope="module")
+def one_steps():
+    n, nt, steps = STEP
+    r0, r1 = get_example_2d("example2", n, n)
+    lv = initialize(r0, r1, nt, dtype=F64, device="cpu")
+    initial_scaling(lv, True)
+    k = Kernels(LevelConfig(geom=lv.geom, D=lv.D, E=lv.E, device="cpu",
+                            dtype=F64))
+    s = k.prep(lv.as_dict(), 1.0)
+    for _ in range(steps):
+        s = k.run_one(s)
+    return s.phi.numpy(), s.z.numpy(), s.q.q0.numpy()
+
+
+@pytest.mark.parametrize("kind", ["batched", "spatial"])
+def test_sharded_step_matches_run_one(world4, one_steps, kind):
+    got = world4[1][kind]
+    for inst in (got if kind == "batched" else [got]):
+        for a, b in zip(inst, one_steps):
+            np.testing.assert_allclose(a, b, rtol=1e-10, atol=1e-12)
+
+
+def test_sharded_fleet_matches_lockstep_and_jax(world2):
+    r0s, r1s = _fleet_problems()
+    a, b = world2
+    # every rank holds the whole fleet's result
+    for key in ("iters", "chunk_cuts"):
+        assert a[key] == b[key]
+    for key in ("done", "done_it", "kkt", "rho"):
+        np.testing.assert_array_equal(a[key], b[key])
+    assert a["mode"] == "sharded"
+    lock = tb.solve_batch(r0s, r1s, FLEET["nt"], FLEET["opts"], "inPALM",
+                          dtype=F64, level_n=FLEET["levels"], verbose=False,
+                          device="cpu")
+    assert a["iters"] == lock["iters"]
+    np.testing.assert_array_equal(a["done_it"], lock["done_it"])
+    np.testing.assert_array_equal(a["done"], lock["done"])
+    assert a["chunk_cuts"] == [lv["driver"]["chunk_cuts"]
+                               for lv in lock["levels"]]
+    np.testing.assert_allclose(a["rho"], lock["rho"].numpy(), rtol=0,
+                               atol=1e-9)
+    jout = jsolve_batch(r0s, r1s, FLEET["nt"], FLEET["opts"], "inPALM",
+                        dtype=jnp.float64, level_n=FLEET["levels"],
+                        verbose=False)
+    assert a["iters"] == jout["iters"]
+    np.testing.assert_array_equal(a["done_it"], np.asarray(jout["done_it"]))
+
+
+def test_demo_batch_sharded_spawned():
+    out = demo_batch.main(["--cpu", "--f64", "--batch", "2", "--nx", "17",
+                           "--nt", "5", "--levels", "2", "--mode",
+                           "sharded", "--spawn", "2"])
+    assert out["mode"] == "sharded"
+    assert out["mass_ok"] and bool(np.all(out["done"]))
+
+
+def test_fleet_auto_picks_sharded_in_a_world_of_two():
+    assert tb.pick_fleet_mode(4, (17, 17), 5, 2) == "sharded"
+    assert tb.pick_fleet_mode(3, (17, 17), 5, 2) == "lockstep"
+    assert tb.pick_fleet_mode(4, (17, 17), 5, 1) == "lockstep"

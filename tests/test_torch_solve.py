@@ -315,8 +315,9 @@ def test_solve_dot_refuses_what_waits():
                                            twdot2d.barrier_love_heart())
     with pytest.raises(ValueError, match="not in"):
         run(weight=weight, method="PALM")
-    # the mesh waits; a checkpoint_dir that is not a path is refused
-    for key, error, match in (("mesh", NotImplementedError, "ROADMAP.md queue"),
+    # a mesh that is not the port's and a checkpoint_dir that is not a path
+    # are refused
+    for key, error, match in (("mesh", TypeError, "not a dotsocp_tpu_torch"),
                               ("checkpoint_dir", TypeError, "a directory")):
         with pytest.raises(error, match=match):
             run(opts={key: 1e-6})
