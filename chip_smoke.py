@@ -188,7 +188,18 @@ the device driver (CUDA-graph segments, ``algorithms/device_driver.py``).
    rank, cone_project_diff launched once an iteration on every rank and
    nothing else, and on a block of the rank's shape the kernel bit-equal
    to its plain version, within rtol 2e-5 / atol 2e-6 of ``proj_soc`` and
-   its pads zero. A world of 2 ranks:
+   its pads zero; 10f, the batch x spatial fleet (``solve_fleet(mode=
+   "sharded")`` on a (batch=2, y=2) mesh: each batch row holds its
+   instances' blocks on the halo engine): two instances at the scale
+   config (DOTmark 4-stitch and example1, 513^2 x 65, 3 levels, tol 1e-4,
+   float32) within +-10% of the shared iterations of the one-card lockstep
+   fleet of the same two, run first, each rho within ``FLEET_GAP`` of it,
+   every instance done with mass conservation and stop residuals below
+   tol; four instances at 33^2 x 9, 2 levels, in float64, exactly the
+   one-card lockstep run's iterations, done_it and chunk cuts, rho within
+   1e-9; both with identical records on every rank, no piece captured as
+   a graph and no kernel launched, and each rank's wall, peak memory and
+   comm calls and bytes an iteration. A world of 2 ranks:
    10b, the scale config on a (y=2,) mesh within +-10% of the JAX 407, with
    the bytes the comm layer sent a rank per iteration; 10c, the
    fleet_bench fleet under ``solve_fleet(mode="sharded")``: the shared
@@ -3450,6 +3461,21 @@ DIST_ACC = ("DOTmark_4stitch", 129, 33, 100)
 # the one-process lockstep fleet against sequential solves differs by up to
 # 1.4e-2 on rho (FLEET_REL_JAX, phase 8c): the sharded fleet is held to it
 FLEET_GAP = 1.4e-2
+# 10f: the batch x spatial fleet on a (batch=2, y=2) mesh of the 4-rank
+# world. At full width, two instances of fleet_problems at the scale
+# config (513^2 x 65, 3 levels, tol 1e-4, float32): DOTmark 4-stitch and
+# example1, held to the one-card lockstep fleet of the same two: the
+# shared iterations +-10%, each rho within FLEET_GAP. (example2 does not
+# converge there in float32: the one-card lockstep fleet of DOTmark and
+# example2 takes 1529 + 1729 + 3000 iterations, example2 stopped at maxit
+# short of tol; example1 takes 264 + 99 + 99 beside DOTmark; measured on
+# an NVIDIA H100 80GB HBM3 at 700 W.) Exactly: four instances of
+# fleet_problems at 33^2 x 9, 2 levels, float64, against the one-card
+# lockstep run in float64: iterations, done_it and chunk cuts, rho 1e-9
+BXS_AXES = ("batch", "y")
+BXS_WIDE = (SCALE_CONFIG[0], SCALE_CONFIG[1], SCALE_CONFIG[2],
+            SCALE_CONFIG[3], (5, 0))
+BXS_EXACT = (33, 9, 2, 1e-4, (0, 1, 2, 3))
 
 
 def _rank_solve(problem, n, nt, levels, tol, axis_names):
@@ -3592,9 +3618,145 @@ def _rank_acc(problem, n, nt, maxit):
         pads_max=float((got * (1.0 - real)).abs().max()))
 
 
-def _world_a(headline, acc):
-    """The 4-rank world: 10d, then 10a, then 10e."""
-    return _rank_comm_check(), _rank_solve(*headline), _rank_acc(*acc)
+def _rank_fleet_bxs(r0, r1, nt, levels, tol, dtype_name):
+    """10f: this rank's part of ``solve_fleet(mode="sharded")`` on a
+    (batch, y) mesh of the world, each batch row holding its instances'
+    blocks on the halo engine: the record every rank must share, rho, and
+    this rank's wall, peak memory, comm traffic and launches."""
+    import torch
+
+    from dotsocp_tpu_torch.parallel.batch import solve_fleet
+    from dotsocp_tpu_torch.parallel.sharding import make_mesh
+
+    mesh = make_mesh(axis_names=BXS_AXES)
+    reset_launch_counts()
+    mesh.stats.update(calls=0, bytes=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    out = solve_fleet(r0, r1, nt, {"tol": tol, "maxit": 3000}, "inPALM",
+                      dtype=getattr(torch, dtype_name), level_n=levels,
+                      mode="sharded", mesh=mesh, verbose=False,
+                      device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    rec = dict(mesh=dict(mesh.shape), mode=out["mode"], iters=out["iters"],
+               done=[bool(v) for v in out["done"]],
+               done_it=[int(v) for v in out["done_it"]],
+               kkt=out["kkt"].tolist(),
+               chunk_cuts=[lv["driver"]["chunk_cuts"]
+                           for lv in out["levels"]],
+               checks=[lv["driver"]["checks"] for lv in out["levels"]],
+               graph_kinds=[lv["driver"]["graph_kinds"]
+                            for lv in out["levels"]],
+               level_iters=[lv["iters"] for lv in out["levels"]])
+    return rec, out["rho"].cpu().numpy(), dict(
+        rank=mesh.rank, coords=mesh.coords, wall_s=wall,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        comm_calls=mesh.stats["calls"], comm_bytes=mesh.stats["bytes"],
+        comm_calls_per_iter=mesh.stats["calls"] / out["iters"],
+        comm_bytes_per_iter=mesh.stats["bytes"] / out["iters"],
+        level_s=[round(lv["time"], 4) for lv in out["levels"]],
+        launches={k: v for k, v in launch_counts().items() if v})
+
+
+def _world_a(headline, acc, bxs):
+    """The 4-rank world: 10d, then 10a, 10e and 10f (full width in float32,
+    then the exactness run in float64)."""
+    return (_rank_comm_check(), _rank_solve(*headline), _rank_acc(*acc),
+            [_rank_fleet_bxs(*args) for args in bxs])
+
+
+def _bxs_fleets():
+    """10f's two fleets as (r0, r1, nt, levels, tol, dtype name)."""
+    out = []
+    for (n, nt, levels, tol, pick), dtype in ((BXS_WIDE, "float32"),
+                                              (BXS_EXACT, "float64")):
+        r0, r1 = fleet_problems(n)
+        out.append((r0[list(pick)], r1[list(pick)], nt, levels, tol, dtype))
+    return out
+
+
+def _bxs_check(torch, ranks, fleets, locks):
+    """10f's checks on the 4-rank world's results against the one-card
+    lockstep runs ``locks`` (result, wall s) of the same fleets."""
+    import numpy as np
+
+    from dotsocp_tpu_torch.multilevel.level import check_mass_conservation
+
+    res = {}
+    for i, ((r0, _, nt, levels, tol, dtype), (lock, lock_wall)) in \
+            enumerate(zip(fleets, locks)):
+        recs = [r[3][i][0] for r in ranks]
+        rhos = [r[3][i][1] for r in ranks]
+        own = [r[3][i][2] for r in ranks]
+        require(all(rec == recs[0] for rec in recs), f"10f {dtype}: the "
+                f"ranks' records differ: {recs}")
+        require(all(np.array_equal(x, rhos[0]) for x in rhos),
+                f"10f {dtype}: the ranks' rho differ")
+        rec, rho = recs[0], rhos[0]
+        B, n = r0.shape[0], r0.shape[1]
+        lock_rho = lock["rho"].cpu().numpy()
+        lock_cuts = [lv["driver"]["chunk_cuts"] for lv in lock["levels"]]
+        mass = [bool(check_mass_conservation(torch.as_tensor(x)))
+                for x in rho]
+        stops = [max(k[j] for j in (0, 2, 5, 6)) for k in rec["kkt"]]
+        rel = [float(np.linalg.norm(rho[b] - lock_rho[b])
+                     / np.linalg.norm(lock_rho[b])) for b in range(B)]
+        gap = float(np.abs(rho - lock_rho).max())
+        log(f"  10f fleet {B} x {n}^2 x {nt} {dtype} on a {rec['mesh']} "
+            f"mesh ({DIST_LABEL}): done_it {rec['done_it']}, shared "
+            f"{rec['iters']} (levels {rec['level_iters']}; one card "
+            f"{lock['iters']}, done_it {[int(v) for v in lock['done_it']]}, "
+            f"wall {lock_wall:.3f} s), chunk cuts {rec['chunk_cuts']} (one "
+            f"card {lock_cuts}), stop residuals "
+            f"{[f'{v:.2e}' for v in stops]}, mass_ok {mass}, rho against "
+            f"the one-card run: relative {[f'{v:.2e}' for v in rel]}, "
+            f"largest {gap:.2e}")
+        for o in own:
+            log(f"    rank {o['rank']} {o['coords']}: wall "
+                f"{o['wall_s']:.3f} s (levels {o['level_s']} s), peak "
+                f"{o['peak_gib']:.3f} GiB, comm {o['comm_calls']} calls "
+                f"{o['comm_bytes'] / 1e9:.3f} GB sent "
+                f"({o['comm_calls_per_iter']:.2f} calls, "
+                f"{o['comm_bytes_per_iter'] / 1e6:.3f} MB an iteration), "
+                f"launches {o['launches']}")
+        require(rec["mode"] == "sharded" and all(rec["done"]) and all(mass)
+                and all(v < tol for v in stops), f"10f {dtype}: done "
+                f"{rec['done']}, mass_ok {mass}, stops {stops}")
+        require(tuple(rho.shape) == (B, nt, n, n)
+                and bool(np.isfinite(rho).all()), f"10f {dtype}: rho "
+                f"{rho.shape}")
+        # no piece was captured (they hold collectives), and no kernel that
+        # reads neighbouring cells ran on the blocks
+        require(all(kinds == [] for kinds in rec["graph_kinds"]),
+                f"10f {dtype}: graphs captured {rec['graph_kinds']}")
+        require(all(not o["launches"] for o in own), f"10f {dtype}: "
+                f"launches {[o['launches'] for o in own]}")
+        if dtype == "float32":
+            require(abs(rec["iters"] - lock["iters"])
+                    <= 0.1 * lock["iters"], f"10f: shared iterations "
+                    f"{rec['iters']} not within 10% of the one-card "
+                    f"{lock['iters']}")
+            require(all(v <= FLEET_GAP for v in rel), f"10f: rho gaps {rel}")
+        else:
+            require(rec["iters"] == lock["iters"]
+                    and rec["done_it"] == [int(v) for v in lock["done_it"]]
+                    and rec["chunk_cuts"] == lock_cuts, f"10f float64: "
+                    f"{rec['iters']} / {rec['done_it']} / "
+                    f"{rec['chunk_cuts']}, not the one-card "
+                    f"{lock['iters']} / {lock['done_it']} / {lock_cuts}")
+            require(gap <= 1e-9, f"10f float64: rho {gap:.2e} from the "
+                    f"one-card run")
+        res[f"fleet_{dtype}"] = dict(
+            B=B, n=n, nt=nt, levels=levels, mesh=rec["mesh"],
+            iters=rec["iters"], level_iters=rec["level_iters"],
+            done_it=rec["done_it"], chunk_cuts=rec["chunk_cuts"],
+            lockstep_iters=lock["iters"],
+            lockstep_done_it=[int(v) for v in lock["done_it"]],
+            lockstep_wall_s=lock_wall, rho_rel_vs_lockstep=rel,
+            rho_max_abs_vs_lockstep=gap, stops=stops, ranks=own)
+    return res
 
 
 def _rank_fleet(n, nt, levels, tol, dtype_name):
@@ -3646,14 +3808,22 @@ def multi_device(torch):
     lock, lock_wall, _, _ = lockstep(torch, r0, r1, nt, levels, tol)
     lock_rho = lock["rho"].float().cpu().numpy()
     del lock
+    # 10f's one-card lockstep fleets, before the ranks take the card
+    bxs = _bxs_fleets()
+    bxs_locks = []
+    for f0, f1, f_nt, f_levels, f_tol, f_dtype in bxs:
+        out, wall, _, _ = lockstep(torch, f0, f1, f_nt, f_levels, f_tol,
+                                   dtype=getattr(torch, f_dtype))
+        bxs_locks.append((dict(out, rho=out["rho"].cpu()), wall))
+        del out
     torch.cuda.empty_cache()
 
     t0 = time.monotonic()
-    ranks = run_world(_world_a, 4, (DIST_HEADLINE, DIST_ACC),
+    ranks = run_world(_world_a, 4, (DIST_HEADLINE, DIST_ACC, bxs),
                       backend="gloo", device=DEVICE, timeout=DIST_TIMEOUT)
     world_a_s = time.monotonic() - t0
     # 10d
-    for r, (comm_errs, _, _) in enumerate(ranks):
+    for r, (comm_errs, *_) in enumerate(ranks):
         log(f"  10d rank {r}: comm layer against one process on "
             f"{comm_errs['devices']}: "
             f"{ {k: v for k, v in comm_errs.items() if k not in ('devices', 'psum_bits')} }")
@@ -3719,6 +3889,9 @@ def multi_device(torch):
                 f"{o}")
     require(rec["finite"] and rec["iters"] > 0, f"10e: {rec}")
     res["acc"] = dict(rec, ranks=own)
+    # 10f
+    res["batch_spatial"] = _bxs_check(torch, ranks, bxs, bxs_locks)
+    res["world_a_s"] = world_a_s
 
     t0 = time.monotonic()
     stol = DIST_SCALE[4]
@@ -3918,8 +4091,9 @@ def main(argv=None):
           "65), the maze, example5, every demo at its defaults")
     launches_9, user = user_problems(torch)
     phase(10, "multi-device: the comm layer, the headline on a (y=2, x=2) "
-          "mesh, the scale config on a (y=2,) mesh, the fleet sharded over "
-          "2 ranks; " + DIST_LABEL)
+          "mesh, acc-ADMM on it, the batch x spatial fleet on a (batch=2, "
+          "y=2) mesh, the scale config on a (y=2,) mesh, the fleet sharded "
+          "over 2 ranks; " + DIST_LABEL)
     multi = multi_device(torch)
     log(f"\nall phases passed in {time.monotonic() - t_start:.1f} s")
 

@@ -44,7 +44,11 @@ Pallas kernel there (``dotsocp_tpu/multilevel/solve.py:228``); the cone
 projection, pointwise, runs its kernel on the block as on one process.
 Every norm and dot product of a check sums its block's part over the mesh,
 all of them in one collective (``_mesh_sums``), so every rank holds the
-same KKT values.
+same KKT values. A fleet's level runs on its batch row of the mesh
+(``parallel/sharding.Mesh.row``): its batched step is the variant's own
+step on the whole stack of the rank's blocks (the halo engine takes
+leading axes), and a check sums every instance's parts in one collective
+(``kkt_batched``).
 """
 from __future__ import annotations
 
@@ -139,6 +143,16 @@ def stack_fields(states, fields) -> dict:
         else:
             out[f] = torch.stack(parts)
     return out
+
+
+def select_stack(active, new, old):
+    """Each instance's ``new`` where ``active`` (B,), else ``old``: tensors
+    with a leading (B,) axis, or Staggered fields of them."""
+    if isinstance(new, Staggered):
+        return Staggered(select_stack(active, new.q0, old.q0),
+                         select_stack(active, new.bs, old.bs))
+    return torch.where(active.reshape((-1,) + (1,) * (new.ndim - 1)), new,
+                       old)
 
 
 def instance(s: SolverState, b: int) -> SolverState:
@@ -356,10 +370,19 @@ class Kernels:
         return s.replace(phi=phi, q=q, z=znew, alpha=alpha, beta=beta)
 
     def _step_batched(self, s: SolverState, active) -> SolverState:
-        """One step of the variant's own ``_step`` (PALM) on each
-        instance's view, the result selected where ``active``: plain
-        PyTorch, as the JAX package runs PALM's step in jnp."""
+        """One step of the variant's own ``_step`` on each instance, the
+        result selected where ``active``: plain PyTorch, as the JAX package
+        runs PALM's step in jnp. On one process (PALM) on each instance's
+        view; under a mesh (every method) on the whole stack of blocks at
+        once, sd broadcast per instance, so that one halo exchange carries
+        every instance."""
         fields = ("phi", "q", "z", "alpha", "beta")
+        if self.plain:
+            lead = (-1,) + (1,) * (s.q.q0.ndim - 1)
+            new = self._step(s.replace(dScale=s.dScale.reshape(lead)))
+            return s.replace(**{f: select_stack(active, getattr(new, f),
+                                                getattr(s, f))
+                                for f in fields})
         steps = []
         for b in range(s.phi.shape[0]):
             cur = instance(s, b)
@@ -412,10 +435,23 @@ class Kernels:
         """Full KKT battery (``solver_socp_inPALM.m:223-267``). Its sums
         over the rank's block are formed first and summed over the mesh in
         one collective, then combined."""
-        geom = self.geom
+        return self._kkt_from_sums(s, self._mesh_sums(self._kkt_parts(s)))
+
+    def kkt_batched(self, s: SolverState) -> list:
+        """:meth:`_kkt` of every instance of a batched state (one dict an
+        instance), the parts of all of them summed over the mesh in one
+        collective."""
+        views = [instance(s, b) for b in range(s.phi.shape[0])]
+        parts = [self._kkt_parts(v) for v in views]
+        keys = list(parts[0])
+        tot = self.ops.psum(torch.stack([torch.stack([p[k] for k in keys])
+                                         for p in parts]))
+        return [self._kkt_from_sums(v, dict(zip(keys, row.unbind(0))))
+                for v, row in zip(views, tot.unbind(0))]
+
+    def _kkt_parts(self, s: SolverState) -> dict:
+        """The KKT battery's sums over the rank's block (0-d tensors)."""
         ops = self.ops
-        h = geom.h
-        kkt_const = 1.0
 
         tmp_q = s.D * ops.grad(s.phi)
         resi_alpha = tmp_q - self._w(s.q)
@@ -435,9 +471,14 @@ class Kernels:
         parts = {k: sqsum(x) for k, x in fields.items()}
         parts["pri"] = s.q.dot(s.alpha)
         parts["dual"] = torch.sum(s.c * s.phi)
-        d = geom.ndim_space
         parts.update(self._dot_complement(s, d_alpha, z2))
-        tot = self._mesh_sums(parts)
+        return parts
+
+    def _kkt_from_sums(self, s: SolverState, tot: dict) -> dict:
+        """The KKT battery from its sums over the whole mesh."""
+        h = self.geom.h
+        d = self.geom.ndim_space
+        kkt_const = 1.0
 
         def nrm(k):
             return torch.sqrt(h * tot[k])

@@ -78,7 +78,7 @@ class PALMKernels(Kernels):
         # step phi
         phi = self._poisson_solve(s, s.D * ops.grad_T(q - s.alpha) + s.c)
         # step z (z2 refreshed from the q0-step's q)
-        z = proj_soc(ops.bfd(q, sbf, sd) - s.beta)
+        z = proj_soc(ops.bfd(q, sbf, sd) - s.beta, ops.cone_dim)
         # step q (second)
         tmp_q = s.D * ops.grad(phi)
         q2 = ops.bfd_T(z + s.beta, sbf)

@@ -6,10 +6,15 @@ of a world; ``--mode sharded`` splits the batch axis over the ranks, one
 process a rank: under ``torchrun --nproc-per-node=N`` (a card for each
 rank), or with ``--spawn N``, which spawns the N ranks here (gloo, sharing
 the card or the CPU). A world of one rank has no batch axis to split, and
-``--mode sharded`` then raises.
+``--mode sharded`` then raises. ``--axes batch,y`` shapes the ranks into a
+mesh of those axes (``parallel/sharding.make_mesh``), whose y (x, t) axes
+split each instance's grid too: each batch row then holds its instances'
+blocks on the halo engine.
 
     python -m dotsocp_tpu_torch.demos.demo_batch [--cpu] [--batch 4]
     python -m dotsocp_tpu_torch.demos.demo_batch --mode sharded --spawn 2
+    python -m dotsocp_tpu_torch.demos.demo_batch --mode sharded \
+        --axes batch,y --spawn 4
 """
 from __future__ import annotations
 
@@ -34,7 +39,13 @@ def main(argv=None):
                     help="fleet execution mode (auto = decision table)")
     ap.add_argument("--spawn", type=int, default=0, metavar="N",
                     help="with --mode sharded: spawn N ranks here (gloo)")
+    ap.add_argument("--axes", default=None, metavar="NAMES",
+                    help="with --mode sharded: the mesh's axis names, "
+                         "comma-separated (default: batch alone), e.g. "
+                         "batch,y to split each grid too")
     args = ap.parse_args(argv)
+    if args.axes and args.mode != "sharded":
+        raise ValueError("--axes shapes the ranks of --mode sharded")
 
     if args.spawn:
         from ..parallel.launch import run_world
@@ -72,11 +83,17 @@ def _solve(args):
         r0s.append(np.roll(base0, shift, axis=1))
         r1s.append(np.roll(base1, -shift, axis=0))
 
+    mesh = None
+    if args.axes:
+        from ..parallel.sharding import make_mesh
+
+        mesh = make_mesh(axis_names=tuple(args.axes.split(",")),
+                         device=device_of(args))
     out = solve_fleet(
         np.stack(r0s), np.stack(r1s), args.nt,
         {"tol": args.tol, "maxit": 3000},
         level_n=args.levels, dtype=dtype_of(args), mode=args.mode,
-        device=device_of(args), verbose=is_coordinator(),
+        mesh=mesh, device=device_of(args), verbose=is_coordinator(),
     )
     rho = out["rho"].detach().cpu()
     mass_ok = all(check_mass_conservation(r) for r in rho)

@@ -52,6 +52,8 @@ class OpsFlat:
 
     layout = "flat"
     mesh = None
+    # the column axis of a (..., C, nt-1, S) cone array
+    cone_dim = -3
 
     def __init__(self, geom: Geometry, dtype: torch.dtype, device):
         self.geom = geom

@@ -134,7 +134,7 @@ def times_dinv(ops: OpsFlat, st: Staggered, dinv) -> Staggered:
 
 
 def x_step_plain(ops: OpsFlat, q: Staggered, beta, sbf, sd):
-    return proj_soc(ops.bfd(q, sbf, sd) - beta) + beta
+    return proj_soc(ops.bfd(q, sbf, sd) - beta, ops.cone_dim) + beta
 
 
 def qx_step_plain(ops: OpsFlat, phi, x, alpha: Staggered, dinv, D, sbf, tau):
@@ -154,11 +154,11 @@ def cx_step_plain(ops: OpsFlat, beta, x, q: Staggered, sbf, sd, tau,
     beta = beta + tau * (z - z2)
     if final:
         return beta, z
-    return beta, proj_soc(z2 - beta) + beta
+    return beta, proj_soc(z2 - beta, ops.cone_dim) + beta
 
 
 def z_step_plain(ops: OpsFlat, q: Staggered, beta, sbf, sd):
-    return proj_soc(ops.bfd(q, sbf, sd) - beta)
+    return proj_soc(ops.bfd(q, sbf, sd) - beta, ops.cone_dim)
 
 
 def q_step_plain(ops: OpsFlat, phi, z, beta, alpha: Staggered, dinv, D, sbf,

@@ -19,12 +19,20 @@ Layout contract (``halo_engine.py:14-26``), per rank:
   mesh (``psum``), are the unpadded ones.
 
 Mesh axes: ``x`` (1D), ``y`` ``x`` (2D), ``z`` ``y`` ``x`` (3D); an axis the
-mesh lacks is not split. A ``t`` axis splits time too: every
+mesh lacks is not split. A ``batch`` axis of extent > 1 is refused: a
+fleet's level runs on its batch row (``Mesh.row``), so that every sum
+over the mesh stays within one instance. A ``t`` axis splits time too: every
 time-staggered array then shares the padded node extent Pt with a zero
 ghost slab at t = nt - 1, so cell k and node k sit on one rank and the BF
 time coupling is one slab (``halo_engine.py:131-152``); without it time
 stays unpadded (nt nodes, nt - 1 cells). A mesh that splits no axis of the
 grid raises.
+
+Leading axes: every operator counts the t axis, the face axis of a face
+block and the column axis of a cone array from the end, so a stack of
+instances on a leading axis (the lockstep fleet's ``(B, ...)`` blocks)
+goes through one call, one halo exchange and one all-gather for all of
+them, each instance's result bit-equal to the operator on it alone.
 
 The phi-step is the exact DCT solve on zero-extended matrices
 (``_HaloPoisson``): along an axis the mesh splits, the rank gathers the
@@ -79,6 +87,12 @@ class OpsHalo:
             raise NotImplementedError("halo layout supports 1D/2D/3D grids")
         if not mesh.member:
             raise ValueError(f"rank {mesh.rank} is not in the mesh")
+        if mesh.shape.get("batch", 1) > 1:
+            raise ValueError(
+                f"mesh {mesh.shape}: its batch axis carries independent "
+                f"instances, and a sum over the whole mesh would add them "
+                f"together; build the level on the rank's batch row "
+                f"(mesh.row())")
         self.geom = geom
         self.dtype = dtype
         self.device = torch.device(device)
@@ -107,6 +121,8 @@ class OpsHalo:
         self.Lt_cell = self.Pt_cell // self.kt
         self.off_t = mesh.coords.get("t", 0) * self.Lt
         self.t_name = "t" if self.sharded_t else None
+        # the column axis of a cone array, the face axis of a face block
+        self.cone_dim = -(d + 2)
         self._masks = {}
 
     @property
@@ -163,6 +179,23 @@ class OpsHalo:
                 m = m * tm
         return m
 
+    # -- axes counted from the end (leading batch axes pass through) ----------
+    def _tdim(self, x) -> int:
+        """The t axis of a phi-, cell- or face-shaped block."""
+        return x.ndim - self.d - 1
+
+    def _face(self, bs, a: int):
+        """Axis a's face block of a ``(..., d, T, *L)`` tensor."""
+        return bs.select(bs.ndim - self.d - 2, a)
+
+    def _col(self, x, c: int):
+        """Column c of a ``(..., C, T, *L)`` cone array."""
+        return x.select(x.ndim - self.d - 2, c)
+
+    def _stack(self, parts):
+        """Face blocks or cone columns stacked on the axis before t."""
+        return torch.stack(parts, dim=self._tdim(parts[0]))
+
     # -- halo shifts ---------------------------------------------------------
     def _shift(self, x, a: int, fwd: bool):
         """Space axis a: y[i] = x[i-1] (``fwd``) or x[i+1]."""
@@ -174,20 +207,22 @@ class OpsHalo:
                             for x, a, fwd in items], self.mesh)
 
     def _shift_t(self, x, fwd: bool):
-        return comm.shift(x, x.ndim - self.d - 1, self.mesh, "t", fwd)
+        return comm.shift(x, self._tdim(x), self.mesh, "t", fwd)
 
     def _t_cell_sel(self, x, hi: bool):
         """Node-t array -> cell-t extent: node k (``hi=False``) or k+1."""
         if self.sharded_t:
             return self._shift_t(x, fwd=False) if hi else x
-        return x[1:] if hi else x[:-1]
+        t = self._tdim(x)
+        return x.narrow(t, 1 if hi else 0, x.shape[t] - 1)
 
     def _t_node_scatter(self, y, t_lo: bool):
         """Cell-t array -> node-t extent: cell k to node k (``t_lo``) or
         k+1."""
         if self.sharded_t:
             return y if t_lo else self._shift_t(y, fwd=True)
-        return _pad_dim(y, 0, 0, 1) if t_lo else _pad_dim(y, 0, 1, 0)
+        t = self._tdim(y)
+        return _pad_dim(y, t, 0, 1) if t_lo else _pad_dim(y, t, 1, 0)
 
     # -- operators -------------------------------------------------------
     def grad(self, phi) -> Staggered:
@@ -197,9 +232,10 @@ class OpsHalo:
             q0 = (self._shift_t(phi, fwd=False) - phi) / geom.ht
             q0 = q0 * self._t_mask(phi.ndim, cell=True)
         else:
-            q0 = (phi[1:] - phi[:-1]) / geom.ht
+            q0 = (self._t_cell_sel(phi, True)
+                  - self._t_cell_sel(phi, False)) / geom.ht
         nxt = self._shifts([(phi, a, False) for a in range(self.d)])
-        bs = torch.stack([
+        bs = self._stack([
             ((nxt[a] - phi) / geom.hs(a)) * self._face_mask(a, phi.ndim)
             for a in range(self.d)])
         return Staggered(q0=q0, bs=bs)
@@ -211,10 +247,12 @@ class OpsHalo:
         if self.sharded_t:
             out = (self._shift_t(q0, fwd=True) - q0) / geom.ht
         else:
-            out = (_pad_dim(q0, 0, 1, 0) - _pad_dim(q0, 0, 0, 1)) / geom.ht
-        prev = self._shifts([(st.bs[a], a, True) for a in range(self.d)])
+            out = (self._t_node_scatter(q0, False)
+                   - self._t_node_scatter(q0, True)) / geom.ht
+        faces = [self._face(st.bs, a) for a in range(self.d)]
+        prev = self._shifts([(faces[a], a, True) for a in range(self.d)])
         for a in range(self.d):
-            out = out + (prev[a] - st.bs[a]) / geom.hs(a)
+            out = out + (prev[a] - faces[a]) / geom.hs(a)
         return out
 
     def bfd(self, q: Staggered, scale_bf, scale_d):
@@ -222,23 +260,24 @@ class OpsHalo:
         cell-masked in space and t."""
         cols = [scale_d - scale_bf * q.q0]
         s = scale_bf * _INV_SQRT2
-        lows = self._shifts([(q.bs[a], a, True) for a in range(self.d)])
+        faces = [self._face(q.bs, a) for a in range(self.d)]
+        lows = self._shifts([(faces[a], a, True) for a in range(self.d)])
         for a in range(self.d):
             x_lo = lows[a]
-            x_hi = q.bs[a]
+            x_hi = faces[a]
             for hi in (False, True):
                 cols.append(s * self._t_cell_sel(x_lo, hi))
                 cols.append(s * self._t_cell_sel(x_hi, hi))
         cols.append(scale_d + scale_bf * q.q0)
-        z2 = torch.stack(cols, dim=0)
+        z2 = self._stack(cols)
         return z2 * self._cell_mask(z2.ndim, t_cell=True)
 
     def bfd_T(self, x, scale_bf) -> Staggered:
         """q2 = scale_bf (BF)^T x (``mexBFdConj``), scatter-free."""
-        q0 = scale_bf * (x[-1] - x[0])
+        q0 = scale_bf * (self._col(x, -1) - self._col(x, 0))
         s = scale_bf * _INV_SQRT2
         # the x_lo columns of each axis: 1 + 4a (t_lo) and 3 + 4a (t_hi)
-        nxt = iter(self._shifts([(x[1 + 4 * a + 2 * j], a, False)
+        nxt = iter(self._shifts([(self._col(x, 1 + 4 * a + 2 * j), a, False)
                                  for a in range(self.d) for j in (0, 1)]))
         bs = []
         col = 1
@@ -246,13 +285,13 @@ class OpsHalo:
             acc = None
             for t_lo in (True, False):
                 for x_lo in (True, False):
-                    xi = x[col]
+                    xi = self._col(x, col)
                     col += 1
                     y = next(nxt) if x_lo else xi
                     y = self._t_node_scatter(y, t_lo)
                     acc = y if acc is None else acc + y
             bs.append((s * acc) * self._face_mask(a, acc.ndim))
-        return Staggered(q0=q0, bs=torch.stack(bs))
+        return Staggered(q0=q0, bs=self._stack(bs))
 
     def _t_rows(self, inner, bnd, dtype, device):
         """(Lt, 1, ...) values: ``bnd`` on the rank's slabs of global t = 0
@@ -305,8 +344,10 @@ class OpsHalo:
         node k gets 0.5 (cell[k-1] + cell[k])."""
         if self.sharded_t:
             return 0.5 * (self._shift_t(x, fwd=True) + x)
-        padded = _pad_dim(x, 0, 1, 1)
-        return 0.5 * (padded[:-1] + padded[1:])
+        t = self._tdim(x)
+        padded = _pad_dim(x, t, 1, 1)
+        n = padded.shape[t] - 1
+        return 0.5 * (padded.narrow(t, 0, n) + padded.narrow(t, 1, n))
 
     def demean(self, phi):
         """phi minus its mean over the real cells, pads kept at zero."""
@@ -410,10 +451,13 @@ class _HaloPoisson:
         self.inv_kernel = ops._local(ik, t=True)
 
     def _transform(self, y, which: int):
+        # phi-layout axis ax (0 = t) counted from the end: leading axes of
+        # a stack of instances pass through
+        lead = y.ndim - len(self.axes)
         for ax, name, *mats in self.axes:
             if name is not None:
-                y = comm.all_gather(y, ax, self.ops.mesh, name)
-            y = _apply_axis(mats[which], y, ax)
+                y = comm.all_gather(y, lead + ax, self.ops.mesh, name)
+            y = _apply_axis(mats[which], y, lead + ax)
         return y
 
     def solve(self, rhs, scale=None):

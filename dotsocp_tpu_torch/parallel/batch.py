@@ -39,9 +39,24 @@ lockstep loop, kernels and graphs included, on its B/k instances. The
 schedule depends on the iteration counter alone, so it is the same on
 every rank; the loop ends on the instances' ``all_done`` agreed over the
 mesh, so every rank takes the iterations the one-process lockstep run
-takes, and the results are gathered to every rank. A mesh that also
-splits the grid (the JAX package's batch x spatial path on its "3d"
-layout) waits in ROADMAP.md queue 1 item 8.
+takes, and the results are gathered to every rank.
+
+A mesh that also splits the grid (a ``batch`` axis and y/x/z/t axes of
+extent > 1; the JAX package's batch x spatial path, which it runs on its
+GSPMD "3d" layout, ``batch.py:67-113,355-392``) runs SPMD on the halo
+engine instead: each batch row of ranks (``Mesh.row``) owns B/k_batch
+instances, and each rank of the row holds its block of every one of
+them. The level's kernels are built on the row, so every sum of a check
+stays within one instance's grid; a step is the variant's plain step on
+the whole stack of blocks (one halo exchange and one all-gather for all
+of them, as a meshed ``solve_dot`` runs its plain step); a check sums
+every instance's parts in one collective and takes the rescale's norms
+from the KKT battery's own (the sigma update leaves sigma ||alpha|| and
+sigma ||beta|| as they were, and a second collective would otherwise
+follow it); the loop's end is agreed over the whole mesh. The pieces
+hold collectives, so they run eagerly, never as graphs, as the meshed
+device driver's do. The results are gathered along the row, then along
+``batch``, to every rank.
 """
 from __future__ import annotations
 
@@ -205,7 +220,11 @@ class BatchedDeviceDriver:
         self.s = bstate
         self.device = bstate.phi.device
         self.dtype = bstate.phi.dtype
-        self.graphs = SegmentGraphs(self.device, eager=eager)
+        # under a spatial mesh the pieces hold collectives: eager, as the
+        # meshed device driver's (``device_driver.py``, ``prepare``)
+        row = self.k.ops.mesh
+        self.graphs = SegmentGraphs(
+            self.device, eager=eager or (row is not None and row.size > 1))
         B = bstate.phi.shape[0]
         dev = self.device
 
@@ -279,11 +298,13 @@ class BatchedDeviceDriver:
         """The JAX ``check_block`` (``batch.py:137-207``), operation for
         operation: the stop, the per-instance sigma factor, the rescale
         triggers on the old stage, max_feas and rel_gap, their update, and
-        done_it and kkt_last; then the mask and the record."""
+        done_it and kkt_last; then the mask and the record. Under a mesh
+        the norms of the rescale are the KKT battery's (the module
+        docstring), so a check sums over the mesh once."""
         ls = self.ls
         k = self.k
         tol = self.opts.tol
-        res = self._per_instance(k._kkt, self.s)
+        res = k.kkt_batched(self.s)
         kkt_org = torch.stack([r["kkt_org"] for r in res])   # (B, 7)
         kkt5 = torch.stack([r["kkt"] for r in res])          # (B, 5)
         pd_gap = torch.stack([r["pdGap"] for r in res])      # (B,)
@@ -311,7 +332,8 @@ class BatchedDeviceDriver:
         s = sigma_mult(self.s, factor)
 
         # the rescale, aligned to the check cadence; (1, 1) is the identity
-        norms = self._per_instance(k._norms, s)
+        norms = res if k.ops.mesh is not None \
+            else self._per_instance(k._norms, s)
         n = {key: torch.stack([r[key] for r in norms]) for key in norms[0]}
         norm_phis = torch.maximum(torch.maximum(n["normPhi"], n["normQ"]),
                                   n["normZ"])
@@ -528,22 +550,31 @@ def replay_against_eager(make, bstate: SolverState, k: int = 40,
 
 # -- solve_batch --------------------------------------------------------------
 
-def _check_batch_mesh(mesh) -> None:
+def _check_batch_mesh(mesh, opts: dict) -> None:
     if mesh is None:
         return
     if not isinstance(mesh, Mesh):
         raise TypeError(f"mesh={mesh!r}: not a dotsocp_tpu_torch mesh "
                         f"(parallel/sharding.make_mesh)")
-    if spatial_axes(mesh):
+    if not spatial_axes(mesh):
+        return
+    # a mesh that splits the grid too: the halo engine on each batch row
+    if opts.get("layout", "auto") == "flat":
+        raise ValueError(
+            f"layout='flat' under the batch x spatial mesh {mesh.shape}: "
+            f"the flat layout folds the spatial axes away (the JAX package "
+            f"asks for its '3d' layout here); the port runs the halo engine "
+            f"(layout 'auto' or 'halo')")
+    if opts.get("use_pallas", "auto") is True:
         raise NotImplementedError(
-            f"mesh {mesh.shape}: a fleet whose mesh also splits the grid "
-            f"(batch x spatial; the JAX package's 'batch' + y/x/t mesh on "
-            f"its '3d' layout) waits in ROADMAP.md queue 1 item 8; split "
-            f"the batch axis alone")
+            "use_pallas=True under a spatial mesh: the kernels that read "
+            "neighbouring cells have no halo-padded route yet (ROADMAP.md "
+            "queue 2), so they run plain on each rank's blocks; pass "
+            "use_pallas='auto'")
 
 
 def _check_batch_request(method: str, opts: dict, mesh) -> None:
-    _check_batch_mesh(mesh)
+    _check_batch_mesh(mesh, opts)
     if method not in BATCH_METHODS:
         # the JAX solve_batch runs inPALM's step with tau = 1.0 for any
         # other method (``batch.py:326,340``); the port refuses
@@ -588,7 +619,9 @@ def solve_batch(rho0s, rho1s, nt: int, opts: Optional[dict] = None,
     default raises). ``rho0s`` / ``rho1s``: (B, *space). Methods inPALM,
     PALM (tau 1.9) and ALG2 (tau 1.0). ``mesh``: a mesh whose ``batch``
     axis (extent k, dividing B) splits the instances over its ranks, each
-    rank solving B/k of them in lockstep; every rank of the world calls
+    rank solving B/k of them in lockstep; where its y/x/z/t axes split the
+    grid too, each batch row holds its B/k instances' blocks on the halo
+    engine (the module docstring); every rank of the world calls
     ``solve_batch`` alike and gets the whole fleet's results (a rank the
     mesh leaves out receives them from rank 0).
 
@@ -637,6 +670,7 @@ def _solve_batch_sharded(rho0s, rho1s, nt, opts, method, dtype, mesh,
                        np.asarray(rho1s)[lo:lo + B // k], nt, opts, method,
                        dtype, mesh, level_n, False, device)
 
+    # every rank of a batch row holds its instances' results whole
     def gather(x):
         return comm.all_gather(torch.as_tensor(x), 0, mesh, "batch").numpy()
 
@@ -644,7 +678,8 @@ def _solve_batch_sharded(rho0s, rho1s, nt, opts, method, dtype, mesh,
                done=gather(out["done"].astype(np.uint8)).astype(bool),
                done_it=gather(out["done_it"]), kkt=gather(out["kkt"]))
     if verbose and mesh.rank == mesh.ranks[0]:
-        print(f"batch solve: B={B} over {k} ranks, levels={level_n}, "
+        print(f"batch solve: B={B} over the mesh {mesh.shape}, "
+              f"levels={level_n}, "
               f"all_done={bool(out['done'].all())}, iters={out['iters']}, "
               f"{out['time']:.2f}s")
     return out
@@ -669,6 +704,8 @@ def _solve_batch(rho0s, rho1s, nt, opts, method, dtype, mesh, level_n,
         tols.insert(0, max(tols[0] * 2.0 ** tol_factor, tol_lower))
 
     kcls = PALMKernels if method == "PALM" else Kernels
+    # under a spatial mesh the levels run on this rank's batch row
+    row = mesh.row() if mesh is not None and spatial_axes(mesh) else None
     npdtype = np.float64 if dtype == torch.float64 else np.float32
     sigma_b = np.full(B, float(opts.get("sigma", 1.0)))
     prev_lvs = None
@@ -694,7 +731,8 @@ def _solve_batch(rho0s, rho1s, nt, opts, method, dtype, mesh, level_n,
             initial_scaling(lv, o.scaling)
             lvs.append(lv)
         cfg = LevelConfig(geom=lvs[0].geom, D=lvs[0].D, E=lvs[0].E,
-                          device=str(device), tau=o.tau, dtype=dtype)
+                          device=str(device), tau=o.tau, dtype=dtype,
+                          mesh=row)
         kernels = kcls(cfg)
         bstate = stack_states([kernels.prep(lv.as_dict(), float(sigma_b[b]))
                                for b, lv in enumerate(lvs)])
@@ -781,7 +819,7 @@ def solve_fleet(rho0s, rho1s, nt: int, opts: Optional[dict] = None,
     world makes here). Returns :func:`solve_batch`'s dict plus ``mode``;
     sequential results carry each instance's final-level iterations in
     ``done_it`` and its final-level KKT row in ``kkt``."""
-    _check_batch_mesh(mesh)
+    _check_batch_mesh(mesh, dict(opts or {}))
     device = _device(device)
     rho0s = np.asarray(rho0s)
     rho1s = np.asarray(rho1s)

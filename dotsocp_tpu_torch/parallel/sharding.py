@@ -12,7 +12,9 @@ that differ only along it) and the rank's device.
 Axes, as in the JAX package: ``batch`` carries independent instances (the
 fleet, ``parallel/batch.py``); ``y``, ``x`` (``z`` in 3D, ``x`` in 1D) and
 ``t`` split the space-time grid of one instance (the halo engine,
-``ops/halo_engine.py``). The counterparts of ``state_shardings`` /
+``ops/halo_engine.py``). On a mesh with both, the ranks that share a
+``batch`` coordinate hold the blocks of the same instances: ``Mesh.row``
+is that batch row as a mesh of its own, whose sums stay within it. The counterparts of ``state_shardings`` /
 ``constrain`` are :func:`shard_state` and :func:`gather_state`, which cut
 a global state into one rank's padded block and join the blocks again.
 """
@@ -55,7 +57,7 @@ class Mesh:
     through ``parallel/comm.py`` and the bytes it sent."""
 
     def __init__(self, axis_names, shape, rank: int, ranks, groups: dict,
-                 group, backend: Optional[str], device):
+                 group, backend: Optional[str], device, row_group=None):
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, (int(s) for s in shape)))
         self.ranks = tuple(ranks)
@@ -69,6 +71,8 @@ class Mesh:
         self.backend = backend
         self.device = torch.device(device)
         self.stats = {"calls": 0, "bytes": 0}
+        self._row_group = row_group
+        self._row = None
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, rank {self.rank}, coords {self.coords}, "
@@ -95,6 +99,29 @@ class Mesh:
         """The process group of the ranks that differ from this one only
         along axis ``name`` (ordered by coordinate)."""
         return self._groups[name]
+
+    def row(self) -> "Mesh":
+        """This rank's batch row: the ranks that share its ``batch``
+        coordinate, as a mesh of the other axes (their groups, its own
+        ``group``, ``size`` and ``ranks``; the same ``stats``). A fleet's
+        level runs on it, so that a norm's sum over the mesh adds the
+        blocks of one instance and never another's. Without a batch axis
+        of extent > 1 the row is the mesh itself, as a mesh of the other
+        axes."""
+        if self._row is None:
+            names = [n for n in self.axis_names if n != "batch"]
+            mine = self.coords.get("batch", 0)
+            ranks = [r for i, r in enumerate(self.ranks)
+                     if self.coords_of(i).get("batch", 0) == mine]
+            group = self.group if self.shape.get("batch", 1) == 1 \
+                else self._row_group
+            row = Mesh(names, [self.shape[n] for n in names], self.rank,
+                       ranks, {n: g for n, g in self._groups.items()
+                               if n != "batch"}, group, self.backend,
+                       self.device)
+            row.stats = self.stats
+            self._row = row
+        return self._row
 
 
 def _world():
@@ -135,6 +162,18 @@ def make_mesh(n_devices: Optional[int] = None,
             grp = dist.new_group(line) if shape[a] > 1 else None
             if rank in line:
                 groups[name] = grp
+    # a group a batch row, where the batch axis and the row both have
+    # more than one rank (``Mesh.row``)
+    row_group = None
+    if "batch" in names:
+        b = names.index("batch")
+        if 1 < shape[b] < n:
+            coords = np.unravel_index(np.arange(n), shape)[b]
+            for c in range(shape[b]):
+                line = [ranks[i] for i in range(n) if coords[i] == c]
+                grp = dist.new_group(line)
+                if rank in line:
+                    row_group = grp
     group = None
     if n < world:
         group = dist.new_group(list(ranks))
@@ -142,7 +181,8 @@ def make_mesh(n_devices: Optional[int] = None,
         from .distributed import local_device
 
         device = local_device()
-    return Mesh(names, shape, rank, ranks, groups, group, backend, device)
+    return Mesh(names, shape, rank, ranks, groups, group, backend, device,
+                row_group)
 
 
 def spatial_axes(mesh: Mesh) -> list:
@@ -197,20 +237,30 @@ def make_sharded_step(kernels, mesh: Mesh, batched: bool = True):
     """The level's step over the mesh, global state in and out on every
     rank (the JAX ``make_sharded_step``, ``sharding.py:151-166``).
 
-    ``batched``: the state holds B instances on a leading axis, the mesh's
-    ``batch`` axis (its only axis of extent > 1) splits them; each rank
-    steps its instances with ``kernels`` and the results are gathered.
-    Otherwise the mesh splits the grid: the step is the same level's on the
-    halo engine (``kernels``' class rebuilt on the mesh, unweighted), run
-    on this rank's block of the state and gathered back."""
-    from ..algorithms.core import BATCH_SCALARS, instance, stack_fields
+    ``batched``: the state holds B instances on a leading axis, which the
+    mesh's ``batch`` axis splits. Where the mesh splits no axis of the
+    grid, each rank steps its instances with ``kernels``; where it does,
+    each rank cuts its block of each of its instances, steps the stack of
+    them with the level's class rebuilt on its batch row (``Mesh.row``,
+    the halo engine) and joins the blocks. The results are then gathered
+    along ``batch``. Not ``batched``: the mesh splits the grid, and the
+    step is the same level's on the halo engine, run on this rank's block
+    of the state and gathered back. A weighted level is refused on a
+    spatial mesh."""
+    from ..algorithms.core import BATCH_SCALARS, instance
+    from .batch import stack_states
 
+    spatial = bool(spatial_axes(mesh))
+    if spatial and kernels.weight is not None:
+        raise NotImplementedError("make_sharded_step: a weighted level on a "
+                                  "spatial mesh (build the level's kernels "
+                                  "with LevelConfig.mesh instead)")
+    geom = kernels.geom
     if batched:
         k = mesh.shape.get("batch", 1)
-        if spatial_axes(mesh):
-            raise NotImplementedError(
-                "a batched step over spatial mesh axes (batch x spatial) "
-                "waits in ROADMAP.md queue 1 item 8")
+        row = mesh.row() if spatial else None
+        halo = None if row is None else type(kernels)(
+            dataclasses.replace(kernels.cfg, mesh=row))
 
         def batched_step(state):
             B = state.phi.shape[0]
@@ -218,14 +268,21 @@ def make_sharded_step(kernels, mesh: Mesh, batched: bool = True):
                 raise ValueError(f"{B} instances do not split over a batch "
                                  f"axis of {k}")
             lo = mesh.coords.get("batch", 0) * (B // k)
-            steps = [kernels._step(instance(state, b))
-                     for b in range(lo, lo + B // k)]
-            local = stack_fields(steps, _FIELDS)
-            for f in BATCH_SCALARS:
-                local[f] = torch.stack([torch.as_tensor(getattr(st, f))
-                                        for st in steps])
+            mine = [instance(state, b) for b in range(lo, lo + B // k)]
+            if halo is None:
+                steps = [kernels._step(s) for s in mine]
+            else:
+                blocks = stack_states([shard_state(s, row, geom)
+                                       for s in mine])
+                active = torch.ones(len(mine), dtype=torch.bool,
+                                    device=blocks.phi.device)
+                new = halo._step_batched(blocks, active)
+                steps = [gather_state(instance(new, i), row, geom)
+                         for i in range(len(mine))]
+            local = stack_states(steps)
             out = {}
-            for f, v in local.items():
+            for f in _FIELDS + BATCH_SCALARS:
+                v = getattr(local, f)
                 if hasattr(v, "q0"):
                     out[f] = type(v)(comm.all_gather(v.q0, 0, mesh, "batch"),
                                      comm.all_gather(v.bs, 0, mesh, "batch"))
@@ -234,12 +291,7 @@ def make_sharded_step(kernels, mesh: Mesh, batched: bool = True):
             return state.replace(**out)
 
         return batched_step
-    if kernels.weight is not None:
-        raise NotImplementedError("make_sharded_step: a weighted level on a "
-                                  "spatial mesh (build the level's kernels "
-                                  "with LevelConfig.mesh instead)")
     halo = type(kernels)(dataclasses.replace(kernels.cfg, mesh=mesh))
-    geom = kernels.geom
 
     def spatial_step(state):
         return gather_state(halo._step(shard_state(state, mesh, geom)),

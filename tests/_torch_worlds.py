@@ -39,11 +39,67 @@ def _pads_max(oh, x, short=None, t_real=None):
     return float(pads)
 
 
+def _stacked_ops(oh, pi, sti, zi) -> dict:
+    """Each operator of ``oh`` on a stack of 3 instances (the inputs and two
+    others made from them, bd with a different scale_d an instance) against
+    the operator on each instance alone: op -> True where every instance's
+    slice of the stacked result is bit-equal (``torch.equal``) to its own
+    result; and the largest pad entry of the stacked face and cone blocks."""
+    from dotsocp_tpu_torch.ops.cone import proj_soc
+
+    B = 3
+    # products and multiples of the inputs keep the pads at zero
+    phis = [pi, 1.7 * pi - 0.3 * pi * pi, pi * pi]
+    sts = [sti, sti * 0.6 + sti * sti, Staggered(-sti.q0, sti.bs * 2.1)]
+    zs = [zi, zi * zi - 0.5 * zi, -1.3 * zi]
+    sd = torch.tensor([0.7, 1.1, 0.2], dtype=F64)
+    stack_st = Staggered(torch.stack([s.q0 for s in sts]),
+                         torch.stack([s.bs for s in sts]))
+    phi, z = torch.stack(phis), torch.stack(zs)
+    sd_b = sd.reshape((B,) + (1,) * (stack_st.q0.ndim - 1))
+    poisson = oh.make_poisson(1.0)
+    ops = {
+        "grad": (lambda b: oh.grad(phis[b]), oh.grad(phi)),
+        "grad_T": (lambda b: oh.grad_T(sts[b]), oh.grad_T(stack_st)),
+        "bfd": (lambda b: oh.bfd(sts[b], 1.3, sd[b]),
+                oh.bfd(stack_st, 1.3, sd_b)),
+        "bfd_T": (lambda b: oh.bfd_T(zs[b], 0.9), oh.bfd_T(z, 0.9)),
+        "poisson": (lambda b: poisson.solve(phis[b], scale=0.5),
+                    poisson.solve(phi, scale=0.5)),
+        "face_interp": (lambda b: oh.face_interp(phis[b], oh.d - 1),
+                        oh.face_interp(phi, oh.d - 1)),
+        "t_node_interp": (lambda b: oh.t_node_interp(sts[b].q0),
+                          oh.t_node_interp(stack_st.q0)),
+        "proj_soc": (lambda b: proj_soc(zs[b]),
+                     proj_soc(z, oh.cone_dim)),
+    }
+    out = {}
+    for name, (one, stacked) in ops.items():
+        same = True
+        for b in range(B):
+            want = one(b)
+            if isinstance(want, Staggered):
+                same &= bool(torch.equal(stacked.q0[b], want.q0)
+                             and torch.equal(stacked.bs[b], want.bs))
+            else:
+                same &= bool(torch.equal(stacked[b], want))
+        out[name] = same
+    d, nt = oh.geom.ndim_space, oh.geom.nt
+    gr, bt = ops["grad"][1], ops["bfd_T"][1]
+    pads = max(
+        _pads_max(oh, ops["bfd"][1], t_real=nt - 1),
+        *[_pads_max(oh, x.bs.select(1, a), a, nt)
+          for x in (gr, bt) for a in range(d)])
+    return {"equal": out, "pads_max": pads}
+
+
 def halo_ops(cases) -> list:
     """Each case (axis names, nt, space, inputs as numpy): the halo ops of
     the port on that mesh, gathered: grad, grad_T, bfd, bfd_T, the Poisson
     solve, two sGS sweeps and the colour-A residual norm, and the largest
-    pad entry of bfd's, bfd_T's, grad's and the sweep's blocks."""
+    pad entry of bfd's, bfd_T's, grad's and the sweep's blocks; and under
+    ``stack``, the operators on a stack of instances against each alone
+    (:func:`_stacked_ops`, every rank's)."""
     from dotsocp_tpu_torch.ops.halo_engine import HaloSGS, OpsHalo
     from dotsocp_tpu_torch.parallel.sharding import make_mesh
 
@@ -82,6 +138,10 @@ def halo_ops(cases) -> list:
                 sw, oh.phi_to_internal(rhs), 0.1, d2=0.64)),
             "pads_max": pads,
         }
+        stack = _stacked_ops(oh, pi, sti, zi)
+        everyone = [None] * dist.get_world_size()
+        dist.all_gather_object(everyone, stack)
+        res["stack"] = everyone
         out.append(res if dist.get_rank() == 0 else None)
     return out
 
@@ -294,9 +354,92 @@ def fail_on(rank_to_fail: int) -> int:
     return dist.get_rank()
 
 
-def solves_and_steps(cases, n, nt, steps) -> tuple:
-    """:func:`solves`, then :func:`sharded_steps`."""
-    return solves(cases), sharded_steps(n, nt, steps)
+def solves_and_steps(cases, n, nt, steps, fleet_args) -> tuple:
+    """:func:`solves`, then :func:`sharded_steps`, then
+    :func:`batch_spatial` of ``fleet_args``."""
+    return (solves(cases), sharded_steps(n, nt, steps),
+            batch_spatial(*fleet_args, n, nt, steps))
+
+
+def batch_spatial(r0s, r1s, nt, opts, levels, n, step_nt, steps) -> dict:
+    """On a ("batch", "y", "x") mesh of the world (4 ranks: 2 x 2 x 1):
+
+    - ``psum``: each rank's rank + 1 summed over its batch row
+      (``Mesh.row``), through ``comm.psum`` and through the halo engine
+      built on the row, and over the whole mesh; and whether the halo
+      engine refuses the whole mesh;
+    - ``inPALM`` / ``PALM``: ``solve_batch`` of the fleet in float64
+      (inPALM on ``levels`` levels, PALM on one), with the chunk cuts and
+      checks of every level and the number of ``comm.psum`` calls;
+    - ``steps``: ``make_sharded_step(batched=True)`` run ``steps`` times on
+      world copies of example2's first level at n^2 x step_nt, each
+      instance's phi, z and q0.
+
+    Every rank returns what it got."""
+    from dotsocp_tpu_torch.algorithms.core import Kernels, LevelConfig
+    from dotsocp_tpu_torch.models.examples import get_example_2d
+    from dotsocp_tpu_torch.multilevel.level import (initial_scaling,
+                                                    initialize)
+    from dotsocp_tpu_torch.ops.halo_engine import OpsHalo
+    from dotsocp_tpu_torch.parallel import comm
+    from dotsocp_tpu_torch.parallel.batch import solve_batch, stack_states
+    from dotsocp_tpu_torch.parallel.sharding import (make_mesh,
+                                                     make_sharded_step)
+
+    mesh = make_mesh(axis_names=("batch", "y", "x"))
+    row = mesh.row()
+    mine = torch.tensor([float(mesh.rank + 1)], dtype=F64)
+    g = Geometry(nt, tuple(np.shape(r0s)[1:]))
+    out = {"mesh": dict(mesh.shape), "coords": mesh.coords,
+           "row_ranks": list(row.ranks), "psum": {
+               "row": float(comm.psum(mine, row)),
+               "ops": float(OpsHalo(g, F64, "cpu", row).psum(mine)),
+               "mesh": float(comm.psum(mine, mesh))}}
+    try:
+        OpsHalo(g, F64, "cpu", mesh)
+        out["psum"]["refused"] = False
+    except ValueError:
+        out["psum"]["refused"] = True
+
+    calls = [0]
+    psum = comm.psum
+
+    def counted(t, m):
+        calls[0] += 1
+        return psum(t, m)
+
+    for method, lv in (("inPALM", levels), ("PALM", 1)):
+        calls[0] = 0
+        comm.psum = counted
+        try:
+            res = solve_batch(r0s, r1s, nt, opts, method, dtype=F64,
+                              mesh=mesh, level_n=lv, verbose=False,
+                              device="cpu")
+        finally:
+            comm.psum = psum
+        out[method] = {
+            "iters": res["iters"], "done": res["done"],
+            "done_it": res["done_it"], "kkt": res["kkt"],
+            "rho": res["rho"].numpy(), "psum_calls": calls[0],
+            "chunk_cuts": [r["driver"]["chunk_cuts"] for r in res["levels"]],
+            "checks": [r["driver"]["checks"] for r in res["levels"]],
+            "graph_kinds": [r["driver"]["graph_kinds"]
+                            for r in res["levels"]]}
+
+    r0, r1 = get_example_2d("example2", n, n)
+    lv = initialize(r0, r1, step_nt, dtype=F64, device="cpu")
+    initial_scaling(lv, True)
+    k = Kernels(LevelConfig(geom=lv.geom, D=lv.D, E=lv.E, device="cpu",
+                            dtype=F64))
+    s = k.prep(lv.as_dict(), 1.0)
+    world = dist.get_world_size()
+    step = make_sharded_step(k, mesh)
+    b = stack_states([s.clone() for _ in range(world)])
+    for _ in range(steps):
+        b = step(b)
+    out["steps"] = [(b.phi[i].numpy(), b.z[i].numpy(), b.q.q0[i].numpy())
+                    for i in range(world)]
+    return out
 
 
 def sharded_steps(n, nt, steps) -> dict:

@@ -361,15 +361,30 @@ def test_solve_fleet_modes_agree(cpu_threads):
 def test_refusals():
     r0, r1 = _pair()
     kw = dict(verbose=False, device="cpu")
-    # the batch axis over ranks runs (tests/test_torch_parallel.py); a
-    # mesh that is not the port's, and one that splits the grid too (the
-    # JAX batch x spatial path), are refused
+    # the batch axis over ranks, and a mesh that splits the grid too, run
+    # (tests/test_torch_parallel.py); a mesh that is not the port's is
+    # refused, and so is the flat layout on a batch x spatial mesh (the
+    # JAX package's tests/test_batch.py:148-158), before any collective
     with pytest.raises(TypeError, match="not a dotsocp_tpu_torch mesh"):
         tb.solve_batch(r0, r1, 5, OPTS, mesh=object(), **kw)
     spatial = Mesh(("batch", "y", "x"), (1, 2, 1), 0, (0, 1), {}, None,
                    "gloo", "cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tb.solve_batch(r0, r1, 5, OPTS, mesh=spatial, **kw)
+    with pytest.raises(ValueError, match="layout"):
+        tb.solve_batch(r0, r1, 5, dict(OPTS, layout="flat"), mesh=spatial,
+                       **kw)
+    with pytest.raises(NotImplementedError, match="queue 2"):
+        tb.solve_batch(r0, r1, 5, dict(OPTS, use_pallas=True), mesh=spatial,
+                       **kw)
+    # a mesh whose spatial axes all have extent 1 is batch-only: the flat
+    # layout runs, the lockstep run itself (tests/test_batch.py:161-180)
+    flat = Mesh(("batch", "y", "x"), (1, 1, 1), 0, (0,), {}, None, None,
+                "cpu")
+    small = {"tol": 1e-2, "maxit": 200}
+    out = tb.solve_batch(r0, r1, 5, dict(small, layout="flat"), mesh=flat,
+                         **kw)
+    ref = tb.solve_batch(r0, r1, 5, small, **kw)
+    assert out["done"].all() and out["iters"] == ref["iters"]
+    assert torch.equal(out["rho"], ref["rho"])
     with pytest.raises(TypeError, match="not a dotsocp_tpu_torch mesh"):
         tb.solve_fleet(r0, r1, 5, OPTS, mesh=object(), **kw)
     for method in ("acc-ADMM", "sGS-inPALM", "nonsense"):

@@ -9,7 +9,9 @@ The port runs SPMD, one rank a shard: a spawned gloo world of 4 ranks
 ``tests/conftest.py``'s 8 virtual devices in this process. Each op
 (``grad``, ``grad_T``, ``bfd``, ``bfd_T``, the Poisson solve, two sGS
 sweeps, the colour-A residual norm) agrees within 1e-12, and the pads of
-every block stay exactly zero. The 4-rank world also runs the meshed
+every block stay exactly zero. Each operator on a stack of 3 instances
+(a leading axis, as the fleet's blocks) is bit-equal, on every rank, to
+the operator on each instance alone, its pads zero. The 4-rank world also runs the meshed
 solves on a (t, y, x) mesh (2 x 2 x 1) and a 3D (z, y, x) mesh (2 x 2 x
 1), held to the JAX meshed solve's per-level counts on the same mesh
 shape and to the port's one-process solve's (rho within 1e-9).
@@ -138,6 +140,13 @@ def test_halo_pads_stay_zero(port, case):
     """grad's and bfd_T's face blocks, bfd's cone block and the swept phi
     hold exact zeros in every pad (and ghost) slot of every block."""
     assert port[case]["pads_max"] == 0.0
+
+
+@pytest.mark.parametrize("case", range(len(CASES)), ids=IDS)
+def test_halo_ops_on_a_stack_equal_each_instance(port, case):
+    for rank in port[case]["stack"]:
+        assert all(rank["equal"].values()), rank["equal"]
+        assert rank["pads_max"] == 0.0
 
 
 @pytest.mark.parametrize("which", range(len(SOLVES)),

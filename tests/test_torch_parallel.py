@@ -13,11 +13,22 @@ and the JAX package on ``tests/conftest.py``'s virtual devices.
   both. Then ``make_sharded_step`` over a ("batch",) mesh and over the
   (y, x) mesh, 3 steps against 3 of ``run_one`` (1e-10, as
   ``tests/test_parallel.py``).
+- The same 4-rank world on a ("batch", "y", "x") mesh, 2 x 2 x 1: a sum
+  over a rank's batch row (``Mesh.row``) adds its row's ranks only, and
+  the halo engine refuses the whole mesh; ``solve_batch`` of 4 instances
+  at 17^2 x 5 in float64 (inPALM on 2 levels, PALM on 1), every rank's
+  result the same, takes exactly the JAX ``solve_batch``'s iterations
+  and done_it on its 4-device (batch, y, x) mesh (its "3d" layout) and
+  the port's one-process lockstep run's iterations, done_it and chunk
+  cuts, rho within 1e-9 of both, with one sum over the mesh a check; and
+  ``make_sharded_step(batched=True)`` on that mesh, 3 steps against 3 of
+  ``run_one`` per instance (1e-10).
 - A 2-rank world: ``solve_fleet(mode="sharded")`` of 4 instances in
   float64 takes exactly the iterations, done_it and chunk cuts of the
   one-process lockstep run (rho within 1e-9) and the JAX ``solve_batch``'s
   counts; ``mode="auto"`` picks "sharded" in a world of two.
-- ``demo_batch --mode sharded --spawn 2`` runs; in a world of one it
+- ``demo_batch --mode sharded --spawn 2`` runs, and so does ``--axes
+  batch,y --spawn 4`` (the batch x spatial fleet); in a world of one it
   raises, saying that it needs two ranks.
 """
 import jax.numpy as jnp
@@ -66,9 +77,11 @@ def _fleet_problems():
 
 @pytest.fixture(scope="module")
 def world4():
-    res = run_world(worlds.solves_and_steps, 4, (SOLVES,) + STEP,
-                    timeout=300)
-    return [r[0] for r in res], res[0][1]
+    r0s, r1s = _fleet_problems()
+    fleet = (r0s, r1s, FLEET["nt"], FLEET["opts"], FLEET["levels"])
+    res = run_world(worlds.solves_and_steps, 4, (SOLVES,) + STEP + (fleet,),
+                    timeout=400)
+    return [r[0] for r in res], res[0][1], [r[2] for r in res]
 
 
 @pytest.fixture(scope="module")
@@ -137,6 +150,65 @@ def test_sharded_step_matches_run_one(world4, one_steps, kind):
             np.testing.assert_allclose(a, b, rtol=1e-10, atol=1e-12)
 
 
+def test_batch_row_psum_stays_in_its_row(world4):
+    """A sum over a rank's batch row adds the ranks of that row and no
+    other: the fault it guards against is a sum over the whole mesh, which
+    would add the blocks of different instances together."""
+    ranks = world4[2]
+    for r in ranks:
+        assert r["mesh"] == {"batch": 2, "y": 2, "x": 1}
+        row = [q for q, other in enumerate(ranks)
+               if other["coords"]["batch"] == r["coords"]["batch"]]
+        assert r["row_ranks"] == row
+        want = float(sum(q + 1 for q in row))
+        assert r["psum"]["row"] == want
+        assert r["psum"]["ops"] == want
+        assert r["psum"]["mesh"] == 10.0 != want
+        assert r["psum"]["refused"]
+
+
+@pytest.mark.parametrize("method", ["inPALM", "PALM"])
+def test_batch_spatial_fleet_matches_jax_and_lockstep(world4, method):
+    ranks = [r[method] for r in world4[2]]
+    got = ranks[0]
+    for other in ranks[1:]:
+        for key in ("iters", "chunk_cuts", "checks", "psum_calls"):
+            assert other[key] == got[key]
+        for key in ("done", "done_it", "kkt", "rho"):
+            np.testing.assert_array_equal(other[key], got[key])
+    levels = FLEET["levels"] if method == "inPALM" else 1
+    # one sum over the mesh a check, for all of a rank's instances; the
+    # pieces ran eagerly (no graph kind captured)
+    assert got["psum_calls"] == sum(got["checks"])
+    assert all(kinds == [] for kinds in got["graph_kinds"])
+    r0s, r1s = _fleet_problems()
+    lock = tb.solve_batch(r0s, r1s, FLEET["nt"], FLEET["opts"], method,
+                          dtype=F64, level_n=levels, verbose=False,
+                          device="cpu")
+    assert got["iters"] == lock["iters"]
+    np.testing.assert_array_equal(got["done_it"], lock["done_it"])
+    np.testing.assert_array_equal(got["done"], lock["done"])
+    assert got["chunk_cuts"] == [lv["driver"]["chunk_cuts"]
+                                 for lv in lock["levels"]]
+    np.testing.assert_allclose(got["rho"], lock["rho"].numpy(), rtol=0,
+                               atol=1e-9)
+    jout = jsolve_batch(r0s, r1s, FLEET["nt"], FLEET["opts"], method,
+                        dtype=jnp.float64, level_n=levels, verbose=False,
+                        mesh=jmake_mesh(4, axis_names=("batch", "y", "x")))
+    assert got["iters"] == jout["iters"]
+    np.testing.assert_array_equal(got["done_it"], np.asarray(jout["done_it"]))
+    np.testing.assert_allclose(got["rho"], np.asarray(jout["rho"]), rtol=0,
+                               atol=1e-9)
+
+
+def test_batch_spatial_sharded_step_matches_run_one(world4, one_steps):
+    steps = world4[2][0]["steps"]
+    assert len(steps) == 4
+    for inst in steps:
+        for a, b in zip(inst, one_steps):
+            np.testing.assert_allclose(a, b, rtol=1e-10, atol=1e-12)
+
+
 def test_sharded_fleet_matches_lockstep_and_jax(world2):
     r0s, r1s = _fleet_problems()
     a, b = world2
@@ -167,6 +239,14 @@ def test_demo_batch_sharded_spawned():
     out = demo_batch.main(["--cpu", "--f64", "--batch", "2", "--nx", "17",
                            "--nt", "5", "--levels", "2", "--mode",
                            "sharded", "--spawn", "2"])
+    assert out["mode"] == "sharded"
+    assert out["mass_ok"] and bool(np.all(out["done"]))
+
+
+def test_demo_batch_batch_spatial_spawned():
+    out = demo_batch.main(["--cpu", "--f64", "--batch", "2", "--nx", "17",
+                           "--nt", "5", "--levels", "1", "--mode",
+                           "sharded", "--axes", "batch,y", "--spawn", "4"])
     assert out["mode"] == "sharded"
     assert out["mass_ok"] and bool(np.all(out["done"]))
 
