@@ -23,8 +23,9 @@ Phases, each raising on failure:
    the single-step kernels z_step, q_step, q_step_w, beta_step and
    cone_project_diff with their inputs unchanged, q_step_w and
    cone_project_diff bit-equal, and in 3D every q-step; the flat shift
-   bit-equal at every axis stride; the kernels that take sd bit-equal with
-   sd read from memory, as the device driver's graphs launch them);
+   bit-equal at every axis stride; the kernels that take sd or E-derived
+   scalars bit-equal with those read from memory, as the device driver's
+   graphs launch them);
    a 4-iteration CA segment against 4 plain steps within rtol 2e-6 /
    atol 2e-6, unweighted and weighted (and weighted at 129^2 x 129); and
    4 ``run_one`` steps (the single-step kernels) against 4 ``_step_plain``
@@ -208,6 +209,25 @@ the device driver (CUDA-graph segments, ``algorithms/device_driver.py``).
    launched on every rank; the same fleet in float64 exactly
    ``FLEET_ANCHOR_F64``'s.
 
+11. The solver cache (``opts["reuse_solvers"]``, default on, and
+   ``opts["prewarm"]``; every phase starts with the cache empty). 11a: the
+   headline twice from an empty cache: the second solve makes no capture
+   and no eager run, takes the first's iterations (470-574) and its rho
+   bit for bit; both walls and each level's wall split into build, prep,
+   warm-ups, captures, loop and finish. 11b: two problems under one key,
+   the second's solvers all taken from the cache and its result bit-equal
+   to a ``reuse_solvers=False`` solve, with each level's E printed for
+   both and differing at a level >= 2: example1 then DOTmark (inPALM,
+   129^2 x 33), example3 then example4 (acc-ADMM, sGS-inPALM, 65^2 x 17),
+   the love-heart densities then example1's on one love-heart weight
+   (weighted inPALM, 65^2 x 33). 11c: the headline with ``prewarm`` from
+   an empty cache: the solve itself captures nothing and runs nothing
+   eagerly, bit-equal to 11a. 11d: the scale config twice: both walls and
+   splits, bit-equal, the peak memory, the memory the cache holds and
+   what is left after ``clear_solver_cache()``, the busy share of a warm
+   solve. Phases 8c and 8d run the sequential fleet on the cache
+   (instance 0 prewarmed), from an empty cache each.
+
 The line before the last is a JSON object with one entry per kernel (its
 launches on the main path: the sum over every solve and profile of phases
 4-4e, 4g and 4h, each run with every count set to 0 just before and read just
@@ -219,7 +239,8 @@ kernels' launches summed over the lockstep solves of phases 8c and 8d,
 their times at B = 8 x 129^2 x 33, beside B single launches, and under
 ``b32_65x17`` at B = 32 x 65^2 x 17; every kernel's
 ``phase9_launches`` summed over phase 9's runs; phase 10's figures under
-``multi_device``); the last line is ``{"ok": true, "device": {...}}``.
+``multi_device``, phase 11's under ``solver_cache``); the last line is
+``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero before printing any result.
 """
@@ -385,7 +406,24 @@ _T0 = time.monotonic()
 
 
 def phase(n, title):
+    """A phase's heading; every phase starts with the solver cache empty,
+    so that the cache holds one phase's levels at most."""
+    clear_cache()
     log(f"\n== phase {n}: {title} ({time.monotonic() - _T0:.1f} s in)")
+
+
+def clear_cache():
+    from dotsocp_tpu_torch.multilevel.solve import clear_solver_cache
+
+    clear_solver_cache()
+
+
+def cold_memory(torch):
+    """The solver cache emptied and the peak-memory count restarted: what a
+    peak measured from here holds is the measured run's alone."""
+    clear_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
 
 # -- phase 1 --------------------------------------------------------------------
@@ -603,37 +641,65 @@ def check_kernels(torch, cmp, geom, seed):
         f"{k} {e:.2e}" for k, e in errs.items()))
 
 
-def check_sd_from_memory(torch, geom, seed):
-    """The kernels that take sd, launched through their ``*_dev`` entries
-    (sd read from a float32 tensor on the card, as the device driver's
-    graphs run them) against the by-value entries with the same float:
-    bit-equal."""
+def check_scalars_from_memory(torch, geom, seed):
+    """Every kernel that takes sd or E-derived scalars, launched through
+    its ``*_dev`` entry (sd, sbf, sbf / sqrt2 and the q-step's diagonal
+    values read from float32 tensors on the card, as the device driver's
+    graphs launch them) against the by-value entry with the same floats:
+    bit-equal. The q-steps unweighted and weighted."""
     from dotsocp_tpu_torch.ops import fused_step as fs
+    from dotsocp_tpu_torch.ops.engine import (_INV_SQRT2, base_values,
+                                              diag_values)
 
     ops, v = random_inputs(torch, geom, seed, torch.device(DEVICE))
     D, E, dscale = level_scalars(geom)
-    sbf, tau = E / D, 1.9
-    sd_t = torch.full((), E / dscale, dtype=torch.float32, device=DEVICE)
-    sd = float(sd_t)  # the same float32 by value
-    q, beta, x = v["q"], v["beta"], v["x"]
+    sbf, sd, tau = E / D, E / dscale, 1.9
+    d_in, d_bd = diag_values(D, E)
+    dinv = (1.0 / d_in, 1.0 / d_bd)
+    wdinv = fs.weighted_dinv(ops, ops.weight_to_internal(
+        check_weight(torch, geom, seed)), D, E)
+
+    def on_card(*vals):  # each double rounded once to float32, on the card
+        return torch.tensor(vals, dtype=torch.float64).to(
+            DEVICE, torch.float32).unbind(0)
+
+    sbf_t, sd_t, sv_t = on_card(sbf, sd, sbf * _INV_SQRT2)
+    dinv_t = on_card(*dinv)
+    wdinv_t = wdinv._replace(base=on_card(*base_values(D, E)))
+    q, alpha, phi, beta, x = v["q"], v["alpha"], v["phi"], v["beta"], v["x"]
     pairs = {
-        "x_step": (lambda s: fs.x_step(ops, q, beta, sbf, s)),
-        "z_step": (lambda s: fs.z_step(ops, q, beta, sbf, s)),
-        "beta_step": (lambda s: fs.beta_step(ops, beta, x, q, sbf, s, tau)),
-        "cx_step": (lambda s: fs.cx_step(ops, beta.clone(), x.clone(), q, sbf,
-                                         s, tau)),
-        "cx_final": (lambda s: fs.cx_final(ops, beta.clone(), x.clone(), q,
-                                           sbf, s, tau)),
+        "x_step": lambda f, s_, *_: fs.x_step(ops, q, beta, f, s_),
+        "z_step": lambda f, s_, *_: fs.z_step(ops, q, beta, f, s_),
+        "beta_step": lambda f, s_, *_: fs.beta_step(ops, beta, x, q, f, s_,
+                                                    tau),
+        "cx_step": lambda f, s_, *_: fs.cx_step(ops, beta.clone(), x.clone(),
+                                                q, f, s_, tau),
+        "cx_final": lambda f, s_, *_: fs.cx_final(ops, beta.clone(),
+                                                  x.clone(), q, f, s_, tau),
+        "qx_step": lambda f, _, sv, d, w: fs.qx_step(
+            ops, phi, x, alpha.clone(), d, D, f, tau, sv=sv),
+        "qx_step_w": lambda f, _, sv, d, w: fs.qx_step(
+            ops, phi, x, alpha.clone(), w, D, f, tau, sv=sv),
+        "q_step": lambda f, _, sv, d, w: fs.q_step(
+            ops, phi, x, beta, alpha, d, D, f, tau, sv=sv),
+        "q_step_w": lambda f, _, sv, d, w: fs.q_step(
+            ops, phi, x, beta, alpha, w, D, f, tau, sv=sv),
     }
+
+    def blocks(out):
+        out = out if isinstance(out, tuple) else (out,)
+        return [b for t in out for b in (t.blocks() if hasattr(t, "blocks")
+                                         else [t])]
+
     for name, run in pairs.items():
-        by_value, from_memory = run(sd), run(sd_t)
-        if isinstance(by_value, tuple):
-            same = all(torch.equal(a, b) for a, b in zip(by_value, from_memory))
-        else:
-            same = torch.equal(by_value, from_memory)
-        require(same, f"{name}: sd read from memory differs from sd by value")
-    log(f"  {geom.space} x {geom.nt}: {', '.join(pairs)} with sd from memory "
-        f"bit-equal to sd by value")
+        by_value = run(sbf, sd, None, dinv, wdinv)
+        from_memory = run(sbf_t, sd_t, sv_t, dinv_t, wdinv_t)
+        same = all(torch.equal(a, b) for a, b in zip(blocks(by_value),
+                                                    blocks(from_memory)))
+        require(same, f"{name}: the scalars read from memory give another "
+                f"result than the same scalars by value")
+    log(f"  {geom.space} x {geom.nt}: {', '.join(pairs)} with their scalars "
+        f"from memory bit-equal to the scalars by value")
 
 
 def check_single_step_kernels(torch, cmp, geom, seed):
@@ -1859,6 +1925,10 @@ def time_scale(torch):
     reps = 20
     times, library = time_kernels(torch, kern, s, wdinv, reps)
     log_times(times, kernel_bytes(lv.geom), lv.geom, reps)
+    dev_ms = time_dev_entries(torch, kern, s, reps)
+    log("  the *_dev entries (scalars read from memory, as the device "
+        "driver's graphs launch them): " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in dev_ms.items()))
     log(f"  flat_shift library call (F.pad of a slice) "
         f"{library['flat_shift']:.3f} ms")
     x = kern._fresh_x(s)
@@ -1888,7 +1958,37 @@ def time_scale(torch):
         f"{plain_it2_ms:.3f} ms")
     return times, library, dict(dct_ms=dct_ms, phi_step_ms=phi_ms,
                                 ca_iter_ms=ca_ms, step_iter_ms=step_ms,
-                                plain_iter_ms=(plain_it_ms + plain_it2_ms) / 2)
+                                plain_iter_ms=(plain_it_ms + plain_it2_ms) / 2,
+                                dev_entry_ms=dev_ms)
+
+
+def time_dev_entries(torch, kern, s, reps):
+    """Each kernel that takes E-derived scalars, launched through its
+    ``*_dev`` entry with the scalars in memory (``Kernels.e_scalars``, as
+    the device driver's state holds them): {name: ms}."""
+    from dotsocp_tpu_torch.ops import fused_step as fs
+
+    ops = kern.ops
+    ev = kern.e_scalars(s.D, s.E)
+    sd = torch.full((), s.E / s.dScale, dtype=torch.float32, device=DEVICE)
+    sbf, sv, tau = ev.sbf, ev.sv, kern.cfg.tau
+    x = kern._fresh_x(s)
+    work = {"alpha": s.alpha.clone(), "beta": s.beta.clone(), "x": x.clone()}
+    runs = {
+        "x_step": lambda: fs.x_step(ops, s.q, s.beta, sbf, sd),
+        "qx_step": lambda: fs.qx_step(ops, s.phi, x, work["alpha"], ev.dinv,
+                                      s.D, sbf, tau, sv=sv),
+        "cx_step": lambda: fs.cx_step(ops, work["beta"], work["x"], s.q, sbf,
+                                      sd, tau),
+        "cx_final": lambda: fs.cx_final(ops, work["beta"], work["x"], s.q,
+                                        sbf, sd, tau),
+        "z_step": lambda: fs.z_step(ops, s.q, s.beta, sbf, sd),
+        "q_step": lambda: fs.q_step(ops, s.phi, s.z, s.beta, s.alpha,
+                                    ev.dinv, s.D, sbf, tau, sv=sv),
+        "beta_step": lambda: fs.beta_step(ops, s.beta, s.z, s.q, sbf, sd,
+                                          tau),
+    }
+    return {name: event_ms(torch, run, reps) for name, run in runs.items()}
 
 
 def time_weighted_iteration(torch):
@@ -2501,8 +2601,7 @@ def driver_memory(torch):
                   else get_example_2d(problem, n, n))
         out[name] = {}
         for driver in ("host", "device"):
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
+            cold_memory(torch)
             solve_dot(r0, r1, nt, 1, {"tol": 1e-4, "maxit": 20,
                                       "driver": driver},
                       "inPALM", device=DEVICE, verbose=False)
@@ -2888,8 +2987,7 @@ def lockstep(torch, r0, r1, nt, levels, tol, method="inPALM", dtype=None):
                                                   solve_fleet)
 
     reset_launch_counts()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    cold_memory(torch)
     BatchedDeviceDriver.sync_debug = "error"
     try:
         t0 = time.monotonic()
@@ -2910,17 +3008,21 @@ def lockstep(torch, r0, r1, nt, levels, tol, method="inPALM", dtype=None):
 
 
 def sequential(torch, r0, r1, nt, levels, tol):
+    """One ``solve_fleet(mode="sequential")`` from an empty solver cache
+    (instance 0 prewarms the levels, the others replay them): (result,
+    wall s, peak GiB, the cache's GiB after it)."""
     from dotsocp_tpu_torch.parallel.batch import solve_fleet
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    cold_memory(torch)
+    base = torch.cuda.memory_allocated()
     t0 = time.monotonic()
     out = solve_fleet(r0, r1, nt, {"tol": tol, "maxit": 3000}, "inPALM",
                       dtype=torch.float32, level_n=levels,
                       mode="sequential", verbose=False, device=DEVICE)
     torch.cuda.synchronize()
-    return out, time.monotonic() - t0, \
-        torch.cuda.max_memory_allocated() / 2 ** 30
+    wall = time.monotonic() - t0
+    held = (torch.cuda.memory_allocated() - base) / 2 ** 30
+    return out, wall, torch.cuda.max_memory_allocated() / 2 ** 30, held
 
 
 def fleet_solves(torch):
@@ -2971,14 +3073,16 @@ def fleet_solves(torch):
     for k in BATCHED.values():
         require(launches[k] == 0, f"the lockstep fleet launched the "
                 f"single-instance {k}")
-    seq, seq_wall, seq_peak = sequential(torch, r0, r1, nt, levels, tol)
+    seq, seq_wall, seq_peak, seq_held = sequential(torch, r0, r1, nt, levels,
+                                                   tol)
     rel = [float(torch.linalg.norm(out["rho"][b] - seq["rho"][b])
                  / torch.linalg.norm(seq["rho"][b])) for b in range(FLEET_B)]
-    log(f"  sequential: final-level iterations "
+    log(f"  sequential (the solver cache, instance 0 prewarmed): "
+        f"final-level iterations "
         f"{[int(v) for v in seq['done_it']]}, total {seq['iters']}, wall "
         f"{seq_wall:.3f} s, {FLEET_B / seq_wall:.3f} instances/s, peak "
-        f"{seq_peak:.3f} GiB; rho against lockstep, relative "
-        f"{', '.join(f'{v:.2e}' for v in rel)}")
+        f"{seq_peak:.3f} GiB, the cache {seq_held:.3f} GiB after it; rho "
+        f"against lockstep, relative {', '.join(f'{v:.2e}' for v in rel)}")
     bound = [max(1e-2, 1.1 * r) for r in FLEET_REL_JAX]
     log(f"  bound per instance (1e-2, or 1.1 x the JAX package's own gap "
         f"{', '.join(f'{v:.2e}' for v in FLEET_REL_JAX)}): "
@@ -3029,6 +3133,7 @@ def fleet_solves(torch):
                wall_s=wall, instances_per_s=FLEET_B / wall, peak_gib=peak,
                syncs_checks=syncs, seq_wall_s=seq_wall,
                seq_instances_per_s=FLEET_B / seq_wall, seq_peak_gib=seq_peak,
+               seq_cache_gib=seq_held,
                seq_done_it=[int(v) for v in seq["done_it"]],
                seq_iters=seq["iters"], rho_rel_vs_seq=rel,
                rho_rel_bound=bound,
@@ -3095,7 +3200,8 @@ def crossover(torch, fleet):
             lockstep(torch, r0, r1, nt, levels, 1e-4)
         lk, lk_wall, lk_launches, lk_peak = lockstep(torch, r0, r1, nt,
                                                      levels, 1e-4)
-        sq, sq_wall, sq_peak = sequential(torch, r0, r1, nt, levels, 1e-4)
+        sq, sq_wall, sq_peak, sq_held = sequential(torch, r0, r1, nt,
+                                                   levels, 1e-4)
         b_ms, s_ms = iteration_times(torch, r0, r1, nt)
         require(bool(lk["done"].all()) and bool(sq["done"].all()),
                 f"crossover {n}^2 x {nt}: not every instance done")
@@ -3105,6 +3211,7 @@ def crossover(torch, fleet):
                          sequential_iters=sq["iters"],
                          lockstep_peak_gib=lk_peak,
                          sequential_peak_gib=sq_peak,
+                         sequential_cache_gib=sq_held,
                          batched_iter_ms=b_ms, singles_iter_ms=s_ms,
                          launches=lk_launches))
         torch.cuda.empty_cache()
@@ -3971,6 +4078,249 @@ def multi_device(torch):
     res["world_b_s"] = world_b_s
     return res
 
+# -- phase 11: the solver cache ------------------------------------------------
+
+# 11b: (method, first problem, second problem, n, nt, levels), each pair
+# solved under one key, the second against a reuse_solvers=False solve;
+# pairs whose level-2 E differ (the E2 feedback clamps example1's and
+# example2's to the same value)
+CACHE_PAIRS = (("inPALM", "example1", "DOTmark_4stitch", 129, 33, 3),
+               ("acc-ADMM", "example3", "example4", 65, 17, 2),
+               ("sGS-inPALM", "example3", "example4", 65, 17, 2))
+# 11b, weighted: the love-heart weight and barrier with the love-heart
+# densities, then example1's, inPALM (n, nt, levels, tol)
+CACHE_WEIGHTED = (65, 33, 2, 1e-3)
+# the split of a level's wall, in seconds on the host's clock: the solver's
+# build (or cache lookup), prepare (the state to the card), the first eager
+# runs, the captures, the rest of the loop, finish (the one read back)
+SPLIT = ("build", "prep", "warmups", "captures", "loop", "finish")
+
+
+def graph_counts(out) -> dict:
+    """Captures, eager runs and replays summed over a solve's levels."""
+    return {k: sum(lv["driver"][k] for lv in out["levels"])
+            for k in ("captures", "eager_runs", "replays")}
+
+
+def wall_split(out) -> list:
+    """Each level's wall split into ``SPLIT`` (seconds)."""
+    rows = []
+    for lv in out["levels"]:
+        d = lv["driver"]
+        rows.append(dict(level=lv["level"], build=lv["build_s"],
+                         prep=d["prepare_s"], warmups=d["eager_s"],
+                         captures=d["capture_s"],
+                         loop=lv["time"] - d["eager_s"] - d["capture_s"],
+                         finish=d["finish_s"]))
+    return rows
+
+
+def log_split(what, wall, rows):
+    log(f"  {what}: wall {wall:.3f} s")
+    for r in rows:
+        log(f"    level {r['level']}: " + ", ".join(
+            f"{k} {r[k] * 1e3:.1f}" for k in SPLIT) + " ms")
+
+
+def cache_solve(torch, r0, r1, nt, levels, opts, method="inPALM",
+                weight=None, barrier=None):
+    """One float32 ``solve_dot`` on the card, launches counted from 0:
+    (output, wall s, graph counts)."""
+    from dotsocp_tpu_torch.multilevel.solve import solve_dot
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out, _, _ = solve_dot(r0, r1, nt, levels, opts, method, weight, barrier,
+                          device=DEVICE, dtype=torch.float32, verbose=False)
+    torch.cuda.synchronize()
+    return out, time.monotonic() - t0, graph_counts(out)
+
+
+def iterations(out) -> list:
+    return [lv["iters"] for lv in out["levels"]]
+
+
+def first_difference(torch, a, b):
+    """None where two solves' rho and level iterations are equal, else what
+    differs first."""
+    if iterations(a) != iterations(b):
+        return f"iterations {iterations(a)} against {iterations(b)}"
+    if not torch.equal(a["rho"], b["rho"]):
+        gap = float((a["rho"] - b["rho"]).abs().max())
+        return f"rho differs by {gap:.3e}"
+    return None
+
+
+def cache_headline(torch):
+    """11a: the headline twice from an empty cache; the second solve
+    captures nothing, runs nothing eagerly, and is bit-equal to the
+    first."""
+    from dotsocp_tpu_torch.models.examples import get_example_2d
+
+    clear_cache()
+    r0, r1 = get_example_2d("DOTmark_4stitch", 129, 129)
+    runs = [cache_solve(torch, r0, r1, 33, 3, {"tol": 1e-4})
+            for _ in range(2)]
+    (first, wall1, c1), (second, wall2, c2) = runs
+    log_split(f"first solve (cache empty; {c1})", wall1, wall_split(first))
+    log_split(f"second solve (cache warm; {c2})", wall2, wall_split(second))
+    total = sum(iterations(second))
+    require(470 <= total <= 574, f"11a: total iterations {total} outside "
+            f"470-574")
+    require(c2["captures"] == 0 and c2["eager_runs"] == 0, f"11a: the "
+            f"second headline solve made {c2}")
+    diff = first_difference(torch, first, second)
+    require(diff is None, f"11a: the second solve is not the first: {diff}")
+    return first, dict(iters=iterations(second), wall_first_s=wall1,
+                       wall_second_s=wall2, counts_first=c1,
+                       counts_second=c2, split_first=wall_split(first),
+                       split_second=wall_split(second))
+
+
+def cache_pair(torch, what, first, second, solve):
+    """One 11b pair: ``solve(problem, opts)`` runs ``first`` then
+    ``second`` with the cache from empty, then ``second`` without it; the
+    cached result bit-equal to the fresh one, the second problem's solvers
+    all cache hits, and E differing at a level >= 2."""
+    from dotsocp_tpu_torch.multilevel import solve as S
+
+    clear_cache()
+    a, _, _ = solve(first, {})
+    entries = len(S._SOLVER_CACHE)
+    b, wall, counts = solve(second, {})
+    require(len(S._SOLVER_CACHE) == entries, f"11b {what}: the second "
+            f"problem built {len(S._SOLVER_CACHE) - entries} solvers anew")
+    fresh, fresh_wall, _ = solve(second, {"reuse_solvers": False})
+    Es = [[lv["E"] for lv in o["levels"]] for o in (a, b)]
+    log(f"  {what}: E per level {first} {Es[0]}, {second} {Es[1]}; "
+        f"{second} iterations {iterations(b)} cached in {wall:.3f} s "
+        f"({counts}), {iterations(fresh)} fresh in {fresh_wall:.3f} s")
+    require(any(ea != eb for ea, eb in zip(Es[0][1:], Es[1][1:])),
+            f"11b {what}: E is the same at every level >= 2, so the pair "
+            f"proves nothing")
+    diff = first_difference(torch, b, fresh)
+    require(diff is None, f"11b {what}: cached {second} against fresh: "
+            f"{diff}")
+    return dict(E_first=Es[0], E_second=Es[1], iters=iterations(b),
+                wall_cached_s=wall, wall_fresh_s=fresh_wall, counts=counts)
+
+
+def cache_pairs(torch):
+    """11b: two problems under one key, for inPALM (129^2 x 33), acc-ADMM
+    and sGS-inPALM (65^2 x 17), and weighted inPALM on one love-heart
+    weight."""
+    from dotsocp_tpu_torch.models import wdot2d as W
+    from dotsocp_tpu_torch.models.examples import get_example_2d
+
+    out = {}
+    for method, p1, p2, n, nt, levels in CACHE_PAIRS:
+        def solve(problem, opts, method=method, n=n, nt=nt, levels=levels):
+            r0, r1 = get_example_2d(problem, n, n)
+            return cache_solve(torch, r0, r1, nt, levels,
+                               dict(opts, tol=1e-4), method)
+
+        out[method] = cache_pair(torch, f"{method} {n}^2 x {nt}", p1, p2,
+                                 solve)
+    n, nt, levels, tol = CACHE_WEIGHTED
+    barrier = W.barrier_love_heart()
+    weight = W.get_weight_by_barrier(n, n, nt, barrier, dtype=torch.float32,
+                                     device=DEVICE)
+
+    def solve_w(problem, opts):
+        r0, r1 = W.get_example_w2d(problem, n, n)
+        r0, r1, _ = W.ensure_barrier_validity(r0, r1, barrier)
+        return cache_solve(torch, r0, r1, nt, levels, dict(opts, tol=tol),
+                           "inPALM", weight, barrier)
+
+    out["weighted inPALM"] = cache_pair(
+        torch, f"weighted inPALM love-heart {n}^2 x {nt}", "love-heart",
+        "example1", solve_w)
+    return out
+
+
+def cache_prewarm(torch, headline):
+    """11c: the headline with prewarm from an empty cache: the solve itself
+    captures nothing and runs nothing eagerly, bit-equal to 11a's."""
+    from dotsocp_tpu_torch.models.examples import get_example_2d
+
+    clear_cache()
+    r0, r1 = get_example_2d("DOTmark_4stitch", 129, 129)
+    out, wall, counts = cache_solve(torch, r0, r1, 33, 3,
+                                    {"tol": 1e-4, "prewarm": True})
+    log_split(f"prewarmed solve (the prewarm inside the wall; {counts})",
+              wall, wall_split(out))
+    require(counts["captures"] == 0 and counts["eager_runs"] == 0,
+            f"11c: the prewarmed solve made {counts}")
+    diff = first_difference(torch, out, headline)
+    require(diff is None, f"11c: the prewarmed solve is not 11a's: {diff}")
+    return dict(wall_s=wall, counts=counts, split=wall_split(out))
+
+
+def cache_scale(torch):
+    """11d: the scale config twice from an empty cache: both walls and
+    splits, the peak memory, the memory the cache holds after them and
+    after ``clear_solver_cache()``, and the device's busy share in a third,
+    profiled solve from the warm cache, against the second's wall."""
+    from dotsocp_tpu_torch.models.examples import get_example_2d
+
+    n, nt, levels, tol = SCALE_CONFIG
+    r0, r1 = get_example_2d("DOTmark_4stitch", n, n)
+    cold_memory(torch)
+    base = torch.cuda.memory_allocated()
+    opts = {"tol": tol, "maxit": 3000}
+    (first, wall1, c1), (second, wall2, c2) = [
+        cache_solve(torch, r0, r1, nt, levels, opts) for _ in range(2)]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    held = (torch.cuda.memory_allocated() - base) / 2 ** 30
+    log_split(f"scale config, first solve (cache empty; {c1})", wall1,
+              wall_split(first))
+    log_split(f"scale config, second solve (cache warm; {c2})", wall2,
+              wall_split(second))
+    total = sum(iterations(second))
+    require(abs(total - SCALE_ANCHOR) <= 0.1 * SCALE_ANCHOR, f"11d: total "
+            f"iterations {total} not within 10% of {SCALE_ANCHOR}")
+    require(c2["captures"] == 0 and c2["eager_runs"] == 0, f"11d: the "
+            f"second solve made {c2}")
+    diff = first_difference(torch, first, second)
+    require(diff is None, f"11d: the second solve is not the first: {diff}")
+    iters = iterations(second)
+    splits = [wall_split(first), wall_split(second)]
+    del first, second
+    kernel_ms, busy = device_busy(
+        torch, lambda: cache_solve(torch, r0, r1, nt, levels, opts), wall2)
+    clear_cache()
+    after = (torch.cuda.memory_allocated() - base) / 2 ** 30
+    log(f"  scale config {n}^2 x {nt}: iterations {iters}, walls "
+        f"{wall1:.3f} / {wall2:.3f} s; peak {peak:.3f} GiB; the cache holds "
+        f"{held:.3f} GiB, {after:.3f} GiB after clear_solver_cache(); a "
+        f"warm solve's device busy {busy:.0f}% ({kernel_ms:.1f} ms of "
+        f"kernels, profiled run)")
+    return dict(iters=iters, wall_first_s=wall1, wall_second_s=wall2,
+                split_first=splits[0], split_second=splits[1],
+                counts_first=c1, counts_second=c2, peak_gib=peak,
+                cache_gib=held, after_clear_gib=after, busy_pct=busy,
+                kernel_ms=kernel_ms)
+
+
+def solver_cache(torch):
+    """Phase 11: 11a-11d."""
+    t0 = time.monotonic()
+    log("  11a: the headline twice")
+    headline, res = cache_headline(torch)
+    out = {"headline": res}
+    log("  11b: two problems under one key")
+    out["pairs"] = cache_pairs(torch)
+    log("  11c: prewarm")
+    out["prewarm"] = cache_prewarm(torch, headline)
+    del headline
+    log("  11d: the scale config twice")
+    out["scale"] = cache_scale(torch)
+    out["seconds"] = time.monotonic() - t0
+    log(f"  phase 11 took {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", nargs="?", const="", default=None,
@@ -3998,7 +4348,7 @@ def main(argv=None):
     cmp = Compare(torch)
     for seed, (nt, space) in enumerate(CHECK_SHAPES):
         check_kernels(torch, cmp, Geometry(nt, space), seed)
-        check_sd_from_memory(torch, Geometry(nt, space), seed)
+        check_scalars_from_memory(torch, Geometry(nt, space), seed)
         check_single_step_kernels(torch, cmp, Geometry(nt, space), seed)
         check_sweep(torch, cmp, Geometry(nt, space), seed)
         check_shift(torch, cmp, Geometry(nt, space), seed)
@@ -4095,6 +4445,9 @@ def main(argv=None):
           "y=2) mesh, the scale config on a (y=2,) mesh, the fleet sharded "
           "over 2 ranks; " + DIST_LABEL)
     multi = multi_device(torch)
+    phase(11, "the solver cache: the headline twice, two problems under one "
+          "key, prewarm, the scale config twice")
+    cache = solver_cache(torch)
     log(f"\nall phases passed in {time.monotonic() - t_start:.1f} s")
 
     nbytes = kernel_bytes(Geometry(SCALE[0], (SCALE[1], SCALE[1])))
@@ -4163,7 +4516,8 @@ def main(argv=None):
                       "hbm_peak": HBM_PEAK,
                       "sweep_max_abs_by_shape": SWEEP_ERRS,
                       "device_driver": device_driver, "fleet": fleet,
-                      "user_problems": user, "multi_device": multi}))
+                      "user_problems": user, "multi_device": multi,
+                      "solver_cache": cache}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}))

@@ -29,8 +29,15 @@ from the device. The device driver (``device_driver.py``) keeps sigma,
 cScale, dScale, norm_c, norm_d and sigmaScale as 0-d tensors in the
 state's dtype on the card instead, as the JAX package keeps them traced,
 and the same methods run on them (sd is then a tensor the kernels read
-from memory); D and E stay floats, constant through a level. (In f32 runs
-the two forms differ by at most 1 ulp in these scalars.)
+from memory). E and every value derived from it are tensors there too
+(:class:`EScalars`, the state's ``ev``): a cached driver's captured
+graphs serve the next problem, whose E differs from level 2 on (the E2
+feedback), as the JAX package traces E. Each holds the value the host
+driver passes: formed in double on the host from (D, E) and rounded once
+to the state's dtype, so the two forms compute alike. D stays a float:
+it depends only on the geometry and the weight, which key the solver
+cache (``multilevel/solve.py``). (In f32 runs the two forms differ by at
+most 1 ulp in the scalars the device driver updates on the card.)
 
 The variables alpha, beta, c are stored pre-divided by sigma, exactly like
 the reference (``solver_socp_inPALM.m:102-104``).
@@ -59,12 +66,13 @@ import numpy as np
 import torch
 
 from ..ops.cone import proj_soc
-from ..ops.engine import diag_values, make_ops
-from ..ops.fused_step import (beta_step, beta_step_plain, cx_final,
-                              cx_final_batched, cx_step, cx_step_batched,
-                              q_step, q_step_plain, qx_step, qx_step_batched,
-                              select_instance, times_dinv, weighted_dinv,
-                              x_step, x_step_batched, z_step, z_step_plain)
+from ..ops.engine import _INV_SQRT2, base_values, diag_values, make_ops
+from ..ops.fused_step import (WeightedDinv, beta_step, beta_step_plain,
+                              cx_final, cx_final_batched, cx_step,
+                              cx_step_batched, q_step, q_step_plain, qx_step,
+                              qx_step_batched, select_instance, times_dinv,
+                              weighted_dinv, x_step, x_step_batched, z_step,
+                              z_step_plain)
 from ..ops.geometry import Geometry
 from ..ops.staggered import Staggered
 from ..utils.norms import sqsum
@@ -115,6 +123,9 @@ class SolverState:
     sigmaScale: float       # product of sigma rescale factors
     D: float
     E: float
+    # the device driver's E-derived scalars on the card (E is then ev.E);
+    # None: the host driver's floats, from which each step forms them
+    ev: Optional["EScalars"] = None
 
     def replace(self, **kw) -> "SolverState":
         return dataclasses.replace(self, **kw)
@@ -124,6 +135,32 @@ class SolverState:
         return self.replace(phi=self.phi.clone(), q=self.q.clone(),
                             z=self.z.clone(), alpha=self.alpha.clone(),
                             beta=self.beta.clone(), c=self.c.clone())
+
+
+@dataclasses.dataclass
+class EScalars:
+    """The E-derived scalars of the device driver's state: 0-d views into
+    one vector ``vec`` on the state's device, in its dtype, each the value
+    the host driver passes by value (formed in double, rounded once), so
+    that a captured CUDA graph reads them from memory. ``dinv`` is what the
+    q-step takes: the inverse diagonal's (interior, boundary-slab) values,
+    or a weighted level's :class:`~..ops.fused_step.WeightedDinv`, whose
+    ``base`` values are views into ``vec`` and whose ``inv`` a buffer of
+    its own. ``inv_E`` is 1/E formed in the dtype, as the card's PyTorch
+    divides a tensor by a host float (a product with its reciprocal)."""
+
+    vec: torch.Tensor       # (E, E/D, E/D/sqrt2, dinv or base x2, 1/E)
+    E: torch.Tensor
+    sbf: torch.Tensor       # E / D
+    sv: torch.Tensor        # E / D / sqrt2
+    dinv: object
+    inv_E: torch.Tensor
+
+    def tensors(self) -> list:
+        out = [self.vec]
+        if isinstance(self.dinv, WeightedDinv):
+            out += self.dinv.inv.blocks()
+        return out
 
 
 # the state's scalars a batched state holds as (B,) tensors
@@ -208,10 +245,73 @@ class Kernels:
         """Multiply by the diagonal weight D_w (identity when unweighted)."""
         return x if self.weight is None else self.weight * x
 
+    # -- the E-derived scalars -------------------------------------------
+    # Each step forms them from the host driver's floats, or reads the
+    # device driver's tensors (``s.ev``), which hold the same values.
+    @staticmethod
+    def _sbf(s: SolverState):
+        return s.E / s.D if s.ev is None else s.ev.sbf
+
+    @staticmethod
+    def _sv(s: SolverState):
+        """sbf / sqrt2 as the host rounds it; None: the operator forms it
+        from the float sbf."""
+        return None if s.ev is None else s.ev.sv
+
+    @staticmethod
+    def _sd(s: SolverState):
+        """sd = E / dScale; with the device driver's tensors as PyTorch
+        divides the float E by the tensor dScale: dScale's reciprocal
+        times E."""
+        if s.ev is None:
+            return s.E / s.dScale
+        return s.dScale.reciprocal() * s.ev.E
+
+    @staticmethod
+    def _over_E(s: SolverState, x):
+        """x / E for a 0-d tensor x, rounded as with the host's float E:
+        on the card PyTorch multiplies by 1/E formed in the dtype, on the
+        CPU it divides."""
+        if s.ev is None:
+            return x / s.E
+        return x * s.ev.inv_E if x.is_cuda else x / s.ev.E
+
+    def _bfd(self, s: SolverState, q: Staggered):
+        return self.ops.bfd(q, self._sbf(s), self._sd(s), self._sv(s))
+
+    def _bfd_T(self, s: SolverState, x):
+        return self.ops.bfd_T(x, self._sbf(s), self._sv(s))
+
+    def e_scalars(self, D: float, E: float) -> EScalars:
+        """The device driver's :class:`EScalars` for the level's (D, E): the
+        values the host driver forms, in double, rounded once to the
+        level's dtype (one copy to the card)."""
+        dtype = self.cfg.dtype
+        sbf = E / D
+        if self.weight is None:
+            d_in, d_bd = diag_values(D, E)
+            diag = (1.0 / d_in, 1.0 / d_bd)
+        else:
+            diag = base_values(D, E)
+        npd = np.float64 if dtype == torch.float64 else np.float32
+        inv_E = float(npd(1.0) / npd(E))
+        vec = torch.tensor([E, sbf, sbf * _INV_SQRT2, *diag, inv_E],
+                           dtype=torch.float64).to(self.ops.device, dtype)
+        E_t, sbf_t, sv_t, d0, d1, inv_t = vec.unbind(0)
+        dinv = (d0, d1)
+        if self.weight is not None:
+            inv = weighted_dinv(self.ops, self.weight, D, E).inv
+            dinv = WeightedDinv(w=self.weight, base=dinv, inv=inv)
+        return EScalars(vec=vec, E=E_t, sbf=sbf_t, sv=sv_t, dinv=dinv,
+                        inv_E=inv_t)
+
     def _diag_inv(self, s: SolverState):
         """1 / diag(D_w*D_w + (E/D)^2 F*B*BF): unweighted its (interior,
         boundary-slab) values; weighted a :class:`WeightedDinv`, formed once
-        for the level's (D, E) (they change only between levels)."""
+        for the level's (D, E) (they change only between levels); the
+        device driver's from its :class:`EScalars`."""
+        if s.ev is not None:
+            return s.ev.dinv
         if self.weight is None:
             d_in, d_bd = diag_values(s.D, s.E)
             return 1.0 / d_in, 1.0 / d_bd
@@ -261,12 +361,11 @@ class Kernels:
                       else (z_step, q_step, beta_step))
         ops = self.ops
         tau = self.cfg.tau
-        sbf = s.E / s.D
-        sd = s.E / s.dScale
-        z = zs(ops, s.q, s.beta, sbf, sd)
+        sbf, sd, sv = self._sbf(s), self._sd(s), self._sv(s)
+        z = zs(ops, s.q, s.beta, sbf, sd, sv=sv)
         q, alpha = qs(ops, phi, z, s.beta, s.alpha, self._diag_inv(s), s.D,
-                      sbf, tau)
-        beta = bs(ops, s.beta, z, q, sbf, sd, tau)
+                      sbf, tau, sv=sv)
+        beta = bs(ops, s.beta, z, q, sbf, sd, tau, sv=sv)
         return s.replace(phi=phi, q=q, z=z, alpha=alpha, beta=beta)
 
     def _mesh_sums(self, parts: dict) -> dict:
@@ -289,20 +388,20 @@ class Kernels:
     # -- CA-fused x-carry segment ----------------------------------------
     def _fresh_x(self, s: SolverState):
         """x = proj_soc(bfd(q) - beta) + beta for the current (q, beta)."""
-        return x_step(self.ops, s.q, s.beta, s.E / s.D, s.E / s.dScale)
+        return x_step(self.ops, s.q, s.beta, self._sbf(s), self._sd(s),
+                      sv=self._sv(s))
 
     def _step_fused_x(self, s: SolverState, final: bool) -> SolverState:
         """One x-carry iteration (``s.z`` holds x). ``final=True`` emits the
         boundary state of the plain path: beta' from the multiplier step
         and z = the value this iteration's q-step consumed."""
-        sbf = s.E / s.D
-        sd = s.E / s.dScale
+        sbf, sd, sv = self._sbf(s), self._sd(s), self._sv(s)
         tau = self.cfg.tau
         phi = self._poisson_solve(s, self._rhs(s))
         q, alpha = qx_step(self.ops, phi, s.z, s.alpha, self._diag_inv(s),
-                           s.D, sbf, tau)
+                           s.D, sbf, tau, sv=sv)
         step = cx_final if final else cx_step
-        beta, znew = step(self.ops, s.beta, s.z, q, sbf, sd, tau)
+        beta, znew = step(self.ops, s.beta, s.z, q, sbf, sd, tau, sv=sv)
         return s.replace(phi=phi, q=q, z=znew, alpha=alpha, beta=beta)
 
     @property
@@ -455,9 +554,9 @@ class Kernels:
 
         tmp_q = s.D * ops.grad(s.phi)
         resi_alpha = tmp_q - self._w(s.q)
-        z2 = ops.bfd(s.q, s.E / s.D, s.E / s.dScale)
+        z2 = self._bfd(s, s.q)
         resi_beta = s.z - z2
-        q2b = ops.bfd_T(s.beta, s.E / s.D)
+        q2b = self._bfd_T(s, s.beta)
         d_alpha = self._w(s.alpha)
 
         fields = {
@@ -512,7 +611,7 @@ class Kernels:
             "normRhoB": torch.sqrt(rb_sq),
         }
 
-        E_over_dscale = s.E / s.dScale
+        E_over_dscale = self._sd(s)
         if self.weight is not None:
             # wdot2d denominator of residual 2 (``solver_wsocp_inPALM.m``)
             denom2 = kkt_const * E_over_dscale + norm_q + norm_z
@@ -573,7 +672,8 @@ class Kernels:
         rho_fq = (
             rho_t
             + (s.dScale / s.D) * s.q.q0
-            + torch.sum(torch.square((s.dScale / s.E) * b_cols), dim=0) / 4.0
+            + torch.sum(torch.square(self._over_E(s, s.dScale) * b_cols),
+                        dim=0) / 4.0
         )
         rho_fq = torch.clamp(rho_fq, min=0.0)
         parts = {"dotcomplem": sqsum(rho_t - rho_fq), "rho": sqsum(rho_t),

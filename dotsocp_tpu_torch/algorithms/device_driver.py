@@ -11,10 +11,12 @@ tensor on the card, and the host replays captured graphs
 (:mod:`.graphs`):
 
 - the solver state's scalars (sigma, cScale, dScale, norm_c, norm_d,
-  sigmaScale) are 0-d tensors in the state's dtype; D and E are constants
-  of the level and stay Python floats. The kernels read sd = E / dScale
-  from memory (``ops/fused_step._sd_args``), so a rescale needs no
-  re-capture;
+  sigmaScale) are 0-d tensors in the state's dtype, and so are E and the
+  values derived from it (``core.EScalars``); D, fixed by the geometry and
+  the weight, stays a Python float. The kernels read sd = E / dScale, sbf
+  = E / D and the q-step's diagonal from memory
+  (``ops/fused_step._scalar_args``), so a rescale needs no re-capture, and
+  neither does the next problem;
 - :class:`LoopState` holds the counters (int32), the decision values
   max_feas, rel_gap, tol and the history rows (float32: seven kkt_org,
   pdGap, it) as the JAX ``LoopState`` does, and one small ``record``;
@@ -38,6 +40,15 @@ segments at ``it_end``; ``max_chunks`` and ``time_limit`` stop at chunk
 boundaries; ``checkpoint_path`` is written after each chunk and resumed
 from (a stale file is ignored); history times are interpolated from the
 marks taken at chunk boundaries and checks.
+
+A driver outlives one solve when the solver cache keeps it
+(``multilevel/solve.py``, ``reuse_solvers``): its graphs, their pool and
+the tensors they read (``BUFFERS``: the state, the loop state, the Halpern
+and sGS buffers) stay, and ``prepare`` copies the next level's values into
+those same tensors, since a graph replays at the addresses it was
+captured at. ``warm`` captures every kind of piece on a throwaway state
+(``prewarm``), so that the next solve starts on replays; ``free`` drops
+the graphs and the buffers (the cache's eviction).
 
 On the CPU there are no graphs and the same functions run eagerly, which
 is how the tests hold these drivers against the JAX package's.
@@ -223,6 +234,10 @@ class DeviceDriver:
             else [0, 2, 5]
         # what a solve measured: syncs (host reads) and checks of the loop
         self.stats = {}
+        self.graphs = None
+        self.s = None
+        # set by the solver cache: the graphs and buffers outlive the solve
+        self.cached = False
 
     # -- state -----------------------------------------------------------
     def _scalar(self, v, dtype=None):
@@ -230,11 +245,18 @@ class DeviceDriver:
         return torch.full((), v, dtype=dtype or self.dtype,
                           device=self.device)
 
+    # the attributes holding the tensors the captured graphs read, whose
+    # addresses a cached driver keeps from one solve to the next
+    BUFFERS = ("s", "ls")
+
     def _init_state(self, var) -> None:
-        """The iterate from ``prep`` with its scalars moved to the card."""
+        """The iterate from ``prep`` with its scalars, E and the values
+        derived from E moved to the card."""
         s = self.k.prep(var, self.opts.sigma)
         s = getattr(s, "s", s)
-        self.s = s.replace(**{f: self._scalar(getattr(s, f))
+        ev = self.k.e_scalars(s.D, s.E)
+        self.s = s.replace(ev=ev, E=ev.E,
+                           **{f: self._scalar(getattr(s, f))
                               for f in SCALARS})
 
     def _init_loop(self) -> None:
@@ -265,7 +287,7 @@ class DeviceDriver:
         out = []
         for f in ("phi", "q", "z", "alpha", "beta", "c"):
             out += _blocks(getattr(s, f))
-        return out + [getattr(s, f) for f in SCALARS]
+        return out + [getattr(s, f) for f in SCALARS] + s.ev.tensors()
 
     def _all_tensors(self) -> list:
         return self._state_tensors() + self.ls.tensors()
@@ -572,18 +594,81 @@ class DeviceDriver:
     def prepare(self, var, eager: bool = False) -> None:
         """The state from ``var`` and a fresh loop state (resumed from the
         checkpoint when there is one); ``eager`` runs every piece eagerly on
-        the card too, with no graph."""
+        the card too, with no graph. A driver prepared before keeps its
+        graphs and writes the new values into its buffers."""
+        t0 = time.perf_counter()
         mesh = self.k.ops.mesh
-        self.graphs = SegmentGraphs(
-            self.device, eager=eager or (mesh is not None and mesh.size > 1))
+        eager = eager or (mesh is not None and mesh.size > 1)
+        if self.graphs is None or self.graphs.eager != eager:
+            if self.graphs is not None:
+                self.graphs.release()
+            self.graphs = SegmentGraphs(self.device, eager=eager)
+        self.graphs.capture_first = self.cached
+        self.graphs.new_solve()
         self.stats = {"syncs": 0, "checks": 0, "ratio_evals": 0,
                       "chunk_cuts": 0}
+        kept = None if self.s is None else {a: getattr(self, a)
+                                            for a in self.BUFFERS}
         self._init_state(var)
         self._init_loop()
+        if kept is not None:
+            self._refill(kept)
         if self.checkpoint_path:
             self._resume()
+        self.stats["prepare_s"] = time.perf_counter() - t0
         self.t0 = time.monotonic()
         self.marks = [(self.h.it, 0.0)]
+
+    def _refill(self, kept: dict) -> None:
+        """Take the buffers of ``kept`` back, with the freshly prepared
+        values copied into them (on the current stream, which the loop's
+        side stream waits for)."""
+        fresh = self._all_tensors()
+        for attr, value in kept.items():
+            setattr(self, attr, value)
+        bufs = self._all_tensors()
+        if [(b.shape, b.dtype) for b in bufs] != \
+                [(f.shape, f.dtype) for f in fresh]:
+            raise RuntimeError(f"{self.name}: the new level's state does not "
+                               f"fit the cached driver's buffers")
+        for b, f in zip(bufs, fresh):
+            b.copy_(f)
+
+    def free(self) -> None:
+        """Drop the graphs, their pool and the buffers (the solver cache's
+        eviction); a later ``prepare`` starts afresh."""
+        if self.graphs is not None:
+            self.graphs.release()
+        self.graphs = None
+        for attr in self.BUFFERS:
+            setattr(self, attr, None)
+
+    def _segment_pieces(self) -> dict:
+        if self.k.segment_ca:
+            return {"ca_prologue": self._ca_prologue,
+                    "ca_iteration": lambda: self._ca_iteration(False),
+                    "ca_boundary": lambda: self._ca_iteration(True)}
+        return {"step": self._plain_step}
+
+    def _pieces(self) -> dict:
+        """Every kind of piece the loop runs, with its function."""
+        return dict(self._segment_pieces(), check=self._check_block,
+                    sigma=self._sigma_apply,
+                    rescale=lambda: self._rescale(False),
+                    rescale_ratio=lambda: self._rescale(True))
+
+    def warm(self, var) -> None:
+        """Prepare on ``var`` and run every kind of piece once (``prewarm``):
+        a cached driver captures each, so that its next solve starts on
+        replays. What the pieces leave in the buffers is of no use; the next
+        ``prepare`` overwrites all of it. Under a mesh, where nothing is
+        captured, only the preparation."""
+        self.prepare(var)
+        if self.graphs.eager:
+            return
+        with self._on_stream():
+            for kind, fn in self._pieces().items():
+                self.graphs.run(kind, fn)
 
     @contextlib.contextmanager
     def _on_stream(self):
@@ -630,9 +715,15 @@ class DeviceDriver:
             self.stats.update(captures=self.graphs.captures,
                               replays=self.graphs.replays,
                               eager_runs=self.graphs.eager_runs,
-                              graph_kinds=self.graphs.kinds())
-            self.graphs.release()
-        return self._finish(var)
+                              graph_kinds=self.graphs.kinds(),
+                              eager_s=self.graphs.eager_s,
+                              capture_s=self.graphs.capture_s)
+            if not self.cached:
+                self.graphs.release()
+        t0 = time.perf_counter()
+        out = self._finish(var)
+        self.stats["finish_s"] = time.perf_counter() - t0
+        return out
 
     def _out_of_time(self) -> bool:
         """The time limit, agreed on by every rank of a mesh."""
@@ -691,6 +782,11 @@ class HalpernMixin:
     and no acc step updates the iterate in place. The restart when k
     reaches ``restart`` is a select on the card, as in the JAX
     ``_halpern``."""
+
+    BUFFERS = DeviceDriver.BUFFERS + ("anchor", "old", "kc")
+
+    def _pieces(self) -> dict:
+        return dict(super()._pieces(), acc_average=self._average)
 
     def _init_state(self, var) -> None:
         super()._init_state(var)
@@ -771,6 +867,10 @@ class AccDeviceDriver(HalpernMixin, DeviceDriver):
     def __init__(self, kernels, opts, chunk_iters: int = 600, **kw):
         super().__init__(kernels, opts, chunk_iters=chunk_iters,
                          rescale_check_every=200, **kw)
+
+    def _segment_pieces(self) -> dict:
+        return {"acc_iteration": self._acc_iteration,
+                "acc_last": self._acc_last}
 
     def _acc_iteration(self) -> None:
         stepped = self.k._step(self.s)

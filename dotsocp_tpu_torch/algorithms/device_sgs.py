@@ -62,6 +62,9 @@ class SgsDeviceDriver(DeviceDriver):
         self._offs = torch.arange(self.HIST + 1, dtype=torch.int32,
                                   device=self.device)
 
+    BUFFERS = DeviceDriver.BUFFERS + ("ring", "superior", "stable", "stale",
+                                      "resi_sgs")
+
     def _init_loop(self) -> None:
         super()._init_loop()
         f32 = torch.float32
@@ -174,6 +177,11 @@ class SgsDeviceDriver(DeviceDriver):
         ls.last_sigma_it.copy_(torch.where(adjust, ls.it, ls.last_sigma_it))
         self._finish_check(res, done, use_org, superior=superior)
 
+    def _segment_pieces(self) -> dict:
+        return {"sgs_superior": lambda: self._iteration(True),
+                "sgs_carry": lambda: self._iteration(False),
+                "sgs_step": self._step}
+
     # -- the host's loop ---------------------------------------------------
     def _top_rescale(self) -> None:
         """The top-of-iteration rescale of iteration it + 1 (the sGS
@@ -217,6 +225,7 @@ class AccSgsDeviceDriver(HalpernMixin, SgsDeviceDriver):
     averaging after the check."""
 
     name = "Accelerated sGS based ADMM (device loop)"
+    BUFFERS = SgsDeviceDriver.BUFFERS + ("anchor", "old", "kc")
 
     def __init__(self, kernels, opts: SolveOptions, chunk_iters: int = 600,
                  **kw):

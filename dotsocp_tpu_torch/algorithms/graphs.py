@@ -25,10 +25,20 @@ The first call of a kind runs its function eagerly: that run is real work
 (its result is the replay's, bit for bit) and it is the warm-up that every
 one-time setup needs before a capture (the kernels' build, the sweep's
 launch attributes, cuBLAS's handle and workspace on the stream). The second
-call captures and then replays; later calls replay. All graphs of one
-driver share one memory pool and run on one side stream, in order. On the
-CPU there are no graphs: every call runs the function. A capture or replay
+call captures and then replays; later calls replay. With ``capture_first``
+(a driver the solver cache keeps, ``multilevel/solve.py``) the first call
+captures right after its eager run, so that every kind a solve used is a
+graph for the next solve, even one it used once. All graphs of one driver
+share one memory pool and run on one side stream, in order. On the CPU
+there are no graphs: every call runs the function. A capture or replay
 that fails raises; nothing falls back to eager runs.
+
+A :class:`SegmentGraphs` outlives one solve when its driver is cached: its
+graphs, the kinds it has seen and its pool stay, and its counts (captures,
+replays, eager runs, the kinds used) restart with each solve
+(:meth:`new_solve`). :meth:`release` drops the graphs, and with the last
+graph their pool's memory goes back to PyTorch's allocator: at the end of
+a solve whose driver is not kept, and at the cache's eviction.
 
 ``LAUNCHES`` of ``ops/fused_step.py`` and ``ops/sgs_sweep.py`` count kernel
 executions: a capture records the launches its function made and takes
@@ -37,6 +47,7 @@ them back (a capture runs nothing), and each replay adds them.
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Callable
 
 import torch
@@ -56,11 +67,14 @@ def _snapshot():
 class SegmentGraphs:
     """The captured graphs of one level's driver, by kind."""
 
-    def __init__(self, device, eager: bool = False):
+    def __init__(self, device, eager: bool = False,
+                 capture_first: bool = False):
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
         # every call eager, on the card too (what a replay is held against)
         self.eager = eager
+        # capture at a kind's first call, after its eager run
+        self.capture_first = capture_first
         self._graphs = {}   # kind -> (CUDAGraph, launch deltas)
         self._seen = set()
         self._pool = None
@@ -74,9 +88,17 @@ class SegmentGraphs:
                 _STREAMS[index] = torch.cuda.Stream(index)
             self.stream = _STREAMS[index]
             self._pool = torch.cuda.graph_pool_handle()
+        self.new_solve()
+
+    def new_solve(self) -> None:
+        """Restart the counts (a cached driver's next solve)."""
         self.captures = 0
         self.replays = 0
         self.eager_runs = 0
+        # the host's seconds in first (eager) runs and in captures
+        self.eager_s = 0.0
+        self.capture_s = 0.0
+        self.used = set()   # the kinds run, on every device
 
     def context(self):
         """The stream the driver's work runs on (a no-op on the CPU):
@@ -90,6 +112,7 @@ class SegmentGraphs:
         """Run ``fn`` (which returns nothing and works in place on tensors
         that outlive it): eagerly on the CPU and at the first call of
         ``kind``, from its captured graph after that."""
+        self.used.add(kind)
         if not self.cuda or self.eager:
             fn()
             return
@@ -98,7 +121,11 @@ class SegmentGraphs:
             if kind not in self._seen:
                 self._seen.add(kind)
                 self.eager_runs += 1
+                t0 = time.perf_counter()
                 fn()
+                self.eager_s += time.perf_counter() - t0
+                if self.capture_first:
+                    self._capture(kind, fn)
                 return
             entry = self._capture(kind, fn)
         graph, deltas = entry
@@ -109,6 +136,7 @@ class SegmentGraphs:
                 counter[name] += n
 
     def _capture(self, kind: str, fn):
+        t0 = time.perf_counter()
         before = _snapshot()
         graph = torch.cuda.CUDAGraph()
         # the capture records; it runs nothing, so the wrappers' counts
@@ -138,12 +166,13 @@ class SegmentGraphs:
             counter.update(old)
         self._graphs[kind] = (graph, deltas)
         self.captures += 1
+        self.capture_s += time.perf_counter() - t0
         return self._graphs[kind]
 
     def kinds(self) -> list:
         return sorted(self._graphs)
 
     def release(self) -> None:
-        """Drop every graph and its pool (at the end of a level)."""
+        """Drop every graph and its pool."""
         self._graphs.clear()
         self._seen.clear()

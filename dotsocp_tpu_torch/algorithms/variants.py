@@ -69,22 +69,20 @@ class PALMKernels(Kernels):
     def _step(self, s: SolverState) -> SolverState:
         ops = self.ops
         tau = self.cfg.tau
-        sbf = s.E / s.D
-        sd = s.E / s.dScale
         # step q0: uses A*phi from the previous iteration
         tmp_q = s.D * ops.grad(s.phi)
-        q2 = ops.bfd_T(s.z + s.beta, sbf)
+        q2 = self._bfd_T(s, s.z + s.beta)
         q = self._q_solve(s, tmp_q, q2)
         # step phi
         phi = self._poisson_solve(s, s.D * ops.grad_T(q - s.alpha) + s.c)
         # step z (z2 refreshed from the q0-step's q)
-        z = proj_soc(ops.bfd(q, sbf, sd) - s.beta, ops.cone_dim)
+        z = proj_soc(self._bfd(s, q) - s.beta, ops.cone_dim)
         # step q (second)
         tmp_q = s.D * ops.grad(phi)
-        q2 = ops.bfd_T(z + s.beta, sbf)
+        q2 = self._bfd_T(s, z + s.beta)
         q = self._q_solve(s, tmp_q, q2)
         # multipliers
-        z2 = ops.bfd(q, sbf, sd)
+        z2 = self._bfd(s, q)
         return s.replace(phi=phi, q=q, z=z,
                          alpha=s.alpha + tau * (tmp_q - q),
                          beta=s.beta + tau * (z - z2))
@@ -133,14 +131,13 @@ class AccADMMKernels(Kernels):
         """The step up to its z-step: (state with phi, q, alpha, beta, the
         phi-step rhs, z2 = BFd q)."""
         ops = self.ops
-        sbf = s.E / s.D
         # step q
-        q2 = ops.bfd_T(s.z + s.beta, sbf)
+        q2 = self._bfd_T(s, s.z + s.beta)
         tmp_q = s.D * ops.grad(s.phi)
         q = self._q_solve(s, tmp_q, q2)
         # step alpha, beta (unit step); weighted with w q
         # (``dotsocp_tpu/algorithms/variants.py:133-150``)
-        z2 = ops.bfd(q, sbf, s.E / s.dScale)
+        z2 = self._bfd(s, q)
         alpha = s.alpha + tmp_q - self._w(q)
         beta = s.beta + s.z - z2
         # step phi

@@ -64,6 +64,15 @@
 // with gridDim.z = 1 and no mask (instance 0, offset 0: the arithmetic is
 // unchanged).
 //
+// Scalars from device memory (the ``*_dev`` entries, the device driver of
+// dotsocp_tpu_torch/algorithms/device_driver.py): a captured CUDA graph
+// replays a kernel with the arguments it was captured with, and the device
+// driver's graphs outlive one problem. So every launch scalar that changes
+// with the problem or the iterate is read from a float32 on the card
+// (struct FromMemory): sd = E / dScale, and the E-derived sbf = E / D, the
+// host's s_bf / sqrt2 (sv) and the q-step's two diagonal values. The values
+// are the ones the by-value entries take, so the arithmetic is unchanged.
+//
 // Every entry point launches on the given stream, synchronises nothing, and
 // returns cudaGetLastError().
 
@@ -91,6 +100,17 @@ struct AxesIn {
   int k[3];
   int n[3];
   float hs[3];
+};
+
+// The launch scalars a kernel reads from device memory instead of its
+// by-value arguments; a null pointer keeps the argument. sd is a (B,) array
+// (one value an instance), the others one float each.
+struct FromMemory {
+  const float* sd;
+  const float* sbf;
+  const float* sv;
+  const float* d_in;
+  const float* d_bd;
 };
 
 template <int DIM>
@@ -156,7 +176,7 @@ __global__ void x_kernel(const float* __restrict__ q0,
                          const float* __restrict__ bs,
                          const float* __restrict__ beta, float* __restrict__ x,
                          int nt, int S, const Axes<DIM> ax, float sbf,
-                         float sd, const float* __restrict__ sd_at,
+                         float sd, const FromMemory mem,
                          const uint8_t* __restrict__ active) {
   constexpr int C = 2 + 4 * DIM;
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
@@ -169,8 +189,9 @@ __global__ void x_kernel(const float* __restrict__ q0,
   bs += b * (DIM * (int64_t)nt * S);
   beta += b * (C * plane);
   x += b * (C * plane);
+  if (mem.sbf) sbf = *mem.sbf;
   float col[C];
-  bfd_cols<DIM>(col, q0, bs, nt, S, ax, t, s, sbf, sd_at ? sd_at[b] : sd);
+  bfd_cols<DIM>(col, q0, bs, nt, S, ax, t, s, sbf, mem.sd ? mem.sd[b] : sd);
   float bt[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
@@ -256,7 +277,8 @@ __global__ void qx_kernel(const float* __restrict__ phi,
                           const float* __restrict__ wb, int nt, int S,
                           const Axes<DIM> ax, float D, float sbf, float tau,
                           float ht, float diag_in, float diag_bd,
-                          float sv_host, const uint8_t* __restrict__ active) {
+                          float sv_host, const FromMemory mem,
+                          const uint8_t* __restrict__ active) {
   constexpr int C = 2 + 4 * DIM;
   constexpr bool EXACT = WEIGHTED || DIM == 3;
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
@@ -278,6 +300,12 @@ __global__ void qx_kernel(const float* __restrict__ phi,
     ab += b * faces;
     abn += b * faces;
     bsn += b * faces;
+  }
+  if (mem.sbf) {
+    sbf = *mem.sbf;
+    sv_host = *mem.sv;
+    diag_in = *mem.d_in;
+    diag_bd = *mem.d_bd;
   }
   const float sv = EXACT ? sv_host : sbf * kInvSqrt2;
   const float p = phi[node];
@@ -362,8 +390,8 @@ __global__ void cx_kernel(const float* __restrict__ q0n,
                           const float* __restrict__ bsn, const float* beta,
                           const float* x, float* beta_out, float* x_out,
                           int nt, int S, const Axes<DIM> ax, float sbf,
-                          float sd, const float* __restrict__ sd_at,
-                          float tau, const uint8_t* __restrict__ active) {
+                          float sd, const FromMemory mem, float tau,
+                          const uint8_t* __restrict__ active) {
   constexpr int C = 2 + 4 * DIM;
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   const int t = blockIdx.y;
@@ -380,8 +408,9 @@ __global__ void cx_kernel(const float* __restrict__ q0n,
     beta_out += b * cone;
     if (MODE != kBeta) x_out += b * cone;
   }
+  if (mem.sbf) sbf = *mem.sbf;
   float col[C];
-  bfd_cols<DIM>(col, q0n, bsn, nt, S, ax, t, s, sbf, sd_at ? sd_at[b] : sd);
+  bfd_cols<DIM>(col, q0n, bsn, nt, S, ax, t, s, sbf, mem.sd ? mem.sd[b] : sd);
   float zs[C], br[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
@@ -466,7 +495,7 @@ inline AxesIn make_axes(int k0, int k1, int k2, int n0 = 1, int n1 = 1,
 template <bool PLUS_BETA>
 int launch_x(const float* q0, const float* bs, const float* beta, float* x,
              int dim, int nt, int S, const AxesIn& ax, float sbf, float sd,
-             const float* sd_at, void* stream, int B = 1,
+             const FromMemory& mem, void* stream, int B = 1,
              const uint8_t* active = nullptr) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || B > kMaxBatch) return (int)cudaErrorInvalidValue;
@@ -474,15 +503,15 @@ int launch_x(const float* q0, const float* bs, const float* beta, float* x,
   switch (dim) {
     case 1:
       x_kernel<1, PLUS_BETA><<<grid, kThreads, 0, st>>>(
-          q0, bs, beta, x, nt, S, axes_for<1>(ax), sbf, sd, sd_at, active);
+          q0, bs, beta, x, nt, S, axes_for<1>(ax), sbf, sd, mem, active);
       break;
     case 2:
       x_kernel<2, PLUS_BETA><<<grid, kThreads, 0, st>>>(
-          q0, bs, beta, x, nt, S, axes_for<2>(ax), sbf, sd, sd_at, active);
+          q0, bs, beta, x, nt, S, axes_for<2>(ax), sbf, sd, mem, active);
       break;
     case 3:
       x_kernel<3, PLUS_BETA><<<grid, kThreads, 0, st>>>(
-          q0, bs, beta, x, nt, S, axes_for<3>(ax), sbf, sd, sd_at, active);
+          q0, bs, beta, x, nt, S, axes_for<3>(ax), sbf, sd, mem, active);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -496,7 +525,7 @@ int launch_qx(const float* phi, const float* x, const float* beta,
               float* q0n, float* bsn, const float* w0, const float* wb,
               int dim, int nt, int S, const AxesIn& ax, float D, float sbf,
               float tau, float ht, float diag_in, float diag_bd,
-              float sv_host, void* stream, int B = 1,
+              float sv_host, const FromMemory& mem, void* stream, int B = 1,
               const uint8_t* active = nullptr) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || B > kMaxBatch) return (int)cudaErrorInvalidValue;
@@ -505,19 +534,19 @@ int launch_qx(const float* phi, const float* x, const float* beta,
     case 1:
       qx_kernel<1, WEIGHTED, SPLIT><<<grid, kThreads, 0, st>>>(
           phi, x, beta, a0, ab, a0n, abn, q0n, bsn, w0, wb, nt, S,
-          axes_for<1>(ax), D, sbf, tau, ht, diag_in, diag_bd, sv_host,
+          axes_for<1>(ax), D, sbf, tau, ht, diag_in, diag_bd, sv_host, mem,
           active);
       break;
     case 2:
       qx_kernel<2, WEIGHTED, SPLIT><<<grid, kThreads, 0, st>>>(
           phi, x, beta, a0, ab, a0n, abn, q0n, bsn, w0, wb, nt, S,
-          axes_for<2>(ax), D, sbf, tau, ht, diag_in, diag_bd, sv_host,
+          axes_for<2>(ax), D, sbf, tau, ht, diag_in, diag_bd, sv_host, mem,
           active);
       break;
     case 3:
       qx_kernel<3, WEIGHTED, SPLIT><<<grid, kThreads, 0, st>>>(
           phi, x, beta, a0, ab, a0n, abn, q0n, bsn, w0, wb, nt, S,
-          axes_for<3>(ax), D, sbf, tau, ht, diag_in, diag_bd, sv_host,
+          axes_for<3>(ax), D, sbf, tau, ht, diag_in, diag_bd, sv_host, mem,
           active);
       break;
     default:
@@ -530,7 +559,7 @@ template <int MODE>
 int launch_cx(const float* q0n, const float* bsn, const float* beta,
               const float* x, float* beta_out, float* x_out, int dim, int nt,
               int S, const AxesIn& ax, float sbf, float sd,
-              const float* sd_at, float tau, void* stream, int B = 1,
+              const FromMemory& mem, float tau, void* stream, int B = 1,
               const uint8_t* active = nullptr) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || B > kMaxBatch) return (int)cudaErrorInvalidValue;
@@ -539,17 +568,17 @@ int launch_cx(const float* q0n, const float* bsn, const float* beta,
     case 1:
       cx_kernel<1, MODE><<<grid, kThreads, 0, st>>>(
           q0n, bsn, beta, x, beta_out, x_out, nt, S, axes_for<1>(ax), sbf, sd,
-          sd_at, tau, active);
+          mem, tau, active);
       break;
     case 2:
       cx_kernel<2, MODE><<<grid, kThreads, 0, st>>>(
           q0n, bsn, beta, x, beta_out, x_out, nt, S, axes_for<2>(ax), sbf, sd,
-          sd_at, tau, active);
+          mem, tau, active);
       break;
     case 3:
       cx_kernel<3, MODE><<<grid, kThreads, 0, st>>>(
           q0n, bsn, beta, x, beta_out, x_out, nt, S, axes_for<3>(ax), sbf, sd,
-          sd_at, tau, active);
+          mem, tau, active);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -569,7 +598,7 @@ int dotsocp_x_step(const float* q0, const float* bs, const float* beta,
                    float* x, int dim, int nt, int S, int k0, int k1, int k2,
                    float sbf, float sd, void* stream) {
   return launch_x<true>(q0, bs, beta, x, dim, nt, S, make_axes(k0, k1, k2),
-                        sbf, sd, nullptr, stream);
+                        sbf, sd, FromMemory{}, stream);
 }
 
 // z = Pi_K(BF_d q - beta) into the fresh z.
@@ -577,7 +606,7 @@ int dotsocp_z_step(const float* q0, const float* bs, const float* beta,
                    float* z, int dim, int nt, int S, int k0, int k1, int k2,
                    float sbf, float sd, void* stream) {
   return launch_x<false>(q0, bs, beta, z, dim, nt, S, make_axes(k0, k1, k2),
-                         sbf, sd, nullptr, stream);
+                         sbf, sd, FromMemory{}, stream);
 }
 
 // alpha (a0, ab) updated in place; sv is the host's s_bf / sqrt2, which
@@ -590,7 +619,7 @@ int dotsocp_qx_step(const float* phi, const float* x, float* a0, float* ab,
   return launch_qx<false, false>(
       phi, x, nullptr, a0, ab, a0, ab, q0n, bsn, nullptr, nullptr, dim, nt, S,
       make_axes(k0, k1, k2, n0, n1, n2, hs0, hs1, hs2), D, sbf, tau, ht,
-      dinv_in, dinv_bd, sv, stream);
+      dinv_in, dinv_bd, sv, FromMemory{}, stream);
 }
 
 // The weighted q-step: w0 (nt-1, S) and wb (d, nt, S) the flat weight,
@@ -605,7 +634,7 @@ int dotsocp_qx_step_w(const float* phi, const float* x, float* a0, float* ab,
   return launch_qx<true, false>(
       phi, x, nullptr, a0, ab, a0, ab, q0n, bsn, w0, wb, dim, nt, S,
       make_axes(k0, k1, k2, n0, n1, n2, hs0, hs1, hs2), D, sbf, tau, ht,
-      base_in, base_bd, sv, stream);
+      base_in, base_bd, sv, FromMemory{}, stream);
 }
 
 // The single step's q-step from z and beta; alpha' into the fresh
@@ -619,7 +648,7 @@ int dotsocp_q_step(const float* phi, const float* z, const float* beta,
   return launch_qx<false, true>(
       phi, z, beta, a0, ab, a0n, abn, q0n, bsn, nullptr, nullptr, dim, nt, S,
       make_axes(k0, k1, k2, n0, n1, n2, hs0, hs1, hs2), D, sbf, tau, ht,
-      dinv_in, dinv_bd, sv, stream);
+      dinv_in, dinv_bd, sv, FromMemory{}, stream);
 }
 
 int dotsocp_q_step_w(const float* phi, const float* z, const float* beta,
@@ -632,7 +661,7 @@ int dotsocp_q_step_w(const float* phi, const float* z, const float* beta,
   return launch_qx<true, true>(
       phi, z, beta, a0, ab, a0n, abn, q0n, bsn, w0, wb, dim, nt, S,
       make_axes(k0, k1, k2, n0, n1, n2, hs0, hs1, hs2), D, sbf, tau, ht,
-      base_in, base_bd, sv, stream);
+      base_in, base_bd, sv, FromMemory{}, stream);
 }
 
 // beta and x updated in place.
@@ -642,10 +671,10 @@ int dotsocp_cx_step(const float* q0n, const float* bsn, float* beta, float* x,
   const AxesIn ax = make_axes(k0, k1, k2);
   if (final_step) {
     return launch_cx<kCxFinal>(q0n, bsn, beta, x, beta, x, dim, nt, S, ax,
-                               sbf, sd, nullptr, tau, stream);
+                               sbf, sd, FromMemory{}, tau, stream);
   }
   return launch_cx<kCx>(q0n, bsn, beta, x, beta, x, dim, nt, S, ax, sbf, sd,
-                        nullptr, tau, stream);
+                        FromMemory{}, tau, stream);
 }
 
 // beta' = beta + tau (z - BF_d q') into the fresh beta_out.
@@ -654,47 +683,109 @@ int dotsocp_beta_step(const float* q0n, const float* bsn, const float* beta,
                       int k0, int k1, int k2, float sbf, float sd, float tau,
                       void* stream) {
   return launch_cx<kBeta>(q0n, bsn, beta, z, beta_out, nullptr, dim, nt, S,
-                          make_axes(k0, k1, k2), sbf, sd, nullptr, tau, stream);
+                          make_axes(k0, k1, k2), sbf, sd, FromMemory{}, tau,
+                          stream);
 }
 
-// The four entries above that take sd, with sd read from device memory
-// instead of passed by value (a float32 scalar of the device driver's
-// state, which a captured CUDA graph must not freeze): the same arithmetic
-// on the same float.
+// The entries above with their problem-dependent scalars read from device
+// memory (float32 scalars of the device driver's state, which a captured
+// CUDA graph must not freeze): sbf_at and sd_at for the four that take sd;
+// sbf_at, sv_at and the two diagonal values for the q-steps. The same
+// arithmetic on the same floats.
 int dotsocp_x_step_dev(const float* q0, const float* bs, const float* beta,
                        float* x, int dim, int nt, int S, int k0, int k1,
-                       int k2, float sbf, const float* sd_at, void* stream) {
+                       int k2, const float* sbf_at, const float* sd_at,
+                       void* stream) {
   return launch_x<true>(q0, bs, beta, x, dim, nt, S, make_axes(k0, k1, k2),
-                        sbf, 0.f, sd_at, stream);
+                        0.f, 0.f, FromMemory{sd_at, sbf_at}, stream);
 }
 
 int dotsocp_z_step_dev(const float* q0, const float* bs, const float* beta,
                        float* z, int dim, int nt, int S, int k0, int k1,
-                       int k2, float sbf, const float* sd_at, void* stream) {
+                       int k2, const float* sbf_at, const float* sd_at,
+                       void* stream) {
   return launch_x<false>(q0, bs, beta, z, dim, nt, S, make_axes(k0, k1, k2),
-                         sbf, 0.f, sd_at, stream);
+                         0.f, 0.f, FromMemory{sd_at, sbf_at}, stream);
 }
 
 int dotsocp_cx_step_dev(const float* q0n, const float* bsn, float* beta,
                         float* x, int dim, int nt, int S, int k0, int k1,
-                        int k2, float sbf, const float* sd_at, float tau,
-                        int final_step, void* stream) {
+                        int k2, const float* sbf_at, const float* sd_at,
+                        float tau, int final_step, void* stream) {
   const AxesIn ax = make_axes(k0, k1, k2);
+  const FromMemory mem{sd_at, sbf_at};
   if (final_step) {
     return launch_cx<kCxFinal>(q0n, bsn, beta, x, beta, x, dim, nt, S, ax,
-                               sbf, 0.f, sd_at, tau, stream);
+                               0.f, 0.f, mem, tau, stream);
   }
-  return launch_cx<kCx>(q0n, bsn, beta, x, beta, x, dim, nt, S, ax, sbf, 0.f,
-                        sd_at, tau, stream);
+  return launch_cx<kCx>(q0n, bsn, beta, x, beta, x, dim, nt, S, ax, 0.f, 0.f,
+                        mem, tau, stream);
 }
 
 int dotsocp_beta_step_dev(const float* q0n, const float* bsn,
                           const float* beta, const float* z, float* beta_out,
                           int dim, int nt, int S, int k0, int k1, int k2,
-                          float sbf, const float* sd_at, float tau,
+                          const float* sbf_at, const float* sd_at, float tau,
                           void* stream) {
   return launch_cx<kBeta>(q0n, bsn, beta, z, beta_out, nullptr, dim, nt, S,
-                          make_axes(k0, k1, k2), sbf, 0.f, sd_at, tau, stream);
+                          make_axes(k0, k1, k2), 0.f, 0.f,
+                          FromMemory{sd_at, sbf_at}, tau, stream);
+}
+
+int dotsocp_qx_step_dev(const float* phi, const float* x, float* a0,
+                        float* ab, float* q0n, float* bsn, int dim, int nt,
+                        int S, int k0, int k1, int k2, int n0, int n1, int n2,
+                        float D, float tau, float ht, float hs0, float hs1,
+                        float hs2, const float* sbf_at, const float* sv_at,
+                        const float* din_at, const float* dbd_at,
+                        void* stream) {
+  return launch_qx<false, false>(
+      phi, x, nullptr, a0, ab, a0, ab, q0n, bsn, nullptr, nullptr, dim, nt, S,
+      make_axes(k0, k1, k2, n0, n1, n2, hs0, hs1, hs2), D, 0.f, tau, ht, 0.f,
+      0.f, 0.f, FromMemory{nullptr, sbf_at, sv_at, din_at, dbd_at}, stream);
+}
+
+int dotsocp_qx_step_w_dev(const float* phi, const float* x, float* a0,
+                          float* ab, float* q0n, float* bsn, const float* w0,
+                          const float* wb, int dim, int nt, int S, int k0,
+                          int k1, int k2, int n0, int n1, int n2, float D,
+                          float tau, float ht, float hs0, float hs1,
+                          float hs2, const float* sbf_at, const float* sv_at,
+                          const float* bin_at, const float* bbd_at,
+                          void* stream) {
+  return launch_qx<true, false>(
+      phi, x, nullptr, a0, ab, a0, ab, q0n, bsn, w0, wb, dim, nt, S,
+      make_axes(k0, k1, k2, n0, n1, n2, hs0, hs1, hs2), D, 0.f, tau, ht, 0.f,
+      0.f, 0.f, FromMemory{nullptr, sbf_at, sv_at, bin_at, bbd_at}, stream);
+}
+
+int dotsocp_q_step_dev(const float* phi, const float* z, const float* beta,
+                       const float* a0, const float* ab, float* a0n,
+                       float* abn, float* q0n, float* bsn, int dim, int nt,
+                       int S, int k0, int k1, int k2, int n0, int n1, int n2,
+                       float D, float tau, float ht, float hs0, float hs1,
+                       float hs2, const float* sbf_at, const float* sv_at,
+                       const float* din_at, const float* dbd_at,
+                       void* stream) {
+  return launch_qx<false, true>(
+      phi, z, beta, a0, ab, a0n, abn, q0n, bsn, nullptr, nullptr, dim, nt, S,
+      make_axes(k0, k1, k2, n0, n1, n2, hs0, hs1, hs2), D, 0.f, tau, ht, 0.f,
+      0.f, 0.f, FromMemory{nullptr, sbf_at, sv_at, din_at, dbd_at}, stream);
+}
+
+int dotsocp_q_step_w_dev(const float* phi, const float* z, const float* beta,
+                         const float* a0, const float* ab, float* a0n,
+                         float* abn, float* q0n, float* bsn, const float* w0,
+                         const float* wb, int dim, int nt, int S, int k0,
+                         int k1, int k2, int n0, int n1, int n2, float D,
+                         float tau, float ht, float hs0, float hs1, float hs2,
+                         const float* sbf_at, const float* sv_at,
+                         const float* bin_at, const float* bbd_at,
+                         void* stream) {
+  return launch_qx<true, true>(
+      phi, z, beta, a0, ab, a0n, abn, q0n, bsn, w0, wb, dim, nt, S,
+      make_axes(k0, k1, k2, n0, n1, n2, hs0, hs1, hs2), D, 0.f, tau, ht, 0.f,
+      0.f, 0.f, FromMemory{nullptr, sbf_at, sv_at, bin_at, bbd_at}, stream);
 }
 
 // The batched forms: B instances over contiguous (B, ...) fields, sd_at the
@@ -706,7 +797,7 @@ int dotsocp_x_step_b(const float* q0, const float* bs, const float* beta,
                      int B, int dim, int nt, int S, int k0, int k1, int k2,
                      float sbf, void* stream) {
   return launch_x<true>(q0, bs, beta, x, dim, nt, S, make_axes(k0, k1, k2),
-                        sbf, 0.f, sd_at, stream, B, active);
+                        sbf, 0.f, FromMemory{sd_at}, stream, B, active);
 }
 
 int dotsocp_qx_step_b(const float* phi, const float* x, float* a0, float* ab,
@@ -718,7 +809,7 @@ int dotsocp_qx_step_b(const float* phi, const float* x, float* a0, float* ab,
   return launch_qx<false, false>(
       phi, x, nullptr, a0, ab, a0, ab, q0n, bsn, nullptr, nullptr, dim, nt, S,
       make_axes(k0, k1, k2, n0, n1, n2, hs0, hs1, hs2), D, sbf, tau, ht,
-      dinv_in, dinv_bd, sv, stream, B, active);
+      dinv_in, dinv_bd, sv, FromMemory{}, stream, B, active);
 }
 
 int dotsocp_cx_step_b(const float* q0n, const float* bsn, float* beta,
@@ -726,12 +817,13 @@ int dotsocp_cx_step_b(const float* q0n, const float* bsn, float* beta,
                       int B, int dim, int nt, int S, int k0, int k1, int k2,
                       float sbf, float tau, int final_step, void* stream) {
   const AxesIn ax = make_axes(k0, k1, k2);
+  const FromMemory mem{sd_at};
   if (final_step) {
     return launch_cx<kCxFinal>(q0n, bsn, beta, x, beta, x, dim, nt, S, ax,
-                               sbf, 0.f, sd_at, tau, stream, B, active);
+                               sbf, 0.f, mem, tau, stream, B, active);
   }
   return launch_cx<kCx>(q0n, bsn, beta, x, beta, x, dim, nt, S, ax, sbf, 0.f,
-                        sd_at, tau, stream, B, active);
+                        mem, tau, stream, B, active);
 }
 
 // z = Pi_K(z2 - beta) over flat (C, M) views, into the fresh z.

@@ -11,9 +11,8 @@ algorithm per level with warm-started sigma and E2 feedback, prolongates
 between levels, and recovers (rho, E, q). With ``opts={"profile": True}``
 each level report also holds ``phases``, the per-phase times of
 ``utils/profiling.profile_phases`` on the level's final state. The JAX
-package's options are taken as follows (``_check_request``): its compile
-and cache knobs (``IGNORED_OPTS``: prewarm, reuse_solvers) are accepted
-and ignored, since the port compiles nothing ahead; ``use_pallas`` takes
+package's options are taken as follows (``_check_request``): its solver
+cache and ``prewarm`` work as there (below); ``use_pallas`` takes
 "auto" or True (the CUDA kernels run at every size for float32, float64
 takes the plain route by dtype; under a mesh only "auto", as the kernels
 that read neighbouring cells run plain there), ``layout`` "auto", "flat"
@@ -27,6 +26,28 @@ acc-ADMM runs its Nesterov branch (theta != 2, host only);
 ``chunk_iters``, ``max_chunks`` and ``checkpoint_dir``
 (``<dir>/level<n>.npz``, resumed from; under a mesh one file a rank,
 ``level<n>.rank<r>.npz``) are the device driver's.
+
+The solver cache (``dotsocp_tpu/multilevel/solve.py:85-210``): with
+``opts["reuse_solvers"]`` (default True) each level's solver is looked up
+under a key of everything it keeps as it was built (``_solver_cache_key``:
+method, driver, geometry, tau, a content digest of the weight, the
+checks, dtype, maxit, restart, rho, theta, layout, mesh, DCT strategy,
+chunk options, checkpoint path, device, D and scaling) and reused: a
+device driver as the object, with its kernels, its DCT operators, its
+state buffers and its captured CUDA graphs (a solve that hits makes no
+capture and no eager run: ``algorithms/device_driver.py``); a host driver
+as its kernels, around which a fresh solver is built (it keeps per-solve
+state). E, which the problem sets from level 2 on, is a tensor of the
+device driver's state (``algorithms/core.EScalars``), so one driver serves
+every problem of its key. The cache holds ``_SOLVER_CACHE_MAX`` entries,
+least recently used first out; an evicted device driver frees its graphs,
+their pool and its buffers, and ``clear_solver_cache()`` frees them all.
+``reuse_solvers=False`` builds every level afresh and keeps nothing.
+``opts["prewarm"]`` builds every level's solver into the cache before
+level 1 runs and captures each device driver's pieces on a throwaway
+state from the pyramid (``_prewarm_levels``), so that the solve starts on
+replays; it changes no result. A cached level's memory stays on the card
+until its entry leaves the cache.
 
 ``opts["mesh"]`` (a ``parallel/sharding.Mesh``, every rank of the world
 calling ``solve_dot`` with the same arguments) runs each level on the halo
@@ -47,9 +68,11 @@ whole solve there.
 """
 from __future__ import annotations
 
+import hashlib
 import math
 import os
 import time
+from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
@@ -106,10 +129,8 @@ KNOWN_OPTS = {"tol", "maxit", "sigma", "time_limit", "scaling",
               "theta", "profile", "refine_tol", "refine_dtype",
               "refine_method", "refine_dct_split", "refine_sigma_scale",
               "refine_tau", "debug_nans", "trace_dir", "chunk_iters",
-              "max_chunks", "checkpoint_dir", "mesh"}
-# the JAX package's compile and cache knobs: the port compiles nothing
-# ahead and caches no solver, so they are accepted and ignored
-IGNORED_OPTS = {"prewarm", "reuse_solvers"}
+              "max_chunks", "checkpoint_dir", "mesh", "prewarm",
+              "reuse_solvers"}
 # JAX options of which the port runs some values (_check_choice)
 CHOICE_OPTS = {"use_pallas", "layout", "driver"}
 # the port's refine_dct_split="auto", a fixed rule: the plain float64 DCT.
@@ -232,7 +253,7 @@ def _check_request(rho0, method, weight, opts):
             raise TypeError(f"checkpoint_dir={value!r}: not a directory path")
         if key in CHOICE_OPTS:
             _check_choice(key, value)
-        elif key not in KNOWN_OPTS | IGNORED_OPTS:
+        elif key not in KNOWN_OPTS:
             raise ValueError(f"unknown option {key!r}")
     if np.ndim(rho0) not in (1, 2, 3):
         raise ValueError(f"rho0 has {np.ndim(rho0)} axes; solve_dot takes "
@@ -338,6 +359,125 @@ def _make_solver(method: str, lv: LevelVar, o: SolveOptions, device,
     return host(k, o)
 
 
+# -- the solver cache ----------------------------------------------------------
+
+_SOLVER_CACHE: "OrderedDict[tuple, object]" = OrderedDict()
+_SOLVER_CACHE_MAX = 10
+
+
+def _weight_digest(w: Optional[Staggered]) -> Optional[tuple]:
+    """A content digest of a level's weight, block by block (dtype, shape
+    and bytes): the cached kernels hold the weight, so an object's identity
+    cannot key them (``dotsocp_tpu/multilevel/solve.py:90-114``)."""
+    if w is None:
+        return None
+    parts = []
+    for b in w.blocks():
+        h = hashlib.sha1(f"{b.dtype} {tuple(b.shape)}".encode())
+        h.update(b.detach().contiguous().cpu().numpy().tobytes())
+        parts.append(h.hexdigest())
+    return tuple(parts)
+
+
+def _solver_cache_key(method: str, lv: LevelVar, o: SolveOptions, device,
+                      dtype, theta: float, dct_split, driver: str,
+                      checkpoint_path, device_kw, mesh) -> tuple:
+    """Everything a cached solver keeps as it was built: the JAX key's parts
+    (``dotsocp_tpu/multilevel/solve.py:116-148``), and the port's own: the
+    device, D and scaling, which its pieces take as Python numbers (D is
+    fixed by the geometry and the weight, scaling picks the branch of the
+    check that keeps the rescale decisions). The mesh keys by identity as
+    well: the cached level holds its process groups and counts its
+    traffic, and every rank makes the same calls, so all hit or miss
+    together."""
+    mesh_key = None if mesh is None else (
+        mesh.axis_names, tuple(mesh.shape.values()), mesh.ranks, id(mesh))
+    return (method, driver, lv.geom, float(o.tau), _weight_digest(lv.weight),
+            bool(o.check_prim_dual_feas), str(dtype), int(o.maxit),
+            int(o.restart), float(o.rho), float(theta),
+            bool(o.check_step_by_step), checkpoint_path,
+            "flat" if mesh is None else "halo", mesh_key, str(dct_split),
+            tuple(sorted((device_kw or {}).items())), str(device),
+            float(lv.D), bool(o.scaling))
+
+
+def _free(entry) -> None:
+    if isinstance(entry, DeviceDriver):
+        entry.free()
+
+
+def clear_solver_cache() -> None:
+    """Empty the solver cache: every cached device driver drops its graphs,
+    their pool and its buffers, and PyTorch's allocator hands the freed
+    memory back to the card."""
+    for entry in _SOLVER_CACHE.values():
+        _free(entry)
+    _SOLVER_CACHE.clear()
+    if torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
+
+
+def _build_solver(method: str, lv: LevelVar, o: SolveOptions, device, dtype,
+                  theta: float = 2.0, dct_split=False, driver: str = "auto",
+                  checkpoint_path=None, device_kw=None, mesh=None,
+                  reuse: bool = True):
+    """The level's solver (:func:`_make_solver`), from the cache when
+    ``reuse`` and a solver of the same key is there (the JAX
+    ``_build_solver``): a device driver is reused as it is, with ``o`` (its
+    runtime options: sigma, tol, the time limit, the label) set; a host
+    driver is built afresh around the cached kernels. A miss builds the
+    solver and caches it, evicting the least recently used entry beyond
+    ``_SOLVER_CACHE_MAX``."""
+    args = (method, lv, o, device, dtype, theta, dct_split, driver,
+            checkpoint_path, device_kw, mesh)
+    if not reuse:
+        return _make_solver(*args)
+    key = _solver_cache_key(*args)
+    entry = _SOLVER_CACHE.get(key)
+    if entry is not None:
+        _SOLVER_CACHE.move_to_end(key)
+        if isinstance(entry, DeviceDriver):
+            entry.opts = o
+            return entry
+        return entry(o)
+    solver = _make_solver(*args)
+    if isinstance(solver, DeviceDriver):
+        solver.cached = True
+        _SOLVER_CACHE[key] = solver
+    else:
+        # the host drivers keep per-solve state: cache their kernels
+        kernels, cls = solver.k, type(solver)
+        _SOLVER_CACHE[key] = lambda opts: cls(kernels, opts)
+    while len(_SOLVER_CACHE) > _SOLVER_CACHE_MAX:
+        _free(_SOLVER_CACHE.popitem(last=False)[1])
+    return solver
+
+
+def _prewarm_levels(level_solver, rho0s, rho1s, nts, weights, dtype, device,
+                    scaling: bool, verbose: bool) -> None:
+    """Every level's solver built into the cache before level 1 runs, and
+    each device driver's pieces captured on a throwaway state from the
+    pyramid (``DeviceDriver.warm``; the JAX ``_prewarm_levels``,
+    ``dotsocp_tpu/multilevel/solve.py:368-436``, compiles each level's
+    loop). The throwaway state is the level's initial state, scaled without
+    the E2 feedback: its E is not the solve's, which the cached driver
+    reads from its state. ``level_solver(lev, lv)`` is the function the
+    solve takes its levels from, so each lands under the key it looks up."""
+    t0 = time.monotonic()
+    warmed = 0
+    for lev in range(len(nts)):
+        lv = initialize(rho0s[lev], rho1s[lev], nts[lev], dtype=dtype,
+                        device=device, weight=weights[lev])
+        initial_scaling(lv, scaling)
+        solver = level_solver(lev, lv)
+        if isinstance(solver, DeviceDriver):
+            solver.warm(lv.as_dict())
+            warmed += 1
+    if verbose:
+        print(f"prewarm: {len(nts)} level solvers built, {warmed} device "
+              f"drivers captured in {time.monotonic() - t0:.2f}s")
+
+
 def solve_dot(
     rho0,
     rho1,
@@ -441,6 +581,7 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
         f"level{{}}.rank{mesh.rank}.npz"
     device_kw = {k: int(opts[k]) for k in ("chunk_iters", "max_chunks")
                  if k in opts}
+    reuse = bool(opts.get("reuse_solvers", True))
     if method in ("PALM", "inPALM", "sGS-inPALM"):
         tau = ALM_STEPSIZE
     elif method == "ALG2":
@@ -483,17 +624,9 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
         rho0s[lev] = r0
         rho1s[lev] = r1
 
-    lv = initialize(rho0s[0], rho1s[0], nts[0], dtype=dtype, device=device,
-                    weight=weights[0])
-    last_kkt = None
-    prev_e2 = None
-    hists = []
-    level_reports = []
-    t_start = time.monotonic()
-
-    for lev in range(level_n):
-        initial_scaling(lv, scaling, last_kkt, prev_e2)
-        prev_e2 = lv.E2
+    def level_solver(lev: int, lv: LevelVar, sigma: float = sigma,
+                     time_limit: float = time_limit):
+        """Level ``lev``'s solver, through the cache."""
         o = SolveOptions(tol=tols[lev], maxit=maxit, sigma=sigma, tau=tau,
                          time_limit=time_limit, scaling=scaling,
                          check_step_by_step=check_sbs,
@@ -508,11 +641,30 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
             lev_method = "inPALM"
             o.maxit = ADMM_MAXIT
             o.tau = ALM_STEPSIZE
-        solver = _make_solver(
+        return _build_solver(
             lev_method, lv, o, device, dtype, theta, driver=driver,
             checkpoint_path=(os.path.join(ckpt_dir, ckpt_name.format(lev + 1))
                              if ckpt_dir else None),
-            device_kw=device_kw, mesh=mesh)
+            device_kw=device_kw, mesh=mesh, reuse=reuse)
+
+    if opts.get("prewarm") and reuse:
+        _prewarm_levels(level_solver, rho0s, rho1s, nts, weights, dtype,
+                        device, scaling, verbose)
+
+    lv = initialize(rho0s[0], rho1s[0], nts[0], dtype=dtype, device=device,
+                    weight=weights[0])
+    last_kkt = None
+    prev_e2 = None
+    hists = []
+    level_reports = []
+    t_start = time.monotonic()
+
+    for lev in range(level_n):
+        initial_scaling(lv, scaling, last_kkt, prev_e2)
+        prev_e2 = lv.E2
+        t_build = time.monotonic()
+        solver = level_solver(lev, lv, sigma, time_limit)
+        build_s = time.monotonic() - t_build
         hist, out = solver.solve(lv.as_dict())
         hist["method"] = solver.name
         hists.append(hist)
@@ -520,10 +672,12 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
         recover_org_var(lv, out)
         report = {"level": lev + 1, "geom": lv.geom, "iters": out["iters"],
                   "time": out["solve_time"], "method": solver.name,
-                  "final_kkt": hist["kkt"][-1] if hist["len"] else None}
+                  "final_kkt": hist["kkt"][-1] if hist["len"] else None,
+                  "D": lv.D, "E": lv.E, "build_s": build_s}
         if hasattr(solver, "stats"):
             # the device driver's: host syncs and checks of the level loop,
-            # graph captures and replays
+            # graph captures and replays, the host's seconds in prepare,
+            # first runs, captures and finish
             report["driver"] = dict(solver.stats)
         if profile:
             # per-phase times on the level's final state (the reference's
@@ -581,9 +735,9 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
                          label=f"level {level_n} (f64 refine)")
         # the tail takes the driver rule and the chunk options, and no
         # checkpoint (as the JAX package's tail)
-        solver = _make_solver(refine_method, lv, o, device, refine_dtype,
-                              theta, dct_split=split, driver=driver,
-                              device_kw=device_kw, mesh=mesh)
+        solver = _build_solver(refine_method, lv, o, device, refine_dtype,
+                               theta, dct_split=split, driver=driver,
+                               device_kw=device_kw, mesh=mesh, reuse=reuse)
         hist, out = solver.solve(lv.as_dict())
         hist["method"] = solver.name + (
             " (f64 refine, IR-DCT)" if split else " (f64 refine)")

@@ -43,11 +43,18 @@ SOURCES = {
         "dotsocp_q_step_w": [_P] * 11 + [_I] * 9 + [_F] * 10 + [_P],
         "dotsocp_beta_step": [_P] * 5 + [_I] * 6 + [_F] * 3 + [_P],
         "dotsocp_cone_project_diff": [_P, _P, _P, _I, _I, _P],
-        # the entries that read sd from device memory (a pointer after sbf)
-        "dotsocp_x_step_dev": [_P] * 4 + [_I] * 6 + [_F, _P, _P],
-        "dotsocp_z_step_dev": [_P] * 4 + [_I] * 6 + [_F, _P, _P],
-        "dotsocp_cx_step_dev": [_P] * 4 + [_I] * 6 + [_F, _P, _F, _I, _P],
-        "dotsocp_beta_step_dev": [_P] * 5 + [_I] * 6 + [_F, _P, _F, _P],
+        # the entries that read their problem-dependent scalars from device
+        # memory: (sbf, sd) pointers where the by-value entries take the two
+        # floats; the q-steps (sbf, sv, two diagonal values) pointers after
+        # hs0..hs2, and D, tau, ht, hs0..hs2 by value
+        "dotsocp_x_step_dev": [_P] * 4 + [_I] * 6 + [_P] * 3,
+        "dotsocp_z_step_dev": [_P] * 4 + [_I] * 6 + [_P] * 3,
+        "dotsocp_cx_step_dev": [_P] * 4 + [_I] * 6 + [_P, _P, _F, _I, _P],
+        "dotsocp_beta_step_dev": [_P] * 5 + [_I] * 6 + [_P, _P, _F, _P],
+        "dotsocp_qx_step_dev": [_P] * 6 + [_I] * 9 + [_F] * 6 + [_P] * 5,
+        "dotsocp_qx_step_w_dev": [_P] * 8 + [_I] * 9 + [_F] * 6 + [_P] * 5,
+        "dotsocp_q_step_dev": [_P] * 9 + [_I] * 9 + [_F] * 6 + [_P] * 5,
+        "dotsocp_q_step_w_dev": [_P] * 11 + [_I] * 9 + [_F] * 6 + [_P] * 5,
         # the batched forms: (sd_at, active) pointers after the arrays, B
         # before dim
         "dotsocp_x_step_b": [_P] * 6 + [_I] * 7 + [_F, _P],

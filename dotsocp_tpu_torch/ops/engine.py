@@ -108,13 +108,16 @@ class OpsFlat:
             out = out + (self._sfwd(b, a) - b) / geom.hs(a)
         return out
 
-    def bfd(self, q: Staggered, scale_bf, scale_d) -> torch.Tensor:
+    def bfd(self, q: Staggered, scale_bf, scale_d, sv=None) -> torch.Tensor:
         """z2 = scale_bf * (BF q) + scale_d * d, shape (C, nt-1, S). Column
-        order per axis: [t_lo x_lo, t_lo x_hi, t_hi x_lo, t_hi x_hi]."""
+        order per axis: [t_lo x_lo, t_lo x_hi, t_hi x_lo, t_hi x_hi].
+        ``sv`` is scale_bf / sqrt2 as the caller rounded it (the device
+        driver's tensor scalars, ``algorithms/core.EScalars``); None forms
+        it here."""
         geom = self.geom
         nt = geom.nt
         cols = [scale_d - scale_bf * q.q0]
-        s = scale_bf * _INV_SQRT2
+        s = scale_bf * _INV_SQRT2 if sv is None else sv
         for a in range(geom.ndim_space):
             x_lo = self._sfwd(q.bs[a], a)   # face j-1 at cell j (0 at j=0)
             x_hi = q.bs[a]                  # face j at cell j (ghost: 0)
@@ -124,11 +127,12 @@ class OpsFlat:
         cols.append(scale_d + scale_bf * q.q0)
         return torch.stack(cols, dim=0)
 
-    def bfd_T(self, x: torch.Tensor, scale_bf) -> Staggered:
-        """q2 = scale_bf * (BF)^T x; ghost slots re-zeroed by the axis mask."""
+    def bfd_T(self, x: torch.Tensor, scale_bf, sv=None) -> Staggered:
+        """q2 = scale_bf * (BF)^T x; ghost slots re-zeroed by the axis mask;
+        ``sv`` as in :meth:`bfd`."""
         geom = self.geom
         q0 = scale_bf * (x[-1] - x[0])
-        s = scale_bf * _INV_SQRT2
+        s = scale_bf * _INV_SQRT2 if sv is None else sv
         bs = []
         col = 1
         for a in range(geom.ndim_space):
@@ -177,10 +181,11 @@ class OpsFlat:
         """The per-time factor of the unweighted q-step diagonal's inverse
         on face blocks: ``d_bd`` on the two boundary time slabs, ``d_in``
         elsewhere, in ``like``'s dtype (``fused_step.times_dinv``)."""
-        row = torch.full((self.geom.nt, 1), d_in, dtype=like.dtype,
-                         device=like.device)
-        # fill_ takes the value as a kernel argument: no copy from the host,
-        # which a CUDA graph capture (the device driver's) would refuse
+        # fill_ takes a float as a kernel argument and a 0-d tensor (the
+        # device driver's) from memory: no copy from the host, which a CUDA
+        # graph capture would refuse
+        row = torch.empty((self.geom.nt, 1), dtype=like.dtype,
+                          device=like.device).fill_(d_in)
         row[0].fill_(d_bd)
         row[-1].fill_(d_bd)
         return row

@@ -52,11 +52,16 @@ CUDA tensors it checks device, shape, contiguity and aliasing, launches
 the kernel, and raises on any error; there is no fallback. Mixed dtypes
 and any other dtype on the card raise. Every launch adds one to
 ``LAUNCHES[name]``; the weighted q-steps count under ``qx_step_w`` and
-``q_step_w``. The scalar sd = E / dScale of ``x_step``, ``cx_step``,
-``cx_final``, ``z_step`` and ``beta_step`` is a Python float, or a
-one-element float32 tensor on the card (the device driver's state), which
-the ``*_dev`` entry of the same kernel reads from memory, so that a
-captured CUDA graph replays with the value the tensor holds then.
+``q_step_w``. The scalars that change with the problem or the iterate are
+Python floats (the host driver's), or one-element float32 tensors on the
+card (the device driver's state), which the ``*_dev`` entry of the same
+kernel reads from memory, so that a captured CUDA graph replays with the
+values the tensors hold then (``_scalar_args``): sd = E / dScale and
+sbf = E / D of ``x_step``, ``cx_step``, ``cx_final``, ``z_step`` and
+``beta_step``; sbf, the diagonal values and ``sv`` = sbf / sqrt2 as the
+host rounds it of the q-steps. ``sv`` is a keyword of every wrapper and
+plain version: with tensor scalars the plain versions take it instead of
+forming sbf / sqrt2 in the tensors' dtype, so both forms round alike.
 
 Batched forms (the lockstep fleet, ``parallel/batch.py``):
 ``x_step_batched``, ``qx_step_batched``, ``cx_step_batched`` and
@@ -133,41 +138,43 @@ def times_dinv(ops: OpsFlat, st: Staggered, dinv) -> Staggered:
     return Staggered(st.q0 * d_in, st.bs * ops.t_edge_row(d_in, d_bd, st.q0))
 
 
-def x_step_plain(ops: OpsFlat, q: Staggered, beta, sbf, sd):
-    return proj_soc(ops.bfd(q, sbf, sd) - beta, ops.cone_dim) + beta
+def x_step_plain(ops: OpsFlat, q: Staggered, beta, sbf, sd, sv=None):
+    return proj_soc(ops.bfd(q, sbf, sd, sv) - beta, ops.cone_dim) + beta
 
 
-def qx_step_plain(ops: OpsFlat, phi, x, alpha: Staggered, dinv, D, sbf, tau):
+def qx_step_plain(ops: OpsFlat, phi, x, alpha: Staggered, dinv, D, sbf, tau,
+                  sv=None):
     tmp = D * ops.grad(phi)
     if isinstance(dinv, WeightedDinv):
         w = dinv.w
-        q = times_dinv(ops, w * (tmp + alpha) + ops.bfd_T(x, sbf), dinv)
+        q = times_dinv(ops, w * (tmp + alpha) + ops.bfd_T(x, sbf, sv), dinv)
         return q, alpha + tau * (tmp - w * q)
-    q = times_dinv(ops, tmp + alpha + ops.bfd_T(x, sbf), dinv)
+    q = times_dinv(ops, tmp + alpha + ops.bfd_T(x, sbf, sv), dinv)
     return q, alpha + tau * (tmp - q)
 
 
 def cx_step_plain(ops: OpsFlat, beta, x, q: Staggered, sbf, sd, tau,
-                  final: bool = False):
+                  final: bool = False, sv=None):
     z = x - beta
-    z2 = ops.bfd(q, sbf, sd)
+    z2 = ops.bfd(q, sbf, sd, sv)
     beta = beta + tau * (z - z2)
     if final:
         return beta, z
     return beta, proj_soc(z2 - beta, ops.cone_dim) + beta
 
 
-def z_step_plain(ops: OpsFlat, q: Staggered, beta, sbf, sd):
-    return proj_soc(ops.bfd(q, sbf, sd) - beta, ops.cone_dim)
+def z_step_plain(ops: OpsFlat, q: Staggered, beta, sbf, sd, sv=None):
+    return proj_soc(ops.bfd(q, sbf, sd, sv) - beta, ops.cone_dim)
 
 
 def q_step_plain(ops: OpsFlat, phi, z, beta, alpha: Staggered, dinv, D, sbf,
-                 tau):
-    return qx_step_plain(ops, phi, z + beta, alpha, dinv, D, sbf, tau)
+                 tau, sv=None):
+    return qx_step_plain(ops, phi, z + beta, alpha, dinv, D, sbf, tau, sv)
 
 
-def beta_step_plain(ops: OpsFlat, beta, z, q: Staggered, sbf, sd, tau):
-    return beta + tau * (z - ops.bfd(q, sbf, sd))
+def beta_step_plain(ops: OpsFlat, beta, z, q: Staggered, sbf, sd, tau,
+                    sv=None):
+    return beta + tau * (z - ops.bfd(q, sbf, sd, sv))
 
 
 def cone_project_diff_plain(z2, beta):
@@ -241,21 +248,27 @@ def _dims(ops: OpsFlat):
     return d, g.nt, ops.S, k, n, hs
 
 
-def _sd_args(lib, entry: str, sd, beta: torch.Tensor):
-    """The C entry point and the sd argument for a scalar ``sd``: a Python
-    float goes by value to ``entry``; a one-element float32 tensor on
-    ``beta``'s device (the device driver's state, see
-    ``algorithms/device_driver.py``) goes by address to ``entry + "_dev"``,
-    which reads the same float from memory, so a captured CUDA graph
-    replays with the value the tensor holds then."""
-    if not isinstance(sd, torch.Tensor):
-        return getattr(lib, entry), float(sd)
-    if sd.device != beta.device or sd.dtype != torch.float32 \
-            or sd.numel() != 1:
-        raise ValueError(f"{entry}: sd must be a float or a one-element "
-                         f"float32 tensor on {beta.device}, got "
-                         f"{sd.dtype} {tuple(sd.shape)} on {sd.device}")
-    return getattr(lib, entry + "_dev"), sd.data_ptr()
+def _scalar_args(lib, entry: str, like: torch.Tensor, **scalars):
+    """The C entry point and its scalar arguments, in the order given:
+    Python floats go by value to ``entry``; one-element float32 tensors on
+    ``like``'s device (the device driver's state, see
+    ``algorithms/device_driver.py``) go by address to ``entry + "_dev"``,
+    which reads the same floats from memory, so a captured CUDA graph
+    replays with the values the tensors hold then. Raises for a mix of the
+    two and for any other tensor."""
+    if not any(isinstance(v, torch.Tensor) for v in scalars.values()):
+        return getattr(lib, entry), [float(v) for v in scalars.values()]
+    ptrs = []
+    for what, v in scalars.items():
+        if not isinstance(v, torch.Tensor) or v.device != like.device \
+                or v.dtype != torch.float32 or v.numel() != 1:
+            got = (f"{v.dtype} {tuple(v.shape)} on {v.device}"
+                   if isinstance(v, torch.Tensor) else repr(v))
+            raise ValueError(f"{entry}: {what} must be a one-element float32 "
+                             f"tensor on {like.device}, as the other scalars "
+                             f"are; got {got}")
+        ptrs.append(v.data_ptr())
+    return getattr(lib, entry + "_dev"), ptrs
 
 
 def _launch(counts: dict, name: str, fn, device: torch.device,
@@ -285,18 +298,20 @@ def _check_stag(ops: OpsFlat, st: Staggered) -> None:
 
 # -- wrappers ----------------------------------------------------------------
 
-def x_step(ops: OpsFlat, q: Staggered, beta, sbf: float, sd: float):
+def x_step(ops: OpsFlat, q: Staggered, beta, sbf: float, sd: float,
+           sv=None):
     """x = Pi_K(BF_d q - beta) + beta: the segment prologue."""
     if not _use_kernel(q.q0, q.bs, beta):
-        return x_step_plain(ops, q, beta, sbf, sd)
+        return x_step_plain(ops, q, beta, sbf, sd, sv)
     _check_stag(ops, q)
     _check_cone(ops, beta)
     x = torch.empty_like(beta)
     d, nt, S, k, _, _ = _dims(ops)
-    fn, sd_arg = _sd_args(_build.library(), "dotsocp_x_step", sd, beta)
+    fn, scal = _scalar_args(_build.library(), "dotsocp_x_step", beta,
+                            sbf=sbf, sd=sd)
     _launch(LAUNCHES, "x_step", fn, beta.device, q.q0.data_ptr(),
-            q.bs.data_ptr(), beta.data_ptr(), x.data_ptr(), d, nt, S, *k, sbf,
-            sd_arg)
+            q.bs.data_ptr(), beta.data_ptr(), x.data_ptr(), d, nt, S, *k,
+            *scal)
     return x
 
 
@@ -313,28 +328,39 @@ def _weight_operands(dinv) -> tuple:
     return ()
 
 
-def _launch_q(kind: str, ops: OpsFlat, ptrs: list, dinv, D: float,
-              sbf: float, tau: float, device) -> None:
+def _launch_q(kind: str, ops: OpsFlat, operands: list, dinv, D: float,
+              sbf: float, tau: float, sv) -> None:
     """Launch the q-step kernel ``kind`` (``qx_step`` or ``q_step``; its
-    weighted entry for a :class:`WeightedDinv`) on the pointer operands
-    ``ptrs``, followed by the weight and the scalars."""
+    weighted entry for a :class:`WeightedDinv`) on the tensor operands
+    ``operands``, followed by the weight and the scalars (by value, or
+    from memory: see ``_scalar_args``)."""
     g = ops.geom
     d, nt, S, k, n, hs = _dims(ops)
     if isinstance(dinv, WeightedDinv):
         kind += "_w"
-        ptrs = ptrs + [dinv.w.q0.data_ptr(), dinv.w.bs.data_ptr()]
+        operands = operands + [dinv.w.q0, dinv.w.bs]
         diag = list(dinv.base)
     else:
         diag = list(dinv)
-    # s_bf / sqrt2 as the plain version's bfd_T rounds it: the weighted and
-    # the 3D kernels round as their plain versions do
-    _launch(LAUNCHES, kind, getattr(_build.library(), "dotsocp_" + kind),
-            device, *ptrs, d, nt, S, *k, *n, D, sbf, tau, g.ht, *hs, *diag,
-            sbf * _INV_SQRT2)
+    if sv is None and not isinstance(sbf, torch.Tensor):
+        # s_bf / sqrt2 as the plain version's bfd_T rounds it: the weighted
+        # and the 3D kernels round as their plain versions do
+        sv = sbf * _INV_SQRT2
+    like = operands[0]
+    fn, (sbf_a, din_a, dbd_a, sv_a) = _scalar_args(
+        _build.library(), "dotsocp_" + kind, like, sbf=sbf, diag_in=diag[0],
+        diag_bd=diag[1], sv=sv)
+    if isinstance(sbf, torch.Tensor):
+        # the _dev entry takes the four addresses after hs0..hs2
+        args = [D, tau, g.ht, *hs, sbf_a, sv_a, din_a, dbd_a]
+    else:
+        args = [D, sbf_a, tau, g.ht, *hs, din_a, dbd_a, sv_a]
+    _launch(LAUNCHES, kind, fn, like.device, *[t.data_ptr() for t in operands],
+            d, nt, S, *k, *n, *args)
 
 
 def qx_step(ops: OpsFlat, phi, x, alpha: Staggered, dinv, D: float,
-            sbf: float, tau: float):
+            sbf: float, tau: float, sv=None):
     """q' = (D grad phi + alpha + sbf BF^T x) * diag^-1 and alpha' = alpha +
     tau (D grad phi - q'); with a :class:`WeightedDinv`, q' = (w (D grad phi
     + alpha) + sbf BF^T x) * diag^-1 and alpha' = alpha + tau (D grad phi -
@@ -342,99 +368,99 @@ def qx_step(ops: OpsFlat, phi, x, alpha: Staggered, dinv, D: float,
     updated in place."""
     operands = (phi, x, alpha.q0, alpha.bs) + _weight_operands(dinv)
     if not _use_kernel(*operands):
-        return qx_step_plain(ops, phi, x, alpha, dinv, D, sbf, tau)
+        return qx_step_plain(ops, phi, x, alpha, dinv, D, sbf, tau, sv)
     _check_q_operands(ops, phi, alpha, dinv)
     _check_cone(ops, x)
     _check_distinct(*operands)
     q = Staggered(torch.empty_like(alpha.q0), torch.empty_like(alpha.bs))
-    _launch_q("qx_step", ops, [phi.data_ptr(), x.data_ptr(),
-                               alpha.q0.data_ptr(), alpha.bs.data_ptr(),
-                               q.q0.data_ptr(), q.bs.data_ptr()],
-              dinv, D, sbf, tau, phi.device)
+    _launch_q("qx_step", ops, [phi, x, alpha.q0, alpha.bs, q.q0, q.bs], dinv,
+              D, sbf, tau, sv)
     return q, alpha
 
 
 def _cx(name: str, final: bool, ops: OpsFlat, beta, x, q: Staggered, sbf,
-        sd, tau):
+        sd, tau, sv):
     if not _use_kernel(beta, x, q.q0, q.bs):
-        return cx_step_plain(ops, beta, x, q, sbf, sd, tau, final)
+        return cx_step_plain(ops, beta, x, q, sbf, sd, tau, final, sv)
     _check_cone(ops, beta, x)
     _check_stag(ops, q)
     _check_distinct(beta, x, q.q0, q.bs)
     d, nt, S, k, _, _ = _dims(ops)
-    fn, sd_arg = _sd_args(_build.library(), "dotsocp_cx_step", sd, beta)
+    fn, scal = _scalar_args(_build.library(), "dotsocp_cx_step", beta,
+                            sbf=sbf, sd=sd)
     _launch(LAUNCHES, name, fn, beta.device, q.q0.data_ptr(),
-            q.bs.data_ptr(), beta.data_ptr(), x.data_ptr(), d, nt, S, *k, sbf,
-            sd_arg, tau, int(final))
+            q.bs.data_ptr(), beta.data_ptr(), x.data_ptr(), d, nt, S, *k,
+            *scal, tau, int(final))
     return beta, x
 
 
 def cx_step(ops: OpsFlat, beta, x, q: Staggered, sbf: float, sd: float,
-            tau: float):
+            tau: float, sv=None):
     """beta' = beta + tau (x - beta - BF_d q') and the next carried x' =
     Pi_K(BF_d q' - beta') + beta'. Returns (beta', x'); on CUDA both are
     the input buffers, updated in place."""
-    return _cx("cx_step", False, ops, beta, x, q, sbf, sd, tau)
+    return _cx("cx_step", False, ops, beta, x, q, sbf, sd, tau, sv)
 
 
 def cx_final(ops: OpsFlat, beta, x, q: Staggered, sbf: float, sd: float,
-             tau: float):
+             tau: float, sv=None):
     """beta' as in :func:`cx_step`, and the stale z = x - beta that the
     iteration's q-step consumed: the segment-boundary state of the plain
     path. Returns (beta', z)."""
-    return _cx("cx_final", True, ops, beta, x, q, sbf, sd, tau)
+    return _cx("cx_final", True, ops, beta, x, q, sbf, sd, tau, sv)
 
 
 # -- the single step: fresh outputs, inputs left as they were ----------------
 
-def z_step(ops: OpsFlat, q: Staggered, beta, sbf: float, sd: float):
+def z_step(ops: OpsFlat, q: Staggered, beta, sbf: float, sd: float,
+           sv=None):
     """z = Pi_K(BF_d q - beta): the z-step."""
     if not _use_kernel(q.q0, q.bs, beta):
-        return z_step_plain(ops, q, beta, sbf, sd)
+        return z_step_plain(ops, q, beta, sbf, sd, sv)
     _check_stag(ops, q)
     _check_cone(ops, beta)
     z = torch.empty_like(beta)
     d, nt, S, k, _, _ = _dims(ops)
-    fn, sd_arg = _sd_args(_build.library(), "dotsocp_z_step", sd, beta)
+    fn, scal = _scalar_args(_build.library(), "dotsocp_z_step", beta,
+                            sbf=sbf, sd=sd)
     _launch(LAUNCHES, "z_step", fn, beta.device, q.q0.data_ptr(),
-            q.bs.data_ptr(), beta.data_ptr(), z.data_ptr(), d, nt, S, *k, sbf,
-            sd_arg)
+            q.bs.data_ptr(), beta.data_ptr(), z.data_ptr(), d, nt, S, *k,
+            *scal)
     return z
 
 
 def q_step(ops: OpsFlat, phi, z, beta, alpha: Staggered, dinv, D: float,
-           sbf: float, tau: float):
+           sbf: float, tau: float, sv=None):
     """The q-step and alpha multiplier of :func:`qx_step` from z and beta
     read apart (x = z + beta formed per element). Returns fresh (q',
     alpha')."""
     operands = (phi, z, beta, alpha.q0, alpha.bs) + _weight_operands(dinv)
     if not _use_kernel(*operands):
-        return q_step_plain(ops, phi, z, beta, alpha, dinv, D, sbf, tau)
+        return q_step_plain(ops, phi, z, beta, alpha, dinv, D, sbf, tau,
+                            sv)
     _check_q_operands(ops, phi, alpha, dinv)
     _check_cone(ops, z, beta)
     q = Staggered(torch.empty_like(alpha.q0), torch.empty_like(alpha.bs))
     a = Staggered(torch.empty_like(alpha.q0), torch.empty_like(alpha.bs))
-    _launch_q("q_step", ops, [phi.data_ptr(), z.data_ptr(), beta.data_ptr(),
-                              alpha.q0.data_ptr(), alpha.bs.data_ptr(),
-                              a.q0.data_ptr(), a.bs.data_ptr(),
-                              q.q0.data_ptr(), q.bs.data_ptr()],
-              dinv, D, sbf, tau, phi.device)
+    _launch_q("q_step", ops, [phi, z, beta, alpha.q0, alpha.bs, a.q0, a.bs,
+                              q.q0, q.bs], dinv, D, sbf, tau, sv)
     return q, a
 
 
 def beta_step(ops: OpsFlat, beta, z, q: Staggered, sbf: float, sd: float,
-              tau: float):
+              tau: float, sv=None):
     """beta' = beta + tau (z - BF_d q'), fresh."""
     if not _use_kernel(beta, z, q.q0, q.bs):
-        return beta_step_plain(ops, beta, z, q, sbf, sd, tau)
+        return beta_step_plain(ops, beta, z, q, sbf, sd, tau, sv)
     _check_cone(ops, beta, z)
     _check_stag(ops, q)
     out = torch.empty_like(beta)
     d, nt, S, k, _, _ = _dims(ops)
-    fn, sd_arg = _sd_args(_build.library(), "dotsocp_beta_step", sd, beta)
+    fn, scal = _scalar_args(_build.library(), "dotsocp_beta_step", beta,
+                            sbf=sbf, sd=sd)
     _launch(LAUNCHES, "beta_step", fn, beta.device, q.q0.data_ptr(),
             q.bs.data_ptr(), beta.data_ptr(), z.data_ptr(), out.data_ptr(), d,
-            nt, S, *k, sbf, sd_arg, tau)
+            nt, S, *k, *scal, tau)
     return out
 
 

@@ -255,11 +255,11 @@ class OpsHalo:
             out = out + (prev[a] - faces[a]) / geom.hs(a)
         return out
 
-    def bfd(self, q: Staggered, scale_bf, scale_d):
+    def bfd(self, q: Staggered, scale_bf, scale_d, sv=None):
         """z2 = scale_bf (BF q) + scale_d d (``mexBFd``), the whole block
-        cell-masked in space and t."""
+        cell-masked in space and t; ``sv`` as in ``OpsFlat.bfd``."""
         cols = [scale_d - scale_bf * q.q0]
-        s = scale_bf * _INV_SQRT2
+        s = scale_bf * _INV_SQRT2 if sv is None else sv
         faces = [self._face(q.bs, a) for a in range(self.d)]
         lows = self._shifts([(faces[a], a, True) for a in range(self.d)])
         for a in range(self.d):
@@ -272,10 +272,11 @@ class OpsHalo:
         z2 = self._stack(cols)
         return z2 * self._cell_mask(z2.ndim, t_cell=True)
 
-    def bfd_T(self, x, scale_bf) -> Staggered:
-        """q2 = scale_bf (BF)^T x (``mexBFdConj``), scatter-free."""
+    def bfd_T(self, x, scale_bf, sv=None) -> Staggered:
+        """q2 = scale_bf (BF)^T x (``mexBFdConj``), scatter-free; ``sv`` as
+        in ``OpsFlat.bfd``."""
         q0 = scale_bf * (self._col(x, -1) - self._col(x, 0))
-        s = scale_bf * _INV_SQRT2
+        s = scale_bf * _INV_SQRT2 if sv is None else sv
         # the x_lo columns of each axis: 1 + 4a (t_lo) and 3 + 4a (t_hi)
         nxt = iter(self._shifts([(self._col(x, 1 + 4 * a + 2 * j), a, False)
                                  for a in range(self.d) for j in (0, 1)]))
@@ -296,8 +297,10 @@ class OpsHalo:
     def _t_rows(self, inner, bnd, dtype, device):
         """(Lt, 1, ...) values: ``bnd`` on the rank's slabs of global t = 0
         and nt - 1, ``inner`` elsewhere."""
-        row = torch.full((self.Lt,) + (1,) * self.d, inner, dtype=dtype,
-                         device=device)
+        # fill_ takes a float or a 0-d tensor on the card (see
+        # OpsFlat.t_edge_row)
+        row = torch.empty((self.Lt,) + (1,) * self.d, dtype=dtype,
+                          device=device).fill_(inner)
         for t in (0, self.geom.nt - 1):
             if self.off_t <= t < self.off_t + self.Lt:
                 row[t - self.off_t].fill_(bnd)

@@ -79,7 +79,7 @@ from ..algorithms.graphs import SegmentGraphs
 from ..algorithms.variants import ITERATE, PALMKernels
 from ..multilevel.level import (initial_scaling, initialize, recover_org_var,
                                 recover_rho_e)
-from ..multilevel.solve import IGNORED_OPTS, _check_choice, _jump_next_level
+from ..multilevel.solve import _check_choice, _jump_next_level
 from ..multilevel.transfer import restrict_density
 from ..ops.staggered import Staggered
 from . import comm
@@ -88,10 +88,13 @@ from .sharding import Mesh, make_mesh, spatial_axes
 # the methods of the lockstep fleet and their multiplier step
 # (``dotsocp_tpu/parallel/batch.py:326,340``)
 BATCH_METHODS = {"inPALM": 1.9, "PALM": 1.9, "ALG2": 1.0}
-# the options solve_batch reads (``batch.py:308-342``); the compile and
-# cache knobs are taken and ignored, use_pallas / layout / driver as
-# solve_dot takes them
+# the options solve_batch reads (``batch.py:308-342``); use_pallas / layout
+# / driver as solve_dot takes them
 BATCH_OPTS = {"tol", "maxit", "sigma", "time_limit", "scaling"}
+# solve_dot's cache knobs, which a sequential fleet passes on: the lockstep
+# fleet builds its levels afresh on every call (as the JAX solve_batch
+# does), so it takes them and they change nothing there
+IGNORED_OPTS = {"prewarm", "reuse_solvers"}
 FIELDS = ("phi", "q", "z", "alpha", "beta", "c")
 # the one record a check reads back
 RECORD = ("all_done", "it")
@@ -784,13 +787,17 @@ def _solve_batch(rho0s, rho1s, nt, opts, method, dtype, mesh, level_n,
 # time-staggered cells ((nt - 1) * prod(space)) than this, a lockstep fleet
 # of 8 solves more instances a second than sequential solves do. Measured
 # with chip_smoke.py phase 8d on an NVIDIA H100 80GB HBM3, 700.00 W power
-# limit (demos/demo_batch.py's fleet, B = 8): lockstep / sequential
-# instances a second 2.41 at 8,712 cells (33^2 x 9), 1.78 at 67,600,
-# 1.85 at 532,512, 1.16 at 4,227,136 (257^2 x 65), 0.95 at 7,114,800
-# (385^2 x 49); the crossover, log-linear between the last two, is 6.28M
-# cells. The lockstep fleet also holds B levels at once (22.5 GiB at
-# 8 x 385^2 x 49 against 4.0 GiB sequential).
-SATURATION_CELLS = 6_280_000
+# limit (demos/demo_batch.py's fleet, B = 8), the sequential solves on the
+# solver cache (instance 0 prewarmed, the others on its levels' graphs),
+# three runs: lockstep / sequential instances a second 1.55-1.64 at 8,712
+# cells (33^2 x 9), 1.28-1.54 at 67,600, 1.07-1.28 at 532,512
+# (129^2 x 33), 0.94-0.96 at 4,227,136 (257^2 x 65), 0.85-0.88 at
+# 7,114,800 (385^2 x 49); the crossover, log-linear between 532,512 and
+# 4,227,136 cells, 1.56M, 2.41M and 3.19M cells, here their median.
+# (Without the cache, sequential solves rebuilt every level, and the
+# crossover was 6.28M.) The lockstep fleet also holds B levels at once
+# (22.5 GiB at 8 x 385^2 x 49 against 3.8 GiB sequential).
+SATURATION_CELLS = 2_410_000
 
 
 def pick_fleet_mode(B: int, space, nt: int, n_devices: int) -> str:
@@ -813,7 +820,10 @@ def solve_fleet(rho0s, rho1s, nt: int, opts: Optional[dict] = None,
     number of ranks (``pick_fleet_mode``: the mesh's, else the world's).
     'sequential' runs the port's :func:`~..multilevel.solve.solve_dot`
     (``driver`` "auto" unless ``opts`` names one) one instance after
-    another, 'lockstep' :func:`solve_batch` on this rank, 'sharded'
+    another on its solver cache, with ``prewarm`` for instance 0 unless
+    ``opts`` turns it off (``dotsocp_tpu/parallel/batch.py:505-512``), so
+    instances 1 on start on the cached levels' replays; 'lockstep'
+    :func:`solve_batch` on this rank, 'sharded'
     :func:`solve_batch` with the batch axis over ``mesh`` (default: a
     ``("batch",)`` mesh of gcd(B, world) ranks, which every rank of the
     world makes here). Returns :func:`solve_batch`'s dict plus ``mode``;
@@ -852,10 +862,11 @@ def solve_fleet(rho0s, rho1s, nt: int, opts: Optional[dict] = None,
     total_time = 0.0
     total_iters = 0
     for b in range(B):
-        o, _, h = solve_dot(rho0s[b], rho1s[b], nt, level_n,
-                            dict(opts, driver=opts.get("driver", "auto")),
-                            method, device=device, dtype=dtype,
-                            verbose=False)
+        o, _, h = solve_dot(
+            rho0s[b], rho1s[b], nt, level_n,
+            dict(opts, driver=opts.get("driver", "auto"),
+                 prewarm=b == 0 and bool(opts.get("prewarm", True))),
+            method, device=device, dtype=dtype, verbose=False)
         rhos.append(o["rho"])
         k = np.asarray(h["kkt"][-1])
         kkts.append(k)

@@ -1,11 +1,12 @@
 """How the port's ``solve_dot`` takes the JAX package's options, and the
 card's HBM peak by name, on the CPU.
 
-The JAX package's compile and cache knobs (prewarm, reuse_solvers) are
-accepted and change nothing; ``use_pallas``, ``layout`` and ``driver`` take
-the values the port runs and refuse the others with a message that says
-why; the device driver's ``chunk_iters``, ``max_chunks`` and
-``checkpoint_dir`` change nothing in a run that ends inside one chunk;
+The JAX package's cache knobs (prewarm, reuse_solvers) are taken and
+change no result (what they keep is ``tests/test_torch_cache.py``'s);
+``use_pallas``, ``layout`` and ``driver`` take the values the port runs and
+refuse the others with a message that says why; the device driver's
+``chunk_iters``, ``max_chunks`` and ``checkpoint_dir`` change nothing in a
+run that ends inside one chunk;
 ``layout="halo"`` without a mesh warns and runs the flat solve, as the JAX
 package does, and ``layout="3d"`` is refused by its own name (no option
 waits in a ROADMAP.md queue any more: ``mesh`` runs, in
