@@ -228,6 +228,28 @@ the device driver (CUDA-graph segments, ``algorithms/device_driver.py``).
    solve. Phases 8c and 8d run the sequential fleet on the cache
    (instance 0 prewarmed), from an empty cache each.
 
+12. The shaped engine (``opts={"layout": "3d"}``, ``ops/engine.Ops3D``),
+   float32, tol 1e-4 unless said, each solve counted from 0, every level's
+   stop residuals below its tolerance, mass conservation, graphs replayed,
+   and no kernel of the flat layout launched (the inPALM family runs its
+   plain steps there, as the JAX package does). 12a: the headline (470-574
+   iterations, no kernel launched), its per-level counts beside a flat
+   solve's of this phase, the L1 distance of the two rho as a record, its
+   wall and busy share beside the flat walls of this phase and phase 4.
+   12b: sGS-inPALM 129^2 x 33 within +-10% of ``SGS_ANCHOR``, rb_sweep
+   once an sGS iteration. 12c: acc-ADMM and acc-sGS-ADMM at example2
+   65^2 x 17 within +-10% of ``VARIANT_ANCHORS``, cone_project_diff once
+   an acc iteration. 12d: the scale config within +-10% of 407, its cold
+   and warm walls, peak memory and busy share beside phase 9a's. 12e: weighted inPALM,
+   love-heart 65^2 x 33, 2 levels, tol 1e-3: no density in the eroded
+   barrier. 12f: the 3D gaussian 33^3 x 17 within +-10% of 1,978. 12g:
+   the native golden kernels (``dotsocp_tpu_torch/native``, CPU, float64)
+   against the card at 129^2 x 33: the shaped bfd, bfd_T and proj_soc in
+   float64 within 1e-12; the sweep kernel's float32 output (two sweeps,
+   D = 0.83) within rtol 2e-5 / atol 2e-6 of native.rb_sgs rounded; then
+   the sweep and the cone projection on the shaped fields against their
+   plain versions (the cone projection bit-equal).
+
 The line before the last is a JSON object with one entry per kernel (its
 launches on the main path: the sum over every solve and profile of phases
 4-4e, 4g and 4h, each run with every count set to 0 just before and read just
@@ -238,8 +260,10 @@ with its launches summed over the 3D solves of phase 4f; the batched
 kernels' launches summed over the lockstep solves of phases 8c and 8d,
 their times at B = 8 x 129^2 x 33, beside B single launches, and under
 ``b32_65x17`` at B = 32 x 65^2 x 17; every kernel's
-``phase9_launches`` summed over phase 9's runs; phase 10's figures under
-``multi_device``, phase 11's under ``solver_cache``); the last line is
+``phase9_launches`` summed over phase 9's runs, ``layout3d_launches``
+over phase 12's "3d" solves; phase 10's figures under ``multi_device``,
+phase 11's under ``solver_cache``, phase 12's under ``layout_3d``); the
+last line is
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero before printing any result.
@@ -4321,6 +4345,341 @@ def solver_cache(torch):
     return out
 
 
+# -- phase 12: the shaped engine (layout "3d") -----------------------------------
+
+# the kernels that run on the "3d" layout: the sweep on the shaped phi, the
+# cone projection on the shaped z; every other kernel takes the flat layout
+LAYOUT3D_KERNELS = ("rb_sweep", "cone_project_diff")
+LAYOUT3D = {"layout": "3d"}
+# 12e: love-heart (n, nt, levels, tol); 12g: the oracle's grid and sweep
+LAYOUT3D_WEIGHTED = (65, 33, 2, 1e-3)
+ORACLE = (33, 129)
+ORACLE_D, ORACLE_ITS = 0.83, 2
+
+
+def solve_3d_layout(torch, what, r0, r1, nt, levels, tol, method="inPALM",
+                    weight=None, barrier=None, **opts):
+    """One float32 ``layout="3d"`` solve on the card, every launch count set
+    to 0 just before: the shape and finiteness of rho, mass conservation,
+    every level's stop residual below ``tol``, no kernel of the flat layout
+    launched. Returns (output, launches, wall s, peak GiB)."""
+    from dotsocp_tpu_torch.multilevel.solve import solve_dot
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.monotonic()
+    out, _, _ = solve_dot(r0, r1, nt, levels,
+                          dict(LAYOUT3D, tol=tol, **opts), method, weight,
+                          barrier, device=DEVICE, dtype=torch.float32,
+                          verbose=False)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    iters = [lv["iters"] for lv in out["levels"]]
+    weighted = weight is not None
+    stops = [stop_residual(lv, weighted) for lv in out["levels"]]
+    replays = sum(lv["driver"]["replays"] for lv in out["levels"])
+    log(f"  {what} on '3d': iterations {iters} ({sum(iters)}) in "
+        f"{wall:.3f} s, stop residuals {[f'{x:.2e}' for x in stops]}, mass_ok "
+        f"{out['mass_ok']}, graph replays {replays}, peak {peak:.3f} GiB; "
+        f"launches { {k: v for k, v in launches.items() if v} }")
+    rho = out["rho"]
+    require(tuple(rho.shape) == (nt,) + tuple(r0.shape),
+            f"{what}: rho shape {tuple(rho.shape)}")
+    require(bool(torch.isfinite(rho).all()), f"{what}: non-finite density")
+    require(out["mass_ok"], f"{what} on '3d': mass conservation violated")
+    for lv, stop in zip(out["levels"], stops):
+        require(stop < tol, f"{what} on '3d' level {lv['level']} stopped at "
+                f"KKT {stop:.3e}")
+    for k, n in launches.items():
+        require(k in LAYOUT3D_KERNELS or n == 0, f"{what} on '3d': {k} "
+                f"launched {n} times (a kernel of the flat layout)")
+    require(replays > 0, f"{what} on '3d': no piece replayed from a graph")
+    return out, launches, wall, peak
+
+
+def layout3d_headline(torch, flat_wall):
+    """12a: the headline on '3d' beside the flat headline of this phase and
+    phase 4's wall."""
+    from dotsocp_tpu_torch.models.examples import get_example_2d
+    from dotsocp_tpu_torch.multilevel.solve import solve_dot
+
+    r0, r1 = get_example_2d("DOTmark_4stitch", 129, 129)
+    out, launches, wall, _ = solve_3d_layout(torch, "headline 129^2 x 33",
+                                             r0, r1, 33, 3, 1e-4)
+    iters = [lv["iters"] for lv in out["levels"]]
+    total = sum(iters)
+    require(470 <= total <= 574, f"'3d' headline: total iterations {total} "
+            f"outside 470-574")
+    require(not any(launches.values()), "the '3d' headline launched a "
+            "kernel (inPALM runs its plain steps there)")
+    rho3d = out["rho"]
+    del out
+
+    def solve(layout):
+        res = solve_dot(r0, r1, 33, 3, {"tol": 1e-4, "layout": layout},
+                        device=DEVICE, dtype=torch.float32, verbose=False)
+        torch.cuda.synchronize()
+        return res
+
+    clear_cache()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    flat, _, _ = solve("flat")
+    flat_now = time.monotonic() - t0
+    flat_iters = [lv["iters"] for lv in flat["levels"]]
+    # the L1 distance over the unit space-time box: the mean over the grid
+    l1 = float((rho3d - flat["rho"]).abs().mean())
+    del flat
+    clear_cache()
+    kernel_ms, busy = device_busy(torch, lambda: solve("3d"), wall)
+    log(f"  per level: '3d' {iters}, flat {flat_iters}; L1 distance of the "
+        f"two rho {l1:.3e} (a record, not a gate)")
+    log(f"  wall: '3d' {wall:.3f} s (device busy {busy:.0f}%, "
+        f"{kernel_ms:.1f} ms of kernels in a second, profiled run), flat "
+        f"{flat_now:.3f} s here and {flat_wall:.3f} s in phase 4; '3d' / flat "
+        f"{wall / flat_now:.2f}")
+    return launches, dict(iters=iters, total=total, wall_s=wall,
+                          flat_iters=flat_iters, flat_wall_s=flat_now,
+                          phase4_flat_wall_s=flat_wall,
+                          ratio_to_flat=wall / flat_now, busy_pct=busy,
+                          kernel_ms=kernel_ms, rho_l1_to_flat=l1)
+
+
+def layout3d_sgs(torch):
+    """12b: sGS-inPALM 129^2 x 33 on '3d': the sweep kernel once an sGS
+    iteration, the counts within +-10% of SGS_ANCHOR."""
+    from dotsocp_tpu_torch.models.examples import get_example_2d
+
+    r0, r1 = get_example_2d("DOTmark_4stitch", 129, 129)
+    out, launches, wall, _ = solve_3d_layout(torch, "sGS-inPALM 129^2 x 33",
+                                             r0, r1, 33, 3, 1e-4,
+                                             "sGS-inPALM")
+    iters = [lv["iters"] for lv in out["levels"]]
+    require_band("'3d' sGS-inPALM", iters, SGS_ANCHOR)
+    require(launches["rb_sweep"] == iters[-1], f"'3d' sGS-inPALM: rb_sweep "
+            f"launched {launches['rb_sweep']} times, not once per sGS "
+            f"iteration ({iters[-1]})")
+    return launches, dict(iters=iters, wall_s=wall,
+                          rb_sweep=launches["rb_sweep"])
+
+
+def layout3d_acc(torch):
+    """12c: acc-ADMM and acc-sGS-ADMM at example2 65^2 x 17 on '3d': the
+    cone projection once an acc iteration, the sweep once an sGS one, each
+    count within +-10% of its JAX float64 count."""
+    from dotsocp_tpu_torch.models.examples import get_example_2d
+
+    r0, r1 = get_example_2d("example2", 65, 65)
+    total_launches, results = {}, {}
+    for method in ("acc-ADMM", "acc-sGS-ADMM"):
+        out, launches, wall, _ = solve_3d_layout(
+            torch, f"{method} example2 65^2 x 17", r0, r1, 17, 2, 1e-4,
+            method)
+        iters = [lv["iters"] for lv in out["levels"]]
+        require_band(f"'3d' {method}", iters, VARIANT_ANCHORS[method])
+        acc = acc_iterations(method, out)
+        require(launches["cone_project_diff"] == acc, f"'3d' {method}: "
+                f"cone_project_diff launched {launches['cone_project_diff']} "
+                f"times, not once per acc iteration ({acc})")
+        if "sGS" in method:
+            require(launches["rb_sweep"] == iters[-1], f"'3d' {method}: "
+                    f"rb_sweep launched {launches['rb_sweep']} times, not "
+                    f"once per sGS iteration ({iters[-1]})")
+        results[method] = dict(iters=iters, wall_s=wall,
+                               cone_launches=launches["cone_project_diff"])
+        add_counts(total_launches, launches)
+    return total_launches, results
+
+
+def layout3d_scale(torch, flat):
+    """12d: the scale config (DOTmark 513^2 x 65, 3 levels) on '3d' beside
+    phase 9a's flat run, like for like: the cold solve (the cache empty)
+    beside the demo's, then a warm solve (a cache hit) and the busy share
+    of a second, profiled warm solve beside 9a's ``solve_dot``."""
+    from dotsocp_tpu_torch.models.examples import get_example_2d
+    from dotsocp_tpu_torch.multilevel.solve import solve_dot
+
+    n, nt, levels, tol = SCALE_CONFIG
+    r0, r1 = get_example_2d("DOTmark_4stitch", n, n)
+    torch.cuda.empty_cache()
+    out, launches, cold, peak = solve_3d_layout(
+        torch, f"scale config {n}^2 x {nt}", r0, r1, nt, levels, tol,
+        maxit=3000)
+    iters = [lv["iters"] for lv in out["levels"]]
+    del out
+    require_band("'3d' scale config", iters, (SCALE_ANCHOR,))
+
+    def solve():
+        solve_dot(r0, r1, nt, levels, dict(LAYOUT3D, tol=tol, maxit=3000),
+                  device=DEVICE, dtype=torch.float32, verbose=False)
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    solve()
+    warm = time.monotonic() - t0
+    kernel_ms, busy = device_busy(torch, solve, warm)
+    log(f"  '3d' scale config: cold {cold:.3f} s (phase 9a's demo, cold, "
+        f"with its report: {flat['demo_wall_s']:.3f} s), warm {warm:.3f} s "
+        f"at {busy:.0f}% busy (9a's solve_dot, warm: {flat['wall_s']:.3f} s "
+        f"at {flat['busy_pct']:.0f}%), '3d' / flat warm "
+        f"{warm / flat['wall_s']:.2f}; peak {peak:.3f} GiB (9a "
+        f"{flat['peak_gib']:.3f} GiB)")
+    return launches, dict(iters=iters, total=sum(iters), cold_wall_s=cold,
+                          wall_s=warm, peak_gib=peak, busy_pct=busy,
+                          kernel_ms=kernel_ms,
+                          flat_demo_wall_s=flat["demo_wall_s"],
+                          flat_wall_s=flat["wall_s"],
+                          flat_peak_gib=flat["peak_gib"],
+                          flat_busy_pct=flat["busy_pct"])
+
+
+def layout3d_weighted(torch):
+    """12e: weighted inPALM, love-heart 65^2 x 33, on '3d': no density
+    inside the eroded barrier."""
+    from scipy.ndimage import binary_erosion
+
+    from dotsocp_tpu_torch.models import wdot2d as W
+
+    n, nt, levels, tol = LAYOUT3D_WEIGHTED
+    barrier = W.barrier_love_heart()
+    r0, r1 = W.get_example_w2d("love-heart", n, n)
+    r0, r1, mask = W.ensure_barrier_validity(r0, r1, barrier)
+    weight = W.get_weight_by_barrier(n, n, nt, barrier, dtype=torch.float32,
+                                     device=DEVICE)
+    out, launches, wall, _ = solve_3d_layout(
+        torch, f"weighted inPALM love-heart {n}^2 x {nt}", r0, r1, nt,
+        levels, tol, "inPALM", weight, barrier)
+    interior = torch.as_tensor(binary_erosion(mask, iterations=2),
+                               device=out["rho"].device)
+    leak = float(out["rho"][:, interior].abs().max())
+    log(f"  max |rho| inside the eroded barrier {leak:.3e}")
+    require(leak < 0.1, f"'3d' weighted: density {leak:.3e} inside the "
+            f"barrier")
+    return launches, dict(iters=[lv["iters"] for lv in out["levels"]],
+                          wall_s=wall, barrier_max_rho=leak)
+
+
+def layout3d_gaussian(torch):
+    """12f: the 3D gaussian at the demo_dot3d default (33^3 x 17, 2 levels)
+    on '3d', within +-10% of DEMO_3D_ANCHORS' 1,978."""
+    from dotsocp_tpu_torch.models.examples import get_example_3d
+
+    n, nt, levels = DEMO_3D
+    r0, r1 = get_example_3d("gaussian", n, n, n)
+    out, launches, wall, peak = solve_3d_layout(
+        torch, f"3D gaussian {n}^3 x {nt}", r0, r1, nt, levels, 1e-4)
+    iters = [lv["iters"] for lv in out["levels"]]
+    require_band("'3d' 3D gaussian", iters, DEMO_3D_ANCHORS["gaussian"])
+    return launches, dict(iters=iters, wall_s=wall, peak_gib=peak)
+
+
+def layout3d_oracle(torch):
+    """12g: the native golden kernels (CPU, float64) against the card. On
+    seeded inputs at 129^2 x 33: the shaped bfd, bfd_T and the plain
+    proj_soc in float64 on the card within 1e-12; the sweep kernel's
+    float32 output (two sweeps, D = 0.83, tests/test_native.py:59-66)
+    within rtol 2e-5 / atol 2e-6 of native.rb_sgs in float64, rounded.
+    Then the two kernels of this layout against their plain versions on
+    the shaped fields: the sweep within the same tolerance, the cone
+    projection bit-equal. Returns {kernel: largest error}."""
+    import numpy as np
+
+    from dotsocp_tpu_torch import native
+    from dotsocp_tpu_torch.ops.cone import proj_soc
+    from dotsocp_tpu_torch.ops.engine import Ops3D
+    from dotsocp_tpu_torch.ops.fused_step import (cone_project_diff,
+                                                  cone_project_diff_plain)
+    from dotsocp_tpu_torch.ops.geometry import Geometry
+    from dotsocp_tpu_torch.ops.sgs import make_sgs
+    from dotsocp_tpu_torch.ops.sgs_sweep import rb_sweep
+    from dotsocp_tpu_torch.ops.staggered import Staggered
+
+    nt, n = ORACLE
+    geom = Geometry(nt, (n, n))
+    rng = np.random.default_rng(12)
+    cpu = {"q0": rng.standard_normal(geom.q0_shape),
+           "by": rng.standard_normal(geom.b_shape(0)),
+           "bx": rng.standard_normal(geom.b_shape(1)),
+           "x": rng.standard_normal(geom.z_shape),
+           "phi": rng.standard_normal(geom.phi_shape),
+           "rhs": rng.standard_normal(geom.phi_shape)}
+    cpu = {k: torch.tensor(v, dtype=torch.float64) for k, v in cpu.items()}
+    dev = {k: v.to(DEVICE) for k, v in cpu.items()}
+    ops = Ops3D(geom, torch.float64, DEVICE)
+    q = Staggered(dev["q0"], (dev["by"], dev["bx"]))
+    errs = {}
+
+    def gap(name, got, want, tol):
+        err = float((got.cpu() - want).abs().max())
+        errs[name] = err
+        require(err <= tol, f"12g {name}: {err:.3e} from the native kernel "
+                f"(tolerance {tol:g})")
+
+    sbf, sd = 0.63, 1.7
+    gap("bfd", ops.bfd(q, sbf, sd),
+        native.bfd2d(cpu["q0"], cpu["by"], cpu["bx"], nt, n, n, sbf, sd),
+        1e-12)
+    for name, a, b in zip(("bfd_T.q0", "bfd_T.by", "bfd_T.bx"),
+                          ops.bfd_T(dev["x"], sbf).blocks(),
+                          native.bfd_conj2d(cpu["x"], nt, n, n, sbf)):
+        gap(name, a, b, 1e-12)
+    gap("proj_soc", proj_soc(dev["x"]), native.proj_soc(cpu["x"]), 1e-12)
+    d2 = ORACLE_D * ORACLE_D
+    sgs = make_sgs(geom, dtype=torch.float32, device=DEVICE)
+    phi32, rhs32 = dev["phi"].float(), dev["rhs"].float()
+    swept = rb_sweep(sgs, phi32, rhs32, d2, its=ORACLE_ITS)
+    gold = native.rb_sgs(cpu["phi"], cpu["rhs"], d2, its=ORACLE_ITS).float()
+    excess = float(((swept.cpu() - gold).abs()
+                    - (ATOL + RTOL * gold.abs())).max())
+    errs["rb_sweep vs native"] = float((swept.cpu() - gold).abs().max())
+    require(excess <= 0, f"12g: the sweep kernel "
+            f"{errs['rb_sweep vs native']:.3e} from native.rb_sgs beyond "
+            f"rtol {RTOL:g} / atol {ATOL:g}")
+    cmp = Compare(torch)
+    cmp("rb_sweep", swept, sgs.sweep(phi32, rhs32, ORACLE_ITS, d2=d2))
+    z2 = dev["x"].float()
+    beta = (0.3 * dev["x"].flip(0)).float().contiguous()
+    cmp("cone_project_diff", cone_project_diff(z2, beta),
+        cone_project_diff_plain(z2, beta), exact=True)
+    errs.update(cmp.max_abs)
+    log(f"  against native (float64, CPU): "
+        f"{ {k: f'{v:.2e}' for k, v in errs.items()} }")
+    return errs
+
+
+def layout_3d(torch, card, headline, scale):
+    """Phase 12: the shaped engine end to end, on the card ``card`` (its
+    nvidia-smi name and power limit, printed beside the phase's figures).
+    Returns (the launches of the '3d' solves of 12a-12f, summed, each solve
+    counted from 0; the results, the native oracle's and the kernels'
+    largest errors under ``oracle``)."""
+    log(f"  card (name, power limit): {card}")
+    launches, results = {}, {"card": card}
+    steps = (("headline", lambda: layout3d_headline(torch,
+                                                    headline["wall_s"])),
+             ("sgs_path", lambda: layout3d_sgs(torch)),
+             ("acc", lambda: layout3d_acc(torch)),
+             ("scale_513x65", lambda: layout3d_scale(torch, scale)),
+             ("weighted", lambda: layout3d_weighted(torch)),
+             ("gaussian_33x3x17", lambda: layout3d_gaussian(torch)))
+    for key, run in steps:
+        clear_cache()
+        counts, results[key] = run()
+        add_counts(launches, counts)
+        torch.cuda.empty_cache()
+    clear_cache()
+    results["oracle"] = layout3d_oracle(torch)
+    log(f"  '3d' launches {launches}")
+    for k in LAYOUT3D_KERNELS:
+        require(launches.get(k, 0) > 0, f"{k} was launched no time on the "
+                f"'3d' path")
+    return launches, results
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", nargs="?", const="", default=None,
@@ -4339,7 +4698,7 @@ def main(argv=None):
 
     t_start = time.monotonic()
     phase(1, "device")
-    device_name, _ = check_device(torch)
+    device_name, card = check_device(torch)
     phase(2, "build")
     registers = build_kernels()
     phase(3, "kernels against their plain versions")
@@ -4448,6 +4807,11 @@ def main(argv=None):
     phase(11, "the solver cache: the headline twice, two problems under one "
           "key, prewarm, the scale config twice")
     cache = solver_cache(torch)
+    phase(12, "the shaped engine, layout '3d': the headline, the sGS path, "
+          "acc-ADMM and acc-sGS-ADMM, the scale config, weighted inPALM, the "
+          "3D gaussian; the native oracle against the card")
+    launches_3dl, layout3d = layout_3d(torch, card, headline,
+                                       user["scale_513x65"])
     log(f"\nall phases passed in {time.monotonic() - t_start:.1f} s")
 
     nbytes = kernel_bytes(Geometry(SCALE[0], (SCALE[1], SCALE[1])))
@@ -4468,6 +4832,8 @@ def main(argv=None):
         "library_ms": library.get(k),
         # summed over phase 9's solves, each counted from 0
         "phase9_launches": launches_9.get(k, 0),
+        # summed over phase 12's layout "3d" solves, each counted from 0
+        "layout3d_launches": launches_3dl.get(k, 0),
         # the DIM = 3 form at the 3D scale level; its launches on the 3D
         # path (phase 4f), its error over the 3D check shapes
         "dim3": {
@@ -4500,6 +4866,7 @@ def main(argv=None):
         "bound_by": "bytes",
         "library_ms": None,
         "phase9_launches": launches_9.get(k, 0),
+        "layout3d_launches": launches_3dl.get(k, 0),
         "singles_ms": t8[k][2],
         "b32_65x17": {"ms": t32[k][0], "plain_ms": t32[k][1],
                       "singles_ms": t32[k][2], "bytes": bytes32[k],
@@ -4517,7 +4884,7 @@ def main(argv=None):
                       "sweep_max_abs_by_shape": SWEEP_ERRS,
                       "device_driver": device_driver, "fleet": fleet,
                       "user_problems": user, "multi_device": multi,
-                      "solver_cache": cache}))
+                      "solver_cache": cache, "layout_3d": layout3d}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}))

@@ -42,6 +42,15 @@ most 1 ulp in the scalars the device driver updates on the card.)
 The variables alpha, beta, c are stored pre-divided by sigma, exactly like
 the reference (``solver_socp_inPALM.m:102-104``).
 
+``LevelConfig.layout`` names the engine of one process: "flat" (the
+default) or "3d", the shaped engine (``ops/engine.Ops3D``), on which every
+field keeps its grid axes and the face blocks are a tuple. The single-step
+and x-carry kernels take the flat layout, so on "3d" the inPALM family
+runs their plain versions (``Kernels.plain``), as the JAX ``Kernels`` fuses
+only on "flat" (``dotsocp_tpu/algorithms/core.py:160-168``); the sGS
+sweep and the acc methods' cone projection run their kernels on the shaped
+fields.
+
 Under a mesh (``LevelConfig.mesh``, ``dotsocp_tpu/algorithms/core.py:
 114-149``) the level's engine is the halo engine and each tensor is one
 rank's block (``ops/halo_engine.py``). The steps whose kernels read
@@ -175,8 +184,7 @@ def stack_fields(states, fields) -> dict:
     for f in fields:
         parts = [getattr(st, f) for st in states]
         if isinstance(parts[0], Staggered):
-            out[f] = Staggered(torch.stack([p.q0 for p in parts]),
-                               torch.stack([p.bs for p in parts]))
+            out[f] = Staggered.stack(parts)
         else:
             out[f] = torch.stack(parts)
     return out
@@ -186,8 +194,7 @@ def select_stack(active, new, old):
     """Each instance's ``new`` where ``active`` (B,), else ``old``: tensors
     with a leading (B,) axis, or Staggered fields of them."""
     if isinstance(new, Staggered):
-        return Staggered(select_stack(active, new.q0, old.q0),
-                         select_stack(active, new.bs, old.bs))
+        return new.map(lambda n, o: select_stack(active, n, o), old)
     return torch.where(active.reshape((-1,) + (1,) * (new.ndim - 1)), new,
                        old)
 
@@ -195,8 +202,7 @@ def select_stack(active, new, old):
 def instance(s: SolverState, b: int) -> SolverState:
     """Instance b of a batched state as views (no copy): its tensors and
     its scalars as 0-d tensors; D and E are the level's."""
-    return s.replace(phi=s.phi[b], q=Staggered(s.q.q0[b], s.q.bs[b]),
-                     z=s.z[b], alpha=Staggered(s.alpha.q0[b], s.alpha.bs[b]),
+    return s.replace(phi=s.phi[b], q=s.q.at(b), z=s.z[b], alpha=s.alpha.at(b),
                      beta=s.beta[b], c=s.c[b],
                      **{f: getattr(s, f)[b] for f in BATCH_SCALARS})
 
@@ -217,8 +223,13 @@ class LevelConfig:
     # f64-residual refinement (two rounds / one)
     dct_split: object = False
     # the rank's mesh (``parallel/sharding.Mesh``): the level runs on the
-    # halo engine, one block a rank; None: the flat engine, one process
+    # halo engine, one block a rank; None: one process, on the engine of
+    # ``layout``
     mesh: object = None
+    # the engine of one process (``ops/engine.make_ops``): "flat", where
+    # the single-step and x-carry kernels run, or "3d", the shaped engine,
+    # where the inPALM family's steps run plain
+    layout: str = "flat"
 
 
 class Kernels:
@@ -228,10 +239,12 @@ class Kernels:
     def __init__(self, cfg: LevelConfig, weight: Optional[Staggered] = None):
         self.cfg = cfg
         self.geom = cfg.geom
-        self.ops = make_ops(cfg.geom, cfg.dtype, cfg.device, cfg.mesh)
-        # under a mesh the steps that read neighbouring cells run their
-        # plain versions on the rank's block (the module docstring)
-        self.plain = cfg.mesh is not None
+        self.ops = make_ops(cfg.geom, cfg.dtype, cfg.device, cfg.mesh,
+                            cfg.layout)
+        # the single-step and x-carry kernels take the flat layout: under a
+        # mesh and on the shaped engine their plain versions run (the module
+        # docstring)
+        self.plain = self.ops.layout != "flat"
         # unit-D build: the solve multiplies by 1/D^2 at use time
         self.poisson = self.ops.make_poisson(1.0, split=cfg.dct_split)
         # the shaped weight of a weighted level, flat, in the level's dtype
@@ -743,8 +756,7 @@ class Kernels:
             return t.to(**conv).clone(memory_format=torch.contiguous_format)
 
         def fresh_stag(st):
-            st = ops.stag_to_internal(st.to(**conv))
-            return Staggered(fresh(st.q0), fresh(st.bs))
+            return ops.stag_to_internal(st.to(**conv)).map(fresh)
 
         s = SolverState(
             phi=fresh(ops.phi_to_internal(var["phi"])),

@@ -142,20 +142,19 @@ def _copy_into(dst, src) -> None:
     """dst <- src for tensors or Staggered fields; nothing when src is dst's
     own buffer (a kernel updated it in place)."""
     if isinstance(dst, Staggered):
-        _copy_into(dst.q0, src.q0)
-        _copy_into(dst.bs, src.bs)
+        for d, s in zip(dst.tensors(), src.tensors()):
+            _copy_into(d, s)
     elif src.data_ptr() != dst.data_ptr():
         dst.copy_(src)
 
 
 def _blocks(x) -> list:
-    return [x.q0, x.bs] if isinstance(x, Staggered) else [x]
+    return x.tensors() if isinstance(x, Staggered) else [x]
 
 
 def _where(cond, a, b):
     if isinstance(a, Staggered):
-        return Staggered(torch.where(cond, a.q0, b.q0),
-                         torch.where(cond, a.bs, b.bs))
+        return a.map(lambda x, y: torch.where(cond, x, y), b)
     return torch.where(cond, a, b)
 
 

@@ -25,10 +25,15 @@ beta_step kernels), and every acc step closes with the cone projection
 kernel ``cone_project_diff``. The rest of each step is plain PyTorch, as
 the JAX package runs it in jnp: acc-ADMM's q- and beta-steps form beta as
 (beta + z) - z2, not beta_step's beta + tau (z - z2), and PALM's steps wait
-for their own kernels (ROADMAP.md). On one process all tensors are in the
-flat layout (``ops/engine.py``): the JAX package moves the sGS kernels to
-its shaped engine only because its TPU sweep wanted a shaped array, and
-the flat phi is that array reshaped. Under a mesh they are one rank's
+for their own kernels (ROADMAP.md). On one process the tensors are in the
+flat layout by default (``ops/engine.py``): the JAX package moves the sGS
+kernels to its shaped engine only because its TPU sweep wanted a shaped
+array, and the flat phi is that array reshaped. With ``LevelConfig.layout``
+"3d" they are shaped (``ops/engine.Ops3D``): the sweep kernel takes phi as
+it is, the cone projection kernel the shaped z (the same memory as its
+flat view), and sGS-inPALM's step after its sweep is the plain single step
+(``Kernels.plain``), as in the JAX package on that layout. Under a mesh
+they are one rank's
 block of the halo layout, the sweep is ``ops/halo_engine.HaloSGS`` and
 the steps that read neighbouring cells run their plain versions
 (``Kernels.plain``), as the JAX package under a mesh
@@ -296,7 +301,8 @@ class _SgsPhiStep:
     def _build_sgs(self):
         # the level's D^2 is passed per sweep; under a mesh the halo sweep
         # (``dotsocp_tpu/algorithms/variants.py:347-356,485-492``)
-        if self.plain:
+        self.halo_sgs = self.ops.mesh is not None
+        if self.halo_sgs:
             self.sgs = HaloSGS(self.ops)
         else:
             self.sgs = make_sgs(self.geom, dtype=self.cfg.dtype,
@@ -305,7 +311,9 @@ class _SgsPhiStep:
         self.last_aux = {}
 
     def _sweep(self, s: SolverState, rhs):
-        if self.plain:
+        """One sweep: the halo sweep under a mesh, else the sweep kernel on
+        the shaped phi (the flat phi reshaped, or the "3d" layout's own)."""
+        if self.halo_sgs:
             return self.sgs.sweep(s.phi, rhs, d2=s.D * s.D)
         ops = self.ops
         phi = rb_sweep(self.sgs, ops.phi_from_internal(s.phi),
@@ -314,7 +322,7 @@ class _SgsPhiStep:
 
     def _resi_sgs(self, s: SolverState, phi, rhs):
         ops = self.ops
-        if not self.plain:
+        if not self.halo_sgs:
             phi, rhs = ops.phi_from_internal(phi), ops.phi_from_internal(rhs)
         return self.sgs.residual_color_a_norm(phi, rhs, self.geom.h,
                                               d2=s.D * s.D)

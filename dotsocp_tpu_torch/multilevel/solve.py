@@ -15,9 +15,14 @@ package's options are taken as follows (``_check_request``): its solver
 cache and ``prewarm`` work as there (below); ``use_pallas`` takes
 "auto" or True (the CUDA kernels run at every size for float32, float64
 takes the plain route by dtype; under a mesh only "auto", as the kernels
-that read neighbouring cells run plain there), ``layout`` "auto", "flat"
-and "halo" ("halo" without a mesh warns and runs flat, as in the JAX package; "3d",
-its GSPMD shaped engine, and the TPU-only "shaped" raise); ``driver``
+that read neighbouring cells run plain there, and on "3d" True only for a
+method whose kernels all take the shaped layout), ``layout`` "auto",
+"flat", "halo" and "3d" ("halo" without a mesh warns and runs flat, as in
+the JAX package; "3d" runs the shaped engine ``ops/engine.Ops3D`` on one
+process, where the inPALM family's steps run plain and the sGS sweep and
+the cone projection their kernels, and raises under a mesh, where the JAX
+package hands it to XLA's GSPMD partitioner; the TPU-only "shaped"
+raises); ``driver``
 takes "auto", "device" and "host" with the JAX package's rule
 (``_make_solver``; a mesh forces the device driver): the device driver
 (``algorithms/device_driver.py``, CUDA-graph segments) unless the caller
@@ -133,6 +138,10 @@ KNOWN_OPTS = {"tol", "maxit", "sigma", "time_limit", "scaling",
               "reuse_solvers"}
 # JAX options of which the port runs some values (_check_choice)
 CHOICE_OPTS = {"use_pallas", "layout", "driver"}
+LAYOUTS = ("auto", "flat", "halo", "3d")
+# the methods with step kernels on the flat engine only (the x-carry and
+# single-step kernels): on "3d" their steps run plain
+FLAT_KERNEL_METHODS = ("inPALM", "ALG2", "sGS-inPALM")
 # the port's refine_dct_split="auto", a fixed rule: the plain float64 DCT.
 # The JAX package picks the IR solve because the TPU emulates f64 matmuls
 # (its solve.py:746-760); the H100 runs them natively. Measured on an H100
@@ -155,19 +164,14 @@ def _check_choice(key, value):
         raise ValueError(f"use_pallas={value!r}: the port's CUDA kernels "
                          f"always run on the card for float32 (float64 takes "
                          f"the plain route); they cannot be turned off")
-    if key == "layout" and value not in ("auto", "flat", "halo"):
+    if key == "layout" and value not in LAYOUTS:
         if value == "shaped":
             raise ValueError("layout='shaped': the shaped layout is "
-                             "TPU-only; the port runs the flat engine on one "
-                             "process and the halo engine under a mesh")
-        if value == "3d":
-            raise ValueError("layout='3d': the JAX package's shaped engine, "
-                             "which XLA's GSPMD partitions under a mesh; the "
-                             "port runs the flat engine on one process and "
-                             "the halo engine under a mesh (layout 'auto' or "
-                             "'halo')")
-        raise ValueError(f"layout={value!r}: not one of 'auto', 'flat', "
-                         f"'halo'")
+                             "TPU-only; the port runs the flat or the '3d' "
+                             "engine on one process and the halo engine "
+                             "under a mesh")
+        raise ValueError(f"layout={value!r}: not one of "
+                         f"{', '.join(map(repr, LAYOUTS))}")
     if key == "driver" and value not in ("auto", "host", "device"):
         raise ValueError(f"driver={value!r}: not one of 'auto', 'host', "
                          f"'device'")
@@ -220,11 +224,7 @@ def _check_mesh(mesh, opts) -> None:
         raise ValueError(f"mesh {mesh.shape}: a batch axis carries a "
                          f"fleet's instances (solve_batch); solve_dot splits "
                          f"one grid over y/x/z/t")
-    if opts.get("layout", "auto") == "flat":
-        raise ValueError("layout='flat' under a mesh: the JAX package then "
-                         "runs its GSPMD shaped engine ('3d'), which the "
-                         "port does not have; under a mesh the port runs "
-                         "the halo engine (layout 'auto' or 'halo')")
+    check_mesh_layout(opts.get("layout", "auto"), "solve_dot")
     if opts.get("use_pallas", "auto") is True:
         raise NotImplementedError(
             "use_pallas=True under a mesh: the kernels that read neighbouring "
@@ -236,6 +236,34 @@ def _check_mesh(mesh, opts) -> None:
         raise ValueError("profile under a mesh: profile_phases times one "
                          "card's kernels on the flat layout; profile the "
                          "single-process solve")
+
+
+def check_mesh_layout(layout: str, where: str) -> None:
+    """Under a mesh the port runs the halo engine: "flat" and "3d" raise
+    with the reason."""
+    if layout in ("flat", "3d"):
+        raise ValueError(
+            f"layout={layout!r} under a mesh ({where}): the JAX package then "
+            f"runs its shaped engine and lets XLA's GSPMD partitioner split "
+            f"it, which has no PyTorch counterpart; the port's partitioner is "
+            f"the halo engine (layout 'auto' or 'halo')")
+
+
+def check_pallas_layout(methods, opts) -> None:
+    """``use_pallas=True`` with layout "3d" raises for a method whose step
+    kernels take the flat layout only (``FLAT_KERNEL_METHODS``): on the
+    shaped engine its steps run plain, and True promises the kernels."""
+    if opts.get("layout") != "3d" or opts.get("use_pallas", "auto") is not \
+            True:
+        return
+    flat_only = [m for m in methods if m in FLAT_KERNEL_METHODS]
+    if flat_only:
+        raise ValueError(
+            f"use_pallas=True with layout='3d': {flat_only[0]}'s step "
+            f"kernels (the x-carry and single-step kernels) take the flat "
+            f"layout only, so on the shaped engine its steps run plain, as "
+            f"the JAX package fuses only on 'flat'; pass use_pallas='auto', "
+            f"or layout 'flat' for the kernels")
 
 
 def _check_request(rho0, method, weight, opts):
@@ -323,16 +351,17 @@ def uses_device_driver(method: str, driver: str, o: SolveOptions,
 def _make_solver(method: str, lv: LevelVar, o: SolveOptions, device,
                  dtype, theta: float = 2.0, dct_split=False,
                  driver: str = "auto", checkpoint_path=None,
-                 device_kw=None, mesh=None):
+                 device_kw=None, mesh=None, layout: str = "flat"):
     """The level solver of ``method`` (``dotsocp_tpu/multilevel/solve.py:
     236-313``): the device driver or the host driver by
     :func:`uses_device_driver`; acc-ADMM with ``theta`` != 2 runs its
     Nesterov branch; ``dct_split`` is the DCT solve's f64 strategy;
     ``checkpoint_path`` and ``device_kw`` (chunk_iters, max_chunks) are
-    the device driver's; ``mesh`` puts the level on the halo engine."""
+    the device driver's; ``mesh`` puts the level on the halo engine, else
+    ``layout`` ("flat" or "3d") names its engine."""
     cfg = LevelConfig(geom=lv.geom, D=lv.D, E=lv.E, device=str(device),
                       tau=o.tau, dtype=dtype, dct_split=dct_split,
-                      mesh=mesh)
+                      mesh=mesh, layout=layout)
     w = lv.weight
     if method == "acc-ADMM" and theta != 2.0:
         return AccADMMSolver(AccADMMNesterovKernels(cfg, w, o.restart, o.rho,
@@ -381,7 +410,8 @@ def _weight_digest(w: Optional[Staggered]) -> Optional[tuple]:
 
 def _solver_cache_key(method: str, lv: LevelVar, o: SolveOptions, device,
                       dtype, theta: float, dct_split, driver: str,
-                      checkpoint_path, device_kw, mesh) -> tuple:
+                      checkpoint_path, device_kw, mesh,
+                      layout: str = "flat") -> tuple:
     """Everything a cached solver keeps as it was built: the JAX key's parts
     (``dotsocp_tpu/multilevel/solve.py:116-148``), and the port's own: the
     device, D and scaling, which its pieces take as Python numbers (D is
@@ -396,7 +426,7 @@ def _solver_cache_key(method: str, lv: LevelVar, o: SolveOptions, device,
             bool(o.check_prim_dual_feas), str(dtype), int(o.maxit),
             int(o.restart), float(o.rho), float(theta),
             bool(o.check_step_by_step), checkpoint_path,
-            "flat" if mesh is None else "halo", mesh_key, str(dct_split),
+            layout if mesh is None else "halo", mesh_key, str(dct_split),
             tuple(sorted((device_kw or {}).items())), str(device),
             float(lv.D), bool(o.scaling))
 
@@ -420,7 +450,7 @@ def clear_solver_cache() -> None:
 def _build_solver(method: str, lv: LevelVar, o: SolveOptions, device, dtype,
                   theta: float = 2.0, dct_split=False, driver: str = "auto",
                   checkpoint_path=None, device_kw=None, mesh=None,
-                  reuse: bool = True):
+                  reuse: bool = True, layout: str = "flat"):
     """The level's solver (:func:`_make_solver`), from the cache when
     ``reuse`` and a solver of the same key is there (the JAX
     ``_build_solver``): a device driver is reused as it is, with ``o`` (its
@@ -429,7 +459,7 @@ def _build_solver(method: str, lv: LevelVar, o: SolveOptions, device, dtype,
     solver and caches it, evicting the least recently used entry beyond
     ``_SOLVER_CACHE_MAX``."""
     args = (method, lv, o, device, dtype, theta, dct_split, driver,
-            checkpoint_path, device_kw, mesh)
+            checkpoint_path, device_kw, mesh, layout)
     if not reuse:
         return _make_solver(*args)
     key = _solver_cache_key(*args)
@@ -514,6 +544,9 @@ def solve_dot(
     _check_request(rho0, method, weight, opts)
     if not (isinstance(level_n, int) and level_n >= 1):
         raise ValueError("level_n must be a positive integer")
+    # the sGS methods run inPALM on their levels before the last
+    check_pallas_layout({method} | ({"inPALM"} if _is_sgs(method) and
+                                    level_n > 1 else set()), opts)
     device = torch.device(device)
     if opts.get("mesh") is not None:
         from ..parallel.distributed import is_coordinator
@@ -575,6 +608,10 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
         warnings.warn("layout='halo' requires a mesh (opts={'mesh': ...}); "
                       "falling back to the single-process 'flat' layout",
                       stacklevel=3)
+    # the engine of one process (``dotsocp_tpu/multilevel/solve.py:
+    # 168-181``): "3d" when asked for, else flat; a mesh runs the halo
+    # engine whatever this says
+    layout = "3d" if opts.get("layout") == "3d" else "flat"
     ckpt_dir = opts.get("checkpoint_dir")
     # under a mesh each rank checkpoints its own block
     ckpt_name = "level{}.npz" if mesh is None or mesh.size == 1 else \
@@ -645,7 +682,7 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
             lev_method, lv, o, device, dtype, theta, driver=driver,
             checkpoint_path=(os.path.join(ckpt_dir, ckpt_name.format(lev + 1))
                              if ckpt_dir else None),
-            device_kw=device_kw, mesh=mesh, reuse=reuse)
+            device_kw=device_kw, mesh=mesh, reuse=reuse, layout=layout)
 
     if opts.get("prewarm") and reuse:
         _prewarm_levels(level_solver, rho0s, rho1s, nts, weights, dtype,
@@ -737,7 +774,8 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
         # checkpoint (as the JAX package's tail)
         solver = _build_solver(refine_method, lv, o, device, refine_dtype,
                                theta, dct_split=split, driver=driver,
-                               device_kw=device_kw, mesh=mesh, reuse=reuse)
+                               device_kw=device_kw, mesh=mesh, reuse=reuse,
+                               layout=layout)
         hist, out = solver.solve(lv.as_dict())
         hist["method"] = solver.name + (
             " (f64 refine, IR-DCT)" if split else " (f64 refine)")

@@ -1,8 +1,9 @@
-"""Flat-space operator engine: port of ``dotsocp_tpu/ops/engine.py:126-333``
-(``OpsFlat`` and the flat Poisson wrapper).
+"""Operator engines of one process: the flat engine ``OpsFlat``, port of
+``dotsocp_tpu/ops/engine.py:126-333`` with the flat Poisson wrapper, and the
+shaped engine ``Ops3D`` (``engine.py:60-123``, the ``"3d"`` layout).
 
-Every field stores its spatial axes flattened into one trailing axis of
-S = prod(space) elements. Face blocks are kept in cell-shaped ``(nt, S)``
+Flat: every field stores its spatial axes flattened into one trailing axis
+of S = prod(space) elements. Face blocks are kept in cell-shaped ``(nt, S)``
 arrays with a **ghost slot** (coordinate n_a - 1 along axis a) pinned to
 zero, so a spatial shift by one cell along axis a is a flat shift by
 stride_a whose zero fill lands exactly where the staggered boundary needs
@@ -10,11 +11,17 @@ zeros. Only the two producers of face arrays (``grad``, ``bfd_T``) multiply
 their output by the ghost mask. All face blocks of a field are one
 ``(d, nt, S)`` tensor (see ``ops/staggered.py``).
 
-The shaped ``Ops3D`` engine is not ported: the sGS methods, which the JAX
-package runs on it, sweep the flat phi reshaped. Under a mesh the halo
-engine (``ops/halo_engine.py``) takes this one's place, with the same
-methods (:func:`make_ops`); ``psum`` is where a norm's sum of squares would
-be summed over the mesh, the identity here.
+Shaped: fields keep their grid axes, ``(nt, *space)``, and face blocks are
+a tuple of ``(nt, ..., n_a - 1, ...)`` tensors; the operators are those of
+``ops/grad.py`` and ``ops/cone.py``. Both engines compute the same values
+in the same operation order. The single-step and x-carry kernels take the
+flat layout only, so on the shaped engine the inPALM family runs their
+plain versions, as the JAX package runs jnp there; the sGS sweep and the
+cone projection take the shaped fields as they are.
+
+Under a mesh the halo engine (``ops/halo_engine.py``) takes these ones'
+place, with the same methods (:func:`make_ops`); ``psum`` is where a norm's
+sum of squares would be summed over the mesh, the identity here.
 """
 from __future__ import annotations
 
@@ -25,7 +32,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import cone
 from .geometry import Geometry
+from .grad import grad as grad_shaped, grad_T as grad_T_shaped
 from .poisson import make_dct_poisson
 from .staggered import Staggered
 
@@ -253,14 +262,114 @@ class OpsFlat:
         return phi.reshape((phi.shape[0],) + self.geom.space)
 
 
-def make_ops(geom: Geometry, dtype: torch.dtype, device, mesh=None):
-    """The level's engine: flat on one process, the halo engine on a mesh
-    (``dotsocp_tpu/ops/engine.py:336-343``)."""
-    if mesh is None:
-        return OpsFlat(geom, dtype, device)
-    from .halo_engine import OpsHalo
+class Ops3D:
+    """Shaped engine: fields ``(..., nt, *space)``, face blocks a tuple of
+    per-axis tensors, cone arrays ``(..., C, nt-1, *space)``; leading axes
+    (a stack of instances) pass through every operator."""
 
-    return OpsHalo(geom, dtype, device, mesh)
+    layout = "3d"
+    mesh = None
+
+    def __init__(self, geom: Geometry, dtype: torch.dtype, device):
+        self.geom = geom
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.d = geom.ndim_space
+        # the column axis of a cone array
+        self.cone_dim = -(self.d + 2)
+
+    psum = staticmethod(OpsFlat.psum)
+
+    def _tdim(self, x: torch.Tensor) -> int:
+        """The t axis of a phi-, cell- or face-shaped field."""
+        return x.ndim - self.d - 1
+
+    # -- operators ------------------------------------------------------------
+    def grad(self, phi: torch.Tensor) -> Staggered:
+        return grad_shaped(self.geom, phi)
+
+    def grad_T(self, st: Staggered) -> torch.Tensor:
+        return grad_T_shaped(self.geom, st)
+
+    def bfd(self, q: Staggered, scale_bf, scale_d, sv=None) -> torch.Tensor:
+        return cone.bfd(self.geom, q, scale_bf, scale_d, sv)
+
+    def bfd_T(self, x: torch.Tensor, scale_bf, sv=None) -> Staggered:
+        return cone.bfd_T(self.geom, x, scale_bf, sv)
+
+    def oper_q_diag(self, D: float, E: float,
+                    weight: Optional[Staggered] = None) -> Staggered:
+        return cone.oper_q_diag(self.geom, D, E, weight, dtype=self.dtype,
+                                device=self.device)
+
+    def make_poisson(self, D: float = 1.0, split=False):
+        """The shaped DCT solve (``ops/poisson.DctPoisson``), which takes
+        leading axes."""
+        return make_dct_poisson(self.geom, D=D, dtype=self.dtype,
+                                split=split, device=self.device)
+
+    def t_edge_row(self, d_in, d_bd, like: torch.Tensor) -> torch.Tensor:
+        """``OpsFlat.t_edge_row`` shaped ``(nt, 1, ..., 1)``, to broadcast
+        over every face block."""
+        return OpsFlat.t_edge_row(self, d_in, d_bd, like).reshape(
+            (self.geom.nt,) + (1,) * self.d)
+
+    demean = OpsFlat.demean
+
+    def face_interp(self, x: torch.Tensor, a: int) -> torch.Tensor:
+        """Average a node-positioned field onto the faces of axis a."""
+        ax = x.ndim - self.d + a
+        n_a = self.geom.space[a]
+        return 0.5 * (x.narrow(ax, 0, n_a - 1) + x.narrow(ax, 1, n_a - 1))
+
+    def t_node_interp(self, x: torch.Tensor) -> torch.Tensor:
+        """Time-staggered -> time-node interpolation with zero-padded ends:
+        (..., nt-1, *space) -> (..., nt, *space)."""
+        t = self._tdim(x)
+        padded = cone._pad_axis(x, t, 1, 1)
+        n = padded.shape[t] - 1
+        return 0.5 * (padded.narrow(t, 0, n) + padded.narrow(t, 1, n))
+
+    # -- layout conversions: the identity --------------------------------------
+    def stag_to_internal(self, st: Staggered) -> Staggered:
+        return st
+
+    def stag_from_internal(self, st: Staggered) -> Staggered:
+        return st
+
+    def weight_to_internal(self, w: Staggered) -> Staggered:
+        """The shaped weight as it is: there are no ghost slots to fill."""
+        return w
+
+    def z_to_internal(self, z: torch.Tensor) -> torch.Tensor:
+        return z
+
+    def z_from_internal(self, z: torch.Tensor) -> torch.Tensor:
+        return z
+
+    def phi_to_internal(self, phi: torch.Tensor) -> torch.Tensor:
+        return phi
+
+    def phi_from_internal(self, phi: torch.Tensor) -> torch.Tensor:
+        return phi
+
+
+# the layouts of one process by name (``dotsocp_tpu/ops/engine.py:336-343``)
+ENGINES = {"flat": OpsFlat, "3d": Ops3D}
+
+
+def make_ops(geom: Geometry, dtype: torch.dtype, device, mesh=None,
+             layout: str = "flat"):
+    """The level's engine: on one process the one ``layout`` names
+    (:data:`ENGINES`), the halo engine on a mesh."""
+    if mesh is not None:
+        from .halo_engine import OpsHalo
+
+        return OpsHalo(geom, dtype, device, mesh)
+    if layout not in ENGINES:
+        raise ValueError(f"layout={layout!r}: one process runs "
+                         f"{', '.join(map(repr, ENGINES))}")
+    return ENGINES[layout](geom, dtype, device)
 
 
 def diag_values(D: float, E: float):

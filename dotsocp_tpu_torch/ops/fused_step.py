@@ -94,7 +94,7 @@ import torch
 from . import _build
 from .cone import proj_soc
 from .engine import _INV_SQRT2, OpsFlat, base_values
-from .staggered import Staggered
+from .staggered import Staggered, _map
 
 LAUNCHES = {"x_step": 0, "qx_step": 0, "qx_step_w": 0, "cx_step": 0,
             "cx_final": 0, "z_step": 0, "q_step": 0, "q_step_w": 0,
@@ -124,7 +124,7 @@ def weighted_dinv(ops: OpsFlat, w: Staggered, D: float,
     ``dotsocp_tpu/algorithms/core.py:175-179``."""
     diag = ops.oper_q_diag(D, E, w)
     return WeightedDinv(w=w, base=base_values(D, E),
-                        inv=Staggered(1.0 / diag.q0, 1.0 / diag.bs))
+                        inv=diag.map(lambda b: 1.0 / b))
 
 
 # -- plain versions (the composition the JAX _step computes) ----------------
@@ -135,7 +135,8 @@ def times_dinv(ops: OpsFlat, st: Staggered, dinv) -> Staggered:
     if isinstance(dinv, WeightedDinv):
         return st * dinv.inv
     d_in, d_bd = dinv
-    return Staggered(st.q0 * d_in, st.bs * ops.t_edge_row(d_in, d_bd, st.q0))
+    row = ops.t_edge_row(d_in, d_bd, st.q0)
+    return Staggered(st.q0 * d_in, _map(lambda b: b * row, st.bs))
 
 
 def x_step_plain(ops: OpsFlat, q: Staggered, beta, sbf, sd, sv=None):

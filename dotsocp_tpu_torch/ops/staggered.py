@@ -1,17 +1,21 @@
 """Staggered-grid field container (q, alpha live on this layout).
 
-Port of ``dotsocp_tpu/ops/staggered.py:15-69``. ``q0`` holds the
-time-staggered block and ``bs`` the face blocks, one per spatial axis. In the
-shaped layout ``bs`` is a tuple of tensors (their shapes differ per axis); in
-the flat internal layout (``ops/engine.py``) every face block is ``(nt, S)``
-and ``bs`` is one ``(d, nt, S)`` tensor, so a kernel takes one pointer for
-all axes. Indexing ``bs[a]`` and iterating over ``bs`` work the same for
-both forms.
+Port of ``dotsocp_tpu/ops/staggered.py``. ``q0`` holds the time-staggered
+block and ``bs`` the face blocks, one per spatial axis. In the shaped layout
+(the ``"3d"`` engine ``ops/engine.Ops3D``, and every level variable) ``bs``
+is a tuple of tensors (their shapes differ per axis); in the flat internal
+layout (``ops/engine.OpsFlat``) every face block is ``(nt, S)`` and ``bs``
+is one ``(d, nt, S)`` tensor, so a kernel takes one pointer for all axes.
+Indexing ``bs[a]`` and iterating over ``bs`` work the same for both forms;
+:meth:`Staggered.map` and :meth:`Staggered.tensors` treat each form as it
+is stored. A stack of instances (the lockstep fleet) carries a leading axis
+on every block.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Sequence, Union
 
+import numpy as np
 import torch
 
 Blocks = Union[torch.Tensor, Sequence[torch.Tensor]]
@@ -59,6 +63,29 @@ class Staggered(NamedTuple):
         """q0 followed by every face block."""
         return [self.q0] + list(self.bs)
 
+    def tensors(self) -> list:
+        """The tensors as stored: ``[q0, bs]`` where ``bs`` is one tensor
+        (the flat and halo layouts), ``[q0, *bs]`` in the shaped form."""
+        if isinstance(self.bs, torch.Tensor):
+            return [self.q0, self.bs]
+        return [self.q0, *self.bs]
+
+    def map(self, fn, *others: "Staggered") -> "Staggered":
+        """``fn`` of the blocks as stored, with the same blocks of
+        ``others``: q0, then the face tensor whole or each face block."""
+        return Staggered(fn(self.q0, *(o.q0 for o in others)),
+                         _map(fn, self.bs, *(o.bs for o in others)))
+
+    def at(self, i) -> "Staggered":
+        """Instance ``i`` of a stack on a leading axis, as views."""
+        return self.map(lambda b: b[i])
+
+    @staticmethod
+    def stack(parts) -> "Staggered":
+        """Fields of one layout stacked on a new leading axis, block by
+        block."""
+        return parts[0].map(lambda *bs: torch.stack(bs), *parts[1:])
+
     def sqnorm(self) -> torch.Tensor:
         """Sum of squares over all blocks (the flat-vector ||.||^2)."""
         return sum(torch.sum(b * b) for b in self.blocks())
@@ -76,3 +103,48 @@ class Staggered(NamedTuple):
 
     def clone(self) -> "Staggered":
         return Staggered(self.q0.clone(), _map(torch.clone, self.bs))
+
+
+# -- shaped fields (``dotsocp_tpu/ops/staggered.py:71-115``) ------------------
+
+def zeros(geom, dtype=torch.float32, device="cpu") -> Staggered:
+    return Staggered(
+        q0=torch.zeros(geom.q0_shape, dtype=dtype, device=device),
+        bs=tuple(torch.zeros(geom.b_shape(a), dtype=dtype, device=device)
+                 for a in range(geom.ndim_space)))
+
+
+def ones(geom, dtype=torch.float32, device="cpu") -> Staggered:
+    return Staggered(
+        q0=torch.ones(geom.q0_shape, dtype=dtype, device=device),
+        bs=tuple(torch.ones(geom.b_shape(a), dtype=dtype, device=device)
+                 for a in range(geom.ndim_space)))
+
+
+def from_flat(geom, vec, dtype=None, device="cpu") -> Staggered:
+    """A shaped field from the reference's flat MATLAB ordering: the
+    reference stacks [q0; bx; by] with each block a column-major flatten of
+    a (ny, nx, nt) MATLAB array; ours are (nt, ny, nx), the MATLAB array
+    with the time axis moved to the front. ``dtype`` None keeps the
+    vector's."""
+    vec = np.asarray(vec)
+    blocks = []
+    off = 0
+    shapes = [geom.q0_shape] + [geom.b_shape(a)
+                                for a in range(geom.ndim_space)]
+    for shp in shapes:
+        n = int(np.prod(shp))
+        mshape = shp[1:] + (shp[0],)
+        block = np.moveaxis(vec[off:off + n].reshape(mshape, order="F"),
+                            -1, 0)
+        blocks.append(torch.tensor(np.ascontiguousarray(block), dtype=dtype,
+                                   device=device))
+        off += n
+    return Staggered(q0=blocks[0], bs=tuple(blocks[1:]))
+
+
+def to_flat(st: Staggered) -> np.ndarray:
+    """The inverse of :func:`from_flat` (the reference's flat ordering)."""
+    return np.concatenate(
+        [np.moveaxis(b.detach().cpu().numpy(), 0, -1).flatten(order="F")
+         for b in st.blocks()])

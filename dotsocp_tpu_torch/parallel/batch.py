@@ -28,6 +28,13 @@ instance's view, the decisions on ``(B,)`` tensors) is one more graph.
 Each kind of piece is captured once a level and replayed
 (``algorithms/graphs.py``); the host reads one record a check.
 
+With ``opts={"layout": "3d"}`` the levels run on the shaped engine
+(``ops/engine.Ops3D``): the batched kernels take the flat layout, so a
+segment is the variant's plain step on the whole stack (every operator of
+that engine takes leading axes), one graph a step, as the JAX package runs
+its vmapped plain step on that layout. A spatial mesh refuses "3d", as
+``solve_dot`` does.
+
 On the CPU there are no graphs and every piece runs eagerly on the plain
 versions, which is how ``tests/test_torch_batch.py`` holds this module to
 the JAX package's in float64.
@@ -79,7 +86,8 @@ from ..algorithms.graphs import SegmentGraphs
 from ..algorithms.variants import ITERATE, PALMKernels
 from ..multilevel.level import (initial_scaling, initialize, recover_org_var,
                                 recover_rho_e)
-from ..multilevel.solve import _check_choice, _jump_next_level
+from ..multilevel.solve import (_check_choice, _jump_next_level,
+                                check_mesh_layout, check_pallas_layout)
 from ..multilevel.transfer import restrict_density
 from ..ops.staggered import Staggered
 from . import comm
@@ -129,13 +137,13 @@ def _bcast(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def _mul(x, v):
     if isinstance(x, Staggered):
-        return Staggered(_mul(x.q0, v), _mul(x.bs, v))
+        return x.map(lambda b: _mul(b, v))
     return x * _bcast(v, x)
 
 
 def _div(x, v):
     if isinstance(x, Staggered):
-        return Staggered(_div(x.q0, v), _div(x.bs, v))
+        return x.map(lambda b: _div(b, v))
     return x / _bcast(v, x)
 
 
@@ -161,7 +169,7 @@ def rescale(s: SolverState, d2, c2, rescaled) -> SolverState:
 
 
 def _blocks(x) -> list:
-    return [x.q0, x.bs] if isinstance(x, Staggered) else [x]
+    return x.tensors() if isinstance(x, Staggered) else [x]
 
 
 @dataclasses.dataclass
@@ -562,12 +570,8 @@ def _check_batch_mesh(mesh, opts: dict) -> None:
     if not spatial_axes(mesh):
         return
     # a mesh that splits the grid too: the halo engine on each batch row
-    if opts.get("layout", "auto") == "flat":
-        raise ValueError(
-            f"layout='flat' under the batch x spatial mesh {mesh.shape}: "
-            f"the flat layout folds the spatial axes away (the JAX package "
-            f"asks for its '3d' layout here); the port runs the halo engine "
-            f"(layout 'auto' or 'halo')")
+    check_mesh_layout(opts.get("layout", "auto"),
+                      f"the batch x spatial mesh {mesh.shape}")
     if opts.get("use_pallas", "auto") is True:
         raise NotImplementedError(
             "use_pallas=True under a spatial mesh: the kernels that read "
@@ -578,6 +582,7 @@ def _check_batch_mesh(mesh, opts: dict) -> None:
 
 def _check_batch_request(method: str, opts: dict, mesh) -> None:
     _check_batch_mesh(mesh, opts)
+    check_pallas_layout({method}, opts)
     if method not in BATCH_METHODS:
         # the JAX solve_batch runs inPALM's step with tau = 1.0 for any
         # other method (``batch.py:326,340``); the port refuses
@@ -707,8 +712,10 @@ def _solve_batch(rho0s, rho1s, nt, opts, method, dtype, mesh, level_n,
         tols.insert(0, max(tols[0] * 2.0 ** tol_factor, tol_lower))
 
     kcls = PALMKernels if method == "PALM" else Kernels
-    # under a spatial mesh the levels run on this rank's batch row
+    # under a spatial mesh the levels run on this rank's batch row, else on
+    # the engine the layout names (``batch.py:358-370``)
     row = mesh.row() if mesh is not None and spatial_axes(mesh) else None
+    layout = "3d" if opts.get("layout") == "3d" else "flat"
     npdtype = np.float64 if dtype == torch.float64 else np.float32
     sigma_b = np.full(B, float(opts.get("sigma", 1.0)))
     prev_lvs = None
@@ -735,7 +742,7 @@ def _solve_batch(rho0s, rho1s, nt, opts, method, dtype, mesh, level_n,
             lvs.append(lv)
         cfg = LevelConfig(geom=lvs[0].geom, D=lvs[0].D, E=lvs[0].E,
                           device=str(device), tau=o.tau, dtype=dtype,
-                          mesh=row)
+                          mesh=row, layout=layout)
         kernels = kcls(cfg)
         bstate = stack_states([kernels.prep(lv.as_dict(), float(sigma_b[b]))
                                for b, lv in enumerate(lvs)])

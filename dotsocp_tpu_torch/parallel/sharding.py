@@ -233,6 +233,17 @@ def gather_state(local, mesh: Mesh, geom):
         .contiguous())
 
 
+def _on_mesh(kernels, mesh: Mesh):
+    """The level's class rebuilt on the halo engine of ``mesh``, with the
+    level's weight (shaped again from its flat layout) and the acc
+    methods' parameters."""
+    kw = {k: getattr(kernels, k) for k in ("restart", "rho", "theta")
+          if hasattr(kernels, k)}
+    if kernels.weight is not None:
+        kw["weight"] = kernels.ops.stag_from_internal(kernels.weight)
+    return type(kernels)(dataclasses.replace(kernels.cfg, mesh=mesh), **kw)
+
+
 def make_sharded_step(kernels, mesh: Mesh, batched: bool = True):
     """The level's step over the mesh, global state in and out on every
     rank (the JAX ``make_sharded_step``, ``sharding.py:151-166``).
@@ -245,22 +256,22 @@ def make_sharded_step(kernels, mesh: Mesh, batched: bool = True):
     the halo engine) and joins the blocks. The results are then gathered
     along ``batch``. Not ``batched``: the mesh splits the grid, and the
     step is the same level's on the halo engine, run on this rank's block
-    of the state and gathered back. A weighted level is refused on a
-    spatial mesh."""
+    of the state and gathered back. A weighted level's halo kernels carry
+    its weight. Kernels of the "3d" layout take a batch-only mesh (their
+    state shaped); a spatial mesh refuses them, as ``solve_dot`` refuses
+    "3d" under a mesh."""
     from ..algorithms.core import BATCH_SCALARS, instance
+    from ..multilevel.solve import check_mesh_layout
     from .batch import stack_states
 
     spatial = bool(spatial_axes(mesh))
-    if spatial and kernels.weight is not None:
-        raise NotImplementedError("make_sharded_step: a weighted level on a "
-                                  "spatial mesh (build the level's kernels "
-                                  "with LevelConfig.mesh instead)")
+    if spatial and kernels.ops.layout == "3d":
+        check_mesh_layout("3d", "make_sharded_step")
     geom = kernels.geom
     if batched:
         k = mesh.shape.get("batch", 1)
         row = mesh.row() if spatial else None
-        halo = None if row is None else type(kernels)(
-            dataclasses.replace(kernels.cfg, mesh=row))
+        halo = None if row is None else _on_mesh(kernels, row)
 
         def batched_step(state):
             B = state.phi.shape[0]
@@ -284,14 +295,14 @@ def make_sharded_step(kernels, mesh: Mesh, batched: bool = True):
             for f in _FIELDS + BATCH_SCALARS:
                 v = getattr(local, f)
                 if hasattr(v, "q0"):
-                    out[f] = type(v)(comm.all_gather(v.q0, 0, mesh, "batch"),
-                                     comm.all_gather(v.bs, 0, mesh, "batch"))
+                    out[f] = v.map(
+                        lambda b: comm.all_gather(b, 0, mesh, "batch"))
                 else:
                     out[f] = comm.all_gather(v, 0, mesh, "batch")
             return state.replace(**out)
 
         return batched_step
-    halo = type(kernels)(dataclasses.replace(kernels.cfg, mesh=mesh))
+    halo = _on_mesh(kernels, mesh)
 
     def spatial_step(state):
         return gather_state(halo._step(shard_state(state, mesh, geom)),

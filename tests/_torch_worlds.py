@@ -445,8 +445,10 @@ def batch_spatial(r0s, r1s, nt, opts, levels, n, step_nt, steps) -> dict:
 def sharded_steps(n, nt, steps) -> dict:
     """``make_sharded_step`` over a ("batch",) mesh of the world (B = world
     copies of one level's state) and over a (y, x) mesh, each run
-    ``steps`` times from example2's first level; rank 0 returns the
-    states' phi, z and q0 (the batched ones per instance)."""
+    ``steps`` times from example2's first level; then a weighted level
+    (love-heart) over the (y, x) mesh and kernels of the "3d" layout over
+    the ("batch",) mesh; rank 0 returns the states' phi, z and q0 (the
+    batched ones per instance)."""
     from dotsocp_tpu_torch.algorithms.core import Kernels, LevelConfig
     from dotsocp_tpu_torch.models.examples import get_example_2d
     from dotsocp_tpu_torch.multilevel.level import (initial_scaling,
@@ -475,4 +477,32 @@ def sharded_steps(n, nt, steps) -> dict:
     for _ in range(steps):
         x = step(x)
     out["spatial"] = (x.phi.numpy(), x.z.numpy(), x.q.q0.numpy())
+    # a weighted level (love-heart) on the (y, x) mesh: its halo kernels
+    # carry the weight
+    from dotsocp_tpu_torch.models import wdot2d as W
+
+    barrier = W.barrier_love_heart()
+    w0, w1 = W.get_example_w2d("love-heart", n, n)
+    w0, w1, _ = W.ensure_barrier_validity(w0, w1, barrier)
+    lvw = initialize(w0, w1, nt, dtype=F64, device="cpu",
+                     weight=W.get_weight_by_barrier(n, n, nt, barrier,
+                                                    dtype=F64))
+    initial_scaling(lvw, True)
+    kw = Kernels(LevelConfig(geom=lvw.geom, D=lvw.D, E=lvw.E, device="cpu",
+                             dtype=F64), lvw.weight)
+    step = make_sharded_step(kw, make_mesh(axis_names=("y", "x")),
+                             batched=False)
+    x = kw.prep(lvw.as_dict(), 1.0)
+    for _ in range(steps):
+        x = step(x)
+    out["weighted_spatial"] = (x.phi.numpy(), x.z.numpy(), x.q.q0.numpy())
+    # kernels of the "3d" layout on the ("batch",) mesh, the state shaped
+    k3 = Kernels(LevelConfig(geom=lv.geom, D=lv.D, E=lv.E, device="cpu",
+                             dtype=F64, layout="3d"))
+    step = make_sharded_step(k3, make_mesh(axis_names=("batch",)))
+    b = stack_states([k3.prep(lv.as_dict(), 1.0) for _ in range(world)])
+    for _ in range(steps):
+        b = step(b)
+    out["batched_3d"] = [(b.phi[i].numpy(), b.z[i].numpy(),
+                          b.q.q0[i].numpy()) for i in range(world)]
     return out if dist.get_rank() == 0 else None

@@ -8,8 +8,11 @@ refuse the others with a message that says why; the device driver's
 ``chunk_iters``, ``max_chunks`` and ``checkpoint_dir`` change nothing in a
 run that ends inside one chunk;
 ``layout="halo"`` without a mesh warns and runs the flat solve, as the JAX
-package does, and ``layout="3d"`` is refused by its own name (no option
-waits in a ROADMAP.md queue any more: ``mesh`` runs, in
+package does; ``layout="3d"`` runs the shaped engine (its iterations and
+check schedule those of the flat solve, its values within rounding), is
+refused under a mesh, naming GSPMD and the halo engine, and with
+``use_pallas=True`` for a method whose step kernels take the flat layout
+only (no option waits in a ROADMAP.md queue any more: ``mesh`` runs, in
 ``tests/test_torch_parallel.py``, and takes only a port mesh). The solves
 here hold the host driver, unless a case asks for the device driver (as
 "auto" does). The refine options,
@@ -75,12 +78,16 @@ DEVICE_OPTS = ("chunk_iters", "max_chunks", "checkpoint_dir")
     ("prewarm", True), ("prewarm", False), ("reuse_solvers", False),
     ("chunk_iters", 100), ("chunk_iters", 7), ("max_chunks", 4),
     ("checkpoint_dir", "ck"), ("use_pallas", "auto"), ("use_pallas", True),
-    ("layout", "auto"), ("layout", "flat"), ("driver", "auto"),
-    ("driver", "host"), ("driver", "device")])
+    ("layout", "auto"), ("layout", "flat"), ("layout", "3d"),
+    ("driver", "auto"), ("driver", "host"), ("driver", "device")])
 def test_accepted_option_changes_nothing(baseline, key, value, tmp_path):
     """Against the run of its driver without the option ("auto" is the
     device driver here); the 79 iterations end inside one chunk of 100,
-    and a chunk of 7 splits segments where the check cadence does not."""
+    and a chunk of 7 splits segments where the check cadence does not.
+    The "3d" layout runs inPALM's plain step where the flat layout runs
+    the x-carry segment, whose z = (z + beta) - beta rounds otherwise: its
+    iterations and check schedule are the same, rho and the KKT rows
+    within float64 rounding."""
     if key == "checkpoint_dir":
         value = str(tmp_path / value)
     opts = {key: value}
@@ -91,6 +98,13 @@ def test_accepted_option_changes_nothing(baseline, key, value, tmp_path):
         "host" if opts.get("driver", "host") == "host" else "device"]
     assert [lv["iters"] for lv in out["levels"]] == \
         [lv["iters"] for lv in want["levels"]]
+    if value == "3d":
+        assert np.array_equal(hist["iter"], want_hist["iter"])
+        np.testing.assert_allclose(out["rho"], want["rho"], rtol=0,
+                                   atol=1e-12)
+        np.testing.assert_allclose(hist["kkt"], want_hist["kkt"], rtol=1e-9,
+                                   atol=1e-14)
+        return
     assert torch.equal(out["rho"], want["rho"])
     assert np.array_equal(hist["kkt"], want_hist["kkt"])
 
@@ -99,7 +113,6 @@ def test_accepted_option_changes_nothing(baseline, key, value, tmp_path):
     ("use_pallas", False, ValueError, "always run on the card"),
     ("layout", "shaped", ValueError, "TPU-only"),
     ("layout", "tiled", ValueError, "not one of"),
-    ("layout", "3d", ValueError, "layout='3d'"),
     ("mesh", 1, TypeError, "not a dotsocp_tpu_torch mesh"),
     ("chunk_iters", 0, ValueError, "chunk_iters=0"),
     ("driver", "graph", ValueError, "not one of")])
@@ -133,11 +146,38 @@ def test_halo_without_a_mesh_warns_and_runs_flat(baseline):
 
 @pytest.mark.parametrize("key,item", [("layout", "3d")])
 def test_queued_option_names_its_queue(key, item):
-    """No option waits in a ROADMAP.md queue now (the mesh runs); the JAX
-    layout that has no counterpart, '3d' (its shaped engine that GSPMD
-    partitions), is refused by its name, saying what the port runs."""
+    """No option waits in a ROADMAP.md queue now (the mesh runs, and so
+    does '3d' on one process); what has no counterpart is '3d' under a
+    mesh, where the JAX package lets GSPMD partition its shaped engine: it
+    is refused by its name, saying what the port runs there."""
+    from dotsocp_tpu_torch.parallel.sharding import make_mesh
+
+    mesh = make_mesh(axis_names=("y", "x"), device="cpu")
     with pytest.raises(ValueError, match=f"layout='{item}'.*GSPMD.*halo"):
-        _solve({key: item})
+        _solve({key: item, "mesh": mesh})
+
+
+@pytest.mark.parametrize("method,levels,refused", [
+    ("inPALM", 1, True), ("ALG2", 1, True), ("sGS-inPALM", 1, True),
+    ("acc-sGS-ADMM", 2, True), ("acc-sGS-ADMM", 1, False),
+    ("acc-ADMM", 1, False), ("PALM", 1, False)])
+def test_use_pallas_true_with_3d(method, levels, refused):
+    """use_pallas=True on the shaped engine: refused, with the reason, for
+    a method whose step kernels take the flat layout only (an sGS method's
+    levels before the last run inPALM); taken where every kernel the
+    method runs takes the shaped fields (the sweep, the cone projection)
+    or it has none (PALM)."""
+    r0, r1 = get_example_2d("example2", N, N)
+    opts = {"layout": "3d", "use_pallas": True, "maxit": 5}
+    args = (r0, r1, NT, levels, opts, method)
+    kw = dict(device="cpu", dtype=torch.float64, verbose=False)
+    if refused:
+        with pytest.raises(ValueError, match="use_pallas=True with "
+                                             "layout='3d'.*flat layout"):
+            tsolve.solve_dot(*args, **kw)
+    else:
+        out, _, _ = tsolve.solve_dot(*args, **kw)
+        assert out["levels"][-1]["iters"] == 5
 
 
 REFINE = {"refine_tol": 1e-4}

@@ -12,7 +12,10 @@ and the JAX package on ``tests/conftest.py``'s virtual devices.
   (y, x) mesh) and the port's one-process solve's, rho within 1e-9 of
   both. Then ``make_sharded_step`` over a ("batch",) mesh and over the
   (y, x) mesh, 3 steps against 3 of ``run_one`` (1e-10, as
-  ``tests/test_parallel.py``).
+  ``tests/test_parallel.py``); a weighted level's (love-heart) on the
+  (y, x) mesh against the JAX ``make_sharded_step``'s; kernels of the "3d"
+  layout over the ("batch",) mesh against the port's "3d" ``run_one``,
+  and refused on a spatial mesh.
 - The same 4-rank world on a ("batch", "y", "x") mesh, 2 x 2 x 1: a sum
   over a rank's batch row (``Mesh.row``) adds its row's ranks only, and
   the halo engine refuses the whole mesh; ``solve_batch`` of 4 instances
@@ -148,6 +151,71 @@ def test_sharded_step_matches_run_one(world4, one_steps, kind):
     for inst in (got if kind == "batched" else [got]):
         for a, b in zip(inst, one_steps):
             np.testing.assert_allclose(a, b, rtol=1e-10, atol=1e-12)
+
+
+def test_sharded_step_3d_kernels_on_a_batch_mesh(world4):
+    """Kernels of the "3d" layout over the ("batch",) mesh: each instance's
+    3 steps are those of the port's own "3d" run_one (shaped fields)."""
+    n, nt, steps = STEP
+    r0, r1 = get_example_2d("example2", n, n)
+    lv = initialize(r0, r1, nt, dtype=F64, device="cpu")
+    initial_scaling(lv, True)
+    k = Kernels(LevelConfig(geom=lv.geom, D=lv.D, E=lv.E, device="cpu",
+                            dtype=F64, layout="3d"))
+    s = k.prep(lv.as_dict(), 1.0)
+    for _ in range(steps):
+        s = k.run_one(s)
+    want = (s.phi.numpy(), s.z.numpy(), s.q.q0.numpy())
+    for inst in world4[1]["batched_3d"]:
+        for a, b in zip(inst, want):
+            assert a.shape == b.shape
+            np.testing.assert_allclose(a, b, rtol=1e-10, atol=1e-12)
+
+
+def test_sharded_step_weighted_level_matches_jax(world4):
+    """A weighted level (love-heart) on the (y, x) mesh: the port's halo
+    kernels carry the weight; 3 steps against 3 of the JAX
+    ``make_sharded_step`` on its 4-device (y, x) mesh (1e-10)."""
+    from dotsocp_tpu.algorithms.core import LevelConfig as JLevelConfig
+    from dotsocp_tpu.algorithms.variants import InPALMKernels
+    from dotsocp_tpu.multilevel import level as jlevel
+    from dotsocp_tpu.parallel.sharding import (make_sharded_step as
+                                               jmake_sharded_step)
+
+    n, nt, steps = STEP
+    barrier = jwdot2d.barrier_love_heart()
+    r0, r1 = jwdot2d.get_example_w2d("love-heart", n, n)
+    r0, r1, _ = jwdot2d.ensure_barrier_validity(r0, r1, barrier)
+    lv = jlevel.initialize(r0, r1, nt, dtype=jnp.float64,
+                           weight=jwdot2d.get_weight_by_barrier(n, n, nt,
+                                                                barrier))
+    jlevel.initial_scaling(lv, True)
+    k = InPALMKernels(JLevelConfig(geom=lv.geom, D=lv.D, E=lv.E,
+                                   dtype=jnp.float64, weighted=True,
+                                   check_prim_dual_feas=False), lv.weight)
+    step = jmake_sharded_step(k, jmake_mesh(4, axis_names=("y", "x")),
+                              batched=False)
+    s = k.prep(lv.as_dict(), 1.0)
+    for _ in range(steps):
+        s = step(s)
+    want = (np.asarray(s.phi), np.asarray(s.z), np.asarray(s.q.q0))
+    for a, b in zip(world4[1]["weighted_spatial"], want):
+        np.testing.assert_allclose(a.reshape(b.shape), b, rtol=1e-10,
+                                   atol=1e-12)
+
+
+def test_sharded_step_refuses_3d_kernels_on_a_spatial_mesh():
+    """As solve_dot refuses "3d" under a mesh: before any collective."""
+    from dotsocp_tpu_torch.parallel.sharding import Mesh, make_sharded_step
+
+    lv = initialize(*get_example_2d("example2", 9, 9), 5, dtype=F64,
+                    device="cpu")
+    initial_scaling(lv, True)
+    k = Kernels(LevelConfig(geom=lv.geom, D=lv.D, E=lv.E, device="cpu",
+                            dtype=F64, layout="3d"))
+    mesh = Mesh(("y", "x"), (2, 1), 0, (0, 1), {}, None, "gloo", "cpu")
+    with pytest.raises(ValueError, match="layout='3d'.*GSPMD.*halo"):
+        make_sharded_step(k, mesh, batched=False)
 
 
 def test_batch_row_psum_stays_in_its_row(world4):
