@@ -248,7 +248,15 @@ the device driver (CUDA-graph segments, ``algorithms/device_driver.py``).
    float64 within 1e-12; the sweep kernel's float32 output (two sweeps,
    D = 0.83) within rtol 2e-5 / atol 2e-6 of native.rb_sgs rounded; then
    the sweep and the cone projection on the shaped fields against their
-   plain versions (the cone projection bit-equal).
+   plain versions (the cone projection bit-equal). 12h: the fleet on
+   '3d', fleet_bench's eight problems at 129^2 x 33: lockstep (the stacked
+   plain step) within +-10% of ``FLEET_ANCHOR``, sequential within +-10% of
+   phase 8c's flat sequential total and each rho within 8c's bound of the
+   '3d' lockstep's, both with every instance done, graphs replayed and no
+   kernel launched; then ``make_sharded_step`` with '3d' kernels over a
+   ("batch",) mesh of 2 ranks sharing the card (gloo), 4 instances, 3
+   steps, each within 1e-5 of ``run_one``'s (relative to each field's
+   largest entry).
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on the main path: the sum over every solve and profile of phases
@@ -3002,11 +3010,12 @@ def fleet_replays(torch):
     return out
 
 
-def lockstep(torch, r0, r1, nt, levels, tol, method="inPALM", dtype=None):
-    """One ``solve_fleet(mode="lockstep")`` (float32 unless ``dtype``) with
-    its loops under ``set_sync_debug_mode("error")`` (the one record read
-    a check allowed): (result, wall s, launches counted from 0, peak
-    GiB)."""
+def lockstep(torch, r0, r1, nt, levels, tol, method="inPALM", dtype=None,
+             **opts):
+    """One ``solve_fleet(mode="lockstep")`` (float32 unless ``dtype``; more
+    ``opts`` if given) with its loops under ``set_sync_debug_mode("error")``
+    (the one record read a check allowed): (result, wall s, launches
+    counted from 0, peak GiB)."""
     from dotsocp_tpu_torch.parallel.batch import (BatchedDeviceDriver,
                                                   solve_fleet)
 
@@ -3015,9 +3024,10 @@ def lockstep(torch, r0, r1, nt, levels, tol, method="inPALM", dtype=None):
     BatchedDeviceDriver.sync_debug = "error"
     try:
         t0 = time.monotonic()
-        out = solve_fleet(r0, r1, nt, {"tol": tol, "maxit": 3000}, method,
-                          dtype=dtype or torch.float32, level_n=levels,
-                          mode="lockstep", verbose=False, device=DEVICE)
+        out = solve_fleet(r0, r1, nt, dict(opts, tol=tol, maxit=3000),
+                          method, dtype=dtype or torch.float32,
+                          level_n=levels, mode="lockstep", verbose=False,
+                          device=DEVICE)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     finally:
@@ -3031,17 +3041,17 @@ def lockstep(torch, r0, r1, nt, levels, tol, method="inPALM", dtype=None):
     return out, wall, launch_counts(), peak
 
 
-def sequential(torch, r0, r1, nt, levels, tol):
-    """One ``solve_fleet(mode="sequential")`` from an empty solver cache
-    (instance 0 prewarms the levels, the others replay them): (result,
-    wall s, peak GiB, the cache's GiB after it)."""
+def sequential(torch, r0, r1, nt, levels, tol, **opts):
+    """One ``solve_fleet(mode="sequential")`` (more ``opts`` if given) from
+    an empty solver cache (instance 0 prewarms the levels, the others
+    replay them): (result, wall s, peak GiB, the cache's GiB after it)."""
     from dotsocp_tpu_torch.parallel.batch import solve_fleet
 
     cold_memory(torch)
     base = torch.cuda.memory_allocated()
     t0 = time.monotonic()
-    out = solve_fleet(r0, r1, nt, {"tol": tol, "maxit": 3000}, "inPALM",
-                      dtype=torch.float32, level_n=levels,
+    out = solve_fleet(r0, r1, nt, dict(opts, tol=tol, maxit=3000),
+                      "inPALM", dtype=torch.float32, level_n=levels,
                       mode="sequential", verbose=False, device=DEVICE)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
@@ -4355,6 +4365,8 @@ LAYOUT3D = {"layout": "3d"}
 LAYOUT3D_WEIGHTED = (65, 33, 2, 1e-3)
 ORACLE = (33, 129)
 ORACLE_D, ORACLE_ITS = 0.83, 2
+# 12h's sharded step: (instances, ranks, steps) at FLEET's grid
+LAYOUT3D_SHARDED = (4, 2, 3)
 
 
 def solve_3d_layout(torch, what, r0, r1, nt, levels, tol, method="inPALM",
@@ -4577,6 +4589,177 @@ def layout3d_gaussian(torch):
     return launches, dict(iters=iters, wall_s=wall, peak_gib=peak)
 
 
+def layout3d_fleet(torch, flat):
+    """12h: fleet_bench's fleet (``FLEET``) on '3d': lockstep (the stacked
+    plain step, one graph a piece) against FLEET_ANCHOR, every instance
+    done, graphs replayed and no kernel launched; sequential (``solve_dot``
+    a problem on the cache) the same, its total within +-10% of phase
+    8c's flat sequential fleet (``flat``: 8c's result) and each rho
+    within 8c's bound of the '3d' lockstep's."""
+    import numpy as np
+
+    from dotsocp_tpu_torch.multilevel.level import mass_error
+
+    n, nt, levels, tol = FLEET
+    r0, r1 = fleet_problems(n)
+    out, wall, launches, peak = lockstep(torch, r0, r1, nt, levels, tol,
+                                         **LAYOUT3D)
+    done_it = [int(v) for v in out["done_it"]]
+    stops = out["kkt"][:, [0, 2, 5, 6]].max(axis=1)
+    masses = [mass_error(out["rho"][b]) for b in range(FLEET_B)]
+    replays = sum(lv["driver"]["replays"] for lv in out["levels"])
+    log(f"  lockstep on '3d': iterations per level "
+        f"{[lv['iters'] for lv in out['levels']]}, total {out['iters']} "
+        f"(anchor {FLEET_ANCHOR['iters']}; flat, phase 8c: "
+        f"{flat['iters']}), done_it {done_it}, wall {wall:.3f} s "
+        f"({FLEET_B / wall:.3f} instances/s; flat {flat['wall_s']:.3f} s), "
+        f"peak {peak:.3f} GiB, graph replays {replays}, launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    require(tuple(out["rho"].shape) == (FLEET_B, nt, n, n),
+            f"'3d' lockstep: rho shape {tuple(out['rho'].shape)}")
+    require(bool(torch.isfinite(out["rho"]).all()),
+            "'3d' lockstep: non-finite density")
+    require(bool(out["done"].all()), f"'3d' lockstep: not every instance "
+            f"done: {out['done']}")
+    require(bool((stops < tol).all()), f"'3d' lockstep: stop residuals "
+            f"{stops}")
+    require(all(m <= 1e-2 for m in masses), f"'3d' lockstep: mass errors "
+            f"{masses}")
+    require(abs(out["iters"] - FLEET_ANCHOR["iters"])
+            <= 0.1 * FLEET_ANCHOR["iters"], f"'3d' lockstep: iters "
+            f"{out['iters']} not within 10% of {FLEET_ANCHOR['iters']}")
+    require(replays > 0, "'3d' lockstep: no piece replayed from a graph")
+    require(not any(launches.values()), f"'3d' lockstep launched "
+            f"{launches} (inPALM runs its plain step there)")
+    reset_launch_counts()
+    seq, seq_wall, seq_peak, _ = sequential(torch, r0, r1, nt, levels, tol,
+                                            **LAYOUT3D)
+    seq_launches = launch_counts()
+    seq_replays = sum(lv["driver"]["replays"] for inst in seq["levels"]
+                      for lv in inst)
+    rel = [float(torch.linalg.norm(seq["rho"][b] - out["rho"][b])
+                 / torch.linalg.norm(out["rho"][b])) for b in range(FLEET_B)]
+    bound = [max(1e-2, 1.1 * r) for r in FLEET_REL_JAX]
+    log(f"  sequential on '3d': final-level iterations "
+        f"{[int(v) for v in seq['done_it']]}, total {seq['iters']} (flat, "
+        f"phase 8c: {flat['seq_iters']}), wall {seq_wall:.3f} s "
+        f"({FLEET_B / seq_wall:.3f} instances/s; flat "
+        f"{flat['seq_wall_s']:.3f} s), peak {seq_peak:.3f} GiB, graph "
+        f"replays {seq_replays}; rho against the '3d' lockstep, relative "
+        f"{', '.join(f'{v:.2e}' for v in rel)}")
+    require(bool(np.all(seq["done"])), f"'3d' sequential: not every "
+            f"instance done: {seq['done']}")
+    require(abs(seq["iters"] - flat["seq_iters"])
+            <= 0.1 * flat["seq_iters"], f"'3d' sequential: iters "
+            f"{seq['iters']} not within 10% of the flat {flat['seq_iters']}")
+    require(seq_replays > 0, "'3d' sequential: no piece replayed from a "
+            "graph")
+    require(not any(seq_launches.values()), f"'3d' sequential launched "
+            f"{seq_launches}")
+    require(all(r < b for r, b in zip(rel, bound)), f"'3d' sequential rho "
+            f"differs from the '3d' lockstep's by {rel}, bounds {bound}")
+    res = dict(iters=out["iters"], done_it=done_it,
+               level_iters=[lv["iters"] for lv in out["levels"]],
+               wall_s=wall, instances_per_s=FLEET_B / wall, peak_gib=peak,
+               replays=replays, flat_iters=flat["iters"],
+               flat_wall_s=flat["wall_s"], seq_iters=seq["iters"],
+               seq_done_it=[int(v) for v in seq["done_it"]],
+               seq_wall_s=seq_wall, seq_instances_per_s=FLEET_B / seq_wall,
+               seq_peak_gib=seq_peak, seq_replays=seq_replays,
+               flat_seq_iters=flat["seq_iters"],
+               flat_seq_wall_s=flat["seq_wall_s"], rho_rel_seq=rel)
+    del out, seq
+    torch.cuda.empty_cache()
+    return res
+
+
+def layout3d_state(torch, B):
+    """(kernels of the '3d' layout, the stacked float32 state) of the
+    finest level of fleet_bench's first B problems after InitialScaling,
+    sigma 1, on the card."""
+    from dotsocp_tpu_torch.algorithms.core import Kernels, LevelConfig
+    from dotsocp_tpu_torch.multilevel.level import initial_scaling, initialize
+    from dotsocp_tpu_torch.parallel.batch import stack_states
+
+    n, nt = FLEET[:2]
+    r0, r1 = fleet_problems(n)
+    lvs = []
+    for a, b in zip(r0[:B], r1[:B]):
+        lv = initialize(a, b, nt, dtype=torch.float32, device=DEVICE)
+        initial_scaling(lv, scaling=True)
+        lvs.append(lv)
+    kern = Kernels(LevelConfig(geom=lvs[0].geom, D=lvs[0].D, E=lvs[0].E,
+                               device=DEVICE, dtype=torch.float32,
+                               layout="3d"))
+    return kern, stack_states([kern.prep(lv.as_dict(), 1.0) for lv in lvs])
+
+
+def _rank_sharded_3d(B, steps):
+    """12h on one rank: ``make_sharded_step`` with '3d' kernels over the
+    world's ("batch",) mesh, ``steps`` steps of B instances, against this
+    rank's own ``run_one`` steps of each instance alone. Returns the
+    largest gap a field relative to its largest entry, whether every field
+    is bit-equal, and the launches of the sharded steps."""
+    import torch
+
+    from dotsocp_tpu_torch.algorithms.core import instance
+    from dotsocp_tpu_torch.parallel.sharding import (make_mesh,
+                                                     make_sharded_step)
+
+    kern, state = layout3d_state(torch, B)
+    step = make_sharded_step(kern, make_mesh(axis_names=("batch",)))
+    reset_launch_counts()
+    got = state
+    for _ in range(steps):
+        got = step(got)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in launch_counts().items() if v}
+    pairs, gaps, equal = [], {}, True
+    for b in range(B):
+        want = instance(state, b)
+        for _ in range(steps):
+            want = kern.run_one(want)
+        mine = instance(got, b)
+        for f in ("phi", "z", "beta"):
+            a, w = getattr(mine, f), getattr(want, f)
+            pairs.append((f, a, w))
+        pairs += [(f"q[{i}]", a, w) for i, (a, w) in
+                  enumerate(zip(mine.q.blocks(), want.q.blocks()))]
+    for f, a, w in pairs:
+        equal = equal and bool(torch.equal(a, w))
+        gap = float((a - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        gaps[f] = max(gaps.get(f, 0.0), gap)
+    return dict(gaps=gaps, bit_equal=equal, launches=launches)
+
+
+def layout3d_sharded(torch):
+    """12h: ``make_sharded_step`` with kernels of the '3d' layout on a
+    ("batch",) mesh of LAYOUT3D_SHARDED's ranks sharing the card (a
+    spawned gloo world): each rank's gathered steps against its own
+    ``run_one`` of each instance, within 1e-5 of each field's largest
+    entry."""
+    from dotsocp_tpu_torch.parallel.launch import run_world
+
+    B, world, steps = LAYOUT3D_SHARDED
+    t0 = time.monotonic()
+    ranks = run_world(_rank_sharded_3d, world, (B, steps), backend="gloo",
+                      device=DEVICE, timeout=DIST_TIMEOUT)
+    wall = time.monotonic() - t0
+    for r, rec in enumerate(ranks):
+        log(f"  sharded step on '3d', rank {r} of a ('batch',) mesh of "
+            f"{world} ({DIST_LABEL}), {B} x {FLEET[0]}^2 x {FLEET[1]}, "
+            f"{steps} steps against run_one: bit-equal {rec['bit_equal']}, "
+            f"largest gap relative to each field's largest entry "
+            f"{ {k: f'{v:.2e}' for k, v in rec['gaps'].items()} }, "
+            f"launches {rec['launches']}")
+        require(max(rec["gaps"].values()) <= 1e-5, f"12h rank {r}: the "
+                f"sharded '3d' step differs from run_one by {rec['gaps']}")
+        require(not rec["launches"], f"12h rank {r}: the sharded '3d' "
+                f"inPALM step launched {rec['launches']}")
+    log(f"  the world took {wall:.1f} s")
+    return dict(world_s=wall, ranks=ranks)
+
+
 def layout3d_oracle(torch):
     """12g: the native golden kernels (CPU, float64) against the card. On
     seeded inputs at 129^2 x 33: the shaped bfd, bfd_T and the plain
@@ -4651,12 +4834,13 @@ def layout3d_oracle(torch):
     return errs
 
 
-def layout_3d(torch, card, headline, scale):
+def layout_3d(torch, card, headline, scale, fleet):
     """Phase 12: the shaped engine end to end, on the card ``card`` (its
-    nvidia-smi name and power limit, printed beside the phase's figures).
-    Returns (the launches of the '3d' solves of 12a-12f, summed, each solve
-    counted from 0; the results, the native oracle's and the kernels'
-    largest errors under ``oracle``)."""
+    nvidia-smi name and power limit, printed beside the phase's figures);
+    ``headline``, ``scale`` and ``fleet`` are phases 4's, 9a's and 8c's
+    flat results. Returns (the launches of the '3d' solves of 12a-12f,
+    summed, each solve counted from 0; the results, the native oracle's
+    and the kernels' largest errors under ``oracle``)."""
     log(f"  card (name, power limit): {card}")
     launches, results = {}, {"card": card}
     steps = (("headline", lambda: layout3d_headline(torch,
@@ -4674,6 +4858,9 @@ def layout_3d(torch, card, headline, scale):
     clear_cache()
     results["oracle"] = layout3d_oracle(torch)
     log(f"  '3d' launches {launches}")
+    results["fleet"] = layout3d_fleet(torch, fleet)
+    clear_cache()
+    results["sharded_step"] = layout3d_sharded(torch)
     for k in LAYOUT3D_KERNELS:
         require(launches.get(k, 0) > 0, f"{k} was launched no time on the "
                 f"'3d' path")
@@ -4809,9 +4996,10 @@ def main(argv=None):
     cache = solver_cache(torch)
     phase(12, "the shaped engine, layout '3d': the headline, the sGS path, "
           "acc-ADMM and acc-sGS-ADMM, the scale config, weighted inPALM, the "
-          "3D gaussian; the native oracle against the card")
+          "3D gaussian; the native oracle against the card; the fleet and "
+          "the sharded step")
     launches_3dl, layout3d = layout_3d(torch, card, headline,
-                                       user["scale_513x65"])
+                                       user["scale_513x65"], fleet["solve"])
     log(f"\nall phases passed in {time.monotonic() - t_start:.1f} s")
 
     nbytes = kernel_bytes(Geometry(SCALE[0], (SCALE[1], SCALE[1])))

@@ -232,6 +232,39 @@ class LevelConfig:
     layout: str = "flat"
 
 
+# the methods with step kernels on the flat engine only (the x-carry and
+# single-step kernels): on "3d" their steps run plain
+FLAT_KERNEL_METHODS = ("inPALM", "ALG2", "sGS-inPALM")
+
+
+def check_mesh_layout(layout: str, where: str) -> None:
+    """Under a mesh the port runs the halo engine: "flat" and "3d" raise
+    with the reason."""
+    if layout in ("flat", "3d"):
+        raise ValueError(
+            f"layout={layout!r} under a mesh ({where}): the JAX package then "
+            f"runs its shaped engine and lets XLA's GSPMD partitioner split "
+            f"it, which has no PyTorch counterpart; the port's partitioner is "
+            f"the halo engine (layout 'auto' or 'halo')")
+
+
+def check_pallas_layout(methods, opts) -> None:
+    """``use_pallas=True`` with layout "3d" raises for a method whose step
+    kernels take the flat layout only (``FLAT_KERNEL_METHODS``): on the
+    shaped engine its steps run plain, and True promises the kernels."""
+    if opts.get("layout") != "3d" or opts.get("use_pallas", "auto") is not \
+            True:
+        return
+    flat_only = [m for m in methods if m in FLAT_KERNEL_METHODS]
+    if flat_only:
+        raise ValueError(
+            f"use_pallas=True with layout='3d': {flat_only[0]}'s step "
+            f"kernels (the x-carry and single-step kernels) take the flat "
+            f"layout only, so on the shaped engine its steps run plain, as "
+            f"the JAX package fuses only on 'flat'; pass use_pallas='auto', "
+            f"or layout 'flat' for the kernels")
+
+
 class Kernels:
     """One level's compute: the inPALM step, the CA x-carry segment, the
     KKT battery and the host-driven state transforms."""

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..ops.geometry import Geometry
-from ..ops.staggered import Staggered
+from ..ops.staggered import Staggered, zeros as stag_zeros
 from ..utils.norms import norm_l2
 
 
@@ -62,14 +62,6 @@ def make_c(geom: Geometry, rho0: torch.Tensor, rho1: torch.Tensor):
     return c
 
 
-def zeros_staggered(geom: Geometry, dtype, device) -> Staggered:
-    kw = dict(dtype=dtype, device=device)
-    return Staggered(
-        q0=torch.zeros(geom.q0_shape, **kw),
-        bs=tuple(torch.zeros(geom.b_shape(a), **kw)
-                 for a in range(geom.ndim_space)))
-
-
 def initialize(rho0, rho1, nt: int, dtype: torch.dtype, device,
                weight: Optional[Staggered] = None) -> LevelVar:
     """Model (c) and initial variables (``initialize.m``):
@@ -94,9 +86,9 @@ def initialize(rho0, rho1, nt: int, dtype: torch.dtype, device,
 
     return LevelVar(
         geom=geom, rho0=rho0, rho1=rho1, c=make_c(geom, rho0, rho1), phi=phi,
-        q=zeros_staggered(geom, dtype, device),
+        q=stag_zeros(geom, dtype, device),
         z=torch.zeros(geom.z_shape, **kw),
-        alpha=zeros_staggered(geom, dtype, device),
+        alpha=stag_zeros(geom, dtype, device),
         beta=torch.zeros(geom.z_shape, **kw),
         weight=weight,
     )

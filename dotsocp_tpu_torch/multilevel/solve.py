@@ -83,7 +83,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..algorithms.core import Kernels, LevelConfig
+from ..algorithms.core import (Kernels, LevelConfig, check_mesh_layout,
+                               check_pallas_layout)
 from ..algorithms.device_driver import AccDeviceDriver, DeviceDriver
 from ..algorithms.device_sgs import AccSgsDeviceDriver, SgsDeviceDriver
 from ..algorithms.driver import SolveOptions
@@ -139,9 +140,6 @@ KNOWN_OPTS = {"tol", "maxit", "sigma", "time_limit", "scaling",
 # JAX options of which the port runs some values (_check_choice)
 CHOICE_OPTS = {"use_pallas", "layout", "driver"}
 LAYOUTS = ("auto", "flat", "halo", "3d")
-# the methods with step kernels on the flat engine only (the x-carry and
-# single-step kernels): on "3d" their steps run plain
-FLAT_KERNEL_METHODS = ("inPALM", "ALG2", "sGS-inPALM")
 # the port's refine_dct_split="auto", a fixed rule: the plain float64 DCT.
 # The JAX package picks the IR solve because the TPU emulates f64 matmuls
 # (its solve.py:746-760); the H100 runs them natively. Measured on an H100
@@ -236,34 +234,6 @@ def _check_mesh(mesh, opts) -> None:
         raise ValueError("profile under a mesh: profile_phases times one "
                          "card's kernels on the flat layout; profile the "
                          "single-process solve")
-
-
-def check_mesh_layout(layout: str, where: str) -> None:
-    """Under a mesh the port runs the halo engine: "flat" and "3d" raise
-    with the reason."""
-    if layout in ("flat", "3d"):
-        raise ValueError(
-            f"layout={layout!r} under a mesh ({where}): the JAX package then "
-            f"runs its shaped engine and lets XLA's GSPMD partitioner split "
-            f"it, which has no PyTorch counterpart; the port's partitioner is "
-            f"the halo engine (layout 'auto' or 'halo')")
-
-
-def check_pallas_layout(methods, opts) -> None:
-    """``use_pallas=True`` with layout "3d" raises for a method whose step
-    kernels take the flat layout only (``FLAT_KERNEL_METHODS``): on the
-    shaped engine its steps run plain, and True promises the kernels."""
-    if opts.get("layout") != "3d" or opts.get("use_pallas", "auto") is not \
-            True:
-        return
-    flat_only = [m for m in methods if m in FLAT_KERNEL_METHODS]
-    if flat_only:
-        raise ValueError(
-            f"use_pallas=True with layout='3d': {flat_only[0]}'s step "
-            f"kernels (the x-carry and single-step kernels) take the flat "
-            f"layout only, so on the shaped engine its steps run plain, as "
-            f"the JAX package fuses only on 'flat'; pass use_pallas='auto', "
-            f"or layout 'flat' for the kernels")
 
 
 def _check_request(rho0, method, weight, opts):

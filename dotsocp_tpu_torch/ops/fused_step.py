@@ -485,28 +485,18 @@ def cone_project_diff(z2, beta):
 
 # -- batched forms: B instances in one launch --------------------------------
 
-def _stag_at(st: Staggered, b: int) -> Staggered:
-    return Staggered(st.q0[b], st.bs[b])
-
-
 def select_instance(active, b: int, new, old):
     """Instance b's ``new`` where ``active[b]``, else ``old`` (tensors or
     Staggered): the mask as a select, on the card with no host read."""
     if isinstance(new, Staggered):
-        return Staggered(torch.where(active[b], new.q0, old.q0),
-                         torch.where(active[b], new.bs, old.bs))
+        return new.map(lambda n, o: torch.where(active[b], n, o), old)
     return torch.where(active[b], new, old)
-
-
-def _stack_stag(parts) -> Staggered:
-    return Staggered(torch.stack([p.q0 for p in parts]),
-                     torch.stack([p.bs for p in parts]))
 
 
 def x_step_batched_plain(ops: OpsFlat, q: Staggered, beta, sbf, sd, active,
                          x):
     return torch.stack([
-        select_instance(active, b, x_step_plain(ops, _stag_at(q, b), beta[b],
+        select_instance(active, b, x_step_plain(ops, q.at(b), beta[b],
                                                 sbf, sd[b]), x[b])
         for b in range(beta.shape[0])])
 
@@ -515,18 +505,18 @@ def qx_step_batched_plain(ops: OpsFlat, phi, x, alpha: Staggered,
                           q: Staggered, dinv, D, sbf, tau, active):
     qs, alphas = [], []
     for b in range(phi.shape[0]):
-        al = _stag_at(alpha, b)
+        al = alpha.at(b)
         qn, an = qx_step_plain(ops, phi[b], x[b], al, dinv, D, sbf, tau)
-        qs.append(select_instance(active, b, qn, _stag_at(q, b)))
+        qs.append(select_instance(active, b, qn, q.at(b)))
         alphas.append(select_instance(active, b, an, al))
-    return _stack_stag(qs), _stack_stag(alphas)
+    return Staggered.stack(qs), Staggered.stack(alphas)
 
 
 def cx_step_batched_plain(ops: OpsFlat, beta, x, q: Staggered, sbf, sd, tau,
                           active, final: bool = False):
     betas, xs = [], []
     for b in range(beta.shape[0]):
-        bn, xn = cx_step_plain(ops, beta[b], x[b], _stag_at(q, b), sbf,
+        bn, xn = cx_step_plain(ops, beta[b], x[b], q.at(b), sbf,
                                sd[b], tau, final)
         betas.append(select_instance(active, b, bn, beta[b]))
         xs.append(select_instance(active, b, xn, x[b]))

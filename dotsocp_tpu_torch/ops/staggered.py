@@ -15,7 +15,6 @@ from __future__ import annotations
 
 from typing import NamedTuple, Sequence, Union
 
-import numpy as np
 import torch
 
 Blocks = Union[torch.Tensor, Sequence[torch.Tensor]]
@@ -105,46 +104,11 @@ class Staggered(NamedTuple):
         return Staggered(self.q0.clone(), _map(torch.clone, self.bs))
 
 
-# -- shaped fields (``dotsocp_tpu/ops/staggered.py:71-115``) ------------------
+# -- shaped fields (``dotsocp_tpu/ops/staggered.py:71-77``) ------------------
 
 def zeros(geom, dtype=torch.float32, device="cpu") -> Staggered:
+    """A shaped field of zeros on ``geom``: face blocks a tuple."""
     return Staggered(
         q0=torch.zeros(geom.q0_shape, dtype=dtype, device=device),
         bs=tuple(torch.zeros(geom.b_shape(a), dtype=dtype, device=device)
                  for a in range(geom.ndim_space)))
-
-
-def ones(geom, dtype=torch.float32, device="cpu") -> Staggered:
-    return Staggered(
-        q0=torch.ones(geom.q0_shape, dtype=dtype, device=device),
-        bs=tuple(torch.ones(geom.b_shape(a), dtype=dtype, device=device)
-                 for a in range(geom.ndim_space)))
-
-
-def from_flat(geom, vec, dtype=None, device="cpu") -> Staggered:
-    """A shaped field from the reference's flat MATLAB ordering: the
-    reference stacks [q0; bx; by] with each block a column-major flatten of
-    a (ny, nx, nt) MATLAB array; ours are (nt, ny, nx), the MATLAB array
-    with the time axis moved to the front. ``dtype`` None keeps the
-    vector's."""
-    vec = np.asarray(vec)
-    blocks = []
-    off = 0
-    shapes = [geom.q0_shape] + [geom.b_shape(a)
-                                for a in range(geom.ndim_space)]
-    for shp in shapes:
-        n = int(np.prod(shp))
-        mshape = shp[1:] + (shp[0],)
-        block = np.moveaxis(vec[off:off + n].reshape(mshape, order="F"),
-                            -1, 0)
-        blocks.append(torch.tensor(np.ascontiguousarray(block), dtype=dtype,
-                                   device=device))
-        off += n
-    return Staggered(q0=blocks[0], bs=tuple(blocks[1:]))
-
-
-def to_flat(st: Staggered) -> np.ndarray:
-    """The inverse of :func:`from_flat` (the reference's flat ordering)."""
-    return np.concatenate(
-        [np.moveaxis(b.detach().cpu().numpy(), 0, -1).flatten(order="F")
-         for b in st.blocks()])

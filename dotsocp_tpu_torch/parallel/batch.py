@@ -77,7 +77,8 @@ import torch
 import torch.distributed as dist
 
 from ..algorithms.core import (BATCH_SCALARS, Kernels, LevelConfig,
-                               SolverState, instance, stack_fields)
+                               SolverState, check_mesh_layout,
+                               check_pallas_layout, instance, stack_fields)
 from ..algorithms.device_driver import (DeviceDriver, _cadence_gap,
                                         _copy_into, _next_check_it,
                                         _table_factor)
@@ -86,8 +87,7 @@ from ..algorithms.graphs import SegmentGraphs
 from ..algorithms.variants import ITERATE, PALMKernels
 from ..multilevel.level import (initial_scaling, initialize, recover_org_var,
                                 recover_rho_e)
-from ..multilevel.solve import (_check_choice, _jump_next_level,
-                                check_mesh_layout, check_pallas_layout)
+from ..multilevel.solve import _check_choice, _jump_next_level
 from ..multilevel.transfer import restrict_density
 from ..ops.staggered import Staggered
 from . import comm

@@ -260,8 +260,7 @@ def make_sharded_step(kernels, mesh: Mesh, batched: bool = True):
     its weight. Kernels of the "3d" layout take a batch-only mesh (their
     state shaped); a spatial mesh refuses them, as ``solve_dot`` refuses
     "3d" under a mesh."""
-    from ..algorithms.core import BATCH_SCALARS, instance
-    from ..multilevel.solve import check_mesh_layout
+    from ..algorithms.core import BATCH_SCALARS, check_mesh_layout, instance
     from .batch import stack_states
 
     spatial = bool(spatial_axes(mesh))
