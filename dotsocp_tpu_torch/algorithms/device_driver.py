@@ -35,6 +35,16 @@ rescale stops and the chunk ends are integer arithmetic on values it knows,
 and every check's record brings the mirror back in line with the card. No
 host sync happens inside a segment, and one happens per check.
 
+``stats`` splits the loop's host time (always on, reset by ``prepare``):
+``launch_s`` is the host's seconds in the loop's graph launches (each
+segment, and the check, sigma, rescale and averaging replays; on a solve
+that captures, its first eager runs and captures too), ``wait_s`` its
+seconds in the record reads, where it waits for the card. The rest of the
+level's ``time`` is the host's schedule and bookkeeping. The loop's steps
+are spans of ``utils/trace.py`` (``dotsocp.driver.prepare``, ``.segment``,
+``.check``, ``.record_read``, ``.rescale``, ``.finish``), which a running
+profiler shows.
+
 Chunks follow ``device_driver.py:398-464``: ``chunk_iters`` (600) splits
 segments at ``it_end``; ``max_chunks`` and ``time_limit`` stop at chunk
 boundaries; ``checkpoint_path`` is written after each chunk and resumed
@@ -75,6 +85,7 @@ import torch
 from ..ops.staggered import Staggered
 from ..parallel import comm
 from ..utils.checkpoint import load_tensors, save_tensors
+from ..utils.trace import span
 from .core import Kernels, SolverState
 from .driver import RunHistory, SIGMA_BOUNDS, UPDATE_RULE, SolveOptions
 from .graphs import SegmentGraphs
@@ -448,11 +459,20 @@ class DeviceDriver:
 
     # -- the host's loop ---------------------------------------------------
     def _read_record(self) -> dict:
-        """The one host read of a check."""
-        with self._sync_allowed():
+        """The one host read of a check, its seconds in ``wait_s``."""
+        with span("driver.record_read"), self._sync_allowed():
+            t0 = time.perf_counter()
             vals = self.ls.record.tolist()
+            self.stats["wait_s"] += time.perf_counter() - t0
         self.stats["syncs"] += 1
         return dict(zip(RECORD, vals))
+
+    def _launch(self, kind: str, fn) -> None:
+        """A piece outside the segments (a check, a sigma change, a rescale,
+        an averaging), its host seconds in ``launch_s``."""
+        t0 = time.perf_counter()
+        self.graphs.run(kind, fn)
+        self.stats["launch_s"] += time.perf_counter() - t0
 
     @contextlib.contextmanager
     def _sync_allowed(self):
@@ -468,26 +488,28 @@ class DeviceDriver:
     def _check(self) -> None:
         """A KKT check: its graph, the record, and the sigma graph when the
         check changed sigma."""
-        self.graphs.run("check", self._check_block)
-        rec = self._read_record()
-        self.stats["checks"] += 1
-        self.marks.append((int(rec["it"]), time.monotonic() - self.t0))
-        h = self.h
-        if int(rec["it"]) != h.it:
-            raise RuntimeError(f"device driver: the card's iteration "
-                               f"{int(rec['it'])} is not the host's {h.it}")
-        h.done = bool(rec["done"])
-        h.last = int(rec["last_sigma_it"])
-        h.stage = int(rec["stage"])
-        h.max_feas = rec["max_feas"]
-        h.rel_gap = rec["rel_gap"]
-        h.superior = bool(rec["superior"])
-        if self.opts.debug_nans and rec["bad"] >= 0:
-            raise FloatingPointError(
-                f"{self.opts.label}: KKT residual {int(rec['bad']) + 1} is "
-                f"{rec['bad_value']} at iteration {h.it}")
-        if rec["sigma_changed"]:
-            self.graphs.run("sigma", self._sigma_apply)
+        with span("driver.check"):
+            self._launch("check", self._check_block)
+            rec = self._read_record()
+            self.stats["checks"] += 1
+            self.marks.append((int(rec["it"]), time.monotonic() - self.t0))
+            h = self.h
+            if int(rec["it"]) != h.it:
+                raise RuntimeError(f"device driver: the card's iteration "
+                                   f"{int(rec['it'])} is not the host's "
+                                   f"{h.it}")
+            h.done = bool(rec["done"])
+            h.last = int(rec["last_sigma_it"])
+            h.stage = int(rec["stage"])
+            h.max_feas = rec["max_feas"]
+            h.rel_gap = rec["rel_gap"]
+            h.superior = bool(rec["superior"])
+            if self.opts.debug_nans and rec["bad"] >= 0:
+                raise FloatingPointError(
+                    f"{self.opts.label}: KKT residual {int(rec['bad']) + 1} "
+                    f"is {rec['bad_value']} at iteration {h.it}")
+            if rec["sigma_changed"]:
+                self._launch("sigma", self._sigma_apply)
 
     def _stage_due(self) -> int:
         """The first iteration the first or second rescale may fire at, by
@@ -506,8 +528,9 @@ class DeviceDriver:
         the ratio test on the card from then on."""
         h = self.h
         ratio = h.stage >= 3
-        self.graphs.run("rescale_ratio" if ratio else "rescale",
-                        lambda: self._rescale(ratio))
+        with span("driver.rescale"):
+            self._launch("rescale_ratio" if ratio else "rescale",
+                         lambda: self._rescale(ratio))
         if ratio:
             self.stats["ratio_evals"] += 1
         else:
@@ -547,7 +570,10 @@ class DeviceDriver:
             # has no chunks, runs it whole)
             self.stats["chunk_cuts"] += stop < event
             k = max(stop - h.it, 0)
-            self._segment(k)
+            with span("driver.segment"):
+                t0 = time.perf_counter()
+                self._segment(k)
+                self.stats["launch_s"] += time.perf_counter() - t0
             h.it += k
             if h.it - h.last >= _cadence_gap(h.it) or h.it >= maxit:
                 self._check()
@@ -595,28 +621,29 @@ class DeviceDriver:
         checkpoint when there is one); ``eager`` runs every piece eagerly on
         the card too, with no graph. A driver prepared before keeps its
         graphs and writes the new values into its buffers."""
-        t0 = time.perf_counter()
-        mesh = self.k.ops.mesh
-        eager = eager or (mesh is not None and mesh.size > 1)
-        if self.graphs is None or self.graphs.eager != eager:
-            if self.graphs is not None:
-                self.graphs.release()
-            self.graphs = SegmentGraphs(self.device, eager=eager)
-        self.graphs.capture_first = self.cached
-        self.graphs.new_solve()
-        self.stats = {"syncs": 0, "checks": 0, "ratio_evals": 0,
-                      "chunk_cuts": 0}
-        kept = None if self.s is None else {a: getattr(self, a)
-                                            for a in self.BUFFERS}
-        self._init_state(var)
-        self._init_loop()
-        if kept is not None:
-            self._refill(kept)
-        if self.checkpoint_path:
-            self._resume()
-        self.stats["prepare_s"] = time.perf_counter() - t0
-        self.t0 = time.monotonic()
-        self.marks = [(self.h.it, 0.0)]
+        with span("driver.prepare"):
+            t0 = time.perf_counter()
+            mesh = self.k.ops.mesh
+            eager = eager or (mesh is not None and mesh.size > 1)
+            if self.graphs is None or self.graphs.eager != eager:
+                if self.graphs is not None:
+                    self.graphs.release()
+                self.graphs = SegmentGraphs(self.device, eager=eager)
+            self.graphs.capture_first = self.cached
+            self.graphs.new_solve()
+            self.stats = {"syncs": 0, "checks": 0, "ratio_evals": 0,
+                          "chunk_cuts": 0, "launch_s": 0.0, "wait_s": 0.0}
+            kept = None if self.s is None else {a: getattr(self, a)
+                                                for a in self.BUFFERS}
+            self._init_state(var)
+            self._init_loop()
+            if kept is not None:
+                self._refill(kept)
+            if self.checkpoint_path:
+                self._resume()
+            self.stats["prepare_s"] = time.perf_counter() - t0
+            self.t0 = time.monotonic()
+            self.marks = [(self.h.it, 0.0)]
 
     def _refill(self, kept: dict) -> None:
         """Take the buffers of ``kept`` back, with the freshly prepared
@@ -668,6 +695,7 @@ class DeviceDriver:
         with self._on_stream():
             for kind, fn in self._pieces().items():
                 self.graphs.run(kind, fn)
+        self.graphs.fold_launches()
 
     @contextlib.contextmanager
     def _on_stream(self):
@@ -690,6 +718,7 @@ class DeviceDriver:
         and the card tests hold replays against eager runs with."""
         with self._on_stream():
             self._segment(k)
+        self.graphs.fold_launches()
 
     def solve(self, var):
         opts = self.opts
@@ -711,6 +740,7 @@ class DeviceDriver:
                     if self.checkpoint_path:
                         self._save()
         finally:
+            self.graphs.fold_launches()
             self.stats.update(captures=self.graphs.captures,
                               replays=self.graphs.replays,
                               eager_runs=self.graphs.eager_runs,
@@ -720,7 +750,8 @@ class DeviceDriver:
             if not self.cached:
                 self.graphs.release()
         t0 = time.perf_counter()
-        out = self._finish(var)
+        with span("driver.finish"):
+            out = self._finish(var)
         self.stats["finish_s"] = time.perf_counter() - t0
         return out
 
@@ -828,7 +859,7 @@ class HalpernMixin:
         self._halpern(self.old, self._iterate(), True)
 
     def _post_check(self) -> None:
-        self.graphs.run("acc_average", self._average)
+        self._launch("acc_average", self._average)
 
     def _sigma_apply(self) -> None:
         """Scales alpha/beta/c (and old's) and restarts the anchor at the

@@ -17,12 +17,17 @@ update, then (acc-sGS-ADMM) the Halpern averaging. ``superior`` changes
 only at a check, so the host learns it from the check's record and picks
 the between-check graph (superior entry or carried entry) of the
 iterations up to the next check; this replaces the host driver's per-check
-read of the feasibility history (``algorithms/solvers.py``).
+read of the feasibility history (``algorithms/solvers.py``). The
+between-check iterations up to a check, with their rescales, are one
+segment of the loop's stats and spans.
 """
 from __future__ import annotations
 
+import time
+
 import torch
 
+from ..utils.trace import span
 from .device_driver import (DeviceDriver, HalpernMixin, _f32, _pick,
                             _step_lookup, _table_factor)
 from .driver import UPDATE_RULE_SGS, SolveOptions
@@ -204,16 +209,24 @@ class SgsDeviceDriver(DeviceDriver):
     def _chunk(self, it_end: int) -> None:
         h = self.h
         while not h.done and h.it < it_end:
-            self._top_rescale()
-            it1 = h.it + 1
-            if (_cadence_check_sgs(it1, h.last, self._scale)
-                    or it1 >= self.opts.maxit):
-                self.graphs.run("sgs_step", self._step)
+            checked = False
+            with span("driver.segment"):
+                # the segment's rescales count in its seconds
+                launch_s, t0 = self.stats["launch_s"], time.perf_counter()
+                while h.it < it_end:
+                    self._top_rescale()
+                    it1 = h.it + 1
+                    if (_cadence_check_sgs(it1, h.last, self._scale)
+                            or it1 >= self.opts.maxit):
+                        checked = True
+                        break
+                    self._segment(1)
+                self.stats["launch_s"] = launch_s + time.perf_counter() - t0
+            if checked:
+                self._launch("sgs_step", self._step)
                 h.it = it1
                 self._check()
                 self._post_check()
-            else:
-                self._segment(1)
 
 
 class AccSgsDeviceDriver(HalpernMixin, SgsDeviceDriver):

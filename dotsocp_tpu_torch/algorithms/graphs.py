@@ -42,7 +42,12 @@ a solve whose driver is not kept, and at the cache's eviction.
 
 ``LAUNCHES`` of ``ops/fused_step.py`` and ``ops/sgs_sweep.py`` count kernel
 executions: a capture records the launches its function made and takes
-them back (a capture runs nothing), and each replay adds them.
+them back (a capture runs nothing). A replay only counts itself, by kind;
+:meth:`SegmentGraphs.fold_launches` adds the replays' launches to
+``LAUNCHES``, which the drivers call at the end of a ``segment``, a
+``solve`` and a ``warm`` (and :meth:`release` before it drops the graphs).
+So the counts are exact after a segment, a solve or a warm, not in the
+middle of one.
 """
 from __future__ import annotations
 
@@ -64,6 +69,18 @@ def _snapshot():
     return [dict(c) for c in COUNTERS]
 
 
+class _Graph:
+    """A captured graph, the launches one replay makes (a dict for each
+    counter of ``COUNTERS``) and its replays not yet added to them."""
+
+    __slots__ = ("graph", "deltas", "unfolded")
+
+    def __init__(self, graph, deltas):
+        self.graph = graph
+        self.deltas = deltas
+        self.unfolded = 0
+
+
 class SegmentGraphs:
     """The captured graphs of one level's driver, by kind."""
 
@@ -75,7 +92,7 @@ class SegmentGraphs:
         self.eager = eager
         # capture at a kind's first call, after its eager run
         self.capture_first = capture_first
-        self._graphs = {}   # kind -> (CUDAGraph, launch deltas)
+        self._graphs = {}   # kind -> _Graph
         self._seen = set()
         self._pool = None
         self.stream = None
@@ -128,12 +145,19 @@ class SegmentGraphs:
                     self._capture(kind, fn)
                 return
             entry = self._capture(kind, fn)
-        graph, deltas = entry
-        graph.replay()
+        entry.graph.replay()
         self.replays += 1
-        for counter, delta in zip(COUNTERS, deltas):
-            for name, n in delta.items():
-                counter[name] += n
+        entry.unfolded += 1
+
+    def fold_launches(self) -> None:
+        """Add the kernel launches of the replays since the last fold to
+        ``LAUNCHES``."""
+        for entry in self._graphs.values():
+            if entry.unfolded:
+                for counter, delta in zip(COUNTERS, entry.deltas):
+                    for name, n in delta.items():
+                        counter[name] += n * entry.unfolded
+                entry.unfolded = 0
 
     def _capture(self, kind: str, fn):
         t0 = time.perf_counter()
@@ -164,7 +188,7 @@ class SegmentGraphs:
             deltas.append({k: counter[k] - old[k] for k in counter
                            if counter[k] != old[k]})
             counter.update(old)
-        self._graphs[kind] = (graph, deltas)
+        self._graphs[kind] = _Graph(graph, deltas)
         self.captures += 1
         self.capture_s += time.perf_counter() - t0
         return self._graphs[kind]
@@ -173,6 +197,8 @@ class SegmentGraphs:
         return sorted(self._graphs)
 
     def release(self) -> None:
-        """Drop every graph and its pool."""
+        """Drop every graph and its pool (their replays' launches counted
+        first)."""
+        self.fold_launches()
         self._graphs.clear()
         self._seen.clear()

@@ -106,6 +106,7 @@ from .level import (
 from ..models.wdot2d import ensure_barrier_validity
 from ..ops.staggered import Staggered
 from ..utils.profiling import profile_phases
+from ..utils.trace import span
 from .transfer import (prolong_phi, prolong_z_like, restrict_density,
                        restrict_staggered)
 
@@ -453,6 +454,47 @@ def _build_solver(method: str, lv: LevelVar, o: SolveOptions, device, dtype,
     return solver
 
 
+def _pyramid(rho0, rho1, nt: int, level_n: int, tol: float, weight,
+             barrier, device, dtype):
+    """The coarse levels' densities, time steps, tolerances and weights,
+    finest last (``solver_dotsocp2d.m:124-130,166-178``)."""
+    weighted = weight is not None
+    tol_factor = -1.0 if tol > 0.99e-3 else -0.5
+    tol_lower = 1e-5 if np.ndim(rho0) == 1 else 1e-4
+    rho0s = [None] * level_n
+    rho1s = [None] * level_n
+    nts = [0] * level_n
+    tols = [0.0] * level_n
+    weights = [None] * level_n
+    rho0s[-1] = torch.as_tensor(rho0, device=device).to(dtype)
+    rho1s[-1] = torch.as_tensor(rho1, device=device).to(dtype)
+    nts[-1] = nt
+    tols[-1] = tol
+    if weighted:
+        weights[-1] = weight.to(dtype=dtype, device=device)
+    for lev in range(level_n - 2, -1, -1):
+        nts[lev] = (nts[lev + 1] - 1) // 2 + 1
+        tols[lev] = max(tols[lev + 1] * 2.0 ** tol_factor, tol_lower)
+        r0 = restrict_density(rho0s[lev + 1])
+        r1 = restrict_density(rho1s[lev + 1])
+        if weighted:
+            weights[lev] = restrict_staggered(weights[lev + 1],
+                                              log_space=barrier is not None)
+        if weighted and barrier is not None:
+            # zero the mass on the coarse walls, renormalize (host numpy,
+            # ``solve.py:557-580``)
+            r0, r1, _ = ensure_barrier_validity(r0, r1, barrier)
+            r0 = torch.as_tensor(r0, device=device).to(dtype)
+            r1 = torch.as_tensor(r1, device=device).to(dtype)
+        else:
+            # renormalize to unit mean (``solver_dotsocp2d.m:174-178``)
+            r0 = r0 / r0.mean()
+            r1 = r1 / r1.mean()
+        rho0s[lev] = r0
+        rho1s[lev] = r1
+    return rho0s, rho1s, nts, tols, weights
+
+
 def _prewarm_levels(level_solver, rho0s, rho1s, nts, weights, dtype, device,
                     scaling: bool, verbose: bool) -> None:
     """Every level's solver built into the cache before level 1 runs, and
@@ -508,7 +550,23 @@ def solve_dot(
     in 1D, none in 3D), q0, b (list per axis, aliased alike), mass_ok,
     per-level reports (with ``opts["refine_tol"]`` one more, the float64
     tail's, ``"refine": True``; rho and the fields are then float64),
-    total_time.
+    total_time (from level 1's scaling to the last level's recovery),
+    spans.
+
+    ``spans`` says where the wall outside the levels' loops went: the host
+    seconds of the solve's steps, summed over the call, by name:
+    ``pyramid_s`` (the coarse densities and level 1's initial variables),
+    ``prewarm_s`` (``opts["prewarm"]``: every level's cache lookup and
+    ``DeviceDriver.warm``), and over the levels ``level.scaling_s``
+    (``initial_scaling``), ``level.build_s`` (the solver's cache lookup or
+    build), ``level.loop_s`` (the solver's ``solve``: the device driver's
+    prepare, loop and finish), ``level.prolong_s`` (the jump to the next
+    level) and ``level.recover_s`` (``recover_org_var`` and the final
+    ``recover_solution``); a step that did not run has no key. While a
+    ``torch.profiler`` runs (``trace_dir``'s too), these steps, the call
+    (``dotsocp.solve``) and the device driver's steps
+    (``dotsocp.driver.*``) are host ranges ``dotsocp.<name>`` of its trace
+    (``utils/trace.py``).
     """
     opts = dict(opts or {})
     _check_request(rho0, method, weight, opts)
@@ -529,7 +587,8 @@ def solve_dot(
             dtype, verbose)
     trace_dir = opts.get("trace_dir")
     if not trace_dir:
-        return _solve_dot_impl(*args)
+        with span("solve"):
+            return _solve_dot_impl(*args)
     # a torch.profiler trace of the whole solve (the JAX package's
     # jax.profiler trace, ``solve.py:494-507``), written in the finally so
     # that a solve that raises still leaves one
@@ -539,7 +598,8 @@ def solve_dot(
     prof = torch.profiler.profile(activities=activities)
     prof.start()
     try:
-        return _solve_dot_impl(*args)
+        with span("solve"):
+            return _solve_dot_impl(*args)
     finally:
         prof.stop()
         os.makedirs(trace_dir, exist_ok=True)
@@ -596,40 +656,13 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
     else:
         tau = 1.0  # acc-ADMM multiplier steps are unit
 
-    # tolerance pyramid (``solver_dotsocp2d.m:124-130,166-178``)
-    tol_factor = -1.0 if tol > 0.99e-3 else -0.5
-    tol_lower = 1e-5 if np.ndim(rho0) == 1 else 1e-4
-    rho0s = [None] * level_n
-    rho1s = [None] * level_n
-    nts = [0] * level_n
-    tols = [0.0] * level_n
-    weights = [None] * level_n
-    rho0s[-1] = torch.as_tensor(rho0, device=device).to(dtype)
-    rho1s[-1] = torch.as_tensor(rho1, device=device).to(dtype)
-    nts[-1] = nt
-    tols[-1] = tol
-    if weighted:
-        weights[-1] = weight.to(dtype=dtype, device=device)
-    for lev in range(level_n - 2, -1, -1):
-        nts[lev] = (nts[lev + 1] - 1) // 2 + 1
-        tols[lev] = max(tols[lev + 1] * 2.0 ** tol_factor, tol_lower)
-        r0 = restrict_density(rho0s[lev + 1])
-        r1 = restrict_density(rho1s[lev + 1])
-        if weighted:
-            weights[lev] = restrict_staggered(weights[lev + 1],
-                                              log_space=barrier is not None)
-        if weighted and barrier is not None:
-            # zero the mass on the coarse walls, renormalize (host numpy,
-            # ``solve.py:557-580``)
-            r0, r1, _ = ensure_barrier_validity(r0, r1, barrier)
-            r0 = torch.as_tensor(r0, device=device).to(dtype)
-            r1 = torch.as_tensor(r1, device=device).to(dtype)
-        else:
-            # renormalize to unit mean (``solver_dotsocp2d.m:174-178``)
-            r0 = r0 / r0.mean()
-            r1 = r1 / r1.mean()
-        rho0s[lev] = r0
-        rho1s[lev] = r1
+    # host seconds of the solve's steps outside the levels' loops
+    spans = {}
+    with span("pyramid", spans):
+        rho0s, rho1s, nts, tols, weights = _pyramid(
+            rho0, rho1, nt, level_n, tol, weight, barrier, device, dtype)
+        lv = initialize(rho0s[0], rho1s[0], nts[0], dtype=dtype,
+                        device=device, weight=weights[0])
 
     def level_solver(lev: int, lv: LevelVar, sigma: float = sigma,
                      time_limit: float = time_limit):
@@ -655,11 +688,10 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
             device_kw=device_kw, mesh=mesh, reuse=reuse, layout=layout)
 
     if opts.get("prewarm") and reuse:
-        _prewarm_levels(level_solver, rho0s, rho1s, nts, weights, dtype,
-                        device, scaling, verbose)
+        with span("prewarm", spans):
+            _prewarm_levels(level_solver, rho0s, rho1s, nts, weights, dtype,
+                            device, scaling, verbose)
 
-    lv = initialize(rho0s[0], rho1s[0], nts[0], dtype=dtype, device=device,
-                    weight=weights[0])
     last_kkt = None
     prev_e2 = None
     hists = []
@@ -667,16 +699,20 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
     t_start = time.monotonic()
 
     for lev in range(level_n):
-        initial_scaling(lv, scaling, last_kkt, prev_e2)
+        with span("level.scaling", spans):
+            initial_scaling(lv, scaling, last_kkt, prev_e2)
         prev_e2 = lv.E2
-        t_build = time.monotonic()
-        solver = level_solver(lev, lv, sigma, time_limit)
-        build_s = time.monotonic() - t_build
-        hist, out = solver.solve(lv.as_dict())
+        with span("level.build", spans):
+            t_build = time.monotonic()
+            solver = level_solver(lev, lv, sigma, time_limit)
+            build_s = time.monotonic() - t_build
+        with span("level.loop", spans):
+            hist, out = solver.solve(lv.as_dict())
         hist["method"] = solver.name
         hists.append(hist)
 
-        recover_org_var(lv, out)
+        with span("level.recover", spans):
+            recover_org_var(lv, out)
         report = {"level": lev + 1, "geom": lv.geom, "iters": out["iters"],
                   "time": out["solve_time"], "method": solver.name,
                   "final_kkt": hist["kkt"][-1] if hist["len"] else None,
@@ -703,8 +739,9 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
             time_limit -= out["solve_time"]
             sigma = 10.0 ** (math.log10(sigma * out["sigma_out"]) / 2.0)
             last_kkt = hist["kkt"][-1]
-            lv = _jump_next_level(lv, rho0s[lev + 1], rho1s[lev + 1],
-                                  nts[lev + 1], dtype, weights[lev + 1])
+            with span("level.prolong", spans):
+                lv = _jump_next_level(lv, rho0s[lev + 1], rho1s[lev + 1],
+                                      nts[lev + 1], dtype, weights[lev + 1])
 
     refine_tol = opts.get("refine_tol")
     if refine_tol is not None:
@@ -728,8 +765,9 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
         # c in the level's dtype (recover_org_var does not unscale it), then
         # InitialScaling with E2 feedback; the solver's prep casts to
         # refine_dtype
-        lv.c = make_c(lv.geom, rho0s[-1], rho1s[-1])
-        initial_scaling(lv, scaling, last_kkt, prev_e2)
+        with span("level.scaling", spans):
+            lv.c = make_c(lv.geom, rho0s[-1], rho1s[-1])
+            initial_scaling(lv, scaling, last_kkt, prev_e2)
         # one phase: the JAX package's second phase follows only its
         # split-f32 DCT, which the port does not have
         o = SolveOptions(tol=refine_tol, maxit=maxit, sigma=sigma, tau=tau,
@@ -742,15 +780,18 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
                          label=f"level {level_n} (f64 refine)")
         # the tail takes the driver rule and the chunk options, and no
         # checkpoint (as the JAX package's tail)
-        solver = _build_solver(refine_method, lv, o, device, refine_dtype,
-                               theta, dct_split=split, driver=driver,
-                               device_kw=device_kw, mesh=mesh, reuse=reuse,
-                               layout=layout)
-        hist, out = solver.solve(lv.as_dict())
+        with span("level.build", spans):
+            solver = _build_solver(refine_method, lv, o, device,
+                                   refine_dtype, theta, dct_split=split,
+                                   driver=driver, device_kw=device_kw,
+                                   mesh=mesh, reuse=reuse, layout=layout)
+        with span("level.loop", spans):
+            hist, out = solver.solve(lv.as_dict())
         hist["method"] = solver.name + (
             " (f64 refine, IR-DCT)" if split else " (f64 refine)")
         hists.append(hist)
-        recover_org_var(lv, out)
+        with span("level.recover", spans):
+            recover_org_var(lv, out)
         level_reports.append({
             "level": level_n, "geom": lv.geom, "iters": out["iters"],
             "time": out["solve_time"], "method": hist["method"],
@@ -764,13 +805,17 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
                   f"max={np.max(hist['kkt'][-1][[0, 2, 5]]):.2e}")
 
     total_time = time.monotonic() - t_start
-    rho, Es, q0, bs, mass_ok = recover_solution(lv)
+    with span("level.recover", spans):
+        rho, Es, q0, bs, mass_ok = recover_solution(lv)
     if not mass_ok and verbose:
         print("WARNING: mass conservation violation exceeds 1e-2")
+    if verbose:
+        print("spans: " + ", ".join(f"{k[:-2]} {1e3 * v:.1f} ms"
+                                    for k, v in spans.items()))
 
     output = {"rho": rho, "E": Es, "q0": q0, "b": bs, "mass_ok": mass_ok,
               "levels": level_reports, "total_time": total_time,
-              "kkt_names": KKT_LEGEND}
+              "spans": spans, "kkt_names": KKT_LEGEND}
     if lv.geom.ndim_space == 2:
         # space = (ny, nx): axis 0 = y, axis 1 = x
         output["Ey"], output["Ex"] = Es[0], Es[1]

@@ -420,6 +420,7 @@ class BatchedDeviceDriver:
         them (graphs after each kind's first use)."""
         with self._on_stream():
             self._segment(k)
+        self.graphs.fold_launches()
 
     def solve(self, bstate: SolverState):
         """Run to convergence of all instances, ``maxit`` or ``time_limit``
@@ -442,6 +443,7 @@ class BatchedDeviceDriver:
                               replays=self.graphs.replays,
                               eager_runs=self.graphs.eager_runs,
                               graph_kinds=self.graphs.kinds())
+            # the replays' launches go to LAUNCHES here
             self.graphs.release()
         return self.ls, time.monotonic() - self.t0
 

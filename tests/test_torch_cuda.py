@@ -27,7 +27,8 @@ no kernel and reaches its refine_tol. The device driver: 40 iterations replayed 
 its CUDA graphs bit-equal to the same iterations eager (inPALM's x-carry
 segment, acc-ADMM across an anchor restart, sGS-inPALM, the float64 plain
 route), also after a rescale and after a sigma change; no host sync inside
-its loop but one a check; ``LAUNCHES`` counting each replay's kernels; a
+its loop but one a check; ``LAUNCHES`` counting each replay's kernels
+(folded at the end of a segment, a warm and a cached solve); a
 capture that fails raising; the kernels that take sd bit-equal with sd
 read from memory (the ``*_dev`` entries the graphs launch).
 """
@@ -734,6 +735,45 @@ def test_launches_count_replays(dev):
         assert got == {"x_step": 1, "qx_step": k, "cx_step": k - 1,
                        "cx_final": 1}
     assert d.graphs.replays > 0
+
+
+def test_cached_solve_launches_match_replay_accounting(dev, monkeypatch):
+    """Two 2-level solves on cached, prewarmed drivers leave ``LAUNCHES``
+    where counting each replay's launches as it runs leaves them: the
+    replays' counts, folded at the end of each warm and solve, lose none."""
+    from dotsocp_tpu_torch.algorithms import graphs
+    from dotsocp_tpu_torch.multilevel.solve import clear_solver_cache
+
+    counted = dict.fromkeys(fs.LAUNCHES, 0)
+    run = graphs.SegmentGraphs.run
+
+    def counting_run(self, kind, fn):
+        before, replays = dict(fs.LAUNCHES), self.replays
+        run(self, kind, fn)
+        if self.replays > replays:
+            delta = self._graphs[kind].deltas[0]
+        else:   # an eager first run (and a capture, which counts nothing)
+            delta = {k: fs.LAUNCHES[k] - before[k] for k in fs.LAUNCHES}
+        for k, n in delta.items():
+            counted[k] += n
+
+    monkeypatch.setattr(graphs.SegmentGraphs, "run", counting_run)
+    r0, r1 = get_example_2d("example2", 33, 33)
+    clear_solver_cache()
+    try:
+        start = dict(fs.LAUNCHES)
+        for _ in range(2):
+            out, _, _ = solve_dot(r0, r1, 9, 2, {"tol": 1e-4,
+                                                 "prewarm": True},
+                                  "inPALM", device=dev, verbose=False)
+        torch.cuda.synchronize()
+        got = {k: fs.LAUNCHES[k] - start[k] for k in fs.LAUNCHES}
+    finally:
+        clear_solver_cache()
+    assert got == counted
+    assert got["qx_step"] > 0
+    assert all(lv["driver"]["replays"] > 0 and lv["driver"]["captures"] == 0
+               for lv in out["levels"])
 
 
 @pytest.mark.parametrize("name", list(SHAPES))
