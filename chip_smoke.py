@@ -21,8 +21,9 @@ Phases, each raising on failure:
    q-step with
    love-heart barrier weights in 2D and seeded weights with walls in 1D;
    the single-step kernels z_step, q_step, q_step_w, beta_step and
-   cone_project_diff with their inputs unchanged, q_step_w and
-   cone_project_diff bit-equal, and in 3D every q-step; the flat shift
+   cone_project_diff and the phi-step rhs (phi_rhs, phi_rhs_w) with their
+   inputs unchanged, q_step_w, cone_project_diff and the rhs bit-equal,
+   and in 3D every q-step; the flat shift
    bit-equal at every axis stride; the kernels that take sd or E-derived
    scalars bit-equal with those read from memory, as the device driver's
    graphs launch them);
@@ -40,7 +41,7 @@ Phases, each raising on failure:
 4. The headline solve: DOTmark-4stitch 129^2 x 33, 3 levels, inPALM, tol
    1e-4, float32, through ``solve_dot(..., device="cuda")``: mass
    conservation, stop residuals, 470-574 iterations (522 is the anchor),
-   and every x-carry kernel launched.
+   every x-carry kernel launched, and phi_rhs once an iteration.
 4b. The sGS path at the same size: ``sGS-inPALM``, levels 1-2 inPALM on the
    x-carry kernels, level 3 sGS on the sweep kernel and the single-step
    kernels (z_step, q_step, beta_step once an iteration); held to the JAX
@@ -353,7 +354,7 @@ CHECK_SHAPES_3D = ((9, (17, 33, 65)), (17, (33, 33, 33)),
 # path, as in the JAX package) and, in 3D, the weighted q-steps (the JAX
 # package has no 3D weight model)
 OFF_PATH = {"flat_shift"}
-OFF_PATH_3D = OFF_PATH | {"qx_step_w", "q_step_w"}
+OFF_PATH_3D = OFF_PATH | {"qx_step_w", "q_step_w", "phi_rhs_w"}
 SCALE_3D = (33, 129)
 # gaussian 65^3 x 33, 3 levels, inPALM, tol 1e-4, float32: the JAX
 # package's host driver on the CPU takes 1409 + 529 + 89 = 2027 iterations
@@ -402,7 +403,8 @@ SOURCES = {"x_step": FUSED_CU, "qx_step": FUSED_CU, "qx_step_w": FUSED_CU,
            "rb_sweep": "dotsocp_tpu_torch/csrc/sgs_sweep.cu",
            "z_step": FUSED_CU, "q_step": FUSED_CU, "q_step_w": FUSED_CU,
            "beta_step": FUSED_CU, "cone_project_diff": FUSED_CU,
-           "flat_shift": "dotsocp_tpu_torch/csrc/flat_shift.cu"}
+           "flat_shift": "dotsocp_tpu_torch/csrc/flat_shift.cu",
+           "phi_rhs": FUSED_CU, "phi_rhs_w": FUSED_CU}
 REPLACES = {
     "x_step": "dotsocp_tpu/ops/pallas_kernels.py:812",
     "qx_step": "dotsocp_tpu/ops/pallas_kernels.py:860",
@@ -421,6 +423,9 @@ REPLACES = {
     "beta_step": "dotsocp_tpu/ops/pallas_kernels.py:750",
     "cone_project_diff": "dotsocp_tpu/ops/pallas_kernels.py:1094",
     "flat_shift": "dotsocp_tpu/ops/pallas_kernels.py:321",
+    # no Pallas kernel: the JAX package's phi-step rhs, one XLA fusion
+    "phi_rhs": "dotsocp_tpu/algorithms/core.py:207",
+    "phi_rhs_w": "dotsocp_tpu/algorithms/core.py:207",
 }
 
 
@@ -735,11 +740,11 @@ def check_scalars_from_memory(torch, geom, seed):
 
 
 def check_single_step_kernels(torch, cmp, geom, seed):
-    """z_step, q_step, q_step_w, beta_step and cone_project_diff against
-    their plain versions on the inputs of ``check_kernels``; q_step_w and
-    cone_project_diff bit-equal (they round as their plain versions do),
-    ghost face slots of the q-steps exactly zero, every input left as it
-    was."""
+    """z_step, q_step, q_step_w, beta_step, cone_project_diff and the
+    phi-step rhs (unweighted and weighted) against their plain versions on
+    the inputs of ``check_kernels``; q_step_w, cone_project_diff and the
+    rhs bit-equal (they round as their plain versions do), ghost face
+    slots of the q-steps exactly zero, every input left as it was."""
     from dotsocp_tpu_torch.ops import fused_step as fs
     from dotsocp_tpu_torch.ops.engine import diag_values
 
@@ -772,6 +777,11 @@ def check_single_step_kernels(torch, cmp, geom, seed):
     errs["cone_project_diff"] = cmp(
         "cone_project_diff", fs.cone_project_diff(z, beta),
         fs.cone_project_diff_plain(z, beta), exact=True)
+    for name, w in (("phi_rhs", None), ("phi_rhs_w", wdinv.w)):
+        got = fs.phi_rhs(ops, q, alpha, phi, D, w)
+        want = fs.phi_rhs_plain(ops, q, alpha, phi, D, w)
+        errs[name] = cmp(name, got, want, exact=True)
+        require(torch.equal(got, want), f"{name}: not bit-equal")
     torch.cuda.synchronize()
     require(all(torch.equal(a, b) for a, b in zip(inputs, before)),
             "a single-step kernel wrote one of its inputs")
@@ -975,12 +985,12 @@ def check_3d_steps(torch):
                 f"steps| = {err:.3e} exceeds {SEG_REL_3D:g} of {scale:.3e}")
         if run is None:
             require(launches["x_step"] == launches["cx_final"] == 1
-                    and launches["qx_step"] == 4
+                    and launches["qx_step"] == launches["phi_rhs"] == 4
                     and launches["cx_step"] == 3,
                     f"3D CA segment launched {launches}")
         else:
             require(launches["z_step"] == launches["q_step"]
-                    == launches["beta_step"] == 4,
+                    == launches["beta_step"] == launches["phi_rhs"] == 4,
                     f"3D run_one launched {launches}, not each single-step "
                     f"kernel once a step")
         out[name] = dict(max_abs=err, rel=err / scale)
@@ -1120,9 +1130,11 @@ def check_run_one(torch):
             f"state intact")
         require(excess <= 0, f"run_one ({name}): max |run_one - steps| = "
                 f"{err:.3e} exceeds rtol {SEG_RTOL:g} / atol {SEG_ATOL:g}")
+        rhs_name = "phi_rhs" if level.weight is None else "phi_rhs_w"
         require(launches["z_step"] == launches[q_name]
-                == launches["beta_step"] == 4, f"run_one ({name}) launched "
-                f"{launches}, not each single-step kernel once a step")
+                == launches["beta_step"] == launches[rhs_name] == 4,
+                f"run_one ({name}) launched {launches}, not the rhs and "
+                f"each single-step kernel once a step")
 
 
 # -- phase 4 --------------------------------------------------------------------
@@ -1202,6 +1214,8 @@ def headline_solve(torch):
                 f"path")
     require(launches["qx_step_w"] == 0, "the unweighted solve launched the "
             "weighted q-step")
+    require(launches["phi_rhs"] == total, f"phi_rhs launched "
+            f"{launches['phi_rhs']} times, not once per iteration ({total})")
     return launches, dict(iters=iters, total=total, wall_s=wall,
                           mass_ok=bool(out["mass_ok"]))
 
@@ -1938,6 +1952,23 @@ def kernel_bytes(geom):
     }
 
 
+def rhs_bytes(geom):
+    """Bytes of the phi-step rhs kernel: q and alpha (and the weight), each
+    read once, c read and the rhs written (f32). Kept beside
+    ``kernel_bytes``, whose dict the benchmark's roofline freezes."""
+    import math
+
+    S = math.prod(geom.space)
+    nt, d = geom.nt, geom.ndim_space
+    cells, faces = (nt - 1) * S, d * nt * S
+    return {"phi_rhs": 4 * (2 * cells + 2 * faces + 2 * nt * S),
+            "phi_rhs_w": 4 * (3 * cells + 3 * faces + 2 * nt * S)}
+
+
+def all_bytes(geom):
+    return dict(kernel_bytes(geom), **rhs_bytes(geom))
+
+
 def time_scale(torch):
     from dotsocp_tpu_torch.models import wdot2d as W
     from dotsocp_tpu_torch.models.examples import get_example_2d
@@ -1956,7 +1987,7 @@ def time_scale(torch):
         s.D, s.E)
     reps = 20
     times, library = time_kernels(torch, kern, s, wdinv, reps)
-    log_times(times, kernel_bytes(lv.geom), lv.geom, reps)
+    log_times(times, all_bytes(lv.geom), lv.geom, reps)
     dev_ms = time_dev_entries(torch, kern, s, reps)
     log("  the *_dev entries (scalars read from memory, as the device "
         "driver's graphs launch them): " + ", ".join(
@@ -2100,8 +2131,8 @@ def time_sweep(torch):
 
 def time_kernels(torch, kern, s, wdinv, reps):
     """Each step kernel against its plain version on the state ``s`` of
-    ``kern``'s level (weighted q-steps with ``wdinv``), the cone projection
-    and the flat shift at the first axis's stride; {name: (kernel ms,
+    ``kern``'s level (weighted q-steps and rhs with ``wdinv``), the cone
+    projection, the phi-step rhs and the flat shift at the first axis's stride; {name: (kernel ms,
     plain ms)}, and the shift's library call (one ``F.pad`` of a slice)."""
     import torch.nn.functional as F
 
@@ -2148,6 +2179,10 @@ def time_kernels(torch, kern, s, wdinv, reps):
         torch, lambda: fs.cone_project_diff_plain(z2, s.beta),
         lambda: fs.cone_project_diff(z2, s.beta), reps)
     del z2
+    for name, w in (("phi_rhs", None), ("phi_rhs_w", wdinv.w)):
+        times[name] = paired(
+            torch, lambda: fs.phi_rhs_plain(ops, s.q, s.alpha, s.c, s.D, w),
+            lambda: fs.phi_rhs(ops, s.q, s.alpha, s.c, s.D, w), reps)
     k = ops.strides[0]
     times["flat_shift"] = paired(
         torch, lambda: ops._sfwd(s.phi, 0),
@@ -2243,7 +2278,7 @@ def time_scale_3d(torch):
     times, library = time_kernels(torch, kern, s, wdinv, reps)
     del wdinv
     torch.cuda.empty_cache()
-    nbytes = kernel_bytes(lv.geom)
+    nbytes = all_bytes(lv.geom)
     state = {"ca": s.replace(z=kern._fresh_x(s), alpha=s.alpha.clone(),
                              beta=s.beta.clone())}
 
@@ -5002,8 +5037,8 @@ def main(argv=None):
                                        user["scale_513x65"], fleet["solve"])
     log(f"\nall phases passed in {time.monotonic() - t_start:.1f} s")
 
-    nbytes = kernel_bytes(Geometry(SCALE[0], (SCALE[1], SCALE[1])))
-    nbytes_3d = kernel_bytes(Geometry(SCALE_3D[0], (SCALE_3D[1],) * 3))
+    nbytes = all_bytes(Geometry(SCALE[0], (SCALE[1], SCALE[1])))
+    nbytes_3d = all_bytes(Geometry(SCALE_3D[0], (SCALE_3D[1],) * 3))
     kernels = [{
         "name": k,
         "route": "cuda",

@@ -18,7 +18,9 @@ single step ``_step`` (z_step, q_step, beta_step), which ``run_one``, the
 profiler and sGS-inPALM's step run. The lockstep fleet
 (``parallel/batch.py``) runs the CA segment over B instances stacked on a
 leading axis (``segment_batched``: the batched forms of the x-carry
-kernels, the phi-step's rhs and DCT over the whole stack).
+kernels, the phi-step's rhs and DCT over the whole stack). The phi-step's
+right-hand side D A^T (w q - alpha) + c is one kernel on either path, and
+in every variant's step (``fused_step.phi_rhs``, from ``_rhs``).
 
 The iteration state lives on the caller's device. Under the host driver
 the level scalars (sigma, cScale, dScale, norm_c, norm_d, D, E) are
@@ -78,10 +80,10 @@ from ..ops.cone import proj_soc
 from ..ops.engine import _INV_SQRT2, base_values, diag_values, make_ops
 from ..ops.fused_step import (WeightedDinv, beta_step, beta_step_plain,
                               cx_final, cx_final_batched, cx_step,
-                              cx_step_batched, q_step, q_step_plain, qx_step,
-                              qx_step_batched, select_instance, times_dinv,
-                              weighted_dinv, x_step, x_step_batched, z_step,
-                              z_step_plain)
+                              cx_step_batched, phi_rhs, phi_rhs_plain,
+                              q_step, q_step_plain, qx_step, qx_step_batched,
+                              select_instance, times_dinv, weighted_dinv,
+                              x_step, x_step_batched, z_step, z_step_plain)
 from ..ops.geometry import Geometry
 from ..ops.staggered import Staggered
 from ..utils.norms import sqsum
@@ -370,9 +372,12 @@ class Kernels:
         """phi-step DCT solve of D^2 A^T A phi = rhs."""
         return self.poisson.solve(rhs, scale=1.0 / (s.D * s.D))
 
-    def _rhs(self, s: SolverState):
-        """phi-step rhs: D A^T (w q - alpha) + c."""
-        return s.D * self.ops.grad_T(self._w(s.q) - s.alpha) + s.c
+    def _rhs(self, s: SolverState, plain: bool = False):
+        """phi-step rhs: D A^T (w q - alpha) + c, one ``phi_rhs`` launch
+        on the flat engine's float32 CUDA tensors (a stack of instances
+        too), or with ``plain`` its plain version."""
+        rhs = phi_rhs_plain if plain else phi_rhs
+        return rhs(self.ops, s.q, s.alpha, s.c, s.D, self.weight)
 
     # -- core iteration --------------------------------------------------
     def _step(self, s: SolverState) -> SolverState:
@@ -390,8 +395,8 @@ class Kernels:
         """:meth:`_step` from the kernels' plain versions, on any device:
         the reference that tests and ``chip_smoke.py`` hold the kernels'
         step and segment against."""
-        return self._step_from_phi(s, self._poisson_solve(s, self._rhs(s)),
-                                   plain=True)
+        return self._step_from_phi(
+            s, self._poisson_solve(s, self._rhs(s, plain=True)), plain=True)
 
     def run_one(self, s: SolverState) -> SolverState:
         """One iteration, the single-step entry point (the JAX

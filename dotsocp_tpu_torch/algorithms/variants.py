@@ -21,8 +21,10 @@ These variants run their own step in a plain loop (``Kernels.segment_impl``);
 the sGS methods' phi-step is one red-black sweep, the CUDA kernel of
 ``ops/sgs_sweep.py`` on the card. sGS-inPALM's step after its sweep is
 inPALM's single step (``Kernels._step_from_phi``: the z_step, q_step and
-beta_step kernels), and every acc step closes with the cone projection
-kernel ``cone_project_diff``. The rest of each step is plain PyTorch, as
+beta_step kernels), every acc step closes with the cone projection
+kernel ``cone_project_diff``, and every step forms its phi-step
+right-hand side with the rhs kernel (``fused_step.phi_rhs``; plain on the
+shaped and halo engines). The rest of each step is plain PyTorch, as
 the JAX package runs it in jnp: acc-ADMM's q- and beta-steps form beta as
 (beta + z) - z2, not beta_step's beta + tau (z - z2), and PALM's steps wait
 for their own kernels (ROADMAP.md). On one process the tensors are in the
@@ -47,7 +49,7 @@ import dataclasses
 import torch
 
 from ..ops.cone import proj_soc
-from ..ops.fused_step import cone_project_diff
+from ..ops.fused_step import cone_project_diff, phi_rhs
 from ..ops.halo_engine import HaloSGS
 from ..ops.sgs import make_sgs
 from ..ops.sgs_sweep import rb_sweep
@@ -79,7 +81,7 @@ class PALMKernels(Kernels):
         q2 = self._bfd_T(s, s.z + s.beta)
         q = self._q_solve(s, tmp_q, q2)
         # step phi
-        phi = self._poisson_solve(s, s.D * ops.grad_T(q - s.alpha) + s.c)
+        phi = self._poisson_solve(s, phi_rhs(ops, q, s.alpha, s.c, s.D))
         # step z (z2 refreshed from the q0-step's q)
         z = proj_soc(self._bfd(s, q) - s.beta, ops.cone_dim)
         # step q (second)
@@ -146,7 +148,7 @@ class AccADMMKernels(Kernels):
         alpha = s.alpha + tmp_q - self._w(q)
         beta = s.beta + s.z - z2
         # step phi
-        rhs = s.D * ops.grad_T(self._w(q) - alpha) + s.c
+        rhs = phi_rhs(ops, q, alpha, s.c, s.D, self.weight)
         phi = self._phi_solve(s, rhs)
         return s.replace(phi=phi, q=q, alpha=alpha, beta=beta), rhs, z2
 

@@ -15,6 +15,7 @@
 //   q_step   the q-step of qx_step with x = z + beta formed per element
 //   beta_step  beta' = beta + tau (z - BF_d q')
 //   cone_project_diff  z = Pi_K(z2 - beta) over a flat (C, M) view
+//   phi_rhs  rhs = D A^T (w q - alpha) + c    (the phi-step's right-hand side)
 //
 // They replace the Pallas kernels x_kernel, qx_kernel, make_cx_kernel,
 // z_kernel, q_kernel and b_kernel of dotsocp_tpu/ops/pallas_kernels.py
@@ -23,7 +24,10 @@
 // PyTorch version (dotsocp_tpu_torch/ops/fused_step.py) to a few ulp; FMA
 // contraction is left on, except in the weighted q-step (see qx_kernel) and
 // the cone projection (see cone_kernel), which round as their plain
-// versions do.
+// versions do. phi_rhs (rhs_kernel) replaces no Pallas kernel: the JAX
+// package leaves the expression to one XLA fusion, which PyTorch runs as
+// ~20 small kernels (pads, differences, scalings) every iteration; it too
+// rounds as its plain version does.
 //
 // Layout (flat, f32, contiguous): phi (nt, S); q0, alpha0 (nt-1, S); face
 // blocks bs, alpha_b (d, nt, S) with the ghost slot of each axis pinned to
@@ -38,12 +42,12 @@
 // is one streaming pass bounded by HBM bandwidth (bytes at 513^2 x 65:
 // x_step 1.55 GB, qx_step 1.35 GB (weighted 1.56 GB), cx_step 2.90 GB,
 // z_step 1.55 GB, q_step 2.03 GB (weighted 2.23 GB), beta_step 2.23 GB,
-// cone_project_diff 2.02 GB; at 129^3 x 33, d = 3: x_step 8.8 GB, cx_step
-// 16.5 GB). Offsets are 64-bit: C (nt-1) S passes 2^31 on the larger
-// grids. At C = 14 a cx thread keeps up to four C-arrays live (56 floats);
-// the compiler's register report (``-Xptxas -v``) says whether any spill.
-// Tiling through shared memory, TMA, and merging passes are left for later
-// work.
+// cone_project_diff 2.02 GB, phi_rhs 0.545 GB (weighted 0.750 GB); at
+// 129^3 x 33, d = 3: x_step 8.8 GB, cx_step 16.5 GB). Offsets are 64-bit:
+// C (nt-1) S passes 2^31 on the larger grids. At C = 14 a cx thread keeps
+// up to four C-arrays live (56 floats); the compiler's register report
+// (``-Xptxas -v``) says whether any spill. Tiling through shared memory,
+// TMA, and merging passes are left for later work.
 //
 // In place or fresh: the x-carry kernels update alpha (qx), beta and x (cx)
 // in the buffers they were given; the single-step kernels (z, q, beta,
@@ -478,6 +482,67 @@ __global__ void cone_kernel(const float* __restrict__ z2,
   }
 }
 
+// w q - alpha at flat offset i of a staggered block (w the weight's block,
+// WEIGHTED only), each operation rounded on its own.
+template <bool WEIGHTED>
+__device__ __forceinline__ float wq_minus_alpha(const float* __restrict__ q,
+                                                const float* __restrict__ al,
+                                                const float* __restrict__ w,
+                                                int64_t i) {
+  return __fsub_rn(WEIGHTED ? __fmul_rn(w[i], q[i]) : q[i], al[i]);
+}
+
+// The phi-step's right-hand side rhs = D A^T (w q - alpha) + c; one thread
+// per node (t <= nt-1, s), blockIdx.z the instance (every array but the
+// weight is the instance's). A^T of the staggered y = w q - alpha is the
+// time difference y0[t-1] - y0[t] (zero beyond either end, as the plain
+// version's zero pads) times 1/h_t, plus, axis by axis, the forward shift
+// yb_a[s - k_a] (zero for s < k_a) minus yb_a[s], times 1/h_a. Every
+// operation is rounded on its own, in the plain version's order, and the
+// spacings enter as the float32 reciprocals that PyTorch multiplies by
+// when it divides a CUDA tensor by a Python float (ax.hs holds 1/h_a): the
+// kernel is bit-equal to its plain version on the card. Writes only out.
+template <int DIM, bool WEIGHTED>
+__global__ void rhs_kernel(const float* __restrict__ q0,
+                           const float* __restrict__ qb,
+                           const float* __restrict__ a0,
+                           const float* __restrict__ ab,
+                           const float* __restrict__ c,
+                           const float* __restrict__ w0,
+                           const float* __restrict__ wb,
+                           float* __restrict__ out, int nt, int S,
+                           const Axes<DIM> ax, float D, float inv_ht) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  const int t = blockIdx.y;
+  const int b = blockIdx.z;
+  if (s >= S) return;
+  const int64_t nodes = (int64_t)nt * S;
+  const int64_t plane = nodes - S;
+  const int64_t node = (int64_t)t * S + s;
+  q0 += b * plane;
+  a0 += b * plane;
+  qb += b * (DIM * nodes);
+  ab += b * (DIM * nodes);
+  c += b * nodes;
+  out += b * nodes;
+  // node (t, s) and cell (t, s) share the flat offset
+  const float lo = t >= 1 ? wq_minus_alpha<WEIGHTED>(q0, a0, w0, node - S)
+                          : 0.f;
+  const float hi = t < nt - 1 ? wq_minus_alpha<WEIGHTED>(q0, a0, w0, node)
+                              : 0.f;
+  float acc = __fmul_rn(__fsub_rn(lo, hi), inv_ht);
+#pragma unroll
+  for (int a = 0; a < DIM; ++a) {
+    const int64_t face = (int64_t)a * nodes + node;
+    const int k = ax.k[a];
+    const float prev = s >= k ? wq_minus_alpha<WEIGHTED>(qb, ab, wb, face - k)
+                              : 0.f;
+    const float here = wq_minus_alpha<WEIGHTED>(qb, ab, wb, face);
+    acc = __fadd_rn(acc, __fmul_rn(__fsub_rn(prev, here), ax.hs[a]));
+  }
+  out[node] = __fadd_rn(__fmul_rn(D, acc), c[node]);
+}
+
 // (S / 256 blocks, rows, B instances)
 inline dim3 grid_for(int S, int rows, int B = 1) {
   return dim3((unsigned)((S + kThreads - 1) / kThreads), (unsigned)rows,
@@ -579,6 +644,33 @@ int launch_cx(const float* q0n, const float* bsn, const float* beta,
       cx_kernel<3, MODE><<<grid, kThreads, 0, st>>>(
           q0n, bsn, beta, x, beta_out, x_out, nt, S, axes_for<3>(ax), sbf, sd,
           mem, tau, active);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool WEIGHTED>
+int launch_rhs(const float* q0, const float* qb, const float* a0,
+               const float* ab, const float* c, const float* w0,
+               const float* wb, float* out, int B, int dim, int nt, int S,
+               const AxesIn& ax, float D, float inv_ht, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B < 1 || B > kMaxBatch) return (int)cudaErrorInvalidValue;
+  const dim3 grid = grid_for(S, nt, B);
+  switch (dim) {
+    case 1:
+      rhs_kernel<1, WEIGHTED><<<grid, kThreads, 0, st>>>(
+          q0, qb, a0, ab, c, w0, wb, out, nt, S, axes_for<1>(ax), D, inv_ht);
+      break;
+    case 2:
+      rhs_kernel<2, WEIGHTED><<<grid, kThreads, 0, st>>>(
+          q0, qb, a0, ab, c, w0, wb, out, nt, S, axes_for<2>(ax), D, inv_ht);
+      break;
+    case 3:
+      rhs_kernel<3, WEIGHTED><<<grid, kThreads, 0, st>>>(
+          q0, qb, a0, ab, c, w0, wb, out, nt, S, axes_for<3>(ax), D, inv_ht);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -842,6 +934,25 @@ int dotsocp_cone_project_diff(const float* z2, const float* beta, float* z,
     cone_kernel<0><<<grid, kThreads, 0, st>>>(z2, beta, z, C, M);
   }
   return (int)cudaGetLastError();
+}
+
+// rhs = D A^T (w q - alpha) + c into the fresh out, for B instances over
+// contiguous (B, ...) fields; w0 / wb (one weight, shared by the instances)
+// null for the unweighted form. iht and ih0..ih2 are 1/h_t and 1/h_a as
+// float32 reciprocals; a d < 3 launch passes k 0 and ih 1 for the axes it
+// lacks.
+int dotsocp_phi_rhs(const float* q0, const float* qb, const float* a0,
+                    const float* ab, const float* c, const float* w0,
+                    const float* wb, float* out, int B, int dim, int nt,
+                    int S, int k0, int k1, int k2, float D, float iht,
+                    float ih0, float ih1, float ih2, void* stream) {
+  const AxesIn ax = make_axes(k0, k1, k2, 1, 1, 1, ih0, ih1, ih2);
+  if (w0 != nullptr) {
+    return launch_rhs<true>(q0, qb, a0, ab, c, w0, wb, out, B, dim, nt, S,
+                            ax, D, iht, stream);
+  }
+  return launch_rhs<false>(q0, qb, a0, ab, c, nullptr, nullptr, out, B, dim,
+                           nt, S, ax, D, iht, stream);
 }
 
 }  // extern "C"

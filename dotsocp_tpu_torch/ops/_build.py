@@ -60,6 +60,10 @@ SOURCES = {
         "dotsocp_x_step_b": [_P] * 6 + [_I] * 7 + [_F, _P],
         "dotsocp_qx_step_b": [_P] * 7 + [_I] * 10 + [_F] * 10 + [_P],
         "dotsocp_cx_step_b": [_P] * 6 + [_I] * 7 + [_F] * 2 + [_I, _P],
+        # the phi-step's rhs: eight arrays (the weight's two null when
+        # unweighted), (B, dim, nt, S, k0..k2), D and the reciprocal
+        # spacings 1/h_t, 1/h_0..1/h_2
+        "dotsocp_phi_rhs": [_P] * 8 + [_I] * 7 + [_F] * 5 + [_P],
     },
     "sgs_sweep.cu": {
         # (dim, nt, n0..n2): the sizes of the space axes

@@ -1,14 +1,16 @@
 """The post-DCT step kernels of the inPALM / ALG2 step, each beside its
 plain PyTorch version: the x-carry segment's three, the single step's three
 (which sGS-inPALM's step runs after its sweep), and the cone projection
-that closes every acc-ADMM step.
+that closes every acc-ADMM step; and the phi-step's right-hand side, which
+every method forms before its DCT solve or sweep.
 
 Inside a segment the z slot of the state carries x = z + beta: the q-step
 only consumes z + beta, so one cone read replaces two, and the CA kernel
 (beta multiplier fused with the next cone projection) forms x' = z' + beta'
 in registers. The single step (``run_one``, the sGS-inPALM step, the
 profiler's full step) keeps z and beta apart, as the JAX ``_step_fused``
-does. Eight wrappers over the kernels of ``csrc/fused_step.cu``:
+does. Eight wrappers over the kernels of ``csrc/fused_step.cu``, and a
+ninth before the DCT, the phi-step's right-hand side:
 
 =================  ============================================  ==========
 wrapper            replaces (dotsocp_tpu/ops/pallas_kernels.py)  bytes at
@@ -26,6 +28,8 @@ q_step             ``make_fused_flat_step.q_step`` / q_kernel    2.03 GB
                    (unweighted); weighted (``WeightedDinv``)     2.23 GB
 beta_step          ``make_fused_flat_step.beta_step`` / b_kernel 2.23 GB
 cone_project_diff  ``cone_project_diff_pallas`` / its kernel     2.02 GB
+phi_rhs            none: XLA fuses it; PyTorch ran ~20 kernels   0.545 GB
+                   (pads, differences, scalings); weighted       0.750 GB
 =================  ============================================  ==========
 
 Each kernel is one streaming pass over HBM, so bytes moved bound it on the
@@ -52,16 +56,27 @@ CUDA tensors it checks device, shape, contiguity and aliasing, launches
 the kernel, and raises on any error; there is no fallback. Mixed dtypes
 and any other dtype on the card raise. Every launch adds one to
 ``LAUNCHES[name]``; the weighted q-steps count under ``qx_step_w`` and
-``q_step_w``. The scalars that change with the problem or the iterate are
-Python floats (the host driver's), or one-element float32 tensors on the
-card (the device driver's state), which the ``*_dev`` entry of the same
-kernel reads from memory, so that a captured CUDA graph replays with the
-values the tensors hold then (``_scalar_args``): sd = E / dScale and
+``q_step_w``, the weighted rhs under ``phi_rhs_w``. The scalars that
+change with the problem or the iterate are Python floats (the host
+driver's), or one-element float32 tensors on the card (the device
+driver's state), which the ``*_dev`` entry of the same kernel reads from
+memory, so that a captured CUDA graph replays with the values the tensors
+hold then (``_scalar_args``): sd = E / dScale and
 sbf = E / D of ``x_step``, ``cx_step``, ``cx_final``, ``z_step`` and
 ``beta_step``; sbf, the diagonal values and ``sv`` = sbf / sqrt2 as the
 host rounds it of the q-steps. ``sv`` is a keyword of every wrapper and
 plain version: with tensor scalars the plain versions take it instead of
 forming sbf / sqrt2 in the tensors' dtype, so both forms round alike.
+
+The phi-step's right-hand side (``phi_rhs``, D A^T (w q - alpha) + c) is
+also routed by the engine: on the flat layout as above, while the shaped
+and halo engines keep their own ``grad_T`` composition (the plain version
+on their operators). Its scalars, D and the grid spacings, are the
+level's and the geometry's, fixed for a captured graph, so they go by
+value; the kernel rounds every operation as its plain version does on the
+card, the divisions by h as PyTorch's multiplications by the float32
+reciprocal, and is bit-equal to it there. It takes any leading instance
+axes (the lockstep fleet's stack) in one launch.
 
 Batched forms (the lockstep fleet, ``parallel/batch.py``):
 ``x_step_batched``, ``qx_step_batched``, ``cx_step_batched`` and
@@ -89,6 +104,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import _build
@@ -99,7 +115,8 @@ from .staggered import Staggered, _map
 LAUNCHES = {"x_step": 0, "qx_step": 0, "qx_step_w": 0, "cx_step": 0,
             "cx_final": 0, "z_step": 0, "q_step": 0, "q_step_w": 0,
             "beta_step": 0, "cone_project_diff": 0, "x_step_b": 0,
-            "qx_step_b": 0, "cx_step_b": 0, "cx_final_b": 0}
+            "qx_step_b": 0, "cx_step_b": 0, "cx_final_b": 0, "phi_rhs": 0,
+            "phi_rhs_w": 0}
 
 
 def reset_launches() -> None:
@@ -481,6 +498,66 @@ def cone_project_diff(z2, beta):
             _build.library().dotsocp_cone_project_diff, z2.device,
             z2.data_ptr(), beta.data_ptr(), z.data_ptr(), C, M)
     return z
+
+
+# -- the phi-step's right-hand side -------------------------------------------
+
+def phi_rhs_plain(ops, q: Staggered, alpha: Staggered, c, D,
+                  weight: Staggered = None):
+    """D A^T (w q - alpha) + c composed from the engine's operators (w = 1
+    without a weight): the ~20 PyTorch kernels that ``rhs_kernel``
+    replaces, and the kernel's reference."""
+    wq = q if weight is None else weight * q
+    return D * ops.grad_T(wq - alpha) + c
+
+
+def _reciprocal_f32(h: float) -> float:
+    """1/h as PyTorch forms it to divide a float32 CUDA tensor by the
+    Python float h: both rounded to float32, divided in float32."""
+    return float(np.float32(1.0) / np.float32(h))
+
+
+def phi_rhs(ops, q: Staggered, alpha: Staggered, c, D: float,
+            weight: Staggered = None):
+    """The phi-step's right-hand side D A^T (w q - alpha) + c, fresh; any
+    leading instance axes (q0 ``(..., nt-1, S)``, face blocks ``(..., d,
+    nt, S)``, c ``(..., nt, S)``), one weight shared by the instances. On
+    the flat engine's float32 CUDA tensors one launch of ``rhs_kernel``
+    (bit-equal to :func:`phi_rhs_plain` there); on any other engine, and
+    on the CPU or in float64, the plain version."""
+    if ops.layout != "flat":
+        return phi_rhs_plain(ops, q, alpha, c, D, weight)
+    arrays = [q.q0, q.bs, alpha.q0, alpha.bs, c]
+    if weight is not None:
+        arrays += [weight.q0, weight.bs]
+    if not _use_kernel(*arrays):
+        return phi_rhs_plain(ops, q, alpha, c, D, weight)
+    if isinstance(D, torch.Tensor):
+        raise ValueError("phi_rhs: D goes to the kernel by value, a Python "
+                         "float (the level's, fixed for a captured graph)")
+    g = ops.geom
+    d, nt, S, k, _, hs = _dims(ops)
+    lead = tuple(c.shape[:-2])
+    B = int(np.prod(lead))
+    _check_shape(c, lead + (nt, S), "c")
+    for st in (q, alpha):
+        _check_shape(st.q0, lead + (nt - 1, S), "q0 block")
+        _check_shape(st.bs, lead + (d, nt, S), "face blocks")
+    if weight is not None:
+        _check_stag(ops, weight)
+    if not 1 <= B <= 65535:
+        raise ValueError(f"phi_rhs: {B} instances, the kernel takes 1 to "
+                         f"65535")
+    out = torch.empty_like(c)
+    w0, wb = (None, None) if weight is None else (weight.q0.data_ptr(),
+                                                  weight.bs.data_ptr())
+    inv = [_reciprocal_f32(h) for h in [g.ht] + hs]
+    _launch(LAUNCHES, "phi_rhs" if weight is None else "phi_rhs_w",
+            _build.library().dotsocp_phi_rhs, c.device, q.q0.data_ptr(),
+            q.bs.data_ptr(), alpha.q0.data_ptr(), alpha.bs.data_ptr(),
+            c.data_ptr(), w0, wb, out.data_ptr(), B, d, nt, S, *k, float(D),
+            *inv)
+    return out
 
 
 # -- batched forms: B instances in one launch --------------------------------

@@ -30,7 +30,13 @@ route), also after a rescale and after a sigma change; no host sync inside
 its loop but one a check; ``LAUNCHES`` counting each replay's kernels
 (folded at the end of a segment, a warm and a cached solve); a
 capture that fails raising; the kernels that take sd bit-equal with sd
-read from memory (the ``*_dev`` entries the graphs launch).
+read from memory (the ``*_dev`` entries the graphs launch). The phi-step
+rhs kernel (``phi_rhs``, weighted or not, one instance or a stack) is
+bit-equal to its plain version at 1025 x 33, 129^2 x 33, 65^2 x 17,
+33^2 x 9, 17^3 x 9 and two grids whose spacings are not powers of two,
+counted once an iteration (from graphs too) and
+never in a check; a 129^2 x 33 solve takes the same iterations and gives
+the same rho with the plain rhs forced in its place.
 """
 import math
 
@@ -38,6 +44,7 @@ import numpy as np
 import pytest
 import torch
 
+from dotsocp_tpu_torch.algorithms import core
 from dotsocp_tpu_torch.algorithms.core import Kernels, LevelConfig
 from dotsocp_tpu_torch.algorithms.variants import AccADMMKernels, SgsKernels
 from dotsocp_tpu_torch.models import wdot2d
@@ -183,6 +190,8 @@ def test_solve_on_card_matches_cpu(dev, dim):
     assert set(cpu_n.values()) == {0}
     assert all(gpu_n[k] > 0 for k in CA_KERNELS)
     assert all(gpu_n[k] == 0 for k in SINGLE_STEP_KERNELS + ("qx_step_w",))
+    # the rhs once a CA iteration, none in the checks
+    assert gpu_n["phi_rhs"] == gpu_n["qx_step"]
     close(gpu["rho"].cpu(), cpu["rho"], 1e-3, 1e-4)
     assert gpu["mass_ok"] and cpu["mass_ok"]
 
@@ -519,6 +528,7 @@ def test_run_one_matches_plain_steps(dev, weighted):
         one = kern.run_one(one)
     torch.cuda.synchronize()
     assert fs.LAUNCHES["q_step_w" if weighted else "q_step"] == 4
+    assert fs.LAUNCHES["phi_rhs_w" if weighted else "phi_rhs"] == 4
     assert fs.LAUNCHES["z_step"] == fs.LAUNCHES["beta_step"] == 4
     for a, b in zip(_blocks(s.phi, s.z, s.beta, s.q, s.alpha),
                     _blocks(start.phi, start.z, start.beta, start.q,
@@ -534,7 +544,8 @@ def test_run_one_matches_plain_steps(dev, weighted):
 def test_segment_launch_counts(dev, method):
     """A 5-iteration segment: sGS-inPALM runs one sweep (one launch) and one
     z_step, q_step and beta_step an iteration; acc-ADMM one
-    cone_project_diff an iteration; neither runs a plain version."""
+    cone_project_diff an iteration; both one phi_rhs an iteration; neither
+    runs a plain version."""
     r0, r1 = get_example_2d("example2", 17, 17)
     lv = initialize(r0, r1, 7, dtype=F32, device=dev)
     initial_scaling(lv, scaling=True)
@@ -549,7 +560,7 @@ def test_segment_launch_counts(dev, method):
     sgs_sweep.reset_launches()
     kern.run_segment(state, 5)
     torch.cuda.synchronize()
-    want = dict.fromkeys(fs.LAUNCHES, 0)
+    want = dict(dict.fromkeys(fs.LAUNCHES, 0), phi_rhs=5)
     if method == "sGS-inPALM":
         want.update(z_step=5, q_step=5, beta_step=5)
         assert sgs_sweep.LAUNCHES["rb_sweep"] == 5
@@ -577,12 +588,12 @@ def test_3d_steps_match_plain_steps(dev, run):
     fs.reset_launches()
     if run == "segment":
         got = kern.run_segment(s.clone(), 4)
-        want = dict(x_step=1, qx_step=4, cx_step=3, cx_final=1)
+        want = dict(x_step=1, qx_step=4, cx_step=3, cx_final=1, phi_rhs=4)
     else:
         got = s
         for _ in range(4):
             got = kern.run_one(got)
-        want = dict(z_step=4, q_step=4, beta_step=4)
+        want = dict(z_step=4, q_step=4, beta_step=4, phi_rhs=4)
     torch.cuda.synchronize()
     assert fs.LAUNCHES == dict(dict.fromkeys(fs.LAUNCHES, 0), **want)
     pairs = list(zip(_blocks(got.phi, got.z, got.beta, got.q, got.alpha),
@@ -721,7 +732,8 @@ def test_device_driver_syncs_once_per_check(dev):
 
 def test_launches_count_replays(dev):
     """A k-iteration CA segment from graphs adds one x_step and one
-    cx_final, k qx_step and k-1 cx_step, as the eager segment does."""
+    cx_final, k qx_step, k-1 cx_step and k phi_rhs, as the eager segment
+    does."""
     make, var, _ = _driver_case("ca", dev)
     d = make()
     d.prepare(var)
@@ -731,9 +743,10 @@ def test_launches_count_replays(dev):
         before = dict(fs.LAUNCHES)
         d.segment(k)
         torch.cuda.synchronize()
-        got = {n: fs.LAUNCHES[n] - before[n] for n in CA_KERNELS}
+        got = {n: fs.LAUNCHES[n] - before[n]
+               for n in CA_KERNELS + ("phi_rhs",)}
         assert got == {"x_step": 1, "qx_step": k, "cx_step": k - 1,
-                       "cx_final": 1}
+                       "cx_final": 1, "phi_rhs": k}
     assert d.graphs.replays > 0
 
 
@@ -816,3 +829,135 @@ def test_failing_capture_raises(dev):
         graphs.run("fine", lambda: x.mul_(2.0))
     torch.cuda.synchronize()
     assert graphs.captures == 1 and graphs.replays == 1
+
+
+# -- the phi-step's right-hand side ------------------------------------------------
+
+# the main path's shapes, whose spacings are powers of two, and two grids
+# whose 1/h is rounded (there a division would differ from PyTorch's
+# multiplication by the float32 reciprocal)
+RHS_SHAPES = {"1d-1025x33": (33, (1025,)), "2d-129x33": (33, (129, 129)),
+              "2d-65x17": (17, (65, 65)), "2d-33x9": (9, (33, 33)),
+              "3d-17x9": (9, (17, 17, 17)), "2d-9x17x7": (7, (9, 17)),
+              "3d-5x7x11x9": (9, (5, 7, 11))}
+
+
+def _rhs_inputs(name, dev, lead=(), seed=0):
+    """(ops, q, alpha, c, D, w): seeded fields with ghost face slots zero,
+    a weight in [0.5, 2] with about one entry in eight at the wall weight
+    (its ghost slots 1.0)."""
+    nt, space = RHS_SHAPES[name]
+    geom = Geometry(nt, space)
+    ops = OpsFlat(geom, F32, dev)
+    rng = np.random.default_rng(seed)
+    S, d = ops.S, geom.ndim_space
+
+    def rand(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(lead + shape, dtype=np.float32)).to(dev)
+
+    def stag():
+        return Staggered(rand(nt - 1, S), rand(d, nt, S) * ops.masks)
+
+    def weight(*shape):
+        w = rng.uniform(0.5, 2.0, shape)
+        w[rng.random(shape) < 0.125] = wdot2d.BARRIER_WEIGHT
+        return torch.tensor(w, dtype=F32, device=dev)
+
+    w = Staggered(weight(nt - 1, S),
+                  weight(d, nt, S) * ops.masks + (1.0 - ops.masks))
+    D = math.sqrt(2.0) * math.sqrt(geom.h_mean)
+    return ops, stag(), stag(), rand(nt, S), D, w
+
+
+@pytest.mark.parametrize("lead", [(), (3,)], ids=["B1", "B3"])
+@pytest.mark.parametrize("weighted", [False, True],
+                         ids=["unweighted", "weighted"])
+@pytest.mark.parametrize("name", list(RHS_SHAPES))
+def test_phi_rhs_kernel_is_bit_equal_to_plain(dev, name, weighted, lead):
+    """One launch (under phi_rhs or phi_rhs_w), bit-equal to the plain
+    composition on the card, every input left as it was."""
+    ops, q, alpha, c, D, w = _rhs_inputs(name, dev, lead)
+    w = w if weighted else None
+    inputs = _blocks(q, alpha, c) + (w.blocks() if weighted else [])
+    kept = [t.clone() for t in inputs]
+    key = "phi_rhs_w" if weighted else "phi_rhs"
+    before = dict(fs.LAUNCHES)
+    got = fs.phi_rhs(ops, q, alpha, c, D, w)
+    torch.cuda.synchronize()
+    assert all(fs.LAUNCHES[k] == before[k] + (k == key) for k in fs.LAUNCHES)
+    want = fs.phi_rhs_plain(ops, q, alpha, c, D, w)
+    assert got.shape == c.shape
+    assert torch.equal(got, want), float((got - want).abs().max())
+    assert all(torch.equal(a, b) for a, b in zip(inputs, kept))
+
+
+def test_phi_rhs_refuses_what_the_kernel_does_not_take(dev):
+    """A non-contiguous or mixed-dtype operand, a wrong shape and a tensor
+    D raise; float64 takes the plain route without a launch."""
+    ops, q, alpha, c, D, w = _rhs_inputs("2d-33x9", dev)
+    nt, S = c.shape
+    odd = c.t().contiguous().t()  # (nt, S), strides of the transpose
+    with pytest.raises(ValueError, match="contiguous"):
+        fs.phi_rhs(ops, q, alpha, odd, D)
+    with pytest.raises(TypeError, match="float32"):
+        fs.phi_rhs(ops, q, alpha, c.double(), D)
+    with pytest.raises(TypeError, match="float32"):
+        fs.phi_rhs(ops, q, alpha, c, D, w.map(lambda t: t.double()))
+    with pytest.raises(ValueError, match="shape"):
+        fs.phi_rhs(ops, q, alpha, c[:-1].contiguous(), D)
+    with pytest.raises(ValueError, match="float"):
+        fs.phi_rhs(ops, q, alpha, c, torch.tensor(D, device=dev))
+    f64 = [x.map(lambda t: t.double()) for x in (q, alpha)]
+    before = dict(fs.LAUNCHES)
+    got = fs.phi_rhs(ops, *f64, c.double(), D)
+    assert got.dtype == torch.float64
+    assert torch.equal(got, fs.phi_rhs_plain(ops, *f64, c.double(), D))
+    assert fs.LAUNCHES == before
+
+
+@pytest.mark.parametrize("name", ["sgs", "acc"])
+def test_phi_rhs_launches_count_replays(dev, name):
+    """k single steps of sGS-inPALM or acc-ADMM replayed from graphs add k
+    phi_rhs launches, as the eager segment does (the CA segment:
+    ``test_launches_count_replays``)."""
+    make, var, _ = _driver_case(name, dev)
+    d = make()
+    d.prepare(var)
+    d.segment(3)    # each kind's first use (eager), then capture
+    torch.cuda.synchronize()
+    for k in (5, 9):
+        n0 = fs.LAUNCHES["phi_rhs"]
+        d.segment(k)
+        torch.cuda.synchronize()
+        assert fs.LAUNCHES["phi_rhs"] - n0 == k
+    assert d.graphs.replays > 0
+
+
+def test_solve_with_the_rhs_kernel_matches_the_plain_rhs(dev, monkeypatch):
+    """DOTmark 129^2 x 33, 3 levels, tol 1e-4 (the headline): the same
+    iterations on every level and the same rho, bit for bit, with
+    ``phi_rhs_plain`` forced in the kernel's place; the kernel launched
+    once an iteration, the plain run launching none."""
+    from dotsocp_tpu_torch.multilevel.solve import clear_solver_cache
+
+    r0, r1 = get_example_2d("DOTmark_4stitch", 129, 129)
+    runs = []
+    try:
+        for forced in (False, True):
+            if forced:
+                monkeypatch.setattr(core, "phi_rhs", fs.phi_rhs_plain)
+            clear_solver_cache()
+            fs.reset_launches()
+            out, _, _ = solve_dot(r0, r1, 33, 3, {"tol": 1e-4}, "inPALM",
+                                  device=dev, verbose=False)
+            torch.cuda.synchronize()
+            runs.append((out, dict(fs.LAUNCHES)))
+    finally:
+        clear_solver_cache()
+    (kern, kern_n), (plain, plain_n) = runs
+    iters = [lv["iters"] for lv in kern["levels"]]
+    assert iters == [lv["iters"] for lv in plain["levels"]]
+    assert torch.equal(kern["rho"], plain["rho"])
+    assert kern_n["phi_rhs"] == kern_n["qx_step"] == sum(iters)
+    assert plain_n["phi_rhs"] == 0 and plain_n["qx_step"] == sum(iters)
