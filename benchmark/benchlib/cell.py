@@ -3,6 +3,7 @@ the trace reduction, the reference's checks and the result line."""
 from __future__ import annotations
 
 import gc
+import hashlib
 import json
 import math
 import os
@@ -66,25 +67,100 @@ def plan_checks(driver, seed: int, count: int,
     return plan
 
 
+def table_key(config: dict) -> dict:
+    """What a table of optimum energies holds for: the grid, the reference
+    block and what makes the pool's pairs (the stitch file, the Cauchy
+    draw)."""
+    p, pool = config["problem"], config["pool"]
+    return {"problem": {k: p[k] for k in ("dim", "n", "nt")},
+            "reference": {k: v for k, v in config["reference"].items()
+                          if k != "table"},
+            "pairs_from": {"stitch": pool["stitch"]["file"],
+                           "cauchy": pool.get("cauchy")}}
+
+
+def reference_sha256() -> str:
+    """SHA-256 of ``benchlib/reference.py``, the code a table was made
+    by."""
+    with open(os.path.join(os.path.dirname(__file__), "reference.py"),
+              "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def read_table(root: str, config: dict) -> dict:
+    """The table of optimum energies that the configuration's
+    ``reference.table`` names (``tabulate_energies.py`` makes it), checked
+    against the configuration (the same grid, pairs and reference block)
+    and against the reference (made by this ``reference.py``)."""
+    rc = config["reference"]
+    path = os.path.join(root, rc["table"])
+    with open(path) as f:
+        table = json.load(f)
+    want = table_key(config)
+    got = {k: table.get(k) for k in want}
+    if got != want:
+        raise ValueError(f"table {rc['table']} was made for {got}, the "
+                         f"configuration asks for {want}")
+    if table.get("reference_sha256") != reference_sha256():
+        raise ValueError(f"table {rc['table']} was made by another "
+                         "benchlib/reference.py: make it again with "
+                         "tabulate_energies.py")
+    return table
+
+
+def _tabulated(root, config, slots, host_pool, device):
+    """The optima of ``slots`` from the configuration's table: the slot's
+    own ends, the energy of its pair's optimum (the same under every
+    symmetry of the square)."""
+    import torch
+
+    table = read_table(root, config)
+    names = pool_mod.slot_pairs(config)
+    missing = sorted({names[s] for s in slots} - set(table["pairs"]))
+    if missing:
+        raise KeyError(f"table {config['reference']['table']} has no "
+                       f"pair {missing}")
+    optima = {}
+    for s in slots:
+        r0, r1 = (x.to(device=device, dtype=torch.float64)
+                  for x in host_pool[s])
+        optima[s] = reference.Optimum(
+            r0, r1, float(table["pairs"][names[s]]["energy"]))
+    used = sorted({names[s] for s in slots})
+    note = (f"table {config['reference']['table']} read, nothing solved: "
+            f"pairs {used}, energies "
+            f"{[table['pairs'][n]['energy'] for n in used]}, finest "
+            f"residuals {[table['pairs'][n]['residual'] for n in used]}")
+    return optima, note
+
+
 def judge(config: dict, limits: dict, answers: list, host_pool: list,
-          device):
-    """The reference's checks of ``answers`` [(slot, rho, Es, done)]: one
-    reference solve a distinct slot, every check of ``limits`` on each
-    answer. Returns ({check: worst value and limit}, {check: values},
-    indices of the answers over a limit, seconds of the reference)."""
+          device, root: str):
+    """The reference's checks of ``answers`` [(slot, rho, Es, done)]: the
+    optimum of each distinct slot, from the configuration's table where
+    it names one (``reference.table``), else from a reference solve, and
+    every check of ``limits`` on each answer. Returns ({check: worst value
+    and limit}, {check: values}, indices of the answers over a limit,
+    seconds of the reference)."""
     p, rc = config["problem"], config["reference"]
     t0 = time.perf_counter()
-    refs = {}
-    for slot in sorted({a[0] for a in answers}):
-        refs[slot] = reference.solve(
+    slots = sorted({a[0] for a in answers})
+    if "table" in rc:
+        optima, note = _tabulated(root, config, slots, host_pool, device)
+    else:
+        refs = {slot: reference.solve(
             *host_pool[slot], p["nt"], levels=int(rc["levels"]),
             tol=float(rc["tol"]), coarse_tol=float(rc["coarse_tol"]),
-            maxit=int(rc["maxit"]), device=device)
+            maxit=int(rc["maxit"]), device=device) for slot in slots}
+        optima = {slot: r.optimum() for slot, r in refs.items()}
+        note = (f"{len(refs)} solve(s), iterations "
+                f"{[r.iters for r in refs.values()]}, residuals "
+                f"{[r.residual for r in refs.values()]}")
     checks, per_answer, wrong = {}, {}, set()
     for name, limit in limits.items():
         values = []
         for k, (slot, rho, Es, done) in enumerate(answers):
-            v = reference.check(name, (rho, Es), refs[slot])
+            v = reference.check(name, (rho, Es), optima[slot])
             if not v <= limit:   # NaN fails too
                 wrong.add(k)
             values.append(v)
@@ -93,10 +169,7 @@ def judge(config: dict, limits: dict, answers: list, host_pool: list,
         checks[name] = {"value": worst, "limit": limit}
         per_answer[name] = values
     ref_s = time.perf_counter() - t0
-    print(f"reference: {len(refs)} solve(s), iterations "
-          f"{[r.iters for r in refs.values()]}, residuals "
-          f"{[r.residual for r in refs.values()]}, {ref_s:.2f} s",
-          file=sys.stderr)
+    print(f"reference: {note}, {ref_s:.2f} s", file=sys.stderr)
     return checks, per_answer, wrong, ref_s
 
 
@@ -177,7 +250,7 @@ def run(root: str, workload: str, seed: int, seconds: float, trace: bool,
         torch.cuda.empty_cache()
 
     checks, per_answer, wrong, ref_s = judge(config, spec["limits"]["checks"],
-                                            answers, host_pool, dev)
+                                            answers, host_pool, dev, root)
     correct = bool(answers) and all(
         c["value"] <= c["limit"] for c in checks.values())
 

@@ -6,12 +6,17 @@ Slots named in ``stitch.slots`` hold the committed DOTmark ClassicImages
 + 1e-12, then divided by its mean); the other slots hold pairs of DOTmark
 CauchyDensity-class densities (mixtures of bivariate Cauchy densities), all
 made in one batched computation from parameters that ``cauchy.pool_seed``
-draws.
+draws. A pool whose every slot holds the stitch pair has no ``cauchy``
+block.
 
 ``--seed`` turns each pair by one of the eight symmetries of the square
 (``orientation``): every seed gets other arrays, and so other answers to
 check, while a solve's work (its iteration counts) stays that of the pair,
-so that runs with different seeds do the same work.
+so that runs with different seeds do the same work. Each slot draws its
+symmetry alone.
+
+A pair's name (``slot_pairs``) is "stitch" or "cauchy<j>": the key of its
+optimum's energy in a table of the reference (``tabulate_energies.py``).
 """
 from __future__ import annotations
 
@@ -82,27 +87,46 @@ def stitch_pair(root: str, spec: dict):
     return [p / p.mean() for p in pair]
 
 
+def slot_pairs(config: dict) -> list:
+    """The name of the pair each slot holds: "stitch" for the slots of
+    ``stitch.slots``, "cauchy<j>" for the j-th of the others."""
+    spec = config["pool"]
+    stitch = set(spec["stitch"]["slots"])
+    others = [i for i in range(int(spec["size"])) if i not in stitch]
+    if others and "cauchy" not in spec:
+        raise ValueError(f"slots {others} hold no stitch pair and the pool "
+                         "has no cauchy block")
+    return ["stitch" if i in stitch else f"cauchy{others.index(i)}"
+            for i in range(int(spec["size"]))]
+
+
+def pairs(config: dict, device, root: str) -> dict:
+    """The pool's distinct pairs, unturned: {name: (rho0, rho1)} float64
+    (n, n) tensors on ``device``."""
+    import torch
+
+    spec = config["pool"]
+    names = slot_pairs(config)
+    out = {"stitch": tuple(torch.as_tensor(p, dtype=torch.float64,
+                                           device=device)
+                           for p in stitch_pair(root, spec["stitch"]))}
+    count = sum(1 for name in names if name != "stitch")
+    if count:
+        dens = cauchy_densities(spec["cauchy"], 2 * count,
+                                config["problem"]["n"], device)
+        out.update((f"cauchy{j}", (dens[2 * j], dens[2 * j + 1]))
+                   for j in range(count))
+    return out
+
+
 def make_pool(config: dict, seed: int, device, root: str) -> list:
     """The run's pool: ``size`` pairs of float32 (n, n) tensors on
     ``device``, in slot order."""
     import torch
 
-    spec = config["pool"]
-    n = config["problem"]["n"]
-    size = int(spec["size"])
-    slots = set(spec["stitch"]["slots"])
-    others = [i for i in range(size) if i not in slots]
-    dens = cauchy_densities(spec["cauchy"], 2 * len(others), n, device)
-    s0, s1 = (torch.as_tensor(p, dtype=torch.float64, device=device)
-              for p in stitch_pair(root, spec["stitch"]))
-    orient = orientations(seed, size)
-    pool = []
-    for i in range(size):
-        if i in slots:
-            r0, r1 = s0, s1
-        else:
-            j = others.index(i)
-            r0, r1 = dens[2 * j], dens[2 * j + 1]
-        pool.append(tuple(_orient(r, orient[i]).to(torch.float32)
-                          .contiguous() for r in (r0, r1)))
-    return pool
+    names = slot_pairs(config)
+    base = pairs(config, device, root)
+    orient = orientations(seed, len(names))
+    return [tuple(_orient(r, o).to(torch.float32).contiguous()
+                  for r in base[name])
+            for name, o in zip(names, orient)]

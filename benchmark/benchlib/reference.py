@@ -26,6 +26,12 @@ rho[k] the mean of the two time cells around node k (rho0, rho1 at the
 ends), each momentum the mean of the two faces around a node along its
 axis (0 on the walls), its first and last time slab doubled (half cells).
 
+The checks read of the optimum only the instance's ends and the kinetic
+energy of the reference's answer (:class:`Optimum`), so a configuration
+may name a table of those energies, made once by
+``tabulate_energies.py``, in the place of a solve of each checked
+instance.
+
 ``rounding="tf32"`` stores every iterate in float32 rounded to TF32's 10
 mantissa bits, with TF32 matmuls: the reference computed in the precision
 below the configuration's float32 with TF32 off, which the control of a
@@ -167,11 +173,30 @@ def _proj_cone(head, tail):
 
 
 @dataclass
+class Optimum:
+    """What the checks read of the optimum: the instance's end densities
+    (float64, on the device the checks run on) and the kinetic energy of
+    the reference's answer, J_ref (:func:`energy`)."""
+    rho0: torch.Tensor
+    rho1: torch.Tensor
+    energy: float
+
+
+@dataclass
 class Solution:
     rho: torch.Tensor        # (nt, *space) on the nodes, float64
     E: list                  # per space axis, (nt, *space) on the nodes
     iters: list              # per level, coarsest first
     residual: float          # the finest level's last residual
+
+    def optimum(self) -> Optimum:
+        return Optimum(self.rho[0], self.rho[-1], energy(self.rho, self.E))
+
+
+def _optimum(ref) -> Optimum:
+    """A check's reference: a :class:`Solution`, or an :class:`Optimum`
+    read from a table."""
+    return ref.optimum() if isinstance(ref, Solution) else ref
 
 
 def _zero_state(g: Grid, **kw) -> dict:
@@ -445,15 +470,17 @@ def energy(rho, Es) -> float:
     return float((num / den).mean())
 
 
-def energy_gap(answer, ref: Solution) -> float:
+def energy_gap(answer, ref) -> float:
     """|J - J_ref| / J_ref of the answer's kinetic energy J: first order in
     an answer that is off the optimum or off the constraints, second order
-    in one that is near the reference's."""
+    in one that is near the reference's. ``ref``: a Solution or an
+    Optimum."""
     rho, Es = answer
     if Es is None:
         raise ValueError("energy_gap needs the answer's momentum")
-    j_ref = energy(ref.rho, ref.E)
-    v = abs(energy(torch.as_tensor(rho).to(ref.rho.device), Es) - j_ref)
+    opt = _optimum(ref)
+    j_ref = opt.energy
+    v = abs(energy(torch.as_tensor(rho).to(opt.rho0.device), Es) - j_ref)
     v /= j_ref
     return v if math.isfinite(v) else math.inf
 
@@ -470,9 +497,10 @@ def _pair_sum(x: torch.Tensor, axis: int, w=None) -> torch.Tensor:
     return lo * w[:, 0].reshape(shape) + hi * w[:, 1].reshape(shape)
 
 
-def continuity(answer, ref: Solution) -> float:
+def continuity(answer, ref) -> float:
     """Relative block residual of the discrete continuity equation of the
-    answer (rho, Es) between the given densities (the reference's ends).
+    answer (rho, Es) between the given densities (the reference's ends;
+    ``ref`` a Solution or an Optimum).
 
     rho and E are averages of the time-cell densities and the face momenta
     (module docstring), so the equation is not readable node by node; summed
@@ -488,9 +516,10 @@ def continuity(answer, ref: Solution) -> float:
     rho, Es = answer
     if Es is None:
         raise ValueError("continuity needs the answer's momentum")
-    dev = ref.rho.device
+    opt = _optimum(ref)
+    dev = opt.rho0.device
     rho = torch.as_tensor(rho).to(device=dev, dtype=torch.float64).clone()
-    rho[0], rho[-1] = ref.rho[0], ref.rho[-1]
+    rho[0], rho[-1] = opt.rho0, opt.rho1
     nt, space = rho.shape[0], tuple(rho.shape[1:])
     if len(Es) != len(space):
         raise ValueError(f"{len(Es)} momentum fields for {len(space)} axes")
@@ -520,8 +549,9 @@ def continuity(answer, ref: Solution) -> float:
 CHECKS = {"continuity": continuity, "energy_gap": energy_gap}
 
 
-def check(name: str, answer, ref: Solution) -> float:
-    """The number that check ``name`` reads from one answer (rho, Es)."""
+def check(name: str, answer, ref) -> float:
+    """The number that check ``name`` reads from one answer (rho, Es)
+    against ``ref`` (a Solution or an Optimum)."""
     if name not in CHECKS:
         raise KeyError(f"no reference check {name!r}; known: {sorted(CHECKS)}")
     return CHECKS[name](answer, ref)

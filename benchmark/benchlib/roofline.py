@@ -7,8 +7,8 @@ change to the program cannot move them.
   read once, each output written once, float32), for a later per-kernel
   roofline.
 * ``inpalm_least_bytes``: the least HBM traffic of one inPALM iteration
-  that no implementation can avoid (written for this benchmark), for the
-  level loop's roofline at 513^2 x 65 once that cell is measured.
+  that no implementation can avoid (written for this benchmark), which the
+  finest level loop's throughput reads (``metrics/loop_least_gbps.py``).
 """
 from __future__ import annotations
 

@@ -116,3 +116,31 @@ def test_a_cell_is_added_as_files_alone(tmp_path, tiny_manifest):
     assert res["metrics"]["calls_made"]["value"] >= 1
     for p, data in before.items():
         assert open(os.path.join(BENCH, p), "rb").read() == data
+
+
+def test_tables_hold_their_configurations(m):
+    """A configuration that names a table of optimum energies: the table
+    is committed, made for the configuration's grid, pairs and reference
+    block by the committed reference, holds every pair of its pool, came
+    within 10 times the reference's tolerance (a solve that stops at its
+    iteration limit says which residual it reached), and says how it was
+    made."""
+    from benchlib import pool
+
+    named = 0
+    for c in m["configs"]:
+        with open(os.path.join(ROOT, c["file"])) as f:
+            config = json.load(f)
+        if "table" not in config["reference"]:
+            continue
+        named += 1
+        table = cell.read_table(ROOT, config)
+        assert set(pool.slot_pairs(config)) <= set(table["pairs"])
+        for row in table["pairs"].values():
+            assert row["energy"] > 0.0
+            assert row["residual"] <= 10 * config["reference"]["tol"]
+            assert len(row["iters"]) == config["reference"]["levels"]
+            assert row["seconds"] > 0.0
+        for key in ("command", "card", "commit", "reference_sha256"):
+            assert table[key], key
+    assert named >= 1

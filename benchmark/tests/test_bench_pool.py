@@ -62,3 +62,32 @@ def test_cauchy_parameters_are_fixed_by_the_pool_seed(config):
     for (wa, ca, sa), (wb, cb, sb) in zip(a, b):
         assert np.array_equal(wa, wb) and np.array_equal(ca, cb)
         assert spec["bumps"][0] <= len(wa) <= spec["bumps"][1]
+
+
+@pytest.fixture(scope="module")
+def config513():
+    with open(os.path.join(ROOT, "benchmark/configs/dot2d_513x65.json")) as f:
+        return json.load(f)
+
+
+def test_pool_without_cauchy_block_holds_the_stitch_pair(config513):
+    """16 copies of the stitch pair, each turned by its slot's symmetry."""
+    assert "cauchy" not in config513["pool"]
+    assert P.slot_pairs(config513) == ["stitch"] * 16
+    assert set(P.pairs(config513, "cpu", ROOT)) == {"stitch"}
+    pool = P.make_pool(config513, BIG, "cpu", ROOT)
+    o = P.orientations(BIG, 16)
+    pair = P.stitch_pair(ROOT, config513["pool"]["stitch"])
+    assert len(pool) == 16
+    for slot, (r0, r1) in enumerate(pool):
+        for r, s in ((r0, pair[0]), (r1, pair[1])):
+            assert r.dtype == torch.float32 and r.shape == (513, 513)
+            assert torch.equal(r, P._orient(torch.as_tensor(s), o[slot])
+                               .float())
+
+
+def test_slots_without_a_pair_are_refused(config513):
+    bad = dict(config513, pool=dict(config513["pool"], stitch=dict(
+        config513["pool"]["stitch"], slots=[0, 1])))
+    with pytest.raises(ValueError, match="no cauchy block"):
+        P.slot_pairs(bad)
