@@ -3,7 +3,6 @@ the trace reduction, the reference's checks and the result line."""
 from __future__ import annotations
 
 import gc
-import hashlib
 import json
 import math
 import os
@@ -14,7 +13,7 @@ from typing import Optional
 
 import numpy as np
 
-from . import manifest, pool as pool_mod, reference, trace as trace_mod
+from . import manifest, trace as trace_mod
 from .traffic import Driver
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "dotsocp_tpu")
@@ -67,55 +66,37 @@ def plan_checks(driver, seed: int, count: int,
     return plan
 
 
-def table_key(config: dict) -> dict:
-    """What a table of optimum energies holds for: the grid, the reference
-    block and what makes the pool's pairs (the stitch file, the Cauchy
-    draw)."""
-    p, pool = config["problem"], config["pool"]
-    return {"problem": {k: p[k] for k in ("dim", "n", "nt")},
-            "reference": {k: v for k, v in config["reference"].items()
-                          if k != "table"},
-            "pairs_from": {"stitch": pool["stitch"]["file"],
-                           "cauchy": pool.get("cauchy")}}
-
-
-def reference_sha256() -> str:
-    """SHA-256 of ``benchlib/reference.py``, the code a table was made
-    by."""
-    with open(os.path.join(os.path.dirname(__file__), "reference.py"),
-              "rb") as f:
-        return hashlib.sha256(f.read()).hexdigest()
-
-
-def read_table(root: str, config: dict) -> dict:
+def read_table(root: str, config: dict, kind=None) -> dict:
     """The table of optimum energies that the configuration's
     ``reference.table`` names (``tabulate_energies.py`` makes it), checked
-    against the configuration (the same grid, pairs and reference block)
-    and against the reference (made by this ``reference.py``)."""
+    against the configuration (the same problem kind, and its kind's
+    ``table_key``: the same grid, pairs and reference block) and against
+    the reference (made by the code of its kind's ``reference_sha256``)."""
+    kind = kind or manifest.problem(config)
     rc = config["reference"]
     path = os.path.join(root, rc["table"])
     with open(path) as f:
         table = json.load(f)
-    want = table_key(config)
+    want = dict(kind.table_key(config), kind=config["problem"].get("kind"))
     got = {k: table.get(k) for k in want}
     if got != want:
         raise ValueError(f"table {rc['table']} was made for {got}, the "
                          f"configuration asks for {want}")
-    if table.get("reference_sha256") != reference_sha256():
+    if table.get("reference_sha256") != kind.reference_sha256():
         raise ValueError(f"table {rc['table']} was made by another "
-                         "benchlib/reference.py: make it again with "
+                         "reference: make it again with "
                          "tabulate_energies.py")
     return table
 
 
-def _tabulated(root, config, slots, host_pool, device):
+def _tabulated(root, config, slots, host_pool, device, kind, args):
     """The optima of ``slots`` from the configuration's table: the slot's
-    own ends, the energy of its pair's optimum (the same under every
-    symmetry of the square)."""
+    own ends and arguments, the energy of its pair's optimum (the same
+    under every symmetry the pool draws)."""
     import torch
 
-    table = read_table(root, config)
-    names = pool_mod.slot_pairs(config)
+    table = read_table(root, config, kind)
+    names = kind.slot_pairs(config)
     missing = sorted({names[s] for s in slots} - set(table["pairs"]))
     if missing:
         raise KeyError(f"table {config['reference']['table']} has no "
@@ -124,8 +105,8 @@ def _tabulated(root, config, slots, host_pool, device):
     for s in slots:
         r0, r1 = (x.to(device=device, dtype=torch.float64)
                   for x in host_pool[s])
-        optima[s] = reference.Optimum(
-            r0, r1, float(table["pairs"][names[s]]["energy"]))
+        optima[s] = kind.tabled_optimum(
+            r0, r1, args[s], float(table["pairs"][names[s]]["energy"]))
     used = sorted({names[s] for s in slots})
     note = (f"table {config['reference']['table']} read, nothing solved: "
             f"pairs {used}, energies "
@@ -135,21 +116,30 @@ def _tabulated(root, config, slots, host_pool, device):
 
 
 def judge(config: dict, limits: dict, answers: list, host_pool: list,
-          device, root: str):
+          device, root: str, kind=None, args=None):
     """The reference's checks of ``answers`` [(slot, rho, Es, done)]: the
     optimum of each distinct slot, from the configuration's table where
     it names one (``reference.table``), else from a reference solve, and
-    every check of ``limits`` on each answer. Returns ({check: worst value
-    and limit}, {check: values}, indices of the answers over a limit,
-    seconds of the reference)."""
-    p, rc = config["problem"], config["reference"]
+    every check of ``limits`` on each answer. ``kind``: the configuration's
+    problem kind (by default found from it); ``args[slot]``: the slot's
+    extra arguments, handed to the reference as to the program (none by
+    default). Returns ({check: worst value and limit}, {check: values},
+    indices of the answers over a limit, seconds of the reference)."""
+    kind = kind or manifest.problem(config)
+    args = args if args is not None else [{} for _ in host_pool]
+    rc = config["reference"]
+    unknown = sorted(set(limits) - set(kind.CHECKS))
+    if unknown:
+        raise KeyError(f"no reference check {unknown}; known: "
+                       f"{sorted(kind.CHECKS)}")
     t0 = time.perf_counter()
     slots = sorted({a[0] for a in answers})
     if "table" in rc:
-        optima, note = _tabulated(root, config, slots, host_pool, device)
+        optima, note = _tabulated(root, config, slots, host_pool, device,
+                                  kind, args)
     else:
-        refs = {slot: reference.solve(
-            *host_pool[slot], p["nt"], levels=int(rc["levels"]),
+        refs = {slot: kind.reference_solve(
+            config, *host_pool[slot], args[slot], levels=int(rc["levels"]),
             tol=float(rc["tol"]), coarse_tol=float(rc["coarse_tol"]),
             maxit=int(rc["maxit"]), device=device) for slot in slots}
         optima = {slot: r.optimum() for slot, r in refs.items()}
@@ -160,7 +150,7 @@ def judge(config: dict, limits: dict, answers: list, host_pool: list,
     for name, limit in limits.items():
         values = []
         for k, (slot, rho, Es, done) in enumerate(answers):
-            v = reference.check(name, (rho, Es), optima[slot])
+            v = kind.CHECKS[name]((rho, Es), optima[slot])
             if not v <= limit:   # NaN fails too
                 wrong.add(k)
             values.append(v)
@@ -191,8 +181,10 @@ def run(root: str, workload: str, seed: int, seconds: float, trace: bool,
     card = torch.cuda.get_device_name(dev) if cuda else "cpu"
 
     marks = [("imports and card", time.perf_counter())]
-    pool = pool_mod.make_pool(config, seed, dev, root)
-    driver = Driver(config, traffic, pool, dev)
+    kind = manifest.problem(config, bench_dir)
+    pool = kind.make_pool(config, seed, dev, root)
+    args = kind.slot_args(config, seed, dev, root)
+    driver = Driver(config, traffic, pool, dev, args, kind.STOP_ROWS)
     marks.append(("pool", time.perf_counter()))
     for k in range(warmups):
         warm = driver.call(k, keep=[])
@@ -250,7 +242,8 @@ def run(root: str, workload: str, seed: int, seconds: float, trace: bool,
         torch.cuda.empty_cache()
 
     checks, per_answer, wrong, ref_s = judge(config, spec["limits"]["checks"],
-                                            answers, host_pool, dev, root)
+                                            answers, host_pool, dev, root,
+                                            kind, args)
     correct = bool(answers) and all(
         c["value"] <= c["limit"] for c in checks.values())
 

@@ -1,17 +1,25 @@
 """``BENCHMARK.json`` and the files it names: a cell's configuration,
-traffic mix, limits and metric readers are found by name, so that a new
-cell, configuration or metric is added as files alone.
+traffic mix, limits, metric readers and problem kind are found by name, so
+that a new cell, configuration, metric or problem is added as files alone.
 
     configs/<config>.json        the file ``configs[].file`` names
     traffic/<traffic>.json       the mix's parameters (traffic.py reads them)
     limits/<workload>.json       the reference's checks and their limits
     metrics/<metric>.py          ``read(run)`` -> number or None
+    problems/<kind>.py           the problem a configuration's
+                                 ``problem.kind`` names: its pool, each
+                                 slot's extra ``solve_dot`` arguments, the
+                                 KKT rows a solve stops on, its reference,
+                                 table key and checks (``benchlib/dotmark.py``
+                                 lists the names; a configuration without
+                                 ``kind`` is of that built-in kind)
 """
 from __future__ import annotations
 
 import importlib.util
 import json
 import os
+import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -36,6 +44,41 @@ def reader(name: str, bench_dir: str = HERE):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+KIND_NAMES = ("make_pool", "slot_args", "slot_pairs", "table_pairs",
+              "STOP_ROWS", "reference_solve", "tabled_optimum", "table_key",
+              "reference_sha256", "CHECKS")
+
+
+def problem(config: dict, bench_dir: str = HERE):
+    """The problem kind of ``config``: the module ``problems/<kind>.py``
+    that its ``problem.kind`` names (loaded once a process), else the
+    built-in kind, ``benchlib/dotmark.py``."""
+    name = config["problem"].get("kind")
+    if name is None:
+        from . import dotmark
+        return dotmark
+    path = os.path.join(bench_dir, "problems", f"{name}.py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"problem kind {name!r} has no module at "
+                                f"{path}")
+    mod_name = f"bench_problem_{name}"
+    mod = sys.modules.get(mod_name)
+    if mod is None or mod.__file__ != path:
+        spec = importlib.util.spec_from_file_location(mod_name, path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[mod_name] = mod
+        try:
+            spec.loader.exec_module(mod)
+        except BaseException:
+            del sys.modules[mod_name]
+            raise
+    missing = [k for k in KIND_NAMES if not hasattr(mod, k)]
+    if missing:
+        raise AttributeError(f"problem kind {name!r} ({path}) lacks "
+                             f"{missing}")
+    return mod
 
 
 def cell(root: str, workload: str, bench_dir: str = HERE,

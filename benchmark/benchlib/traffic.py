@@ -4,8 +4,10 @@ a closed loop, one caller whose next call follows the return of the last.
 
     kind "stream": one ``solve_dot`` a call, over the pool's slots in order
 
-``opts`` adds to the configuration's solver options. A call's wall runs
-from the call to its return followed by ``torch.cuda.synchronize()``.
+``opts`` adds to the configuration's solver options; each slot's extra
+arguments (its problem kind's ``slot_args``, made in set-up) follow the
+call's own. A call's wall runs from the call to its return followed by
+``torch.cuda.synchronize()``.
 """
 from __future__ import annotations
 
@@ -14,8 +16,6 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
-
-STOP_ROWS = [0, 2, 5, 6]   # the KKT rows a solve stops on
 
 
 @dataclass
@@ -78,15 +78,20 @@ def _level(rep: dict) -> dict:
 
 class Driver:
     """Drives one cell's traffic on its pool; ``call(i)`` makes the i-th
-    call of the run and returns its :class:`Call`."""
+    call of the run and returns its :class:`Call`. ``args[slot]``: the
+    slot's extra keyword arguments to ``solve_dot``; a call is done where
+    the KKT rows ``stop_rows`` of its last level are under the tolerance."""
 
-    def __init__(self, config: dict, traffic: dict, pool: list, device):
+    def __init__(self, config: dict, traffic: dict, pool: list, device,
+                 args: list, stop_rows: list):
         import torch
 
         self.torch = torch
         self.p = dict(config["problem"])
         self.traffic = traffic
         self.pool = pool
+        self.args = args
+        self.stop_rows = list(stop_rows)
         self.device = torch.device(device)
         self.dtype = getattr(torch, self.p["dtype"])
         self.opts = {k: self.p[k] for k in ("tol", "driver", "layout",
@@ -123,18 +128,19 @@ class Driver:
 
         slots = self.slots(i)
         r0, r1 = self.pool[slots[0]]
+        args = self.args[slots[0]]
         self._sync()
         t0 = time.perf_counter()
         out, _, _ = solve_dot(r0, r1, self.p["nt"], self.p["levels"],
                               dict(self.opts), self.p["method"],
                               device=self.device, dtype=self.dtype,
-                              verbose=False)
+                              verbose=False, **args)
         self._sync()
         t1 = time.perf_counter()
         kkt = np.asarray(out["levels"][-1]["final_kkt"], np.float64)
         c = Call(slots=slots, t0=t0, t1=t1,
                  levels=[_level(r) for r in out["levels"]],
-                 done=[bool(np.max(kkt[STOP_ROWS]) < self.tol)],
+                 done=[bool(np.max(kkt[self.stop_rows]) < self.tol)],
                  total_time=float(out["total_time"]))
         if keep:
             rho, *Es = self._keep([out["rho"]] + list(out["E"]))

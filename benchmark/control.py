@@ -11,11 +11,12 @@ checked answer's number for each of the cell's checks, and how many of
 the window's instances the solver itself reported solved.
 
     sound  the program as the configuration states it (the lower reading)
-    tf32   the plain reference put in the program's place, computed in
-           TF32 (float32 with every iterate rounded to TF32's 10 mantissa
-           bits: the precision below the configuration's float32 with TF32
-           off) to the configuration's tolerance, and judged by the
-           float64 reference like any answer (the upper reading)
+    tf32   the plain reference of the cell's problem kind put in the
+           program's place, computed in TF32 (float32 with every iterate
+           rounded to TF32's 10 mantissa bits: the precision below the
+           configuration's float32 with TF32 off) to the configuration's
+           tolerance, and judged by the float64 reference like any answer
+           (the upper reading)
 """
 import argparse
 import json
@@ -28,32 +29,37 @@ BENCH = os.path.dirname(os.path.abspath(__file__))
 KINDS = ("sound", "tf32")
 
 
-def reference_in_place(spec: dict, rounding: str, put=setattr) -> None:
-    """Put the reference, computed with ``rounding``, in the place of the
-    program's entry point (``put`` sets an attribute, e.g. pytest's
-    ``monkeypatch.setattr``), at the configuration's tolerance and levels
-    and the program's default of 3000 iterations a level."""
+def reference_in_place(spec: dict, rounding: str, put=setattr,
+                       bench_dir: str = BENCH) -> None:
+    """Put the reference of the cell's problem kind, computed with
+    ``rounding``, in the place of the program's entry point (``put`` sets
+    an attribute, e.g. pytest's ``monkeypatch.setattr``), at the
+    configuration's tolerance and levels and the program's default of 3000
+    iterations a level. The slot's extra arguments reach it as they would
+    reach the program."""
     import numpy as np
     import torch
 
-    from benchlib import reference
+    from benchlib import manifest
     from dotsocp_tpu_torch.multilevel import solve as solve_mod
 
-    p = spec["config"]["problem"]
+    config = spec["config"]
+    kind = manifest.problem(config, bench_dir)
+    p = config["problem"]
 
-    def one(r0, r1, nt, opts):
-        sol = reference.solve(r0, r1, nt, levels=p["levels"],
-                              tol=float(opts["tol"]),
-                              coarse_tol=float(opts["tol"]),
-                              maxit=int(opts.get("maxit", 3000)),
-                              device=torch.as_tensor(r0).device,
-                              rounding=rounding)
+    def one(r0, r1, opts, args):
+        sol = kind.reference_solve(config, r0, r1, args, levels=p["levels"],
+                                   tol=float(opts["tol"]),
+                                   coarse_tol=float(opts["tol"]),
+                                   maxit=int(opts.get("maxit", 3000)),
+                                   device=torch.as_tensor(r0).device,
+                                   rounding=rounding)
         return sol, bool(sol.residual < float(opts["tol"]))
 
     def solve_dot(r0, r1, nt, levels, opts, method, device=None,
-                  dtype=torch.float32, verbose=False):
+                  dtype=torch.float32, verbose=False, **args):
         t0 = time.monotonic()
-        sol, done = one(r0, r1, nt, opts)
+        sol, done = one(r0, r1, opts, args)
         kkt = np.full(7, 0.0 if done else np.inf)
         return {"rho": sol.rho.to(dtype), "E": [e.to(dtype) for e in sol.E],
                 "levels": [{"iters": it, "time": 0.0, "final_kkt": kkt}

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Make the table of optimum energies that a configuration's
 ``reference.table`` names: each distinct pair of its pool, unturned, solved
-once by the float64 reference (``benchlib/reference.py``) at the
-configuration's ``reference`` block, and the kinetic energy J_ref of its
-optimum written down. The benchmark's judge then reads J_ref from the table
-instead of solving each checked instance (J is the same under every symmetry
-of the square, the only thing ``--seed`` changes in such a pool).
+once by the float64 reference of its problem kind (``reference_solve``; the
+built-in kind's is ``benchlib/reference.py``) at the configuration's
+``reference`` block, and the energy J_ref of its optimum written down. The
+benchmark's judge then reads J_ref from the table instead of solving each
+checked instance (J is the same under every symmetry the pool draws, the
+only thing ``--seed`` changes in such a pool).
 
     python3 benchmark/tabulate_energies.py --config <name> [--out <path>] \\
         [--commit <sha>] [--device cuda|cpu]
@@ -37,35 +38,39 @@ def _power_limit():
 
 
 def make_table(root: str, config: dict, device, command: str = "",
-               commit: str = "") -> dict:
+               commit: str = "", bench_dir: str = BENCH) -> dict:
     """The table of ``config``: for each distinct pair of its pool, the
     energy of the reference's optimum, the finest level's relative
     residual, the iterations a level and the seconds of the solve."""
     import torch
 
-    from benchlib import cell, pool, reference
+    from benchlib import manifest
 
+    kind = manifest.problem(config, bench_dir)
     rc = config["reference"]
-    nt = config["problem"]["nt"]
-    names = sorted(set(pool.slot_pairs(config)))
-    base = pool.pairs(config, device, root)
+    names = sorted(set(kind.slot_pairs(config)))
+    base = kind.table_pairs(config, device, root)
     dev = torch.device(device)
     card = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    table = dict(cell.table_key(config), config=config["name"],
+    table = dict(kind.table_key(config), config=config["name"],
                  command=command, card=card, commit=commit,
-                 reference_sha256=cell.reference_sha256(), pairs={})
+                 reference_sha256=kind.reference_sha256(), pairs={})
+    if "kind" in config["problem"]:
+        table["kind"] = config["problem"]["kind"]
     if dev.type == "cuda":
         table["power_limit"] = _power_limit()
     for name in names:
         # the arrays a slot under the identity holds (float32)
-        r0, r1 = (r.to(torch.float32) for r in base[name])
+        r0, r1, args = base[name]
+        r0, r1 = (r.to(torch.float32) for r in (r0, r1))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        sol = reference.solve(r0, r1, nt, levels=int(rc["levels"]),
-                              tol=float(rc["tol"]),
-                              coarse_tol=float(rc["coarse_tol"]),
-                              maxit=int(rc["maxit"]), device=dev)
+        sol = kind.reference_solve(config, r0, r1, args,
+                                   levels=int(rc["levels"]),
+                                   tol=float(rc["tol"]),
+                                   coarse_tol=float(rc["coarse_tol"]),
+                                   maxit=int(rc["maxit"]), device=dev)
         seconds = time.perf_counter() - t0
         table["pairs"][name] = {
             "energy": sol.optimum().energy, "residual": sol.residual,

@@ -11,7 +11,7 @@ import torch
 
 import control
 import tabulate_energies
-from benchlib import cell, manifest, pool as P, reference as R
+from benchlib import cell, dotmark, manifest, pool as P, reference as R
 from conftest import FIXTURES, ROOT
 from dotsocp_tpu_torch.algorithms.core import Kernels
 from dotsocp_tpu_torch.multilevel import solve as solve_mod
@@ -98,7 +98,7 @@ def test_table_made_for_other_settings_is_refused(tabled):
 
 def test_table_made_by_another_reference_is_refused(tabled, tmp_path):
     table = cell.read_table(ROOT, tabled)
-    assert table["reference_sha256"] == cell.reference_sha256()
+    assert table["reference_sha256"] == dotmark.reference_sha256()
     path = tmp_path / "stale.json"
     path.write_text(json.dumps(dict(table, reference_sha256="0" * 64)))
     stale = dict(tabled, reference=dict(tabled["reference"],
