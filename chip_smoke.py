@@ -101,6 +101,13 @@ the device driver (CUDA-graph segments, ``algorithms/device_driver.py``).
    weighted CA iteration at 129^2 x 129. The same at the 3D scale level
    129^3 x 33 for every DIM = 3 kernel, and one CA, single-step, plain and
    sGS iteration there. Nothing about speed is asserted.
+5b. The KKT battery's sums (``fused_step.kkt_sums``, one pass) against the
+   plain battery at 513^2 x 65 (also weighted) and 129^2 x 33, 5 CA
+   iterations into the level, with the device driver's scalars: every sum
+   within 1e-5 of the plain one, both timed with CUDA events (20 launches,
+   and 20 replays from a captured graph, as the check graph runs them),
+   the bytes of the one pass and its bound, the device kernels a battery
+   runs (torch.profiler); one JSON line ``kkt_battery``.
 7. The device driver. 7a: from one state, 40 iterations replayed from its
    CUDA graphs against the same 40 run eagerly, then again after a
    rescale and after a sigma change, for the CA path at 129^2 x 33, the
@@ -2023,6 +2030,116 @@ def time_scale(torch):
                                 ca_iter_ms=ca_ms, step_iter_ms=step_ms,
                                 plain_iter_ms=(plain_it_ms + plain_it2_ms) / 2,
                                 dev_entry_ms=dev_ms)
+
+
+# (nt, n) of the KKT battery's times: the scale config and the 129 cell's
+KKT_SHAPES = ((65, 513), (33, 129))
+
+
+def kkt_bytes(geom, weighted=False):
+    """Bytes of the KKT battery's one pass (``fused_step.kkt_sums``): phi,
+    q, z, alpha, beta and c (and the weight) each read once, f32; the sums
+    written are a few hundred bytes."""
+    import math
+
+    S = math.prod(geom.space)
+    nt, d, C = geom.nt, geom.ndim_space, geom.cone_cols
+    cells, faces = (nt - 1) * S, d * nt * S
+    n = 2 * nt * S + 2 * (cells + faces) + 2 * C * cells
+    return 4 * (n + (cells + faces if weighted else 0))
+
+
+def device_launches(torch, fn):
+    """The CUDA kernels one call of fn runs, from a torch.profiler window
+    (None where the profiler records no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
+
+
+def graph_ms(torch, fn, n):
+    """Mean milliseconds of fn replayed from a captured CUDA graph (as the
+    device driver's check graph runs it), over n replays after an eager run
+    and the capture."""
+    from dotsocp_tpu_torch.algorithms.graphs import SegmentGraphs
+
+    graphs = SegmentGraphs(DEVICE)
+    try:
+        with graphs.context():
+            graphs.run("battery", fn)
+            return event_ms(torch, lambda: graphs.run("battery", fn), n)
+    finally:
+        graphs.release()
+
+
+def time_kkt(torch):
+    """Phase 5b: the KKT battery's sums, one kernel pass (``kkt_sums``, as
+    the device driver's check graph launches it: the state's scalars read
+    from memory) against the plain battery (``_kkt_parts_plain``), at
+    ``KKT_SHAPES`` and weighted (love-heart) at 513^2 x 65, on a state 5 CA
+    iterations into the level; 20 launches a side, plain, kernel, kernel,
+    plain, then 20 replays of each from a captured graph. Every sum within
+    1e-5 of the plain one (the inner products of the sum of their terms'
+    magnitudes); the kernel's share of the one-pass bound, the device
+    kernels a battery runs (torch.profiler)."""
+    from dotsocp_tpu_torch.models import wdot2d as W
+    from dotsocp_tpu_torch.models.examples import get_example_2d
+    from dotsocp_tpu_torch.multilevel.level import initial_scaling, initialize
+
+    out = {}
+    for (nt, n), weighted in [(sh, False) for sh in KKT_SHAPES] + [
+            (KKT_SHAPES[0], True)]:
+        r0, r1 = get_example_2d("example2", n, n)
+        weight = (W.get_weight_by_barrier(n, n, nt, W.barrier_love_heart(),
+                                          dtype=torch.float32, device=DEVICE)
+                  if weighted else None)
+        lv = initialize(r0, r1, nt, dtype=torch.float32, device=DEVICE,
+                        weight=weight)
+        initial_scaling(lv, scaling=True)
+        kern = make_kernels(torch, lv)
+        s = kern.run_segment(kern.prep(lv.as_dict(), 1.0), 5)
+        ev = kern.e_scalars(s.D, s.E)
+        s = s.replace(ev=ev, E=ev.E, **{
+            f: torch.full((), float(getattr(s, f)), dtype=torch.float32,
+                          device=DEVICE) for f in ("sigma", "cScale",
+                                                   "dScale")})
+        require(kern.kkt_on_kernel(s), "the battery takes the plain route")
+        got, want = kern._kkt_parts(s), kern._kkt_parts_plain(s)
+        scale = dict(want, pri=s.q.map(torch.abs).dot(s.alpha.map(torch.abs)),
+                     dual=torch.sum(s.c.abs() * s.phi.abs()))
+        err = max(abs(float(got[k]) - float(want[k])) / float(scale[k])
+                  for k in want)
+        require(err <= 1e-5, f"battery sums {err:.2e} from the plain ones")
+        k_ms, p_ms = paired(torch, lambda: kern._kkt_parts_plain(s),
+                            lambda: kern._kkt_parts(s), 20)
+        kg_ms = graph_ms(torch, lambda: kern._kkt_parts(s), 20)
+        pg_ms = graph_ms(torch, lambda: kern._kkt_parts_plain(s), 20)
+        nbytes = kkt_bytes(lv.geom, weighted)
+        name = f"{n}^2 x {nt}" + (" weighted" if weighted else "")
+        row = {"ms": k_ms, "plain_ms": p_ms, "graph_ms": kg_ms,
+               "plain_graph_ms": pg_ms, "bytes": nbytes,
+               "bound_ms": bound_ms(nbytes), "max_rel_err": err,
+               "launches": device_launches(torch,
+                                           lambda: kern._kkt_parts(s)),
+               "plain_launches": device_launches(
+                   torch, lambda: kern._kkt_parts_plain(s))}
+        out[name] = row
+        log(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (from a "
+            f"graph {kg_ms:.4f} and {pg_ms:.4f} ms), "
+            f"{nbytes / 1e9:.3f} GB ({share(nbytes, k_ms)}; bound "
+            f"{row['bound_ms']} ms), {row['launches']} vs "
+            f"{row['plain_launches']} device kernels, sums within "
+            f"{err:.2e}")
+        del s, kern, lv, got, want
+        torch.cuda.empty_cache()
+    return out
 
 
 def time_dev_entries(torch, kern, s, reps):
@@ -4993,6 +5110,8 @@ def main(argv=None):
     others.update(sweep_others)
     others.update(time_weighted_iteration(torch))
     times_3d, library_3d, others_3d = time_scale_3d(torch)
+    phase("5b", "the KKT battery's sums at 513^2 x 65 and 129^2 x 33")
+    print(json.dumps({"kkt_battery": time_kkt(torch)}), flush=True)
     if args.profile is not None:
         phase(6, "profiler window")
         profile_window(torch, args.profile)

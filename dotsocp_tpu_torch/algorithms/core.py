@@ -20,7 +20,10 @@ profiler and sGS-inPALM's step run. The lockstep fleet
 leading axis (``segment_batched``: the batched forms of the x-carry
 kernels, the phi-step's rhs and DCT over the whole stack). The phi-step's
 right-hand side D A^T (w q - alpha) + c is one kernel on either path, and
-in every variant's step (``fused_step.phi_rhs``, from ``_rhs``).
+in every variant's step (``fused_step.phi_rhs``, from ``_rhs``). So are
+the sums of every variant's KKT check (``fused_step.kkt_sums``, from
+``_kkt_parts``); ``_kkt_parts_plain`` forms them on the CPU, in float64
+and on the "3d" and halo engines.
 
 The iteration state lives on the caller's device. Under the host driver
 the level scalars (sigma, cScale, dScale, norm_c, norm_d, D, E) are
@@ -80,10 +83,11 @@ from ..ops.cone import proj_soc
 from ..ops.engine import _INV_SQRT2, base_values, diag_values, make_ops
 from ..ops.fused_step import (WeightedDinv, beta_step, beta_step_plain,
                               cx_final, cx_final_batched, cx_step,
-                              cx_step_batched, phi_rhs, phi_rhs_plain,
-                              q_step, q_step_plain, qx_step, qx_step_batched,
-                              select_instance, times_dinv, weighted_dinv,
-                              x_step, x_step_batched, z_step, z_step_plain)
+                              cx_step_batched, kkt_sums, kkt_sums_on_kernel,
+                              phi_rhs, phi_rhs_plain, q_step, q_step_plain,
+                              qx_step, qx_step_batched, select_instance,
+                              times_dinv, weighted_dinv, x_step,
+                              x_step_batched, z_step, z_step_plain)
 from ..ops.geometry import Geometry
 from ..ops.staggered import Staggered
 from ..utils.norms import sqsum
@@ -599,8 +603,28 @@ class Kernels:
         return [self._kkt_from_sums(v, dict(zip(keys, row.unbind(0))))
                 for v, row in zip(views, tot.unbind(0))]
 
+    def kkt_on_kernel(self, s: SolverState) -> bool:
+        """Whether the battery's sums of ``s`` run the kernel
+        (``fused_step.kkt_sums``): on the flat engine's float32 CUDA
+        tensors. On the CPU, in float64 and on the "3d" and halo engines
+        :meth:`_kkt_parts_plain` runs."""
+        w = [] if self.weight is None else self.weight.tensors()
+        return kkt_sums_on_kernel(self.ops, s.phi, *s.q.tensors(), s.z,
+                                  *s.alpha.tensors(), s.beta, s.c, *w)
+
     def _kkt_parts(self, s: SolverState) -> dict:
-        """The KKT battery's sums over the rank's block (0-d tensors)."""
+        """The KKT battery's sums over the rank's block (0-d tensors): one
+        pass of ``fused_step.kkt_sums`` where :meth:`kkt_on_kernel`, else
+        :meth:`_kkt_parts_plain`; the same keys in the same order."""
+        if not self.kkt_on_kernel(s):
+            return self._kkt_parts_plain(s)
+        return kkt_sums(self.ops, s.phi, s.q, s.z, s.alpha, s.beta, s.c,
+                        self.weight, s.D, s.sigma, s.cScale, s.dScale, s.E,
+                        None if s.ev is None else s.ev.vec)
+
+    def _kkt_parts_plain(self, s: SolverState) -> dict:
+        """The KKT battery's sums over the rank's block (0-d tensors), in
+        PyTorch operations: the reference the kernel is held against."""
         ops = self.ops
 
         tmp_q = s.D * ops.grad(s.phi)

@@ -40,7 +40,10 @@ host sync happens inside a segment, and one happens per check.
 segment, and the check, sigma, rescale and averaging replays; on a solve
 that captures, its first eager runs and captures too), ``wait_s`` its
 seconds in the record reads, where it waits for the card. The rest of the
-level's ``time`` is the host's schedule and bookkeeping. The loop's steps
+level's ``time`` is the host's schedule and bookkeeping. ``checks`` counts
+the KKT checks, ``kkt_kernel_checks`` those whose battery ran its sums on
+the kernel (``Kernels.kkt_on_kernel``: the flat engine's float32 CUDA
+state), ``syncs`` the record reads. The loop's steps
 are spans of ``utils/trace.py`` (``dotsocp.driver.prepare``, ``.segment``,
 ``.check``, ``.record_read``, ``.rescale``, ``.finish``), which a running
 profiler shows.
@@ -492,6 +495,7 @@ class DeviceDriver:
             self._launch("check", self._check_block)
             rec = self._read_record()
             self.stats["checks"] += 1
+            self.stats["kkt_kernel_checks"] += self._kkt_on_kernel
             self.marks.append((int(rec["it"]), time.monotonic() - self.t0))
             h = self.h
             if int(rec["it"]) != h.it:
@@ -631,14 +635,16 @@ class DeviceDriver:
                 self.graphs = SegmentGraphs(self.device, eager=eager)
             self.graphs.capture_first = self.cached
             self.graphs.new_solve()
-            self.stats = {"syncs": 0, "checks": 0, "ratio_evals": 0,
-                          "chunk_cuts": 0, "launch_s": 0.0, "wait_s": 0.0}
+            self.stats = {"syncs": 0, "checks": 0, "kkt_kernel_checks": 0,
+                          "ratio_evals": 0, "chunk_cuts": 0, "launch_s": 0.0,
+                          "wait_s": 0.0}
             kept = None if self.s is None else {a: getattr(self, a)
                                                 for a in self.BUFFERS}
             self._init_state(var)
             self._init_loop()
             if kept is not None:
                 self._refill(kept)
+            self._kkt_on_kernel = self.k.kkt_on_kernel(self.s)
             if self.checkpoint_path:
                 self._resume()
             self.stats["prepare_s"] = time.perf_counter() - t0

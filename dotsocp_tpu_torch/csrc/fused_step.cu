@@ -16,6 +16,8 @@
 //   beta_step  beta' = beta + tau (z - BF_d q')
 //   cone_project_diff  z = Pi_K(z2 - beta) over a flat (C, M) view
 //   phi_rhs  rhs = D A^T (w q - alpha) + c    (the phi-step's right-hand side)
+//   kkt_sums the KKT battery's sums of squares and inner products, one pass
+//            (kkt_kernel) and a one-block reduction (kkt_finish)
 //
 // They replace the Pallas kernels x_kernel, qx_kernel, make_cx_kernel,
 // z_kernel, q_kernel and b_kernel of dotsocp_tpu/ops/pallas_kernels.py
@@ -27,7 +29,8 @@
 // versions do. phi_rhs (rhs_kernel) replaces no Pallas kernel: the JAX
 // package leaves the expression to one XLA fusion, which PyTorch runs as
 // ~20 small kernels (pads, differences, scalings) every iteration; it too
-// rounds as its plain version does.
+// rounds as its plain version does. Nor does kkt_sums, the battery every
+// KKT check forms (see kkt_kernel).
 //
 // Layout (flat, f32, contiguous): phi (nt, S); q0, alpha0 (nt-1, S); face
 // blocks bs, alpha_b (d, nt, S) with the ghost slot of each axis pinned to
@@ -543,6 +546,367 @@ __global__ void rhs_kernel(const float* __restrict__ q0,
   out[node] = __fadd_rn(__fmul_rn(D, acc), c[node]);
 }
 
+// -- the KKT battery's sums --------------------------------------------------
+//
+// kkt_kernel forms, in one pass over the state, every sum of squares and
+// inner product that Kernels._kkt_parts_plain (algorithms/core.py) forms
+// with ~300 PyTorch operations: the twelve sqsums of q, z, D grad phi,
+// alpha, beta, s_bf BF^T beta, the residuals D grad phi - w q, z - BF_d q,
+// D A^T alpha - c, s_bf BF^T beta + w alpha, z - Pi_K(z - sigma beta) and
+// phi; <q, alpha> and <c, phi>; and the original-DOT complementarity sums of
+// _dot_complement (rho_t - rho_fq, rho_t, rho_fq, and per space axis m_a,
+// rho_b,a and m_a - rho_b,a). It replaces no Pallas kernel: the JAX package
+// leaves the battery to XLA, which fuses it. Each element is formed in the
+// plain version's operation order, every float32 operation rounded on its
+// own (__f*_rn), the divisions by h as the float32 reciprocals PyTorch
+// multiplies by; only the sums differ: each square or product is formed and
+// accumulated in float64.
+//
+// Design: one thread per (t, s) node of a block's rows (s fastest, as the
+// step kernels), each thread walking ``rows`` consecutive time rows, so a
+// block re-reads its previous row's neighbours from L1. Stencil neighbours
+// (t +- 1, s +- k_a) come through L1/L2; each input array is read from HBM
+// about once (bytes at 513^2 x 65: 1.89 GB, the state phi, q, z, alpha,
+// beta, c; weighted 2.11 GB). The rho node and face interpolations are
+// linear in alpha.q0 (and w.q0), so they are formed from its neighbours and
+// need no temporary field. Each block reduces its threads' sums (warp
+// shuffles, then shared memory, in a fixed order) into one float64 row of
+// ``partial``; kkt_finish, one block, adds the rows in a fixed order and
+// writes the sums as float32. The grid depends only on (nt, S), so the sums
+// are bit-identical from run to run and between eager launches and graph
+// replays.
+
+// The sums in the order of Kernels._kkt_parts_plain's keys; after kFace0,
+// three per space axis a: m_a, rb_a, diff_a.
+enum KktSum {
+  kSumQ, kSumZ, kSumAphi, kSumAlpha, kSumBeta, kSumFbbeta, kSumPrim1,
+  kSumPrim2, kSumDual1, kSumDual2, kSumComplem, kSumPhi, kSumPri, kSumDual,
+  kSumDotcomplem, kSumRho, kSumRhoFq, kSumFace0
+};
+
+template <int DIM>
+__host__ __device__ constexpr int kkt_count() {
+  return kSumFace0 + 3 * DIM;
+}
+
+constexpr int kKktThreads = 256;
+// the grid aims at about this many blocks: rows = ceil(sblocks nt / this)
+constexpr int kKktBlocks = 1024;
+
+// The state's scalars, each by value or, where its pointer is not null,
+// from memory: sigma, cScale and dScale the 0-d tensors of the device
+// driver's state (or of a fleet's instance), ev the device driver's
+// E-derived vector (E, E/D, E/D/sqrt2, two diagonal values, 1/E:
+// algorithms/core.EScalars). The products the battery scales by, sd = E /
+// dScale, rs = sigma cScale D, dsd = dScale / D and dse = dScale / E, are
+// formed here as PyTorch forms them from 0-d tensors where their operands
+// are tensors, and come by value, formed in double on the host, where they
+// are floats: either way as the plain version rounds them. D, 1/D and 1/h_t
+// are the level's.
+struct KktScalars {
+  float sigma, cscale, e, sbf, sv, inv_e, sd, rs, dsd, dse, D, inv_D, inv_ht;
+  const float* sigma_at;
+  const float* cscale_at;
+  const float* dscale_at;
+  const float* ev_at;
+};
+
+__device__ __forceinline__ void add_sq(double& acc, float v) {
+  acc += (double)v * (double)v;
+}
+
+// The block's sums of acc[i] over its threads, in a fixed order; thread i
+// (i < NS) returns sum i. blockDim.x is kKktThreads.
+template <int NS>
+__device__ __forceinline__ double block_sum(double (&acc)[NS]) {
+  __shared__ double part[kKktThreads / 32][NS];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    double v = acc[i];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      v += __shfl_down_sync(0xffffffffu, v, off);
+    }
+    if (lane == 0) part[warp][i] = v;
+  }
+  __syncthreads();
+  double v = 0.0;
+  if (threadIdx.x < NS) {
+    for (int w = 0; w < kKktThreads / 32; ++w) v += part[w][threadIdx.x];
+  }
+  return v;
+}
+
+// rho_t = (sigma cScale D) (w alpha0) at cell (t, s); zero outside
+// 0 <= t < nt - 1 (the zero-padded ends of the time-node interpolation).
+template <bool W>
+__device__ __forceinline__ float rho_t_at(const float* __restrict__ a0,
+                                          const float* __restrict__ w0,
+                                          int t, int last, int64_t cell,
+                                          float rs) {
+  if (t < 0 || t >= last) return 0.f;
+  const float da = W ? __fmul_rn(w0[cell], a0[cell]) : a0[cell];
+  return __fmul_rn(rs, da);
+}
+
+// One node's (t, s) contributions to every sum: the node terms (phi, c,
+// D A^T alpha - c), the cell terms for t < nt - 1 (q0, alpha0, the cone
+// columns, rho), and the face terms of each axis.
+template <int DIM, bool W>
+__device__ __forceinline__ void kkt_node(
+    double (&acc)[kkt_count<DIM>()], const float* __restrict__ phi,
+    const float* __restrict__ q0, const float* __restrict__ qb,
+    const float* __restrict__ z, const float* __restrict__ a0,
+    const float* __restrict__ ab, const float* __restrict__ beta,
+    const float* __restrict__ c, const float* __restrict__ w0,
+    const float* __restrict__ wb, int nt, int S, const Axes<DIM>& ax, int t,
+    int s, float sigma, float sbf, float sv, float sd, float rs, float dsD,
+    float dsE, const KktScalars& sc) {
+  constexpr int C = 2 + 4 * DIM;
+  const int last = nt - 1;
+  const int64_t plane = (int64_t)last * S;
+  const int64_t nodes = (int64_t)nt * S;
+  const int64_t node = (int64_t)t * S + s;
+  const float D = sc.D;
+
+  // node terms
+  const float p = phi[node];
+  const float cn = c[node];
+  add_sq(acc[kSumPhi], p);
+  acc[kSumDual] += (double)cn * (double)p;
+  {
+    // D A^T alpha - c, as phi_rhs's plain version composes A^T
+    const float lo = t >= 1 ? a0[node - S] : 0.f;
+    const float hi = t < last ? a0[node] : 0.f;
+    float g = __fmul_rn(__fsub_rn(lo, hi), sc.inv_ht);
+#pragma unroll
+    for (int a = 0; a < DIM; ++a) {
+      const int64_t face = (int64_t)a * nodes + node;
+      const int k = ax.k[a];
+      const float prev = s >= k ? ab[face - k] : 0.f;
+      g = __fadd_rn(g, __fmul_rn(__fsub_rn(prev, ab[face]), ax.hs[a]));
+    }
+    add_sq(acc[kSumDual1], __fsub_rn(__fmul_rn(g, D), cn));
+  }
+
+  // cell terms: node (t, s) and cell (t, s) share the flat offset
+  if (t < last) {
+    const int64_t cell = node;
+    const float q = q0[cell];
+    const float al = a0[cell];
+    const float wq = W ? __fmul_rn(w0[cell], q) : q;
+    const float da = W ? __fmul_rn(w0[cell], al) : al;
+    add_sq(acc[kSumQ], q);
+    add_sq(acc[kSumAlpha], al);
+    acc[kSumPri] += (double)q * (double)al;
+    const float aphi =
+        __fmul_rn(__fmul_rn(__fsub_rn(phi[node + S], p), sc.inv_ht), D);
+    add_sq(acc[kSumAphi], aphi);
+    add_sq(acc[kSumPrim1], __fsub_rn(aphi, wq));
+
+    // z2 = BF_d q, column by column (ops/engine.OpsFlat.bfd), the cone
+    // terms, and v = z - sigma beta for the projection
+    const float sq = __fmul_rn(sbf, q);
+    float zc[C], v[C];
+    float b0 = 0.f, bl = 0.f, bsum = 0.f;
+#pragma unroll
+    for (int col = 0; col < C; ++col) {
+      float z2;
+      if (col == 0) {
+        z2 = __fsub_rn(sd, sq);
+      } else if (col == C - 1) {
+        z2 = __fadd_rn(sd, sq);
+      } else {
+        const int a = (col - 1) / 4;
+        const int j = (col - 1) % 4;       // t_lo x_lo, t_lo x_hi, t_hi ...
+        const int k = ax.k[a];
+        const int64_t row = cell + (j >= 2 ? S : 0);
+        const float* b = qb + (int64_t)a * nodes;
+        const float f = (j & 1) ? b[row] : (s >= k ? b[row - k] : 0.f);
+        z2 = __fmul_rn(sv, f);
+        const float u = __fmul_rn(dsE, z2);
+        bsum = col == 1 ? __fmul_rn(u, u) : __fadd_rn(bsum, __fmul_rn(u, u));
+      }
+      const float zv = z[col * plane + cell];
+      const float bv = beta[col * plane + cell];
+      if (col == 0) b0 = bv;
+      if (col == C - 1) bl = bv;
+      add_sq(acc[kSumZ], zv);
+      add_sq(acc[kSumBeta], bv);
+      add_sq(acc[kSumPrim2], __fsub_rn(zv, z2));
+      zc[col] = zv;
+      v[col] = __fsub_rn(zv, __fmul_rn(sigma, bv));
+    }
+    // z - Pi_K(z - sigma beta) (ops/cone.proj_soc)
+    {
+      float nrm2 = __fmul_rn(v[1], v[1]);
+#pragma unroll
+      for (int col = 2; col < C; ++col) {
+        nrm2 = __fadd_rn(nrm2, __fmul_rn(v[col], v[col]));
+      }
+      const float nrm = __fsqrt_rn(nrm2);
+      const float safe = nrm > 0.f ? nrm : 1.f;
+      const float coef = fminf(
+          fmaxf(__fmul_rn(0.5f, __fadd_rn(1.f, __fdiv_rn(v[0], safe))), 0.f),
+          1.f);
+      add_sq(acc[kSumComplem],
+             __fsub_rn(zc[0], fmaxf(v[0], __fmul_rn(coef, nrm))));
+#pragma unroll
+      for (int col = 1; col < C; ++col) {
+        add_sq(acc[kSumComplem], __fsub_rn(zc[col], __fmul_rn(coef, v[col])));
+      }
+    }
+    // s_bf BF^T beta at the cell (its q0 part) and + w alpha
+    const float fb = __fmul_rn(sbf, __fsub_rn(bl, b0));
+    add_sq(acc[kSumFbbeta], fb);
+    add_sq(acc[kSumDual2], __fadd_rn(fb, da));
+    // rho_t and rho_fq (_dot_complement)
+    const float rt = __fmul_rn(rs, da);
+    float rf = __fadd_rn(__fadd_rn(rt, __fmul_rn(dsD, q)),
+                         __fmul_rn(bsum, 0.25f));
+    rf = rf < 0.f ? 0.f : rf;  // torch.clamp(min=0): NaN stays NaN
+    add_sq(acc[kSumDotcomplem], __fsub_rn(rt, rf));
+    add_sq(acc[kSumRho], rt);
+    add_sq(acc[kSumRhoFq], rf);
+  }
+
+  // face terms of each axis (every node row, ghost slots included)
+  const float rn = __fmul_rn(0.5f, __fadd_rn(rho_t_at<W>(a0, w0, t - 1, last,
+                                                         node - S, rs),
+                                             rho_t_at<W>(a0, w0, t, last,
+                                                         node, rs)));
+#pragma unroll
+  for (int a = 0; a < DIM; ++a) {
+    const int k = ax.k[a];
+    const int n = ax.n[a];
+    const float m = ((s / k) % n) != n - 1 ? 1.f : 0.f;  // ghost mask
+    const bool in = s + k < S;                           // backward shift
+    const int64_t face = (int64_t)a * nodes + node;
+    const float qv = qb[face];
+    const float av = ab[face];
+    const float wv = W ? wb[face] : 1.f;
+    add_sq(acc[kSumQ], qv);
+    add_sq(acc[kSumAlpha], av);
+    acc[kSumPri] += (double)qv * (double)av;
+    const float ps = in ? phi[node + k] : 0.f;
+    const float aphi =
+        __fmul_rn(__fmul_rn(__fmul_rn(__fsub_rn(ps, p), ax.hs[a]), m), D);
+    add_sq(acc[kSumAphi], aphi);
+    add_sq(acc[kSumPrim1], __fsub_rn(aphi, W ? __fmul_rn(wv, qv) : qv));
+    // s_bf BF^T beta on the face: the zero-padded x_lo / x_hi column pairs
+    // of ops/engine.OpsFlat.bfd_T, summed left to right
+    const int c0 = 1 + 4 * a;
+    float y0 = 0.f, y1 = 0.f, y2 = 0.f, y3 = 0.f;
+    if (t < last) {
+      y0 = in ? beta[c0 * plane + node + k] : 0.f;
+      y1 = beta[(c0 + 1) * plane + node];
+    }
+    if (t >= 1) {
+      y2 = in ? beta[(c0 + 2) * plane + node - S + k] : 0.f;
+      y3 = beta[(c0 + 3) * plane + node - S];
+    }
+    const float fb = __fmul_rn(
+        __fmul_rn(sv, __fadd_rn(__fadd_rn(__fadd_rn(y0, y1), y2), y3)), m);
+    const float dab = W ? __fmul_rn(wv, av) : av;
+    add_sq(acc[kSumFbbeta], fb);
+    add_sq(acc[kSumDual2], __fadd_rn(fb, dab));
+    // rho on the face: the node value and its neighbour along a, times
+    // (dScale / D) q; m_a = (sigma cScale D) w alpha
+    float rnext = 0.f;
+    if (in) {
+      rnext = __fmul_rn(
+          0.5f, __fadd_rn(rho_t_at<W>(a0, w0, t - 1, last, node - S + k, rs),
+                          rho_t_at<W>(a0, w0, t, last, node + k, rs)));
+    }
+    const float rb = __fmul_rn(
+        __fmul_rn(dsD, __fmul_rn(0.5f, __fadd_rn(rn, rnext))), qv);
+    const float ma = __fmul_rn(rs, dab);
+    add_sq(acc[kSumFace0 + 3 * a], ma);
+    add_sq(acc[kSumFace0 + 3 * a + 1], rb);
+    add_sq(acc[kSumFace0 + 3 * a + 2], __fsub_rn(ma, rb));
+  }
+}
+
+// The sums of a block's nodes into its row of ``partial`` (kkt_count<DIM>
+// doubles); grid (ceil(S / 256), ceil(nt / rows)), rows time rows a block.
+template <int DIM, bool W>
+__global__ void __launch_bounds__(kKktThreads)
+kkt_kernel(const float* __restrict__ phi, const float* __restrict__ q0,
+           const float* __restrict__ qb, const float* __restrict__ z,
+           const float* __restrict__ a0, const float* __restrict__ ab,
+           const float* __restrict__ beta, const float* __restrict__ c,
+           const float* __restrict__ w0, const float* __restrict__ wb,
+           double* __restrict__ partial, int nt, int S, int rows,
+           const Axes<DIM> ax, const KktScalars sc) {
+  constexpr int NS = kkt_count<DIM>();
+  const float sigma = sc.sigma_at ? *sc.sigma_at : sc.sigma;
+  float e = sc.e, sbf = sc.sbf, sv = sc.sv, inv_e = sc.inv_e;
+  if (sc.ev_at) {
+    e = sc.ev_at[0];
+    sbf = sc.ev_at[1];
+    sv = sc.ev_at[2];
+    inv_e = sc.ev_at[5];
+  }
+  // from 0-d tensors PyTorch forms E / dScale as dScale's reciprocal times
+  // E, and divides by the floats D and E as products with their float32
+  // reciprocals
+  float rs = sc.rs, sd = sc.sd, dsD = sc.dsd, dsE = sc.dse;
+  if (sc.sigma_at || sc.cscale_at) {
+    const float cscale = sc.cscale_at ? *sc.cscale_at : sc.cscale;
+    rs = __fmul_rn(__fmul_rn(sigma, cscale), sc.D);
+  }
+  if (sc.dscale_at) {
+    const float dscale = *sc.dscale_at;
+    sd = __fmul_rn(__frcp_rn(dscale), e);
+    dsD = __fmul_rn(dscale, sc.inv_D);
+    dsE = __fmul_rn(dscale, inv_e);
+  }
+  double acc[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) acc[i] = 0.0;
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s < S) {
+    const int t0 = (int)blockIdx.y * rows;
+    const int t1 = min(nt, t0 + rows);
+    for (int t = t0; t < t1; ++t) {
+      kkt_node<DIM, W>(acc, phi, q0, qb, z, a0, ab, beta, c, w0, wb, nt, S,
+                       ax, t, s, sigma, sbf, sv, sd, rs, dsD, dsE, sc);
+    }
+  }
+  const double v = block_sum<NS>(acc);
+  if (threadIdx.x < NS) {
+    partial[(int64_t)(blockIdx.y * gridDim.x + blockIdx.x) * NS +
+            threadIdx.x] = v;
+  }
+}
+
+// The blocks' rows of ``partial`` added in a fixed order; out[i] the sum i
+// as a float32. One block of kKktThreads.
+template <int NS>
+__global__ void __launch_bounds__(kKktThreads)
+kkt_finish(const double* __restrict__ partial, int blocks,
+           float* __restrict__ out) {
+  double acc[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) acc[i] = 0.0;
+  for (int b = threadIdx.x; b < blocks; b += blockDim.x) {
+#pragma unroll
+    for (int i = 0; i < NS; ++i) acc[i] += partial[(int64_t)b * NS + i];
+  }
+  const double v = block_sum<NS>(acc);
+  if (threadIdx.x < NS) out[threadIdx.x] = (float)v;
+}
+
+// The battery's grid: (blocks along s, blocks along t, rows a block).
+inline void kkt_grid(int nt, int S, int& sblocks, int& tblocks, int& rows) {
+  sblocks = (S + kKktThreads - 1) / kKktThreads;
+  const int64_t want = ((int64_t)sblocks * nt + kKktBlocks - 1) / kKktBlocks;
+  rows = (int)(want < 1 ? 1 : (want > nt ? nt : want));
+  tblocks = (nt + rows - 1) / rows;
+}
+
 // (S / 256 blocks, rows, B instances)
 inline dim3 grid_for(int S, int rows, int B = 1) {
   return dim3((unsigned)((S + kThreads - 1) / kThreads), (unsigned)rows,
@@ -671,6 +1035,48 @@ int launch_rhs(const float* q0, const float* qb, const float* a0,
     case 3:
       rhs_kernel<3, WEIGHTED><<<grid, kThreads, 0, st>>>(
           q0, qb, a0, ab, c, w0, wb, out, nt, S, axes_for<3>(ax), D, inv_ht);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int DIM, bool W>
+void launch_kkt_dim(const float* phi, const float* q0, const float* qb,
+                    const float* z, const float* a0, const float* ab,
+                    const float* beta, const float* c, const float* w0,
+                    const float* wb, double* partial, float* out, int nt,
+                    int S, const AxesIn& ax, const KktScalars& sc,
+                    cudaStream_t st) {
+  int sblocks, tblocks, rows;
+  kkt_grid(nt, S, sblocks, tblocks, rows);
+  kkt_kernel<DIM, W><<<dim3(sblocks, tblocks), kKktThreads, 0, st>>>(
+      phi, q0, qb, z, a0, ab, beta, c, w0, wb, partial, nt, S, rows,
+      axes_for<DIM>(ax), sc);
+  kkt_finish<kkt_count<DIM>()><<<1, kKktThreads, 0, st>>>(
+      partial, sblocks * tblocks, out);
+}
+
+template <bool W>
+int launch_kkt(const float* phi, const float* q0, const float* qb,
+               const float* z, const float* a0, const float* ab,
+               const float* beta, const float* c, const float* w0,
+               const float* wb, double* partial, float* out, int dim, int nt,
+               int S, const AxesIn& ax, const KktScalars& sc, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dim) {
+    case 1:
+      launch_kkt_dim<1, W>(phi, q0, qb, z, a0, ab, beta, c, w0, wb, partial,
+                           out, nt, S, ax, sc, st);
+      break;
+    case 2:
+      launch_kkt_dim<2, W>(phi, q0, qb, z, a0, ab, beta, c, w0, wb, partial,
+                           out, nt, S, ax, sc, st);
+      break;
+    case 3:
+      launch_kkt_dim<3, W>(phi, q0, qb, z, a0, ab, beta, c, w0, wb, partial,
+                           out, nt, S, ax, sc, st);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -953,6 +1359,51 @@ int dotsocp_phi_rhs(const float* q0, const float* qb, const float* a0,
   }
   return launch_rhs<false>(q0, qb, a0, ab, c, nullptr, nullptr, out, B, dim,
                            nt, S, ax, D, iht, stream);
+}
+
+// The number of float64 rows (one a block) the KKT battery's ``partial``
+// workspace needs for (nt, S); each row holds the battery's 17 + 3 d sums.
+int dotsocp_kkt_blocks(int nt, int S) {
+  int sblocks, tblocks, rows;
+  kkt_grid(nt, S, sblocks, tblocks, rows);
+  return sblocks * tblocks;
+}
+
+// The KKT battery's 17 + 3 d sums into out (float32), through the
+// workspace ``partial`` of ``partial_rows`` rows (dotsocp_kkt_blocks); w0 /
+// wb null for an unweighted level. ih0..ih2 and iht are 1/h_a and 1/h_t as
+// float32 reciprocals, inv_D = 1/D likewise. The state's scalars as
+// KktScalars takes them: sigma, cScale, E, sbf, sv, 1/E, sd, rs, dsd and
+// dse by value, and the pointers sigma_at, cscale_at, dscale_at and ev_at
+// (E, sbf, sv and 1/E at offsets 0, 1, 2 and 5), each null or replacing
+// its values. A d < 3 launch passes k 0, n 1 and ih 1 for the axes it
+// lacks.
+int dotsocp_kkt_sums(const float* phi, const float* q0, const float* qb,
+                     const float* z, const float* a0, const float* ab,
+                     const float* beta, const float* c, const float* w0,
+                     const float* wb, double* partial, int partial_rows,
+                     float* out, int dim, int nt, int S, int k0, int k1,
+                     int k2, int n0, int n1, int n2, float ih0, float ih1,
+                     float ih2, float iht, float D, float inv_D, float sigma,
+                     float cscale, float e, float sbf, float sv, float inv_e,
+                     float sd, float rs, float dsd, float dse,
+                     const float* sigma_at, const float* cscale_at,
+                     const float* dscale_at, const float* ev_at,
+                     void* stream) {
+  if (nt < 2 || S < 1 || partial_rows < dotsocp_kkt_blocks(nt, S)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const AxesIn ax = make_axes(k0, k1, k2, n0, n1, n2, ih0, ih1, ih2);
+  const KktScalars sc{sigma,  cscale, e,         sbf,       sv,
+                      inv_e,  sd,     rs,        dsd,       dse,
+                      D,      inv_D,  iht,       sigma_at,  cscale_at,
+                      dscale_at, ev_at};
+  if (w0 != nullptr) {
+    return launch_kkt<true>(phi, q0, qb, z, a0, ab, beta, c, w0, wb, partial,
+                            out, dim, nt, S, ax, sc, stream);
+  }
+  return launch_kkt<false>(phi, q0, qb, z, a0, ab, beta, c, nullptr, nullptr,
+                           partial, out, dim, nt, S, ax, sc, stream);
 }
 
 }  // extern "C"

@@ -64,6 +64,14 @@ SOURCES = {
         # unweighted), (B, dim, nt, S, k0..k2), D and the reciprocal
         # spacings 1/h_t, 1/h_0..1/h_2
         "dotsocp_phi_rhs": [_P] * 8 + [_I] * 7 + [_F] * 5 + [_P],
+        # the KKT battery's sums: the workspace's rows for (nt, S); then ten
+        # arrays (the weight's two null when unweighted), the workspace and
+        # its rows, out, (dim, nt, S, k0..k2, n0..n2), the reciprocal
+        # spacings, D and 1/D, ten scalars by value and four addresses that
+        # replace some of them (null: the values)
+        "dotsocp_kkt_blocks": [_I, _I],
+        "dotsocp_kkt_sums": [_P] * 11 + [_I, _P] + [_I] * 9 + [_F] * 16
+                            + [_P] * 5,
     },
     "sgs_sweep.cu": {
         # (dim, nt, n0..n2): the sizes of the space axes

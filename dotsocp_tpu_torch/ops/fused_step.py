@@ -1,8 +1,9 @@
 """The post-DCT step kernels of the inPALM / ALG2 step, each beside its
 plain PyTorch version: the x-carry segment's three, the single step's three
 (which sGS-inPALM's step runs after its sweep), and the cone projection
-that closes every acc-ADMM step; and the phi-step's right-hand side, which
-every method forms before its DCT solve or sweep.
+that closes every acc-ADMM step; the phi-step's right-hand side, which
+every method forms before its DCT solve or sweep; and the KKT battery's
+sums, which every check forms.
 
 Inside a segment the z slot of the state carries x = z + beta: the q-step
 only consumes z + beta, so one cone read replaces two, and the CA kernel
@@ -30,6 +31,8 @@ beta_step          ``make_fused_flat_step.beta_step`` / b_kernel 2.23 GB
 cone_project_diff  ``cone_project_diff_pallas`` / its kernel     2.02 GB
 phi_rhs            none: XLA fuses it; PyTorch ran ~20 kernels   0.545 GB
                    (pads, differences, scalings); weighted       0.750 GB
+kkt_sums           none: XLA fuses the battery; PyTorch ran      1.89 GB
+                   ~300 kernels a check; weighted                2.11 GB
 =================  ============================================  ==========
 
 Each kernel is one streaming pass over HBM, so bytes moved bound it on the
@@ -78,6 +81,19 @@ card, the divisions by h as PyTorch's multiplications by the float32
 reciprocal, and is bit-equal to it there. It takes any leading instance
 axes (the lockstep fleet's stack) in one launch.
 
+The KKT battery's sums (``kkt_sums``: the 17 + 3 d sums of squares and
+inner products of ``Kernels._kkt_parts_plain``, under its keys,
+:func:`kkt_keys`) are one pass over the state and a one-block reduction,
+routed as the rhs is (:func:`kkt_sums_on_kernel`: the flat engine's
+float32 CUDA tensors). Every element is rounded as the plain version
+rounds it; the sums are taken in float64 in a fixed order, so they repeat
+bit for bit and differ from PyTorch's float32 sums only in rounding. The
+state's scalars sigma, cScale and dScale are floats or one-element float32
+tensors, each read by value or from memory on its own, and the device
+driver's E-derived vector is read from memory (``_kkt_scalars``), so a
+captured check graph serves every rescale and problem. ``LAUNCHES`` keys
+``kkt_sums`` and ``kkt_sums_w`` (weighted) count a battery (two kernels).
+
 Batched forms (the lockstep fleet, ``parallel/batch.py``):
 ``x_step_batched``, ``qx_step_batched``, ``cx_step_batched`` and
 ``cx_final_batched`` take B instances stacked on a leading axis (phi
@@ -116,7 +132,7 @@ LAUNCHES = {"x_step": 0, "qx_step": 0, "qx_step_w": 0, "cx_step": 0,
             "cx_final": 0, "z_step": 0, "q_step": 0, "q_step_w": 0,
             "beta_step": 0, "cone_project_diff": 0, "x_step_b": 0,
             "qx_step_b": 0, "cx_step_b": 0, "cx_final_b": 0, "phi_rhs": 0,
-            "phi_rhs_w": 0}
+            "phi_rhs_w": 0, "kkt_sums": 0, "kkt_sums_w": 0}
 
 
 def reset_launches() -> None:
@@ -558,6 +574,117 @@ def phi_rhs(ops, q: Staggered, alpha: Staggered, c, D: float,
             c.data_ptr(), w0, wb, out.data_ptr(), B, d, nt, S, *k, float(D),
             *inv)
     return out
+
+
+# -- the KKT battery's sums ----------------------------------------------------
+
+# the sums of ``Kernels._kkt_parts_plain`` (``algorithms/core.py``) in its
+# order; then m, rb and diff of each space axis (:func:`kkt_keys`)
+KKT_KEYS = ("q", "z", "aphi", "alpha", "beta", "fbbeta", "prim1", "prim2",
+            "dual1", "dual2", "complem", "phi", "pri", "dual", "dotcomplem",
+            "rho", "rhoFq")
+
+
+def kkt_keys(d: int) -> tuple:
+    """The battery's sums, in order, on a grid of ``d`` space axes."""
+    return KKT_KEYS + tuple(f"{k}{a}" for a in range(d)
+                            for k in ("m", "rb", "diff"))
+
+
+def kkt_sums_on_kernel(ops, *tensors) -> bool:
+    """Whether :func:`kkt_sums` takes a state of these tensors: the flat
+    engine's float32 CUDA tensors (``_use_kernel``, which raises for mixed
+    dtypes and the like). The CPU, float64 (the refine tail) and the "3d"
+    and halo engines keep the plain sums (``Kernels._kkt_parts_plain``)."""
+    return ops.layout == "flat" and _use_kernel(*tensors)
+
+
+def _state_scalar(what: str, v, like: torch.Tensor):
+    """(value, address) of one of the state's scalars: a Python float by
+    value, a one-element float32 tensor on ``like``'s device (the device
+    driver's, or an instance of a fleet's) by address."""
+    if not isinstance(v, torch.Tensor):
+        return float(v), None
+    if v.device != like.device or v.dtype != torch.float32 or v.numel() != 1:
+        raise ValueError(f"kkt_sums: {what} must be a float or a one-element "
+                         f"float32 tensor on {like.device}; got {v.dtype} "
+                         f"{tuple(v.shape)} on {v.device}")
+    return 0.0, v.data_ptr()
+
+
+def _kkt_scalars(like, D: float, sigma, cScale, dScale, E, ev) -> list:
+    """The kernel's scalar arguments (``KktScalars``): values, then the
+    addresses of the tensors among sigma, cScale, dScale and ``ev``. The
+    products the battery scales by (E / dScale, sigma cScale D, dScale / D,
+    dScale / E) are formed here in double where their operands are floats,
+    as the plain version forms them, and by the kernel from the tensors
+    where they are not."""
+    sig, sig_at = _state_scalar("sigma", sigma, like)
+    csc, csc_at = _state_scalar("cScale", cScale, like)
+    dsc, dsc_at = _state_scalar("dScale", dScale, like)
+    if ev is None:
+        if isinstance(E, torch.Tensor):
+            raise ValueError("kkt_sums: a tensor E comes with its ev vector")
+        sbf = E / D
+        e_vals, ev_at = [E, sbf, sbf * _INV_SQRT2, _reciprocal_f32(E)], None
+    else:
+        if ev.device != like.device or ev.dtype != torch.float32 \
+                or ev.numel() < 6 or not ev.is_contiguous() or dsc_at is None:
+            raise ValueError("kkt_sums: ev must be the device driver's "
+                             "contiguous float32 E-derived vector on the "
+                             "fields' device, beside a tensor dScale")
+        e_vals, ev_at = [0.0] * 4, ev.data_ptr()
+    rs = sig * csc * D if sig_at is None and csc_at is None else 0.0
+    if dsc_at is None:
+        derived = [E / dsc, rs, dsc / D, dsc / E]
+    else:
+        derived = [0.0, rs, 0.0, 0.0]
+    return [sig, csc, *e_vals, *derived, sig_at, csc_at, dsc_at, ev_at]
+
+
+def kkt_sums(ops, phi, q: Staggered, z, alpha: Staggered, beta, c,
+             weight: Staggered, D: float, sigma, cScale, dScale, E,
+             ev=None) -> dict:
+    """The KKT battery's sums over the field (``Kernels._kkt_parts_plain``'s
+    dict, the same keys in the same order, 0-d float32 tensors) in one
+    launch of ``kkt_kernel`` and its one-block ``kkt_finish``, on the flat
+    engine's float32 CUDA tensors (:func:`kkt_sums_on_kernel`). Each
+    element is rounded as the plain version rounds it; the squares and
+    products are summed in float64, in a fixed order, so the sums differ
+    from PyTorch's float32 ones only in rounding and repeat bit for bit.
+    sigma, cScale and dScale are floats or one-element tensors; ``ev`` is
+    the device driver's E-derived vector (``core.EScalars.vec``: E, E/D,
+    E/D/sqrt2 at 0, 1, 2 and 1/E at 5) read from memory, or None for the
+    float E."""
+    g = ops.geom
+    d, nt, S, k, n, hs = _dims(ops)
+    _check_shape(phi, (nt, S), "phi")
+    _check_shape(c, (nt, S), "c")
+    _check_stag(ops, q)
+    _check_stag(ops, alpha)
+    _check_cone(ops, z, beta)
+    if weight is not None:
+        _check_stag(ops, weight)
+    if isinstance(D, torch.Tensor):
+        raise ValueError("kkt_sums: D goes to the kernel by value, a Python "
+                         "float (the level's, fixed for a captured graph)")
+    scal = _kkt_scalars(phi, D, sigma, cScale, dScale, E, ev)
+    lib = _build.library()
+    rows = lib.dotsocp_kkt_blocks(nt, S)
+    keys = kkt_keys(d)
+    partial = torch.empty((rows, len(keys)), dtype=torch.float64,
+                          device=phi.device)
+    out = torch.empty(len(keys), dtype=torch.float32, device=phi.device)
+    w0, wb = (None, None) if weight is None else (weight.q0.data_ptr(),
+                                                  weight.bs.data_ptr())
+    inv = [_reciprocal_f32(h) for h in hs + [g.ht, D]]
+    _launch(LAUNCHES, "kkt_sums" if weight is None else "kkt_sums_w",
+            lib.dotsocp_kkt_sums, phi.device, phi.data_ptr(),
+            q.q0.data_ptr(), q.bs.data_ptr(), z.data_ptr(),
+            alpha.q0.data_ptr(), alpha.bs.data_ptr(), beta.data_ptr(),
+            c.data_ptr(), w0, wb, partial.data_ptr(), rows, out.data_ptr(),
+            d, nt, S, *k, *n, *inv[:4], float(D), inv[4], *scal)
+    return dict(zip(keys, out.unbind(0)))
 
 
 # -- batched forms: B instances in one launch --------------------------------

@@ -256,7 +256,9 @@ class BatchedDeviceDriver:
             record=torch.zeros(len(RECORD), dtype=torch.float64, device=dev))
         # the host's mirror of the schedule
         self.h_it, self.h_last, self.h_done = 0, -(10 ** 9), False
-        self.stats = {"syncs": 0, "checks": 0, "chunk_cuts": 0}
+        self.stats = {"syncs": 0, "checks": 0, "kkt_kernel_checks": 0,
+                      "chunk_cuts": 0}
+        self._kkt_on_kernel = self.k.kkt_on_kernel(instance(bstate, 0))
         self.t0 = time.monotonic()
 
     def _all_tensors(self) -> list:
@@ -389,6 +391,7 @@ class BatchedDeviceDriver:
             rec = dict(zip(RECORD, self.ls.record.tolist()))
         self.stats["syncs"] += 1
         self.stats["checks"] += 1
+        self.stats["kkt_kernel_checks"] += self._kkt_on_kernel
         if int(rec["it"]) != self.h_it:
             raise RuntimeError(f"lockstep fleet: the card's iteration "
                                f"{int(rec['it'])} is not the host's "

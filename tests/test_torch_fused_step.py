@@ -263,4 +263,5 @@ def test_launch_counter_reset():
                                 "cx_final", "z_step", "q_step", "q_step_w",
                                 "beta_step", "cone_project_diff", "x_step_b",
                                 "qx_step_b", "cx_step_b", "cx_final_b",
-                                "phi_rhs", "phi_rhs_w"}
+                                "phi_rhs", "phi_rhs_w", "kkt_sums",
+                                "kkt_sums_w"}
