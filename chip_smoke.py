@@ -215,7 +215,12 @@ the device driver (CUDA-graph segments, ``algorithms/device_driver.py``).
    total within +-10% of ``FLEET_ANCHOR``, each instance's rho within
    ``FLEET_GAP`` of the one-process lockstep run's, the batched kernels
    launched on every rank; the same fleet in float64 exactly
-   ``FLEET_ANCHOR_F64``'s.
+   ``FLEET_ANCHOR_F64``'s; 10g, ``make_sharded_step`` over a ("batch",)
+   mesh, fleet_bench's first 4 problems at 129^2 x 33 on the flat
+   engine, 3 steps: each rank's gathered steps within 1e-5 of its own
+   ``run_one`` of each instance (relative to each field's largest entry),
+   and the rhs, z-, q- and beta-step kernels launched once a step for
+   each of the rank's instances.
 
 11. The solver cache (``opts["reuse_solvers"]``, default on, and
    ``opts["prewarm"]``; every phase starts with the cache empty). 11a: the
@@ -236,35 +241,14 @@ the device driver (CUDA-graph segments, ``algorithms/device_driver.py``).
    solve. Phases 8c and 8d run the sequential fleet on the cache
    (instance 0 prewarmed), from an empty cache each.
 
-12. The shaped engine (``opts={"layout": "3d"}``, ``ops/engine.Ops3D``),
-   float32, tol 1e-4 unless said, each solve counted from 0, every level's
-   stop residuals below its tolerance, mass conservation, graphs replayed,
-   and no kernel of the flat layout launched (the inPALM family runs its
-   plain steps there, as the JAX package does). 12a: the headline (470-574
-   iterations, no kernel launched), its per-level counts beside a flat
-   solve's of this phase, the L1 distance of the two rho as a record, its
-   wall and busy share beside the flat walls of this phase and phase 4.
-   12b: sGS-inPALM 129^2 x 33 within +-10% of ``SGS_ANCHOR``, rb_sweep
-   once an sGS iteration. 12c: acc-ADMM and acc-sGS-ADMM at example2
-   65^2 x 17 within +-10% of ``VARIANT_ANCHORS``, cone_project_diff once
-   an acc iteration. 12d: the scale config within +-10% of 407, its cold
-   and warm walls, peak memory and busy share beside phase 9a's. 12e: weighted inPALM,
-   love-heart 65^2 x 33, 2 levels, tol 1e-3: no density in the eroded
-   barrier. 12f: the 3D gaussian 33^3 x 17 within +-10% of 1,978. 12g:
-   the native golden kernels (``dotsocp_tpu_torch/native``, CPU, float64)
-   against the card at 129^2 x 33: the shaped bfd, bfd_T and proj_soc in
-   float64 within 1e-12; the sweep kernel's float32 output (two sweeps,
-   D = 0.83) within rtol 2e-5 / atol 2e-6 of native.rb_sgs rounded; then
-   the sweep and the cone projection on the shaped fields against their
-   plain versions (the cone projection bit-equal). 12h: the fleet on
-   '3d', fleet_bench's eight problems at 129^2 x 33: lockstep (the stacked
-   plain step) within +-10% of ``FLEET_ANCHOR``, sequential within +-10% of
-   phase 8c's flat sequential total and each rho within 8c's bound of the
-   '3d' lockstep's, both with every instance done, graphs replayed and no
-   kernel launched; then ``make_sharded_step`` with '3d' kernels over a
-   ("batch",) mesh of 2 ranks sharing the card (gloo), 4 instances, 3
-   steps, each within 1e-5 of ``run_one``'s (relative to each field's
-   largest entry).
+12. The native oracle: the golden kernels (``dotsocp_tpu_torch/native``,
+   CPU, float64) against the card at 129^2 x 33 through the shaped engine
+   ``ops/engine.Ops3D``, which no solver runs (a solve asked for
+   ``layout="3d"`` runs the flat engine): the shaped bfd, bfd_T and
+   proj_soc in float64 within 1e-12; the sweep kernel's float32 output
+   (two sweeps, D = 0.83) within rtol 2e-5 / atol 2e-6 of native.rb_sgs
+   rounded; then the sweep and the cone projection on the shaped fields
+   against their plain versions (the cone projection bit-equal).
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on the main path: the sum over every solve and profile of phases
@@ -276,10 +260,9 @@ with its launches summed over the 3D solves of phase 4f; the batched
 kernels' launches summed over the lockstep solves of phases 8c and 8d,
 their times at B = 8 x 129^2 x 33, beside B single launches, and under
 ``b32_65x17`` at B = 32 x 65^2 x 17; every kernel's
-``phase9_launches`` summed over phase 9's runs, ``layout3d_launches``
-over phase 12's "3d" solves; phase 10's figures under ``multi_device``,
-phase 11's under ``solver_cache``, phase 12's under ``layout_3d``); the
-last line is
+``phase9_launches`` summed over phase 9's runs; phase 10's figures under
+``multi_device``, phase 11's under ``solver_cache``, phase 12's under
+``native_oracle``); the last line is
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero before printing any result.
@@ -3162,10 +3145,9 @@ def fleet_replays(torch):
     return out
 
 
-def lockstep(torch, r0, r1, nt, levels, tol, method="inPALM", dtype=None,
-             **opts):
-    """One ``solve_fleet(mode="lockstep")`` (float32 unless ``dtype``; more
-    ``opts`` if given) with its loops under ``set_sync_debug_mode("error")``
+def lockstep(torch, r0, r1, nt, levels, tol, method="inPALM", dtype=None):
+    """One ``solve_fleet(mode="lockstep")`` (float32 unless ``dtype``) with
+    its loops under ``set_sync_debug_mode("error")``
     (the one record read a check allowed): (result, wall s, launches
     counted from 0, peak GiB)."""
     from dotsocp_tpu_torch.parallel.batch import (BatchedDeviceDriver,
@@ -3176,7 +3158,7 @@ def lockstep(torch, r0, r1, nt, levels, tol, method="inPALM", dtype=None,
     BatchedDeviceDriver.sync_debug = "error"
     try:
         t0 = time.monotonic()
-        out = solve_fleet(r0, r1, nt, dict(opts, tol=tol, maxit=3000),
+        out = solve_fleet(r0, r1, nt, {"tol": tol, "maxit": 3000},
                           method, dtype=dtype or torch.float32,
                           level_n=levels, mode="lockstep", verbose=False,
                           device=DEVICE)
@@ -3193,16 +3175,16 @@ def lockstep(torch, r0, r1, nt, levels, tol, method="inPALM", dtype=None,
     return out, wall, launch_counts(), peak
 
 
-def sequential(torch, r0, r1, nt, levels, tol, **opts):
-    """One ``solve_fleet(mode="sequential")`` (more ``opts`` if given) from
-    an empty solver cache (instance 0 prewarms the levels, the others
-    replay them): (result, wall s, peak GiB, the cache's GiB after it)."""
+def sequential(torch, r0, r1, nt, levels, tol):
+    """One ``solve_fleet(mode="sequential")`` from an empty solver cache
+    (instance 0 prewarms the levels, the others replay them): (result,
+    wall s, peak GiB, the cache's GiB after it)."""
     from dotsocp_tpu_torch.parallel.batch import solve_fleet
 
     cold_memory(torch)
     base = torch.cuda.memory_allocated()
     t0 = time.monotonic()
-    out = solve_fleet(r0, r1, nt, dict(opts, tol=tol, maxit=3000),
+    out = solve_fleet(r0, r1, nt, {"tol": tol, "maxit": 3000},
                       "inPALM", dtype=torch.float32, level_n=levels,
                       mode="sequential", verbose=False, device=DEVICE)
     torch.cuda.synchronize()
@@ -3754,6 +3736,9 @@ DIST_ACC = ("DOTmark_4stitch", 129, 33, 100)
 # the one-process lockstep fleet against sequential solves differs by up to
 # 1.4e-2 on rho (FLEET_REL_JAX, phase 8c): the sharded fleet is held to it
 FLEET_GAP = 1.4e-2
+# 10g: make_sharded_step over a ("batch",) mesh of the 2-rank world:
+# (instances, steps) at FLEET's grid
+DIST_SHARDED = (4, 3)
 # 10f: the batch x spatial fleet on a (batch=2, y=2) mesh of the 4-rank
 # world. At full width, two instances of fleet_problems at the scale
 # config (513^2 x 65, 3 levels, tol 1e-4, float32): DOTmark 4-stitch and
@@ -4078,11 +4063,94 @@ def _rank_fleet(n, nt, levels, tol, dtype_name):
                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
 
 
-def _world_b(scale):
-    """The 2-rank world: 10b, then 10c in float32 and in float64."""
+def _sharded_state(torch, B):
+    """(the flat engine's kernels, the stacked float32 state) of the finest
+    level of fleet_bench's first B problems after InitialScaling, sigma 1,
+    on the card."""
+    from dotsocp_tpu_torch.algorithms.core import Kernels, LevelConfig
+    from dotsocp_tpu_torch.multilevel.level import initial_scaling, initialize
+    from dotsocp_tpu_torch.parallel.batch import stack_states
+
+    n, nt = FLEET[:2]
+    r0, r1 = fleet_problems(n)
+    lvs = []
+    for a, b in zip(r0[:B], r1[:B]):
+        lv = initialize(a, b, nt, dtype=torch.float32, device=DEVICE)
+        initial_scaling(lv, scaling=True)
+        lvs.append(lv)
+    kern = Kernels(LevelConfig(geom=lvs[0].geom, D=lvs[0].D, E=lvs[0].E,
+                               device=DEVICE, dtype=torch.float32))
+    return kern, stack_states([kern.prep(lv.as_dict(), 1.0) for lv in lvs])
+
+
+def _rank_sharded(B, steps):
+    """10g on one rank: ``make_sharded_step`` over the world's ("batch",)
+    mesh, ``steps`` steps of B instances, against this rank's own
+    ``run_one`` steps of each instance alone. Returns the largest gap a
+    field relative to its largest entry, whether every field is
+    bit-equal, and the launches of the sharded steps."""
+    import torch
+
+    from dotsocp_tpu_torch.algorithms.core import instance
+    from dotsocp_tpu_torch.parallel.sharding import (make_mesh,
+                                                     make_sharded_step)
+
+    kern, state = _sharded_state(torch, B)
+    step = make_sharded_step(kern, make_mesh(axis_names=("batch",)))
+    reset_launch_counts()
+    got = state
+    for _ in range(steps):
+        got = step(got)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in launch_counts().items() if v}
+    # an instance's scalars are 0-d tensors, its E-derived ones beside them
+    ev = kern.e_scalars(state.D, state.E)
+    pairs, gaps, equal = [], {}, True
+    for b in range(B):
+        want = instance(state, b).replace(ev=ev, E=ev.E)
+        for _ in range(steps):
+            want = kern.run_one(want)
+        mine = instance(got, b)
+        pairs += [(f, getattr(mine, f), getattr(want, f))
+                  for f in ("phi", "z", "beta")]
+        pairs += [(f"q[{i}]", a, w) for i, (a, w) in
+                  enumerate(zip(mine.q.blocks(), want.q.blocks()))]
+    for f, a, w in pairs:
+        equal = equal and bool(torch.equal(a, w))
+        gap = float((a - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        gaps[f] = max(gaps.get(f, 0.0), gap)
+    return dict(gaps=gaps, bit_equal=equal, launches=launches)
+
+
+def _sharded_check(ranks, world):
+    """10g's checks: each rank's gathered steps within 1e-5 of its own
+    ``run_one`` of each instance (relative to each field's largest
+    entry), and the inPALM step's kernels (the rhs, z-, q- and
+    beta-step) launched once a step for each of the rank's instances."""
+    B, steps = DIST_SHARDED
+    mine = B // world * steps
+    for r, rec in enumerate(ranks):
+        log(f"  10g sharded step, rank {r} of a ('batch',) mesh of {world} "
+            f"({DIST_LABEL}), {B} x {FLEET[0]}^2 x {FLEET[1]}, {steps} "
+            f"steps against run_one: bit-equal {rec['bit_equal']}, largest "
+            f"gap relative to each field's largest entry "
+            f"{ {k: f'{v:.2e}' for k, v in rec['gaps'].items()} }, "
+            f"launches {rec['launches']}")
+        require(max(rec["gaps"].values()) <= 1e-5, f"10g rank {r}: the "
+                f"sharded step differs from run_one by {rec['gaps']}")
+        for k in ("phi_rhs", "z_step", "q_step", "beta_step"):
+            require(rec["launches"].get(k, 0) == mine, f"10g rank {r}: {k} "
+                    f"launched {rec['launches'].get(k, 0)} times, not "
+                    f"{mine}")
+    return ranks
+
+
+def _world_b(scale, sharded):
+    """The 2-rank world: 10b, then 10c in float32 and in float64, then
+    10g."""
     fleet = FLEET
     return (_rank_solve(*scale), _rank_fleet(*fleet, "float32"),
-            _rank_fleet(*fleet, "float64"))
+            _rank_fleet(*fleet, "float64"), _rank_sharded(*sharded))
 
 
 def multi_device(torch):
@@ -4154,7 +4222,7 @@ def multi_device(torch):
     require(all(v < DIST_HEADLINE[4] for v in rec["stops"]),
             f"10a stops {rec['stops']}")
     # every kernel inPALM runs reads neighbouring cells: under a mesh they
-    # all run plain on the block (ROADMAP.md queue 2 item 10)
+    # all run plain on the block (ROADMAP.md queue 6 item 10)
     require(all(not o["launches"] for o in own), "10a: a kernel that reads "
             "neighbouring cells was launched under the halo engine")
     res["headline"] = dict(rec, total=total, ranks=own,
@@ -4188,8 +4256,8 @@ def multi_device(torch):
 
     t0 = time.monotonic()
     stol = DIST_SCALE[4]
-    ranks = run_world(_world_b, 2, (DIST_SCALE,), backend="gloo",
-                      device=DEVICE, timeout=DIST_TIMEOUT)
+    ranks = run_world(_world_b, 2, (DIST_SCALE, DIST_SHARDED),
+                      backend="gloo", device=DEVICE, timeout=DIST_TIMEOUT)
     world_b_s = time.monotonic() - t0
     # 10b
     recs = [r[0][0] for r in ranks]
@@ -4261,6 +4329,8 @@ def multi_device(torch):
             require(all(not x["launches"] for x in got),
                     "10c float64: a kernel was launched")
         res[f"fleet_{which}"] = entry
+    # 10g
+    res["sharded_step"] = _sharded_check([r[3] for r in ranks], 2)
     res["world_b_s"] = world_b_s
     return res
 
@@ -4507,418 +4577,20 @@ def solver_cache(torch):
     return out
 
 
-# -- phase 12: the shaped engine (layout "3d") -----------------------------------
+# -- phase 12: the native oracle ------------------------------------------
 
-# the kernels that run on the "3d" layout: the sweep on the shaped phi, the
-# cone projection on the shaped z; every other kernel takes the flat layout
-LAYOUT3D_KERNELS = ("rb_sweep", "cone_project_diff")
-LAYOUT3D = {"layout": "3d"}
-# 12e: love-heart (n, nt, levels, tol); 12g: the oracle's grid and sweep
-LAYOUT3D_WEIGHTED = (65, 33, 2, 1e-3)
+# the oracle's grid, and its sweep's D and sweeps
 ORACLE = (33, 129)
 ORACLE_D, ORACLE_ITS = 0.83, 2
-# 12h's sharded step: (instances, ranks, steps) at FLEET's grid
-LAYOUT3D_SHARDED = (4, 2, 3)
 
 
-def solve_3d_layout(torch, what, r0, r1, nt, levels, tol, method="inPALM",
-                    weight=None, barrier=None, **opts):
-    """One float32 ``layout="3d"`` solve on the card, every launch count set
-    to 0 just before: the shape and finiteness of rho, mass conservation,
-    every level's stop residual below ``tol``, no kernel of the flat layout
-    launched. Returns (output, launches, wall s, peak GiB)."""
-    from dotsocp_tpu_torch.multilevel.solve import solve_dot
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    t0 = time.monotonic()
-    out, _, _ = solve_dot(r0, r1, nt, levels,
-                          dict(LAYOUT3D, tol=tol, **opts), method, weight,
-                          barrier, device=DEVICE, dtype=torch.float32,
-                          verbose=False)
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    iters = [lv["iters"] for lv in out["levels"]]
-    weighted = weight is not None
-    stops = [stop_residual(lv, weighted) for lv in out["levels"]]
-    replays = sum(lv["driver"]["replays"] for lv in out["levels"])
-    log(f"  {what} on '3d': iterations {iters} ({sum(iters)}) in "
-        f"{wall:.3f} s, stop residuals {[f'{x:.2e}' for x in stops]}, mass_ok "
-        f"{out['mass_ok']}, graph replays {replays}, peak {peak:.3f} GiB; "
-        f"launches { {k: v for k, v in launches.items() if v} }")
-    rho = out["rho"]
-    require(tuple(rho.shape) == (nt,) + tuple(r0.shape),
-            f"{what}: rho shape {tuple(rho.shape)}")
-    require(bool(torch.isfinite(rho).all()), f"{what}: non-finite density")
-    require(out["mass_ok"], f"{what} on '3d': mass conservation violated")
-    for lv, stop in zip(out["levels"], stops):
-        require(stop < tol, f"{what} on '3d' level {lv['level']} stopped at "
-                f"KKT {stop:.3e}")
-    for k, n in launches.items():
-        require(k in LAYOUT3D_KERNELS or n == 0, f"{what} on '3d': {k} "
-                f"launched {n} times (a kernel of the flat layout)")
-    require(replays > 0, f"{what} on '3d': no piece replayed from a graph")
-    return out, launches, wall, peak
-
-
-def layout3d_headline(torch, flat_wall):
-    """12a: the headline on '3d' beside the flat headline of this phase and
-    phase 4's wall."""
-    from dotsocp_tpu_torch.models.examples import get_example_2d
-    from dotsocp_tpu_torch.multilevel.solve import solve_dot
-
-    r0, r1 = get_example_2d("DOTmark_4stitch", 129, 129)
-    out, launches, wall, _ = solve_3d_layout(torch, "headline 129^2 x 33",
-                                             r0, r1, 33, 3, 1e-4)
-    iters = [lv["iters"] for lv in out["levels"]]
-    total = sum(iters)
-    require(470 <= total <= 574, f"'3d' headline: total iterations {total} "
-            f"outside 470-574")
-    require(not any(launches.values()), "the '3d' headline launched a "
-            "kernel (inPALM runs its plain steps there)")
-    rho3d = out["rho"]
-    del out
-
-    def solve(layout):
-        res = solve_dot(r0, r1, 33, 3, {"tol": 1e-4, "layout": layout},
-                        device=DEVICE, dtype=torch.float32, verbose=False)
-        torch.cuda.synchronize()
-        return res
-
-    clear_cache()
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    flat, _, _ = solve("flat")
-    flat_now = time.monotonic() - t0
-    flat_iters = [lv["iters"] for lv in flat["levels"]]
-    # the L1 distance over the unit space-time box: the mean over the grid
-    l1 = float((rho3d - flat["rho"]).abs().mean())
-    del flat
-    clear_cache()
-    kernel_ms, busy = device_busy(torch, lambda: solve("3d"), wall)
-    log(f"  per level: '3d' {iters}, flat {flat_iters}; L1 distance of the "
-        f"two rho {l1:.3e} (a record, not a gate)")
-    log(f"  wall: '3d' {wall:.3f} s (device busy {busy:.0f}%, "
-        f"{kernel_ms:.1f} ms of kernels in a second, profiled run), flat "
-        f"{flat_now:.3f} s here and {flat_wall:.3f} s in phase 4; '3d' / flat "
-        f"{wall / flat_now:.2f}")
-    return launches, dict(iters=iters, total=total, wall_s=wall,
-                          flat_iters=flat_iters, flat_wall_s=flat_now,
-                          phase4_flat_wall_s=flat_wall,
-                          ratio_to_flat=wall / flat_now, busy_pct=busy,
-                          kernel_ms=kernel_ms, rho_l1_to_flat=l1)
-
-
-def layout3d_sgs(torch):
-    """12b: sGS-inPALM 129^2 x 33 on '3d': the sweep kernel once an sGS
-    iteration, the counts within +-10% of SGS_ANCHOR."""
-    from dotsocp_tpu_torch.models.examples import get_example_2d
-
-    r0, r1 = get_example_2d("DOTmark_4stitch", 129, 129)
-    out, launches, wall, _ = solve_3d_layout(torch, "sGS-inPALM 129^2 x 33",
-                                             r0, r1, 33, 3, 1e-4,
-                                             "sGS-inPALM")
-    iters = [lv["iters"] for lv in out["levels"]]
-    require_band("'3d' sGS-inPALM", iters, SGS_ANCHOR)
-    require(launches["rb_sweep"] == iters[-1], f"'3d' sGS-inPALM: rb_sweep "
-            f"launched {launches['rb_sweep']} times, not once per sGS "
-            f"iteration ({iters[-1]})")
-    return launches, dict(iters=iters, wall_s=wall,
-                          rb_sweep=launches["rb_sweep"])
-
-
-def layout3d_acc(torch):
-    """12c: acc-ADMM and acc-sGS-ADMM at example2 65^2 x 17 on '3d': the
-    cone projection once an acc iteration, the sweep once an sGS one, each
-    count within +-10% of its JAX float64 count."""
-    from dotsocp_tpu_torch.models.examples import get_example_2d
-
-    r0, r1 = get_example_2d("example2", 65, 65)
-    total_launches, results = {}, {}
-    for method in ("acc-ADMM", "acc-sGS-ADMM"):
-        out, launches, wall, _ = solve_3d_layout(
-            torch, f"{method} example2 65^2 x 17", r0, r1, 17, 2, 1e-4,
-            method)
-        iters = [lv["iters"] for lv in out["levels"]]
-        require_band(f"'3d' {method}", iters, VARIANT_ANCHORS[method])
-        acc = acc_iterations(method, out)
-        require(launches["cone_project_diff"] == acc, f"'3d' {method}: "
-                f"cone_project_diff launched {launches['cone_project_diff']} "
-                f"times, not once per acc iteration ({acc})")
-        if "sGS" in method:
-            require(launches["rb_sweep"] == iters[-1], f"'3d' {method}: "
-                    f"rb_sweep launched {launches['rb_sweep']} times, not "
-                    f"once per sGS iteration ({iters[-1]})")
-        results[method] = dict(iters=iters, wall_s=wall,
-                               cone_launches=launches["cone_project_diff"])
-        add_counts(total_launches, launches)
-    return total_launches, results
-
-
-def layout3d_scale(torch, flat):
-    """12d: the scale config (DOTmark 513^2 x 65, 3 levels) on '3d' beside
-    phase 9a's flat run, like for like: the cold solve (the cache empty)
-    beside the demo's, then a warm solve (a cache hit) and the busy share
-    of a second, profiled warm solve beside 9a's ``solve_dot``."""
-    from dotsocp_tpu_torch.models.examples import get_example_2d
-    from dotsocp_tpu_torch.multilevel.solve import solve_dot
-
-    n, nt, levels, tol = SCALE_CONFIG
-    r0, r1 = get_example_2d("DOTmark_4stitch", n, n)
-    torch.cuda.empty_cache()
-    out, launches, cold, peak = solve_3d_layout(
-        torch, f"scale config {n}^2 x {nt}", r0, r1, nt, levels, tol,
-        maxit=3000)
-    iters = [lv["iters"] for lv in out["levels"]]
-    del out
-    require_band("'3d' scale config", iters, (SCALE_ANCHOR,))
-
-    def solve():
-        solve_dot(r0, r1, nt, levels, dict(LAYOUT3D, tol=tol, maxit=3000),
-                  device=DEVICE, dtype=torch.float32, verbose=False)
-        torch.cuda.synchronize()
-
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    solve()
-    warm = time.monotonic() - t0
-    kernel_ms, busy = device_busy(torch, solve, warm)
-    log(f"  '3d' scale config: cold {cold:.3f} s (phase 9a's demo, cold, "
-        f"with its report: {flat['demo_wall_s']:.3f} s), warm {warm:.3f} s "
-        f"at {busy:.0f}% busy (9a's solve_dot, warm: {flat['wall_s']:.3f} s "
-        f"at {flat['busy_pct']:.0f}%), '3d' / flat warm "
-        f"{warm / flat['wall_s']:.2f}; peak {peak:.3f} GiB (9a "
-        f"{flat['peak_gib']:.3f} GiB)")
-    return launches, dict(iters=iters, total=sum(iters), cold_wall_s=cold,
-                          wall_s=warm, peak_gib=peak, busy_pct=busy,
-                          kernel_ms=kernel_ms,
-                          flat_demo_wall_s=flat["demo_wall_s"],
-                          flat_wall_s=flat["wall_s"],
-                          flat_peak_gib=flat["peak_gib"],
-                          flat_busy_pct=flat["busy_pct"])
-
-
-def layout3d_weighted(torch):
-    """12e: weighted inPALM, love-heart 65^2 x 33, on '3d': no density
-    inside the eroded barrier."""
-    from scipy.ndimage import binary_erosion
-
-    from dotsocp_tpu_torch.models import wdot2d as W
-
-    n, nt, levels, tol = LAYOUT3D_WEIGHTED
-    barrier = W.barrier_love_heart()
-    r0, r1 = W.get_example_w2d("love-heart", n, n)
-    r0, r1, mask = W.ensure_barrier_validity(r0, r1, barrier)
-    weight = W.get_weight_by_barrier(n, n, nt, barrier, dtype=torch.float32,
-                                     device=DEVICE)
-    out, launches, wall, _ = solve_3d_layout(
-        torch, f"weighted inPALM love-heart {n}^2 x {nt}", r0, r1, nt,
-        levels, tol, "inPALM", weight, barrier)
-    interior = torch.as_tensor(binary_erosion(mask, iterations=2),
-                               device=out["rho"].device)
-    leak = float(out["rho"][:, interior].abs().max())
-    log(f"  max |rho| inside the eroded barrier {leak:.3e}")
-    require(leak < 0.1, f"'3d' weighted: density {leak:.3e} inside the "
-            f"barrier")
-    return launches, dict(iters=[lv["iters"] for lv in out["levels"]],
-                          wall_s=wall, barrier_max_rho=leak)
-
-
-def layout3d_gaussian(torch):
-    """12f: the 3D gaussian at the demo_dot3d default (33^3 x 17, 2 levels)
-    on '3d', within +-10% of DEMO_3D_ANCHORS' 1,978."""
-    from dotsocp_tpu_torch.models.examples import get_example_3d
-
-    n, nt, levels = DEMO_3D
-    r0, r1 = get_example_3d("gaussian", n, n, n)
-    out, launches, wall, peak = solve_3d_layout(
-        torch, f"3D gaussian {n}^3 x {nt}", r0, r1, nt, levels, 1e-4)
-    iters = [lv["iters"] for lv in out["levels"]]
-    require_band("'3d' 3D gaussian", iters, DEMO_3D_ANCHORS["gaussian"])
-    return launches, dict(iters=iters, wall_s=wall, peak_gib=peak)
-
-
-def layout3d_fleet(torch, flat):
-    """12h: fleet_bench's fleet (``FLEET``) on '3d': lockstep (the stacked
-    plain step, one graph a piece) against FLEET_ANCHOR, every instance
-    done, graphs replayed and no kernel launched; sequential (``solve_dot``
-    a problem on the cache) the same, its total within +-10% of phase
-    8c's flat sequential fleet (``flat``: 8c's result) and each rho
-    within 8c's bound of the '3d' lockstep's."""
-    import numpy as np
-
-    from dotsocp_tpu_torch.multilevel.level import mass_error
-
-    n, nt, levels, tol = FLEET
-    r0, r1 = fleet_problems(n)
-    out, wall, launches, peak = lockstep(torch, r0, r1, nt, levels, tol,
-                                         **LAYOUT3D)
-    done_it = [int(v) for v in out["done_it"]]
-    stops = out["kkt"][:, [0, 2, 5, 6]].max(axis=1)
-    masses = [mass_error(out["rho"][b]) for b in range(FLEET_B)]
-    replays = sum(lv["driver"]["replays"] for lv in out["levels"])
-    log(f"  lockstep on '3d': iterations per level "
-        f"{[lv['iters'] for lv in out['levels']]}, total {out['iters']} "
-        f"(anchor {FLEET_ANCHOR['iters']}; flat, phase 8c: "
-        f"{flat['iters']}), done_it {done_it}, wall {wall:.3f} s "
-        f"({FLEET_B / wall:.3f} instances/s; flat {flat['wall_s']:.3f} s), "
-        f"peak {peak:.3f} GiB, graph replays {replays}, launches "
-        f"{ {k: v for k, v in launches.items() if v} }")
-    require(tuple(out["rho"].shape) == (FLEET_B, nt, n, n),
-            f"'3d' lockstep: rho shape {tuple(out['rho'].shape)}")
-    require(bool(torch.isfinite(out["rho"]).all()),
-            "'3d' lockstep: non-finite density")
-    require(bool(out["done"].all()), f"'3d' lockstep: not every instance "
-            f"done: {out['done']}")
-    require(bool((stops < tol).all()), f"'3d' lockstep: stop residuals "
-            f"{stops}")
-    require(all(m <= 1e-2 for m in masses), f"'3d' lockstep: mass errors "
-            f"{masses}")
-    require(abs(out["iters"] - FLEET_ANCHOR["iters"])
-            <= 0.1 * FLEET_ANCHOR["iters"], f"'3d' lockstep: iters "
-            f"{out['iters']} not within 10% of {FLEET_ANCHOR['iters']}")
-    require(replays > 0, "'3d' lockstep: no piece replayed from a graph")
-    require(not any(launches.values()), f"'3d' lockstep launched "
-            f"{launches} (inPALM runs its plain step there)")
-    reset_launch_counts()
-    seq, seq_wall, seq_peak, _ = sequential(torch, r0, r1, nt, levels, tol,
-                                            **LAYOUT3D)
-    seq_launches = launch_counts()
-    seq_replays = sum(lv["driver"]["replays"] for inst in seq["levels"]
-                      for lv in inst)
-    rel = [float(torch.linalg.norm(seq["rho"][b] - out["rho"][b])
-                 / torch.linalg.norm(out["rho"][b])) for b in range(FLEET_B)]
-    bound = [max(1e-2, 1.1 * r) for r in FLEET_REL_JAX]
-    log(f"  sequential on '3d': final-level iterations "
-        f"{[int(v) for v in seq['done_it']]}, total {seq['iters']} (flat, "
-        f"phase 8c: {flat['seq_iters']}), wall {seq_wall:.3f} s "
-        f"({FLEET_B / seq_wall:.3f} instances/s; flat "
-        f"{flat['seq_wall_s']:.3f} s), peak {seq_peak:.3f} GiB, graph "
-        f"replays {seq_replays}; rho against the '3d' lockstep, relative "
-        f"{', '.join(f'{v:.2e}' for v in rel)}")
-    require(bool(np.all(seq["done"])), f"'3d' sequential: not every "
-            f"instance done: {seq['done']}")
-    require(abs(seq["iters"] - flat["seq_iters"])
-            <= 0.1 * flat["seq_iters"], f"'3d' sequential: iters "
-            f"{seq['iters']} not within 10% of the flat {flat['seq_iters']}")
-    require(seq_replays > 0, "'3d' sequential: no piece replayed from a "
-            "graph")
-    require(not any(seq_launches.values()), f"'3d' sequential launched "
-            f"{seq_launches}")
-    require(all(r < b for r, b in zip(rel, bound)), f"'3d' sequential rho "
-            f"differs from the '3d' lockstep's by {rel}, bounds {bound}")
-    res = dict(iters=out["iters"], done_it=done_it,
-               level_iters=[lv["iters"] for lv in out["levels"]],
-               wall_s=wall, instances_per_s=FLEET_B / wall, peak_gib=peak,
-               replays=replays, flat_iters=flat["iters"],
-               flat_wall_s=flat["wall_s"], seq_iters=seq["iters"],
-               seq_done_it=[int(v) for v in seq["done_it"]],
-               seq_wall_s=seq_wall, seq_instances_per_s=FLEET_B / seq_wall,
-               seq_peak_gib=seq_peak, seq_replays=seq_replays,
-               flat_seq_iters=flat["seq_iters"],
-               flat_seq_wall_s=flat["seq_wall_s"], rho_rel_seq=rel)
-    del out, seq
-    torch.cuda.empty_cache()
-    return res
-
-
-def layout3d_state(torch, B):
-    """(kernels of the '3d' layout, the stacked float32 state) of the
-    finest level of fleet_bench's first B problems after InitialScaling,
-    sigma 1, on the card."""
-    from dotsocp_tpu_torch.algorithms.core import Kernels, LevelConfig
-    from dotsocp_tpu_torch.multilevel.level import initial_scaling, initialize
-    from dotsocp_tpu_torch.parallel.batch import stack_states
-
-    n, nt = FLEET[:2]
-    r0, r1 = fleet_problems(n)
-    lvs = []
-    for a, b in zip(r0[:B], r1[:B]):
-        lv = initialize(a, b, nt, dtype=torch.float32, device=DEVICE)
-        initial_scaling(lv, scaling=True)
-        lvs.append(lv)
-    kern = Kernels(LevelConfig(geom=lvs[0].geom, D=lvs[0].D, E=lvs[0].E,
-                               device=DEVICE, dtype=torch.float32,
-                               layout="3d"))
-    return kern, stack_states([kern.prep(lv.as_dict(), 1.0) for lv in lvs])
-
-
-def _rank_sharded_3d(B, steps):
-    """12h on one rank: ``make_sharded_step`` with '3d' kernels over the
-    world's ("batch",) mesh, ``steps`` steps of B instances, against this
-    rank's own ``run_one`` steps of each instance alone. Returns the
-    largest gap a field relative to its largest entry, whether every field
-    is bit-equal, and the launches of the sharded steps."""
-    import torch
-
-    from dotsocp_tpu_torch.algorithms.core import instance
-    from dotsocp_tpu_torch.parallel.sharding import (make_mesh,
-                                                     make_sharded_step)
-
-    kern, state = layout3d_state(torch, B)
-    step = make_sharded_step(kern, make_mesh(axis_names=("batch",)))
-    reset_launch_counts()
-    got = state
-    for _ in range(steps):
-        got = step(got)
-    torch.cuda.synchronize()
-    launches = {k: v for k, v in launch_counts().items() if v}
-    pairs, gaps, equal = [], {}, True
-    for b in range(B):
-        want = instance(state, b)
-        for _ in range(steps):
-            want = kern.run_one(want)
-        mine = instance(got, b)
-        for f in ("phi", "z", "beta"):
-            a, w = getattr(mine, f), getattr(want, f)
-            pairs.append((f, a, w))
-        pairs += [(f"q[{i}]", a, w) for i, (a, w) in
-                  enumerate(zip(mine.q.blocks(), want.q.blocks()))]
-    for f, a, w in pairs:
-        equal = equal and bool(torch.equal(a, w))
-        gap = float((a - w).abs().max()) / max(float(w.abs().max()), 1e-30)
-        gaps[f] = max(gaps.get(f, 0.0), gap)
-    return dict(gaps=gaps, bit_equal=equal, launches=launches)
-
-
-def layout3d_sharded(torch):
-    """12h: ``make_sharded_step`` with kernels of the '3d' layout on a
-    ("batch",) mesh of LAYOUT3D_SHARDED's ranks sharing the card (a
-    spawned gloo world): each rank's gathered steps against its own
-    ``run_one`` of each instance, within 1e-5 of each field's largest
-    entry."""
-    from dotsocp_tpu_torch.parallel.launch import run_world
-
-    B, world, steps = LAYOUT3D_SHARDED
-    t0 = time.monotonic()
-    ranks = run_world(_rank_sharded_3d, world, (B, steps), backend="gloo",
-                      device=DEVICE, timeout=DIST_TIMEOUT)
-    wall = time.monotonic() - t0
-    for r, rec in enumerate(ranks):
-        log(f"  sharded step on '3d', rank {r} of a ('batch',) mesh of "
-            f"{world} ({DIST_LABEL}), {B} x {FLEET[0]}^2 x {FLEET[1]}, "
-            f"{steps} steps against run_one: bit-equal {rec['bit_equal']}, "
-            f"largest gap relative to each field's largest entry "
-            f"{ {k: f'{v:.2e}' for k, v in rec['gaps'].items()} }, "
-            f"launches {rec['launches']}")
-        require(max(rec["gaps"].values()) <= 1e-5, f"12h rank {r}: the "
-                f"sharded '3d' step differs from run_one by {rec['gaps']}")
-        require(not rec["launches"], f"12h rank {r}: the sharded '3d' "
-                f"inPALM step launched {rec['launches']}")
-    log(f"  the world took {wall:.1f} s")
-    return dict(world_s=wall, ranks=ranks)
-
-
-def layout3d_oracle(torch):
-    """12g: the native golden kernels (CPU, float64) against the card. On
+def native_oracle(torch):
+    """Phase 12: the native golden kernels (CPU, float64) against the card. On
     seeded inputs at 129^2 x 33: the shaped bfd, bfd_T and the plain
     proj_soc in float64 on the card within 1e-12; the sweep kernel's
     float32 output (two sweeps, D = 0.83, tests/test_native.py:59-66)
     within rtol 2e-5 / atol 2e-6 of native.rb_sgs in float64, rounded.
-    Then the two kernels of this layout against their plain versions on
+    Then the sweep and the cone projection against their plain versions on
     the shaped fields: the sweep within the same tolerance, the cone
     projection bit-equal. Returns {kernel: largest error}."""
     import numpy as np
@@ -4951,7 +4623,7 @@ def layout3d_oracle(torch):
     def gap(name, got, want, tol):
         err = float((got.cpu() - want).abs().max())
         errs[name] = err
-        require(err <= tol, f"12g {name}: {err:.3e} from the native kernel "
+        require(err <= tol, f"12 {name}: {err:.3e} from the native kernel "
                 f"(tolerance {tol:g})")
 
     sbf, sd = 0.63, 1.7
@@ -4971,7 +4643,7 @@ def layout3d_oracle(torch):
     excess = float(((swept.cpu() - gold).abs()
                     - (ATOL + RTOL * gold.abs())).max())
     errs["rb_sweep vs native"] = float((swept.cpu() - gold).abs().max())
-    require(excess <= 0, f"12g: the sweep kernel "
+    require(excess <= 0, f"12: the sweep kernel "
             f"{errs['rb_sweep vs native']:.3e} from native.rb_sgs beyond "
             f"rtol {RTOL:g} / atol {ATOL:g}")
     cmp = Compare(torch)
@@ -4984,39 +4656,6 @@ def layout3d_oracle(torch):
     log(f"  against native (float64, CPU): "
         f"{ {k: f'{v:.2e}' for k, v in errs.items()} }")
     return errs
-
-
-def layout_3d(torch, card, headline, scale, fleet):
-    """Phase 12: the shaped engine end to end, on the card ``card`` (its
-    nvidia-smi name and power limit, printed beside the phase's figures);
-    ``headline``, ``scale`` and ``fleet`` are phases 4's, 9a's and 8c's
-    flat results. Returns (the launches of the '3d' solves of 12a-12f,
-    summed, each solve counted from 0; the results, the native oracle's
-    and the kernels' largest errors under ``oracle``)."""
-    log(f"  card (name, power limit): {card}")
-    launches, results = {}, {"card": card}
-    steps = (("headline", lambda: layout3d_headline(torch,
-                                                    headline["wall_s"])),
-             ("sgs_path", lambda: layout3d_sgs(torch)),
-             ("acc", lambda: layout3d_acc(torch)),
-             ("scale_513x65", lambda: layout3d_scale(torch, scale)),
-             ("weighted", lambda: layout3d_weighted(torch)),
-             ("gaussian_33x3x17", lambda: layout3d_gaussian(torch)))
-    for key, run in steps:
-        clear_cache()
-        counts, results[key] = run()
-        add_counts(launches, counts)
-        torch.cuda.empty_cache()
-    clear_cache()
-    results["oracle"] = layout3d_oracle(torch)
-    log(f"  '3d' launches {launches}")
-    results["fleet"] = layout3d_fleet(torch, fleet)
-    clear_cache()
-    results["sharded_step"] = layout3d_sharded(torch)
-    for k in LAYOUT3D_KERNELS:
-        require(launches.get(k, 0) > 0, f"{k} was launched no time on the "
-                f"'3d' path")
-    return launches, results
 
 
 def main(argv=None):
@@ -5143,17 +4782,16 @@ def main(argv=None):
     phase(10, "multi-device: the comm layer, the headline on a (y=2, x=2) "
           "mesh, acc-ADMM on it, the batch x spatial fleet on a (batch=2, "
           "y=2) mesh, the scale config on a (y=2,) mesh, the fleet sharded "
-          "over 2 ranks; " + DIST_LABEL)
+          "over 2 ranks, the sharded step on a (batch=2,) mesh; "
+          + DIST_LABEL)
     multi = multi_device(torch)
     phase(11, "the solver cache: the headline twice, two problems under one "
           "key, prewarm, the scale config twice")
     cache = solver_cache(torch)
-    phase(12, "the shaped engine, layout '3d': the headline, the sGS path, "
-          "acc-ADMM and acc-sGS-ADMM, the scale config, weighted inPALM, the "
-          "3D gaussian; the native oracle against the card; the fleet and "
-          "the sharded step")
-    launches_3dl, layout3d = layout_3d(torch, card, headline,
-                                       user["scale_513x65"], fleet["solve"])
+    phase(12, "the native oracle: the shaped engine's operators and the "
+          "sweep kernel against the golden kernels")
+    log(f"  card (name, power limit): {card}")
+    oracle = dict(native_oracle(torch), card=card)
     log(f"\nall phases passed in {time.monotonic() - t_start:.1f} s")
 
     nbytes = all_bytes(Geometry(SCALE[0], (SCALE[1], SCALE[1])))
@@ -5174,8 +4812,6 @@ def main(argv=None):
         "library_ms": library.get(k),
         # summed over phase 9's solves, each counted from 0
         "phase9_launches": launches_9.get(k, 0),
-        # summed over phase 12's layout "3d" solves, each counted from 0
-        "layout3d_launches": launches_3dl.get(k, 0),
         # the DIM = 3 form at the 3D scale level; its launches on the 3D
         # path (phase 4f), its error over the 3D check shapes
         "dim3": {
@@ -5208,7 +4844,6 @@ def main(argv=None):
         "bound_by": "bytes",
         "library_ms": None,
         "phase9_launches": launches_9.get(k, 0),
-        "layout3d_launches": launches_3dl.get(k, 0),
         "singles_ms": t8[k][2],
         "b32_65x17": {"ms": t32[k][0], "plain_ms": t32[k][1],
                       "singles_ms": t32[k][2], "bytes": bytes32[k],
@@ -5226,7 +4861,7 @@ def main(argv=None):
                       "sweep_max_abs_by_shape": SWEEP_ERRS,
                       "device_driver": device_driver, "fleet": fleet,
                       "user_problems": user, "multi_device": multi,
-                      "solver_cache": cache, "layout_3d": layout3d}))
+                      "solver_cache": cache, "native_oracle": oracle}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}))

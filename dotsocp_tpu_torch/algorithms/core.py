@@ -23,7 +23,7 @@ right-hand side D A^T (w q - alpha) + c is one kernel on either path, and
 in every variant's step (``fused_step.phi_rhs``, from ``_rhs``). So are
 the sums of every variant's KKT check (``fused_step.kkt_sums``, from
 ``_kkt_parts``); ``_kkt_parts_plain`` forms them on the CPU, in float64
-and on the "3d" and halo engines.
+and on the halo engine.
 
 The iteration state lives on the caller's device. Under the host driver
 the level scalars (sigma, cScale, dScale, norm_c, norm_d, D, E) are
@@ -47,22 +47,22 @@ most 1 ulp in the scalars the device driver updates on the card.)
 The variables alpha, beta, c are stored pre-divided by sigma, exactly like
 the reference (``solver_socp_inPALM.m:102-104``).
 
-``LevelConfig.layout`` names the engine of one process: "flat" (the
-default) or "3d", the shaped engine (``ops/engine.Ops3D``), on which every
-field keeps its grid axes and the face blocks are a tuple. The single-step
-and x-carry kernels take the flat layout, so on "3d" the inPALM family
-runs their plain versions (``Kernels.plain``), as the JAX ``Kernels`` fuses
-only on "flat" (``dotsocp_tpu/algorithms/core.py:160-168``); the sGS
-sweep and the acc methods' cone projection run their kernels on the shaped
-fields.
+On one process every level runs the flat engine (``ops/engine.OpsFlat``).
+The JAX package's second engine of one process, its shaped ``"3d"``
+layout, has its counterpart in ``ops/engine.Ops3D``, which the tests and
+the native check hold the flat engine to; a solve asked for ``"3d"`` runs
+flat (:func:`warn_single_process_layout`) and takes the same iterations.
+Which version of a step each wrapper runs, kernel or plain, is decided in
+one place, ``fused_step.on_kernel``.
 
 Under a mesh (``LevelConfig.mesh``, ``dotsocp_tpu/algorithms/core.py:
 114-149``) the level's engine is the halo engine and each tensor is one
 rank's block (``ops/halo_engine.py``). The steps whose kernels read
 neighbouring cells (the single-step and x-carry kernels, the sGS sweep)
-run their plain versions on the block, as the JAX package launches no
-Pallas kernel there (``dotsocp_tpu/multilevel/solve.py:228``); the cone
-projection, pointwise, runs its kernel on the block as on one process.
+run their plain versions on the block (``fused_step.on_kernel``), as the
+JAX package launches no Pallas kernel there
+(``dotsocp_tpu/multilevel/solve.py:228``); the cone projection, pointwise,
+runs its kernel on the block as on one process.
 Every norm and dot product of a check sums its block's part over the mesh,
 all of them in one collective (``_mesh_sums``), so every rank holds the
 same KKT values. A fleet's level runs on its batch row of the mesh
@@ -74,6 +74,7 @@ leading axes), and a check sums every instance's parts in one collective
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -83,11 +84,11 @@ from ..ops.cone import proj_soc
 from ..ops.engine import _INV_SQRT2, base_values, diag_values, make_ops
 from ..ops.fused_step import (WeightedDinv, beta_step, beta_step_plain,
                               cx_final, cx_final_batched, cx_step,
-                              cx_step_batched, kkt_sums, kkt_sums_on_kernel,
-                              phi_rhs, phi_rhs_plain, q_step, q_step_plain,
-                              qx_step, qx_step_batched, select_instance,
-                              times_dinv, weighted_dinv, x_step,
-                              x_step_batched, z_step, z_step_plain)
+                              cx_step_batched, kkt_sums, on_kernel, phi_rhs,
+                              phi_rhs_plain, q_step, q_step_plain, qx_step,
+                              qx_step_batched, select_instance, times_dinv,
+                              weighted_dinv, x_step, x_step_batched, z_step,
+                              z_step_plain)
 from ..ops.geometry import Geometry
 from ..ops.staggered import Staggered
 from ..utils.norms import sqsum
@@ -229,46 +230,47 @@ class LevelConfig:
     # f64-residual refinement (two rounds / one)
     dct_split: object = False
     # the rank's mesh (``parallel/sharding.Mesh``): the level runs on the
-    # halo engine, one block a rank; None: one process, on the engine of
-    # ``layout``
+    # halo engine, one block a rank; None: one process, the flat engine
     mesh: object = None
-    # the engine of one process (``ops/engine.make_ops``): "flat", where
-    # the single-step and x-carry kernels run, or "3d", the shaped engine,
-    # where the inPALM family's steps run plain
-    layout: str = "flat"
 
 
-# the methods with step kernels on the flat engine only (the x-carry and
-# single-step kernels): on "3d" their steps run plain
-FLAT_KERNEL_METHODS = ("inPALM", "ALG2", "sGS-inPALM")
-
-
-def check_mesh_layout(layout: str, where: str) -> None:
-    """Under a mesh the port runs the halo engine: "flat" and "3d" raise
+def check_mesh_opts(opts: dict, where: str) -> None:
+    """Under a mesh that splits the grid the port runs the halo engine:
+    layout "flat" and "3d" raise, and so does ``use_pallas=True``, each
     with the reason."""
+    layout = opts.get("layout", "auto")
     if layout in ("flat", "3d"):
         raise ValueError(
             f"layout={layout!r} under a mesh ({where}): the JAX package then "
             f"runs its shaped engine and lets XLA's GSPMD partitioner split "
             f"it, which has no PyTorch counterpart; the port's partitioner is "
             f"the halo engine (layout 'auto' or 'halo')")
+    if opts.get("use_pallas", "auto") is True:
+        raise NotImplementedError(
+            f"use_pallas=True under a mesh ({where}): the kernels that read "
+            f"neighbouring cells (the single-step and x-carry kernels, the "
+            f"sGS sweep) have no halo-padded route yet (ROADMAP.md queue 6 "
+            f"item 10), so under a mesh they run plain on each rank's block "
+            f"and only the cone projection runs its kernel; pass "
+            f"use_pallas='auto'")
 
 
-def check_pallas_layout(methods, opts) -> None:
-    """``use_pallas=True`` with layout "3d" raises for a method whose step
-    kernels take the flat layout only (``FLAT_KERNEL_METHODS``): on the
-    shaped engine its steps run plain, and True promises the kernels."""
-    if opts.get("layout") != "3d" or opts.get("use_pallas", "auto") is not \
-            True:
+def warn_single_process_layout(opts: dict, stacklevel: int) -> None:
+    """On one process every level runs the flat engine: layout "halo"
+    (which needs a mesh that splits the grid, as in the JAX package) and
+    "3d" (whose shaped engine takes the flat engine's iterations, more
+    slowly, and is kept as its test oracle only) warn and run flat.
+    ``stacklevel`` as the caller would pass it to ``warnings.warn``."""
+    layout = opts.get("layout")
+    if layout == "halo":
+        why = "requires a mesh that splits the grid (opts={'mesh': ...})"
+    elif layout == "3d":
+        why = ("runs no engine of its own: the shaped engine takes the flat "
+               "engine's iterations, more slowly")
+    else:
         return
-    flat_only = [m for m in methods if m in FLAT_KERNEL_METHODS]
-    if flat_only:
-        raise ValueError(
-            f"use_pallas=True with layout='3d': {flat_only[0]}'s step "
-            f"kernels (the x-carry and single-step kernels) take the flat "
-            f"layout only, so on the shaped engine its steps run plain, as "
-            f"the JAX package fuses only on 'flat'; pass use_pallas='auto', "
-            f"or layout 'flat' for the kernels")
+    warnings.warn(f"layout={layout!r} {why}; falling back to the "
+                  f"single-process 'flat' layout", stacklevel=stacklevel + 1)
 
 
 class Kernels:
@@ -278,12 +280,7 @@ class Kernels:
     def __init__(self, cfg: LevelConfig, weight: Optional[Staggered] = None):
         self.cfg = cfg
         self.geom = cfg.geom
-        self.ops = make_ops(cfg.geom, cfg.dtype, cfg.device, cfg.mesh,
-                            cfg.layout)
-        # the single-step and x-carry kernels take the flat layout: under a
-        # mesh and on the shaped engine their plain versions run (the module
-        # docstring)
-        self.plain = self.ops.layout != "flat"
+        self.ops = make_ops(cfg.geom, cfg.dtype, cfg.device, cfg.mesh)
         # unit-D build: the solve multiplies by 1/D^2 at use time
         self.poisson = self.ops.make_poisson(1.0, split=cfg.dct_split)
         # the shaped weight of a weighted level, flat, in the level's dtype
@@ -377,9 +374,9 @@ class Kernels:
         return self.poisson.solve(rhs, scale=1.0 / (s.D * s.D))
 
     def _rhs(self, s: SolverState, plain: bool = False):
-        """phi-step rhs: D A^T (w q - alpha) + c, one ``phi_rhs`` launch
-        on the flat engine's float32 CUDA tensors (a stack of instances
-        too), or with ``plain`` its plain version."""
+        """phi-step rhs: D A^T (w q - alpha) + c, ``phi_rhs`` (one launch
+        on the kernel's route, a stack of instances too), or with
+        ``plain`` its plain version."""
         rhs = phi_rhs_plain if plain else phi_rhs
         return rhs(self.ops, s.q, s.alpha, s.c, s.D, self.weight)
 
@@ -392,8 +389,7 @@ class Kernels:
         the CPU the wrappers run their plain versions, which compose to the
         JAX plain ``_step`` (:198-222) operation for operation. Every
         output is a fresh tensor: ``s`` is left as it was."""
-        return self._step_from_phi(s, self._poisson_solve(s, self._rhs(s)),
-                                   plain=self.plain)
+        return self._step_from_phi(s, self._poisson_solve(s, self._rhs(s)))
 
     def _step_plain(self, s: SolverState) -> SolverState:
         """:meth:`_step` from the kernels' plain versions, on any device:
@@ -410,8 +406,8 @@ class Kernels:
     def _step_from_phi(self, s: SolverState, phi,
                        plain: bool = False) -> SolverState:
         """The inPALM iteration after its phi-step: z-step, q-step and the
-        multipliers (sGS-inPALM shares it), on the kernels or, with
-        ``plain``, their plain versions."""
+        multipliers (sGS-inPALM shares it), through the kernels' wrappers
+        (each on its route) or, with ``plain``, their plain versions."""
         zs, qs, bs = ((z_step_plain, q_step_plain, beta_step_plain) if plain
                       else (z_step, q_step, beta_step))
         ops = self.ops
@@ -465,7 +461,7 @@ class Kernels:
         replaced the inPALM step (PALM and the acc and sGS variants run
         their own step in a plain loop), and the level runs on one process
         (under a mesh the JAX package's segment is its plain step loop)."""
-        return type(self)._step is Kernels._step and not self.plain
+        return type(self)._step is Kernels._step and self.ops.mesh is None
 
     def segment_impl(self, s: SolverState, k: int) -> SolverState:
         """k event-free iterations. inPALM / ALG2: one x-step prologue,
@@ -531,7 +527,7 @@ class Kernels:
         once, sd broadcast per instance, so that one halo exchange carries
         every instance."""
         fields = ("phi", "q", "z", "alpha", "beta")
-        if self.plain:
+        if self.ops.mesh is not None:
             lead = (-1,) + (1,) * (s.q.q0.ndim - 1)
             new = self._step(s.replace(dScale=s.dScale.reshape(lead)))
             return s.replace(**{f: select_stack(active, getattr(new, f),
@@ -605,12 +601,12 @@ class Kernels:
 
     def kkt_on_kernel(self, s: SolverState) -> bool:
         """Whether the battery's sums of ``s`` run the kernel
-        (``fused_step.kkt_sums``): on the flat engine's float32 CUDA
-        tensors. On the CPU, in float64 and on the "3d" and halo engines
-        :meth:`_kkt_parts_plain` runs."""
+        (``fused_step.kkt_sums``): ``fused_step.on_kernel`` of the state's
+        tensors and the weight. Off that route (the CPU, float64, the halo
+        engine) :meth:`_kkt_parts_plain` runs."""
         w = [] if self.weight is None else self.weight.tensors()
-        return kkt_sums_on_kernel(self.ops, s.phi, *s.q.tensors(), s.z,
-                                  *s.alpha.tensors(), s.beta, s.c, *w)
+        return on_kernel(self.ops, s.phi, *s.q.tensors(), s.z,
+                         *s.alpha.tensors(), s.beta, s.c, *w)
 
     def _kkt_parts(self, s: SolverState) -> dict:
         """The KKT battery's sums over the rank's block (0-d tensors): one

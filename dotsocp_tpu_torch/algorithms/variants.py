@@ -24,21 +24,16 @@ inPALM's single step (``Kernels._step_from_phi``: the z_step, q_step and
 beta_step kernels), every acc step closes with the cone projection
 kernel ``cone_project_diff``, and every step forms its phi-step
 right-hand side with the rhs kernel (``fused_step.phi_rhs``; plain on the
-shaped and halo engines). The rest of each step is plain PyTorch, as
+halo engine). The rest of each step is plain PyTorch, as
 the JAX package runs it in jnp: acc-ADMM's q- and beta-steps form beta as
 (beta + z) - z2, not beta_step's beta + tau (z - z2), and PALM's steps wait
 for their own kernels (ROADMAP.md). On one process the tensors are in the
-flat layout by default (``ops/engine.py``): the JAX package moves the sGS
-kernels to its shaped engine only because its TPU sweep wanted a shaped
-array, and the flat phi is that array reshaped. With ``LevelConfig.layout``
-"3d" they are shaped (``ops/engine.Ops3D``): the sweep kernel takes phi as
-it is, the cone projection kernel the shaped z (the same memory as its
-flat view), and sGS-inPALM's step after its sweep is the plain single step
-(``Kernels.plain``), as in the JAX package on that layout. Under a mesh
-they are one rank's
+flat layout (``ops/engine.py``): the JAX package moves the sGS kernels to
+its shaped engine only because its TPU sweep wanted a shaped array, and
+the flat phi is that array reshaped. Under a mesh they are one rank's
 block of the halo layout, the sweep is ``ops/halo_engine.HaloSGS`` and
 the steps that read neighbouring cells run their plain versions
-(``Kernels.plain``), as the JAX package under a mesh
+(``fused_step.on_kernel``), as the JAX package under a mesh
 (``dotsocp_tpu/algorithms/variants.py:347-356,485-492``); the cone
 projection kernel runs on the rank's block, whose pads it keeps at zero.
 """
@@ -314,7 +309,7 @@ class _SgsPhiStep:
 
     def _sweep(self, s: SolverState, rhs):
         """One sweep: the halo sweep under a mesh, else the sweep kernel on
-        the shaped phi (the flat phi reshaped, or the "3d" layout's own)."""
+        the shaped phi (the flat phi reshaped)."""
         if self.halo_sgs:
             return self.sgs.sweep(s.phi, rhs, d2=s.D * s.D)
         ops = self.ops
@@ -367,15 +362,14 @@ class SgsKernels(_SgsPhiStep, Kernels):
         self._build_sgs()
 
     def _step(self, s: SolverState) -> SolverState:
-        return self._step_from_phi(s, self._sweep(s, self._rhs(s)),
-                                   plain=self.plain)
+        return self._step_from_phi(s, self._sweep(s, self._rhs(s)))
 
     def _step_instrumented(self, s: SolverState):
         """The step, and the sGS block residual right after its sweep
         (``solver_socp_sGSinPALM.m:208-218``)."""
         rhs = self._rhs(s)
         phi = self._sweep(s, rhs)
-        return (self._step_from_phi(s, phi, plain=self.plain),
+        return (self._step_from_phi(s, phi),
                 self._resi_sgs(s, phi, rhs))
 
     def segment_impl(self, s: SolverState, k: int) -> SolverState:

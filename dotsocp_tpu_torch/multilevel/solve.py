@@ -15,14 +15,13 @@ package's options are taken as follows (``_check_request``): its solver
 cache and ``prewarm`` work as there (below); ``use_pallas`` takes
 "auto" or True (the CUDA kernels run at every size for float32, float64
 takes the plain route by dtype; under a mesh only "auto", as the kernels
-that read neighbouring cells run plain there, and on "3d" True only for a
-method whose kernels all take the shaped layout), ``layout`` "auto",
-"flat", "halo" and "3d" ("halo" without a mesh warns and runs flat, as in
-the JAX package; "3d" runs the shaped engine ``ops/engine.Ops3D`` on one
-process, where the inPALM family's steps run plain and the sGS sweep and
-the cone projection their kernels, and raises under a mesh, where the JAX
-package hands it to XLA's GSPMD partitioner; the TPU-only "shaped"
-raises); ``driver``
+that read neighbouring cells run plain there), ``layout`` "auto",
+"flat", "halo" and "3d" (one process runs the flat engine: "halo" without
+a mesh warns and runs flat, as in the JAX package, and so does "3d",
+whose shaped engine, ``ops/engine.Ops3D``, takes the flat engine's
+iterations more slowly and is kept as its test oracle; under a mesh "flat"
+and "3d" raise, where the JAX package hands its shaped engine to XLA's
+GSPMD partitioner; the TPU-only "shaped" raises); ``driver``
 takes "auto", "device" and "host" with the JAX package's rule
 (``_make_solver``; a mesh forces the device driver): the device driver
 (``algorithms/device_driver.py``, CUDA-graph segments) unless the caller
@@ -36,7 +35,7 @@ The solver cache (``dotsocp_tpu/multilevel/solve.py:85-210``): with
 ``opts["reuse_solvers"]`` (default True) each level's solver is looked up
 under a key of everything it keeps as it was built (``_solver_cache_key``:
 method, driver, geometry, tau, a content digest of the weight, the
-checks, dtype, maxit, restart, rho, theta, layout, mesh, DCT strategy,
+checks, dtype, maxit, restart, rho, theta, mesh, DCT strategy,
 chunk options, checkpoint path, device, D and scaling) and reused: a
 device driver as the object, with its kernels, its DCT operators, its
 state buffers and its captured CUDA graphs (a solve that hits makes no
@@ -83,8 +82,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..algorithms.core import (Kernels, LevelConfig, check_mesh_layout,
-                               check_pallas_layout)
+from ..algorithms.core import (Kernels, LevelConfig, check_mesh_opts,
+                               warn_single_process_layout)
 from ..algorithms.device_driver import AccDeviceDriver, DeviceDriver
 from ..algorithms.device_sgs import AccSgsDeviceDriver, SgsDeviceDriver
 from ..algorithms.driver import SolveOptions
@@ -166,9 +165,8 @@ def _check_choice(key, value):
     if key == "layout" and value not in LAYOUTS:
         if value == "shaped":
             raise ValueError("layout='shaped': the shaped layout is "
-                             "TPU-only; the port runs the flat or the '3d' "
-                             "engine on one process and the halo engine "
-                             "under a mesh")
+                             "TPU-only; the port runs the flat engine on one "
+                             "process and the halo engine under a mesh")
         raise ValueError(f"layout={value!r}: not one of "
                          f"{', '.join(map(repr, LAYOUTS))}")
     if key == "driver" and value not in ("auto", "host", "device"):
@@ -223,14 +221,7 @@ def _check_mesh(mesh, opts) -> None:
         raise ValueError(f"mesh {mesh.shape}: a batch axis carries a "
                          f"fleet's instances (solve_batch); solve_dot splits "
                          f"one grid over y/x/z/t")
-    check_mesh_layout(opts.get("layout", "auto"), "solve_dot")
-    if opts.get("use_pallas", "auto") is True:
-        raise NotImplementedError(
-            "use_pallas=True under a mesh: the kernels that read neighbouring "
-            "cells (the single-step and x-carry kernels, the sGS sweep) have "
-            "no halo-padded route yet (ROADMAP.md queue 2), so under a mesh "
-            "they run plain on each rank's block and only the cone "
-            "projection runs its kernel; pass use_pallas='auto'")
+    check_mesh_opts(opts, "solve_dot")
     if opts.get("profile"):
         raise ValueError("profile under a mesh: profile_phases times one "
                          "card's kernels on the flat layout; profile the "
@@ -322,17 +313,17 @@ def uses_device_driver(method: str, driver: str, o: SolveOptions,
 def _make_solver(method: str, lv: LevelVar, o: SolveOptions, device,
                  dtype, theta: float = 2.0, dct_split=False,
                  driver: str = "auto", checkpoint_path=None,
-                 device_kw=None, mesh=None, layout: str = "flat"):
+                 device_kw=None, mesh=None):
     """The level solver of ``method`` (``dotsocp_tpu/multilevel/solve.py:
     236-313``): the device driver or the host driver by
     :func:`uses_device_driver`; acc-ADMM with ``theta`` != 2 runs its
     Nesterov branch; ``dct_split`` is the DCT solve's f64 strategy;
     ``checkpoint_path`` and ``device_kw`` (chunk_iters, max_chunks) are
     the device driver's; ``mesh`` puts the level on the halo engine, else
-    ``layout`` ("flat" or "3d") names its engine."""
+    it runs the flat engine."""
     cfg = LevelConfig(geom=lv.geom, D=lv.D, E=lv.E, device=str(device),
                       tau=o.tau, dtype=dtype, dct_split=dct_split,
-                      mesh=mesh, layout=layout)
+                      mesh=mesh)
     w = lv.weight
     if method == "acc-ADMM" and theta != 2.0:
         return AccADMMSolver(AccADMMNesterovKernels(cfg, w, o.restart, o.rho,
@@ -381,14 +372,14 @@ def _weight_digest(w: Optional[Staggered]) -> Optional[tuple]:
 
 def _solver_cache_key(method: str, lv: LevelVar, o: SolveOptions, device,
                       dtype, theta: float, dct_split, driver: str,
-                      checkpoint_path, device_kw, mesh,
-                      layout: str = "flat") -> tuple:
+                      checkpoint_path, device_kw, mesh) -> tuple:
     """Everything a cached solver keeps as it was built: the JAX key's parts
     (``dotsocp_tpu/multilevel/solve.py:116-148``), and the port's own: the
     device, D and scaling, which its pieces take as Python numbers (D is
     fixed by the geometry and the weight, scaling picks the branch of the
     check that keeps the rescale decisions). The mesh keys by identity as
-    well: the cached level holds its process groups and counts its
+    well (and keeps a level of the halo engine apart from one of the flat
+    engine): the cached level holds its process groups and counts its
     traffic, and every rank makes the same calls, so all hit or miss
     together."""
     mesh_key = None if mesh is None else (
@@ -396,8 +387,8 @@ def _solver_cache_key(method: str, lv: LevelVar, o: SolveOptions, device,
     return (method, driver, lv.geom, float(o.tau), _weight_digest(lv.weight),
             bool(o.check_prim_dual_feas), str(dtype), int(o.maxit),
             int(o.restart), float(o.rho), float(theta),
-            bool(o.check_step_by_step), checkpoint_path,
-            layout if mesh is None else "halo", mesh_key, str(dct_split),
+            bool(o.check_step_by_step), checkpoint_path, mesh_key,
+            str(dct_split),
             tuple(sorted((device_kw or {}).items())), str(device),
             float(lv.D), bool(o.scaling))
 
@@ -421,7 +412,7 @@ def clear_solver_cache() -> None:
 def _build_solver(method: str, lv: LevelVar, o: SolveOptions, device, dtype,
                   theta: float = 2.0, dct_split=False, driver: str = "auto",
                   checkpoint_path=None, device_kw=None, mesh=None,
-                  reuse: bool = True, layout: str = "flat"):
+                  reuse: bool = True):
     """The level's solver (:func:`_make_solver`), from the cache when
     ``reuse`` and a solver of the same key is there (the JAX
     ``_build_solver``): a device driver is reused as it is, with ``o`` (its
@@ -430,7 +421,7 @@ def _build_solver(method: str, lv: LevelVar, o: SolveOptions, device, dtype,
     solver and caches it, evicting the least recently used entry beyond
     ``_SOLVER_CACHE_MAX``."""
     args = (method, lv, o, device, dtype, theta, dct_split, driver,
-            checkpoint_path, device_kw, mesh, layout)
+            checkpoint_path, device_kw, mesh)
     if not reuse:
         return _make_solver(*args)
     key = _solver_cache_key(*args)
@@ -572,9 +563,6 @@ def solve_dot(
     _check_request(rho0, method, weight, opts)
     if not (isinstance(level_n, int) and level_n >= 1):
         raise ValueError("level_n must be a positive integer")
-    # the sGS methods run inPALM on their levels before the last
-    check_pallas_layout({method} | ({"inPALM"} if _is_sgs(method) and
-                                    level_n > 1 else set()), opts)
     device = torch.device(device)
     if opts.get("mesh") is not None:
         from ..parallel.distributed import is_coordinator
@@ -632,16 +620,10 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
     debug_nans = bool(opts.get("debug_nans", False))
     driver = str(opts.get("driver", "auto"))
     mesh = opts.get("mesh")
-    if mesh is None and opts.get("layout") == "halo":
-        import warnings
-
-        warnings.warn("layout='halo' requires a mesh (opts={'mesh': ...}); "
-                      "falling back to the single-process 'flat' layout",
-                      stacklevel=3)
-    # the engine of one process (``dotsocp_tpu/multilevel/solve.py:
-    # 168-181``): "3d" when asked for, else flat; a mesh runs the halo
-    # engine whatever this says
-    layout = "3d" if opts.get("layout") == "3d" else "flat"
+    if mesh is None:
+        # the engine of one process is the flat one
+        # (``dotsocp_tpu/multilevel/solve.py:168-181``)
+        warn_single_process_layout(opts, stacklevel=3)
     ckpt_dir = opts.get("checkpoint_dir")
     # under a mesh each rank checkpoints its own block
     ckpt_name = "level{}.npz" if mesh is None or mesh.size == 1 else \
@@ -685,7 +667,7 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
             lev_method, lv, o, device, dtype, theta, driver=driver,
             checkpoint_path=(os.path.join(ckpt_dir, ckpt_name.format(lev + 1))
                              if ckpt_dir else None),
-            device_kw=device_kw, mesh=mesh, reuse=reuse, layout=layout)
+            device_kw=device_kw, mesh=mesh, reuse=reuse)
 
     if opts.get("prewarm") and reuse:
         with span("prewarm", spans):
@@ -784,7 +766,7 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
             solver = _build_solver(refine_method, lv, o, device,
                                    refine_dtype, theta, dct_split=split,
                                    driver=driver, device_kw=device_kw,
-                                   mesh=mesh, reuse=reuse, layout=layout)
+                                   mesh=mesh, reuse=reuse)
         with span("level.loop", spans):
             hist, out = solver.solve(lv.as_dict())
         hist["method"] = solver.name + (

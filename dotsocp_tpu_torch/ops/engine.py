@@ -1,6 +1,9 @@
 """Operator engines of one process: the flat engine ``OpsFlat``, port of
-``dotsocp_tpu/ops/engine.py:126-333`` with the flat Poisson wrapper, and the
-shaped engine ``Ops3D`` (``engine.py:60-123``, the ``"3d"`` layout).
+``dotsocp_tpu/ops/engine.py:126-333`` with the flat Poisson wrapper, which
+every level of one process runs, and the shaped engine ``Ops3D``
+(``engine.py:60-123``, the JAX package's ``"3d"`` layout), the flat
+engine's independent oracle: the tests and the native check on the card
+construct it; no solver does.
 
 Flat: every field stores its spatial axes flattened into one trailing axis
 of S = prod(space) elements. Face blocks are kept in cell-shaped ``(nt, S)``
@@ -14,10 +17,9 @@ their output by the ghost mask. All face blocks of a field are one
 Shaped: fields keep their grid axes, ``(nt, *space)``, and face blocks are
 a tuple of ``(nt, ..., n_a - 1, ...)`` tensors; the operators are those of
 ``ops/grad.py`` and ``ops/cone.py``. Both engines compute the same values
-in the same operation order. The single-step and x-carry kernels take the
-flat layout only, so on the shaped engine the inPALM family runs their
-plain versions, as the JAX package runs jnp there; the sGS sweep and the
-cone projection take the shaped fields as they are.
+in the same operation order. The kernels that take ``ops`` run on the flat
+engine only (``fused_step.on_kernel``); the sGS sweep and the cone
+projection take shaped fields as they are.
 
 Under a mesh the halo engine (``ops/halo_engine.py``) takes these ones'
 place, with the same methods (:func:`make_ops`); ``psum`` is where a norm's
@@ -354,22 +356,14 @@ class Ops3D:
         return phi
 
 
-# the layouts of one process by name (``dotsocp_tpu/ops/engine.py:336-343``)
-ENGINES = {"flat": OpsFlat, "3d": Ops3D}
-
-
-def make_ops(geom: Geometry, dtype: torch.dtype, device, mesh=None,
-             layout: str = "flat"):
-    """The level's engine: on one process the one ``layout`` names
-    (:data:`ENGINES`), the halo engine on a mesh."""
+def make_ops(geom: Geometry, dtype: torch.dtype, device, mesh=None):
+    """The level's engine: the flat engine on one process, the halo engine
+    on a mesh."""
     if mesh is not None:
         from .halo_engine import OpsHalo
 
         return OpsHalo(geom, dtype, device, mesh)
-    if layout not in ENGINES:
-        raise ValueError(f"layout={layout!r}: one process runs "
-                         f"{', '.join(map(repr, ENGINES))}")
-    return ENGINES[layout](geom, dtype, device)
+    return OpsFlat(geom, dtype, device)
 
 
 def diag_values(D: float, E: float):

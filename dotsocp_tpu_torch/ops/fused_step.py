@@ -52,11 +52,17 @@ not, and the cone projection, whose plain version sums the squares left
 to right. Shared-memory tiling, TMA and merging passes are left for later
 work.
 
-Dispatch (``_use_kernel``): a wrapper runs the plain version only because
-the tensors it was given lie on the CPU, or are float64 (on the card too:
-the route by dtype, as the JAX package's float64 runs jnp). On float32
-CUDA tensors it checks device, shape, contiguity and aliasing, launches
-the kernel, and raises on any error; there is no fallback. Mixed dtypes
+Dispatch (:func:`on_kernel`, the one rule of every wrapper that takes
+``ops``): the kernel runs on the flat engine's float32 CUDA tensors. A
+wrapper runs the plain version only because its engine is not the flat
+one (the halo engine of a mesh, whose blocks the kernels that read
+neighbouring cells cannot take yet, or the shaped ``Ops3D`` of the
+tests), or because the tensors it was given lie on the CPU, or are
+float64 (on the card too: the route by dtype, as the JAX package's float64
+runs jnp; ``_use_kernel``, which alone routes the wrappers that take no
+``ops``). On float32 CUDA tensors it checks device, shape, contiguity and
+aliasing, launches the kernel, and raises on any error; there is no
+fallback. Mixed dtypes
 and any other dtype on the card raise. Every launch adds one to
 ``LAUNCHES[name]``; the weighted q-steps count under ``qx_step_w`` and
 ``q_step_w``, the weighted rhs under ``phi_rhs_w``. The scalars that
@@ -72,9 +78,8 @@ plain version: with tensor scalars the plain versions take it instead of
 forming sbf / sqrt2 in the tensors' dtype, so both forms round alike.
 
 The phi-step's right-hand side (``phi_rhs``, D A^T (w q - alpha) + c) is
-also routed by the engine: on the flat layout as above, while the shaped
-and halo engines keep their own ``grad_T`` composition (the plain version
-on their operators). Its scalars, D and the grid spacings, are the
+routed as the others are; off the kernel the plain version composes the
+engine's own ``grad_T``. Its scalars, D and the grid spacings, are the
 level's and the geometry's, fixed for a captured graph, so they go by
 value; the kernel rounds every operation as its plain version does on the
 card, the divisions by h as PyTorch's multiplications by the float32
@@ -84,8 +89,8 @@ axes (the lockstep fleet's stack) in one launch.
 The KKT battery's sums (``kkt_sums``: the 17 + 3 d sums of squares and
 inner products of ``Kernels._kkt_parts_plain``, under its keys,
 :func:`kkt_keys`) are one pass over the state and a one-block reduction,
-routed as the rhs is (:func:`kkt_sums_on_kernel`: the flat engine's
-float32 CUDA tensors). Every element is rounded as the plain version
+on the route of :func:`on_kernel` (``Kernels._kkt_parts`` forms the plain
+sums off it). Every element is rounded as the plain version
 rounds it; the sums are taken in float64 in a fixed order, so they repeat
 bit for bit and differ from PyTorch's float32 sums only in rounding. The
 state's scalars sigma, cScale and dScale are floats or one-element float32
@@ -260,6 +265,16 @@ def _use_kernel(*tensors: torch.Tensor) -> bool:
     return True
 
 
+def on_kernel(ops, *tensors: torch.Tensor) -> bool:
+    """Whether a wrapper that takes ``ops`` runs its kernel on
+    ``tensors``: on the flat engine, by :func:`_use_kernel` (float32 CUDA
+    tensors; it raises for mixed dtypes and the like). Any other engine
+    takes the plain version without looking at the tensors: the halo
+    engine's blocks, whose neighbouring cells the kernels do not read, and
+    the shaped ``Ops3D``."""
+    return ops.layout == "flat" and _use_kernel(*tensors)
+
+
 def _check_shape(t: torch.Tensor, shape, what: str) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what}: shape {tuple(t.shape)}, expected {shape}")
@@ -335,7 +350,7 @@ def _check_stag(ops: OpsFlat, st: Staggered) -> None:
 def x_step(ops: OpsFlat, q: Staggered, beta, sbf: float, sd: float,
            sv=None):
     """x = Pi_K(BF_d q - beta) + beta: the segment prologue."""
-    if not _use_kernel(q.q0, q.bs, beta):
+    if not on_kernel(ops, q.q0, q.bs, beta):
         return x_step_plain(ops, q, beta, sbf, sd, sv)
     _check_stag(ops, q)
     _check_cone(ops, beta)
@@ -401,7 +416,7 @@ def qx_step(ops: OpsFlat, phi, x, alpha: Staggered, dinv, D: float,
     w q'). Returns (q', alpha'); on CUDA alpha' is alpha's own buffers,
     updated in place."""
     operands = (phi, x, alpha.q0, alpha.bs) + _weight_operands(dinv)
-    if not _use_kernel(*operands):
+    if not on_kernel(ops, *operands):
         return qx_step_plain(ops, phi, x, alpha, dinv, D, sbf, tau, sv)
     _check_q_operands(ops, phi, alpha, dinv)
     _check_cone(ops, x)
@@ -414,7 +429,7 @@ def qx_step(ops: OpsFlat, phi, x, alpha: Staggered, dinv, D: float,
 
 def _cx(name: str, final: bool, ops: OpsFlat, beta, x, q: Staggered, sbf,
         sd, tau, sv):
-    if not _use_kernel(beta, x, q.q0, q.bs):
+    if not on_kernel(ops, beta, x, q.q0, q.bs):
         return cx_step_plain(ops, beta, x, q, sbf, sd, tau, final, sv)
     _check_cone(ops, beta, x)
     _check_stag(ops, q)
@@ -449,7 +464,7 @@ def cx_final(ops: OpsFlat, beta, x, q: Staggered, sbf: float, sd: float,
 def z_step(ops: OpsFlat, q: Staggered, beta, sbf: float, sd: float,
            sv=None):
     """z = Pi_K(BF_d q - beta): the z-step."""
-    if not _use_kernel(q.q0, q.bs, beta):
+    if not on_kernel(ops, q.q0, q.bs, beta):
         return z_step_plain(ops, q, beta, sbf, sd, sv)
     _check_stag(ops, q)
     _check_cone(ops, beta)
@@ -469,7 +484,7 @@ def q_step(ops: OpsFlat, phi, z, beta, alpha: Staggered, dinv, D: float,
     read apart (x = z + beta formed per element). Returns fresh (q',
     alpha')."""
     operands = (phi, z, beta, alpha.q0, alpha.bs) + _weight_operands(dinv)
-    if not _use_kernel(*operands):
+    if not on_kernel(ops, *operands):
         return q_step_plain(ops, phi, z, beta, alpha, dinv, D, sbf, tau,
                             sv)
     _check_q_operands(ops, phi, alpha, dinv)
@@ -484,7 +499,7 @@ def q_step(ops: OpsFlat, phi, z, beta, alpha: Staggered, dinv, D: float,
 def beta_step(ops: OpsFlat, beta, z, q: Staggered, sbf: float, sd: float,
               tau: float, sv=None):
     """beta' = beta + tau (z - BF_d q'), fresh."""
-    if not _use_kernel(beta, z, q.q0, q.bs):
+    if not on_kernel(ops, beta, z, q.q0, q.bs):
         return beta_step_plain(ops, beta, z, q, sbf, sd, tau, sv)
     _check_cone(ops, beta, z)
     _check_stag(ops, q)
@@ -538,15 +553,12 @@ def phi_rhs(ops, q: Staggered, alpha: Staggered, c, D: float,
     """The phi-step's right-hand side D A^T (w q - alpha) + c, fresh; any
     leading instance axes (q0 ``(..., nt-1, S)``, face blocks ``(..., d,
     nt, S)``, c ``(..., nt, S)``), one weight shared by the instances. On
-    the flat engine's float32 CUDA tensors one launch of ``rhs_kernel``
-    (bit-equal to :func:`phi_rhs_plain` there); on any other engine, and
-    on the CPU or in float64, the plain version."""
-    if ops.layout != "flat":
-        return phi_rhs_plain(ops, q, alpha, c, D, weight)
+    the kernel's route (:func:`on_kernel`) one launch of ``rhs_kernel``
+    (bit-equal to :func:`phi_rhs_plain` there), else the plain version."""
     arrays = [q.q0, q.bs, alpha.q0, alpha.bs, c]
     if weight is not None:
         arrays += [weight.q0, weight.bs]
-    if not _use_kernel(*arrays):
+    if not on_kernel(ops, *arrays):
         return phi_rhs_plain(ops, q, alpha, c, D, weight)
     if isinstance(D, torch.Tensor):
         raise ValueError("phi_rhs: D goes to the kernel by value, a Python "
@@ -589,14 +601,6 @@ def kkt_keys(d: int) -> tuple:
     """The battery's sums, in order, on a grid of ``d`` space axes."""
     return KKT_KEYS + tuple(f"{k}{a}" for a in range(d)
                             for k in ("m", "rb", "diff"))
-
-
-def kkt_sums_on_kernel(ops, *tensors) -> bool:
-    """Whether :func:`kkt_sums` takes a state of these tensors: the flat
-    engine's float32 CUDA tensors (``_use_kernel``, which raises for mixed
-    dtypes and the like). The CPU, float64 (the refine tail) and the "3d"
-    and halo engines keep the plain sums (``Kernels._kkt_parts_plain``)."""
-    return ops.layout == "flat" and _use_kernel(*tensors)
 
 
 def _state_scalar(what: str, v, like: torch.Tensor):
@@ -648,7 +652,8 @@ def kkt_sums(ops, phi, q: Staggered, z, alpha: Staggered, beta, c,
     """The KKT battery's sums over the field (``Kernels._kkt_parts_plain``'s
     dict, the same keys in the same order, 0-d float32 tensors) in one
     launch of ``kkt_kernel`` and its one-block ``kkt_finish``, on the flat
-    engine's float32 CUDA tensors (:func:`kkt_sums_on_kernel`). Each
+    engine's float32 CUDA tensors (``Kernels._kkt_parts`` routes by
+    :func:`on_kernel`; off that route it forms the plain sums). Each
     element is rounded as the plain version rounds it; the squares and
     products are summed in float64, in a fixed order, so the sums differ
     from PyTorch's float32 ones only in rounding and repeat bit for bit.
@@ -765,7 +770,7 @@ def x_step_batched(ops: OpsFlat, q: Staggered, beta, sbf: float, sd, active,
     (``(B, C, nt-1, S)``; an inactive instance's slots keep their values);
     ``sd`` (B,). On CUDA ``x`` itself, written in place (no thread reads
     it); the plain version returns a new tensor."""
-    if not _use_kernel(q.q0, q.bs, beta, x, sd):
+    if not on_kernel(ops, q.q0, q.bs, beta, x, sd):
         return x_step_batched_plain(ops, q, beta, sbf, sd, active, x)
     B = beta.shape[0]
     _check_batch(ops, B, sd, _active_operand(active, beta.device),
@@ -789,7 +794,7 @@ def qx_step_batched(ops: OpsFlat, phi, x, alpha: Staggered, q: Staggered,
         raise ValueError("qx_step_batched: the lockstep fleet is "
                          "unweighted")
     operands = (phi, x, alpha.q0, alpha.bs, q.q0, q.bs)
-    if not _use_kernel(*operands):
+    if not on_kernel(ops, *operands):
         return qx_step_batched_plain(ops, phi, x, alpha, q, dinv, D, sbf,
                                      tau, active)
     B = phi.shape[0]
@@ -808,7 +813,7 @@ def qx_step_batched(ops: OpsFlat, phi, x, alpha: Staggered, q: Staggered,
 
 def _cx_batched(name: str, final: bool, ops: OpsFlat, beta, x, q: Staggered,
                 sbf, sd, tau, active):
-    if not _use_kernel(beta, x, q.q0, q.bs, sd):
+    if not on_kernel(ops, beta, x, q.q0, q.bs, sd):
         return cx_step_batched_plain(ops, beta, x, q, sbf, sd, tau, active,
                                      final)
     B = beta.shape[0]

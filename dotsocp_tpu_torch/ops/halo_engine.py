@@ -43,8 +43,9 @@ kernel's pads hold 1.0 (they multiply zero coefficients).
 Its ops are plain PyTorch on the rank's block, as the JAX package launches
 no Pallas kernel under a mesh (``dotsocp_tpu/multilevel/solve.py:228``);
 the route of the CUDA kernels that read neighbouring cells on halo-padded
-blocks waits in ROADMAP.md queue 2. (The acc methods' cone projection,
-pointwise, runs its kernel on the block: ``algorithms/variants.py``.)
+blocks waits in ROADMAP.md queue 6 item 10. (The acc methods' cone
+projection, pointwise, runs its kernel on the block:
+``algorithms/variants.py``.)
 """
 from __future__ import annotations
 

@@ -2,10 +2,11 @@
 
 Port of ``dotsocp_tpu/ops/staggered.py``. ``q0`` holds the time-staggered
 block and ``bs`` the face blocks, one per spatial axis. In the shaped layout
-(the ``"3d"`` engine ``ops/engine.Ops3D``, and every level variable) ``bs``
-is a tuple of tensors (their shapes differ per axis); in the flat internal
-layout (``ops/engine.OpsFlat``) every face block is ``(nt, S)`` and ``bs``
-is one ``(d, nt, S)`` tensor, so a kernel takes one pointer for all axes.
+(every level variable, and the shaped engine ``ops/engine.Ops3D`` of the
+tests) ``bs`` is a tuple of tensors (their shapes differ per axis); in the
+flat internal layout (``ops/engine.OpsFlat``, which the solver runs) every
+face block is ``(nt, S)`` and ``bs`` is one ``(d, nt, S)`` tensor, so a
+kernel takes one pointer for all axes.
 Indexing ``bs[a]`` and iterating over ``bs`` work the same for both forms;
 :meth:`Staggered.map` and :meth:`Staggered.tensors` treat each form as it
 is stored. A stack of instances (the lockstep fleet) carries a leading axis

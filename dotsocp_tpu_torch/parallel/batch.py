@@ -28,12 +28,9 @@ instance's view, the decisions on ``(B,)`` tensors) is one more graph.
 Each kind of piece is captured once a level and replayed
 (``algorithms/graphs.py``); the host reads one record a check.
 
-With ``opts={"layout": "3d"}`` the levels run on the shaped engine
-(``ops/engine.Ops3D``): the batched kernels take the flat layout, so a
-segment is the variant's plain step on the whole stack (every operator of
-that engine takes leading axes), one graph a step, as the JAX package runs
-its vmapped plain step on that layout. A spatial mesh refuses "3d", as
-``solve_dot`` does.
+The levels run on the flat engine, as ``solve_dot``'s do: ``layout``
+"halo" and "3d" warn and run flat (``core.warn_single_process_layout``),
+and a spatial mesh refuses "flat" and "3d" (``core.check_mesh_opts``).
 
 On the CPU there are no graphs and every piece runs eagerly on the plain
 versions, which is how ``tests/test_torch_batch.py`` holds this module to
@@ -77,8 +74,8 @@ import torch
 import torch.distributed as dist
 
 from ..algorithms.core import (BATCH_SCALARS, Kernels, LevelConfig,
-                               SolverState, check_mesh_layout,
-                               check_pallas_layout, instance, stack_fields)
+                               SolverState, check_mesh_opts, instance,
+                               stack_fields, warn_single_process_layout)
 from ..algorithms.device_driver import (DeviceDriver, _cadence_gap,
                                         _copy_into, _next_check_it,
                                         _table_factor)
@@ -572,22 +569,13 @@ def _check_batch_mesh(mesh, opts: dict) -> None:
     if not isinstance(mesh, Mesh):
         raise TypeError(f"mesh={mesh!r}: not a dotsocp_tpu_torch mesh "
                         f"(parallel/sharding.make_mesh)")
-    if not spatial_axes(mesh):
-        return
-    # a mesh that splits the grid too: the halo engine on each batch row
-    check_mesh_layout(opts.get("layout", "auto"),
-                      f"the batch x spatial mesh {mesh.shape}")
-    if opts.get("use_pallas", "auto") is True:
-        raise NotImplementedError(
-            "use_pallas=True under a spatial mesh: the kernels that read "
-            "neighbouring cells have no halo-padded route yet (ROADMAP.md "
-            "queue 2), so they run plain on each rank's blocks; pass "
-            "use_pallas='auto'")
+    if spatial_axes(mesh):
+        # a mesh that splits the grid too: the halo engine on each batch row
+        check_mesh_opts(opts, f"the batch x spatial mesh {mesh.shape}")
 
 
 def _check_batch_request(method: str, opts: dict, mesh) -> None:
     _check_batch_mesh(mesh, opts)
-    check_pallas_layout({method}, opts)
     if method not in BATCH_METHODS:
         # the JAX solve_batch runs inPALM's step with tau = 1.0 for any
         # other method (``batch.py:326,340``); the port refuses
@@ -653,6 +641,8 @@ def solve_batch(rho0s, rho1s, nt: int, opts: Optional[dict] = None,
     _check_batch_request(method, opts, mesh)
     if not (isinstance(level_n, int) and level_n >= 1):
         raise ValueError("level_n must be a positive integer")
+    if mesh is None or not spatial_axes(mesh):
+        warn_single_process_layout(opts, stacklevel=2)
     device = _device(device)
     if mesh is not None and mesh.size > 1:
         out = None
@@ -718,9 +708,8 @@ def _solve_batch(rho0s, rho1s, nt, opts, method, dtype, mesh, level_n,
 
     kcls = PALMKernels if method == "PALM" else Kernels
     # under a spatial mesh the levels run on this rank's batch row, else on
-    # the engine the layout names (``batch.py:358-370``)
+    # the flat engine (``batch.py:358-370``)
     row = mesh.row() if mesh is not None and spatial_axes(mesh) else None
-    layout = "3d" if opts.get("layout") == "3d" else "flat"
     npdtype = np.float64 if dtype == torch.float64 else np.float32
     sigma_b = np.full(B, float(opts.get("sigma", 1.0)))
     prev_lvs = None
@@ -747,7 +736,7 @@ def _solve_batch(rho0s, rho1s, nt, opts, method, dtype, mesh, level_n,
             lvs.append(lv)
         cfg = LevelConfig(geom=lvs[0].geom, D=lvs[0].D, E=lvs[0].E,
                           device=str(device), tau=o.tau, dtype=dtype,
-                          mesh=row, layout=layout)
+                          mesh=row)
         kernels = kcls(cfg)
         bstate = stack_states([kernels.prep(lv.as_dict(), float(sigma_b[b]))
                                for b, lv in enumerate(lvs)])

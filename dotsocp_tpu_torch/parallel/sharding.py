@@ -250,22 +250,19 @@ def make_sharded_step(kernels, mesh: Mesh, batched: bool = True):
 
     ``batched``: the state holds B instances on a leading axis, which the
     mesh's ``batch`` axis splits. Where the mesh splits no axis of the
-    grid, each rank steps its instances with ``kernels``; where it does,
+    grid, each rank steps its instances with ``kernels`` (their scalars
+    in memory, as the device driver's); where it does,
     each rank cuts its block of each of its instances, steps the stack of
     them with the level's class rebuilt on its batch row (``Mesh.row``,
     the halo engine) and joins the blocks. The results are then gathered
     along ``batch``. Not ``batched``: the mesh splits the grid, and the
     step is the same level's on the halo engine, run on this rank's block
     of the state and gathered back. A weighted level's halo kernels carry
-    its weight. Kernels of the "3d" layout take a batch-only mesh (their
-    state shaped); a spatial mesh refuses them, as ``solve_dot`` refuses
-    "3d" under a mesh."""
-    from ..algorithms.core import BATCH_SCALARS, check_mesh_layout, instance
+    its weight."""
+    from ..algorithms.core import BATCH_SCALARS, instance
     from .batch import stack_states
 
     spatial = bool(spatial_axes(mesh))
-    if spatial and kernels.ops.layout == "3d":
-        check_mesh_layout("3d", "make_sharded_step")
     geom = kernels.geom
     if batched:
         k = mesh.shape.get("batch", 1)
@@ -280,7 +277,13 @@ def make_sharded_step(kernels, mesh: Mesh, batched: bool = True):
             lo = mesh.coords.get("batch", 0) * (B // k)
             mine = [instance(state, b) for b in range(lo, lo + B // k)]
             if halo is None:
-                steps = [kernels._step(s) for s in mine]
+                # an instance's scalars are 0-d tensors: its E and the
+                # values derived from E go beside them as tensors too (the
+                # device driver's), as a kernel reads all its scalars by
+                # value or all from memory
+                ev = kernels.e_scalars(state.D, state.E)
+                steps = [kernels._step(s.replace(ev=ev, E=ev.E))
+                         for s in mine]
             else:
                 blocks = stack_states([shard_state(s, row, geom)
                                        for s in mine])

@@ -11,9 +11,7 @@ as ``(q0, bs)`` pairs with ``bs`` a sequence of per-axis blocks; the flat
 solver state's face blocks, all ``(nt, S)``, become one ``(d, nt, S)``
 tensor here. A state in the JAX package's shaped layout (``"3d"``, where
 its sGS kernels run) is converted to the port's flat layout on the way,
-and, for a rank of a mesh, cut to that rank's block of the halo layout;
-with ``layout="3d"`` it stays shaped, for the port's shaped engine
-(``ops/engine.Ops3D``), its face blocks a tuple.
+and, for a rank of a mesh, cut to that rank's block of the halo layout.
 """
 from __future__ import annotations
 
@@ -79,28 +77,21 @@ def weight_from_numpy(weight, *, device, dtype: torch.dtype) -> Staggered:
 
 class _Layout:
     """Converts the iterate fields of a JAX solver state, flat or shaped,
-    to the port's tensors of ``layout``: flat, or shaped as they are for
-    "3d" (a shaped JAX state)."""
+    to the port's flat tensors."""
 
-    def __init__(self, fields: dict, device, dtype: torch.dtype,
-                 layout: str = "flat"):
+    def __init__(self, fields: dict, device, dtype: torch.dtype):
         self.device, self.dtype = device, dtype
         phi = np.shape(fields["phi"])
-        # flat face blocks are phi-shaped (ghost slot); shaped ones are not
-        shaped = np.shape(fields["q"][1][0]) != phi
-        if layout == "3d" and not shaped:
-            raise ValueError("layout='3d' takes a shaped JAX state")
         self.ops = None
-        self.shaped = layout == "3d"
-        if shaped and not self.shaped:
+        # flat face blocks are phi-shaped (ghost slot); shaped ones are not
+        if np.shape(fields["q"][1][0]) != phi:
             geom = Geometry(nt=phi[0], space=tuple(phi[1:]))
             self.ops = OpsFlat(geom, dtype, device)
 
     def __call__(self, name: str, value):
         dev, dt, ops = self.device, self.dtype, self.ops
         if name in STATE_FIELDS:
-            st = _staggered(value, dev, dt,
-                            stack=ops is None and not self.shaped)
+            st = _staggered(value, dev, dt, stack=ops is None)
             return st if ops is None else ops.stag_to_internal(st)
         t = _tensor(value, dev, dt)
         if ops is None:
@@ -111,12 +102,12 @@ class _Layout:
 
 
 def state_from_numpy(fields: dict, *, device, dtype: torch.dtype,
-                     mesh=None, layout: str = "flat") -> SolverState:
-    """A port ``SolverState`` from the fields of a JAX ``SolverState``, flat
-    or shaped layout (``state._asdict()`` after ``jax.device_get``), in the
-    port's ``layout`` ("flat", or "3d" from a shaped state); with ``mesh``,
-    this rank's block of it (``parallel/sharding.shard_state``)."""
-    conv = _Layout(fields, device, dtype, layout)
+                     mesh=None) -> SolverState:
+    """A port ``SolverState`` (flat layout) from the fields of a JAX
+    ``SolverState``, flat or shaped layout (``state._asdict()`` after
+    ``jax.device_get``); with ``mesh``, this rank's block of it
+    (``parallel/sharding.shard_state``)."""
+    conv = _Layout(fields, device, dtype)
     kw = {k: conv(k, fields[k]) for k in STATE_ARRAYS + STATE_FIELDS}
     kw.update({k: float(fields[k]) for k in STATE_SCALARS})
     state = SolverState(**kw)
@@ -131,16 +122,15 @@ def state_from_numpy(fields: dict, *, device, dtype: torch.dtype,
     return shard_state(state, mesh, conv.ops.geom)
 
 
-def acc_state_from_numpy(fields: dict, *, device, dtype: torch.dtype,
-                         layout: str = "flat") -> AccState:
+def acc_state_from_numpy(fields: dict, *, device,
+                         dtype: torch.dtype) -> AccState:
     """A port ``AccState`` from the fields of a JAX ``AccState``
     (``e._asdict()`` after ``jax.device_get``: ``s`` a ``SolverState``,
-    ``old`` and ``anchor`` iterate tuples, ``k`` the averaging counter),
-    in the port's ``layout``."""
+    ``old`` and ``anchor`` iterate tuples, ``k`` the averaging counter)."""
     s = fields["s"]._asdict()
-    conv = _Layout(s, device, dtype, layout)
+    conv = _Layout(s, device, dtype)
     return AccState(
-        s=state_from_numpy(s, device=device, dtype=dtype, layout=layout),
+        s=state_from_numpy(s, device=device, dtype=dtype),
         old=tuple(conv(n, v) for n, v in zip(ITERATE, fields["old"])),
         anchor=tuple(conv(n, v) for n, v in zip(ITERATE, fields["anchor"])),
         k=int(fields["k"]),

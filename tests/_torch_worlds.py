@@ -446,9 +446,8 @@ def sharded_steps(n, nt, steps) -> dict:
     """``make_sharded_step`` over a ("batch",) mesh of the world (B = world
     copies of one level's state) and over a (y, x) mesh, each run
     ``steps`` times from example2's first level; then a weighted level
-    (love-heart) over the (y, x) mesh and kernels of the "3d" layout over
-    the ("batch",) mesh; rank 0 returns the states' phi, z and q0 (the
-    batched ones per instance)."""
+    (love-heart) over the (y, x) mesh; rank 0 returns the states' phi, z
+    and q0 (the batched ones per instance)."""
     from dotsocp_tpu_torch.algorithms.core import Kernels, LevelConfig
     from dotsocp_tpu_torch.models.examples import get_example_2d
     from dotsocp_tpu_torch.multilevel.level import (initial_scaling,
@@ -496,13 +495,4 @@ def sharded_steps(n, nt, steps) -> dict:
     for _ in range(steps):
         x = step(x)
     out["weighted_spatial"] = (x.phi.numpy(), x.z.numpy(), x.q.q0.numpy())
-    # kernels of the "3d" layout on the ("batch",) mesh, the state shaped
-    k3 = Kernels(LevelConfig(geom=lv.geom, D=lv.D, E=lv.E, device="cpu",
-                             dtype=F64, layout="3d"))
-    step = make_sharded_step(k3, make_mesh(axis_names=("batch",)))
-    b = stack_states([k3.prep(lv.as_dict(), 1.0) for _ in range(world)])
-    for _ in range(steps):
-        b = step(b)
-    out["batched_3d"] = [(b.phi[i].numpy(), b.z[i].numpy(),
-                          b.q.q0[i].numpy()) for i in range(world)]
     return out if dist.get_rank() == 0 else None

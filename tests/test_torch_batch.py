@@ -372,7 +372,7 @@ def test_refusals():
     with pytest.raises(ValueError, match="layout"):
         tb.solve_batch(r0, r1, 5, dict(OPTS, layout="flat"), mesh=spatial,
                        **kw)
-    with pytest.raises(NotImplementedError, match="queue 2"):
+    with pytest.raises(NotImplementedError, match="queue 6 item 10"):
         tb.solve_batch(r0, r1, 5, dict(OPTS, use_pallas=True), mesh=spatial,
                        **kw)
     # a mesh whose spatial axes all have extent 1 is batch-only: the flat

@@ -36,7 +36,9 @@ bit-equal to its plain version at 1025 x 33, 129^2 x 33, 65^2 x 17,
 33^2 x 9, 17^3 x 9 and two grids whose spacings are not powers of two,
 counted once an iteration (from graphs too) and
 never in a check; a 129^2 x 33 solve takes the same iterations and gives
-the same rho with the plain rhs forced in its place.
+the same rho with the plain rhs forced in its place. ``make_sharded_step``
+over a one-rank ("batch",) mesh launches the single-step kernels for each
+instance, bit-equal to each instance's own ``run_one``.
 """
 import math
 
@@ -961,3 +963,38 @@ def test_solve_with_the_rhs_kernel_matches_the_plain_rhs(dev, monkeypatch):
     assert torch.equal(kern["rho"], plain["rho"])
     assert kern_n["phi_rhs"] == kern_n["qx_step"] == sum(iters)
     assert plain_n["phi_rhs"] == 0 and plain_n["qx_step"] == sum(iters)
+
+
+def test_sharded_step_on_a_batch_mesh_runs_the_kernels(dev):
+    """``make_sharded_step`` over a one-rank ("batch",) mesh: two float32
+    instances stacked, each instance's 2 steps bit-equal to its own
+    ``run_one`` steps (its scalars in memory, as the device driver's), and
+    the rhs, z-, q- and beta-step kernels launched once a step for each
+    instance."""
+    from dotsocp_tpu_torch.parallel.batch import stack_states
+    from dotsocp_tpu_torch.parallel.sharding import (make_mesh,
+                                                     make_sharded_step)
+
+    lvs = []
+    for name in ("example2", "example3"):
+        lv = initialize(*get_example_2d(name, 17, 17), 7, dtype=F32,
+                        device=dev)
+        initial_scaling(lv, scaling=True)
+        lvs.append(lv)
+    kern = Kernels(LevelConfig(geom=lvs[0].geom, D=lvs[0].D, E=lvs[0].E,
+                               device=dev, dtype=F32))
+    state = stack_states([kern.prep(lv.as_dict(), 1.0) for lv in lvs])
+    step = make_sharded_step(kern, make_mesh(axis_names=("batch",),
+                                             device=dev))
+    fs.reset_launches()
+    got = step(step(state))
+    for k in ("phi_rhs", "z_step", "q_step", "beta_step"):
+        assert fs.LAUNCHES[k] == 4, (k, dict(fs.LAUNCHES))
+    ev = kern.e_scalars(state.D, state.E)
+    for b in range(2):
+        want = core.instance(state, b).replace(ev=ev, E=ev.E)
+        want = kern.run_one(kern.run_one(want))
+        mine = core.instance(got, b)
+        for a, w in zip([mine.phi, mine.z, mine.beta, *mine.q.blocks()],
+                        [want.phi, want.z, want.beta, *want.q.blocks()]):
+            assert torch.equal(a, w)

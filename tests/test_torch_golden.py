@@ -1,6 +1,7 @@
 """The port held to the committed golden trajectories of ``tests/golden/``
-(the JAX host driver in float64, ``tests/golden/generate.py``), on both of
-its single-process layouts, "flat" and "3d".
+(the JAX host driver in float64, ``tests/golden/generate.py``), under both
+of the single-process layouts the JAX package has, "flat" and "3d" (which
+the port warns of and runs on its flat engine).
 
 Each fixture whose densities the port generates itself is replayed with
 the port's host driver in float64 on the CPU, with the exactness of
@@ -62,10 +63,14 @@ def run_config(name: str, layout: str) -> dict:
         kw = {"weight": wdot2d.get_weight_by_barrier(n, n, nt, barrier,
                                                      dtype=torch.float64),
               "barrier": barrier}
-    out, hml, _ = solve_dot(r0, r1, nt, levels,
-                            {"tol": tol, "driver": "host", "layout": layout},
-                            method, device="cpu", dtype=torch.float64,
-                            verbose=False, **kw)
+    args = (r0, r1, nt, levels,
+            {"tol": tol, "driver": "host", "layout": layout}, method)
+    kw.update(device="cpu", dtype=torch.float64, verbose=False)
+    if layout == "3d":
+        with pytest.warns(UserWarning, match="layout='3d'.*'flat' layout"):
+            out, hml, _ = solve_dot(*args, **kw)
+    else:
+        out, hml, _ = solve_dot(*args, **kw)
     return {"kkt": hml["kkt"], "iter": hml["iter"], "pdGap": hml["pdGap"],
             "level_iters": [lv["iters"] for lv in out["levels"]],
             "mass_ok": bool(out["mass_ok"])}

@@ -9,13 +9,15 @@ tests marked ``cuda`` need a card and skip without one:
     python -m pytest --noconftest -o addopts="" tests/test_torch_kkt.py -q
 
 On the CPU: the route (the plain sums on the CPU, in float64 and on the
-"3d" and halo engines, under the same keys in the same order), the
-wrapper's refusals, and the drivers' ``kkt_kernel_checks`` beside
-``checks``. On the card: the kernel's 17 + 3 d sums against the plain ones
-on states a few steps into a level (2D at 33^2 x 9 and 65^2 x 17, 1D at 65
-x 17, 3D at 17^3 x 9; unweighted and weighted: the love-heart weight in 2D,
-a seeded weight in 1D and 3D; the host's float scalars and the device
-driver's tensors), each sum of squares within 1e-5 of the plain sum and
+halo engine and the shaped ``Ops3D``, under the same keys in the same
+order), every wrapper that takes ``ops`` running its plain version on the
+halo engine without looking at the tensors (``fused_step.on_kernel``, the
+one rule), the wrapper's refusals, and the drivers' ``kkt_kernel_checks``
+beside ``checks``. On the card: the kernel's 17 + 3 d sums against the
+plain ones on states a few steps into a level (2D at 33^2 x 9 and 65^2 x
+17, 1D at 65 x 17, 3D at 17^3 x 9; unweighted and weighted: the
+love-heart weight in 2D, a seeded weight in 1D and 3D; the host's float
+scalars and the device driver's tensors), each sum of squares within 1e-5 of the plain sum and
 each inner product within 1e-5 of the sum of its terms' magnitudes (every
 element is rounded as the plain version rounds it; the kernel adds in
 float64, PyTorch in float32); the sums bit-equal run to run and between an
@@ -23,8 +25,6 @@ eager launch and a graph replay; a fleet's ``kkt_batched`` over 4 instances
 equal to 4 single calls; and device-driver solves counting every check in
 ``kkt_kernel_checks``.
 """
-import types
-
 import pytest
 import torch
 
@@ -40,10 +40,12 @@ from dotsocp_tpu_torch.models.examples import (get_example_1d,
 from dotsocp_tpu_torch.multilevel.level import initial_scaling, initialize
 from dotsocp_tpu_torch.multilevel.solve import clear_solver_cache, solve_dot
 from dotsocp_tpu_torch.ops import fused_step as fs
-from dotsocp_tpu_torch.ops.engine import OpsFlat
+from dotsocp_tpu_torch.ops.engine import Ops3D, OpsFlat
 from dotsocp_tpu_torch.ops.geometry import Geometry
-from dotsocp_tpu_torch.ops.staggered import zeros
+from dotsocp_tpu_torch.ops.halo_engine import OpsHalo
+from dotsocp_tpu_torch.ops.staggered import Staggered, zeros
 from dotsocp_tpu_torch.parallel.batch import solve_fleet
+from dotsocp_tpu_torch.parallel.sharding import Mesh
 
 F32, F64 = torch.float32, torch.float64
 # (nt, space) of the card's comparisons
@@ -123,17 +125,92 @@ def test_plain_sums_on_the_cpu(name, dtype):
     assert all(torch.equal(got[k], want[k]) for k in want)
 
 
+def _halo_engine(geom):
+    """The halo engine of rank 0 of a (y=2, x=1) mesh: built without a
+    process group, as no operator runs here."""
+    mesh = Mesh(("y", "x"), (2, 1), 0, (0, 1), {}, None, "gloo", "cpu")
+    return OpsHalo(geom, F32, "cpu", mesh)
+
+
 def test_route_by_engine():
-    """The "3d" and halo engines take the plain sums without looking at the
-    tensors; the flat engine looks, and refuses a device with no kernel."""
+    """The shaped ``Ops3D`` and the halo engine take the plain route
+    without looking at the tensors; the flat engine looks, and refuses a
+    device with no kernel."""
     meta = torch.zeros(3, device="meta")
-    for layout in ("3d", "halo"):
-        assert not fs.kkt_sums_on_kernel(types.SimpleNamespace(
-            layout=layout), meta)
-    ops = OpsFlat(Geometry(nt=3, space=(5,)), F32, "cpu")
-    assert not fs.kkt_sums_on_kernel(ops, torch.zeros(3))
+    geom = Geometry(nt=3, space=(5, 5))
+    for ops in (Ops3D(geom, F32, "cpu"), _halo_engine(geom)):
+        assert not fs.on_kernel(ops, meta)
+    ops = OpsFlat(geom, F32, "cpu")
+    assert not fs.on_kernel(ops, torch.zeros(3))
     with pytest.raises(ValueError, match="no kernel"):
-        fs.kkt_sums_on_kernel(ops, meta)
+        fs.on_kernel(ops, meta)
+
+
+_M = torch.zeros(1, device="meta")
+_ST = Staggered(_M, _M)
+_WDINV = fs.WeightedDinv(w=_ST, base=(1.0, 1.0), inv=_ST)
+_ACTIVE = torch.ones(1, dtype=torch.bool, device="meta")
+# each wrapper that takes ``ops``: its plain version in ``fused_step`` and
+# its arguments after ``ops``, every tensor on the meta device
+WRAPPERS = {
+    "x_step": ("x_step_plain", (_ST, _M, 0.5, 1.2)),
+    "qx_step": ("qx_step_plain", (_M, _M, _ST, (1.0, 1.0), 1.0, 0.5, 1.9)),
+    "qx_step_w": ("qx_step_plain", (_M, _M, _ST, _WDINV, 1.0, 0.5, 1.9)),
+    "cx_step": ("cx_step_plain", (_M, _M, _ST, 0.5, 1.2, 1.9)),
+    "cx_final": ("cx_step_plain", (_M, _M, _ST, 0.5, 1.2, 1.9)),
+    "z_step": ("z_step_plain", (_ST, _M, 0.5, 1.2)),
+    "q_step": ("q_step_plain",
+               (_M, _M, _M, _ST, (1.0, 1.0), 1.0, 0.5, 1.9)),
+    "q_step_w": ("q_step_plain", (_M, _M, _M, _ST, _WDINV, 1.0, 0.5, 1.9)),
+    "beta_step": ("beta_step_plain", (_M, _M, _ST, 0.5, 1.2, 1.9)),
+    "phi_rhs": ("phi_rhs_plain", (_ST, _ST, _M, 1.0)),
+    "phi_rhs_w": ("phi_rhs_plain", (_ST, _ST, _M, 1.0, _ST)),
+    "x_step_batched": ("x_step_batched_plain",
+                       (_ST, _M, 0.5, _M, _ACTIVE, _M)),
+    "qx_step_batched": ("qx_step_batched_plain",
+                        (_M, _M, _ST, _ST, (1.0, 1.0), 1.0, 0.5, 1.9,
+                         _ACTIVE)),
+    "cx_step_batched": ("cx_step_batched_plain",
+                        (_M, _M, _ST, 0.5, _M, 1.9, _ACTIVE)),
+    "cx_final_batched": ("cx_step_batched_plain",
+                         (_M, _M, _ST, 0.5, _M, 1.9, _ACTIVE)),
+    # the battery routes in Kernels._kkt_parts, on a state of meta tensors:
+    # the plain sums are its method
+    "kkt_sums": ("_kkt_parts_plain", ()),
+}
+
+
+@pytest.mark.parametrize("name", list(WRAPPERS))
+def test_halo_engine_runs_every_wrapper_plain(monkeypatch, name):
+    """On the halo engine each wrapper that takes ``ops`` runs its plain
+    version without looking at its tensors (meta tensors, on which the
+    device test raises), and the battery (``Kernels._kkt_parts``) its
+    plain sums; on the flat engine the same call looks at the tensors and
+    raises for the meta device."""
+    plain, args = WRAPPERS[name]
+    geom = Geometry(nt=5, space=(9, 9))
+    halo = _halo_engine(geom)
+    seen = []
+    if name == "kkt_sums":
+        monkeypatch.setattr(Kernels, plain,
+                            lambda kern, s: seen.append(kern.ops) or plain)
+        state = core.SolverState(
+            phi=_M, q=_ST, z=_M, alpha=_ST, beta=_M, c=_M, sigma=1.0,
+            cScale=1.0, dScale=1.0, norm_c=1.0, norm_d=1.0, sigmaScale=1.0,
+            D=1.0, E=0.7)
+
+        def wrapper(ops):
+            kern = Kernels(LevelConfig(geom=geom, D=1.0, E=1.0,
+                                       device="cpu", mesh=ops.mesh))
+            return kern._kkt_parts(state)
+    else:
+        wrapper = getattr(fs, name.removesuffix("_w"))
+        monkeypatch.setattr(fs, plain,
+                            lambda ops, *a, **kw: seen.append(ops) or plain)
+    assert wrapper(halo, *args) == plain
+    assert [type(ops) for ops in seen] == [OpsHalo]
+    with pytest.raises(ValueError, match="no kernel"):
+        wrapper(OpsFlat(geom, F32, "cpu"), *args)
 
 
 @pytest.mark.parametrize("bad", ["D", "E", "sigma", "ev"])

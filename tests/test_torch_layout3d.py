@@ -1,6 +1,7 @@
-"""The port's shaped engine (``layout="3d"``: ``ops/engine.Ops3D``,
-``ops/grad.py``, the shaped operators of ``ops/cone.py``) against the JAX
-package's ``Ops3D``, in float64 on the CPU.
+"""The port's shaped engine (``ops/engine.Ops3D``, ``ops/grad.py``, the
+shaped operators of ``ops/cone.py``: the flat engine's oracle, which no
+solver runs) against the JAX package's ``Ops3D``, and the port's flat
+solver against the JAX package's ``"3d"`` layout, in float64 on the CPU.
 
 - Each operator (``grad``, ``grad_T``, ``bfd``, ``bfd_T``, ``oper_q_diag``
   unweighted and weighted, ``face_interp``, ``t_node_interp``, the DCT
@@ -9,16 +10,20 @@ package's ``Ops3D``, in float64 on the CPU.
   <q, bfd_T z> on the port's engine; the port's ``Ops3D`` against its
   ``OpsFlat`` after conversion within 1e-14; a stack of two instances on a
   leading axis bit-equal to each instance alone; the shaped
-  ``staggered.zeros`` as the JAX package's.
-- ``Kernels`` of every method class on "3d" (inPALM, PALM, acc-ADMM,
-  sGS-inPALM, acc-sGS-ADMM, weighted inPALM), started from the JAX "3d"
-  state, take 12 iterations and stay within 1e-10 of the JAX kernels on
-  "3d" (``tests/test_flat_layout.py:102-155``).
-- ``solve_dot(layout="3d", device="cpu")`` takes the JAX ``solve_dot``'s
-  per-level counts on "3d", each driver against its JAX counterpart:
-  inPALM in 2D, 1D and 3D, sGS-inPALM, acc-ADMM and weighted inPALM.
-- ``solve_batch`` lockstep on "3d" against the JAX ``solve_batch`` on "3d";
-  ``solve_batch`` and ``solve_fleet`` refuse "3d" on a spatial mesh.
+  ``staggered.zeros`` as the JAX package's; ``make_ops`` builds the flat
+  engine, or the halo engine on a mesh, and takes no layout.
+- The port's flat ``Kernels`` of every method class (inPALM, PALM,
+  acc-ADMM, sGS-inPALM, acc-sGS-ADMM, weighted inPALM), started from the
+  JAX "3d" state, take 12 iterations and stay within 1e-10 of the JAX
+  kernels on "3d" (``tests/test_flat_layout.py:102-155``).
+- ``solve_dot(layout="3d", device="cpu")`` warns and runs the flat engine,
+  and takes the JAX ``solve_dot``'s per-level counts on "3d", each driver
+  against its JAX counterpart: inPALM in 2D, 1D and 3D, sGS-inPALM,
+  acc-ADMM and weighted inPALM. These are the proof that one process
+  loses nothing by running "3d" as flat.
+- ``solve_batch`` lockstep with "3d" (warned, flat) against the JAX
+  ``solve_batch`` on "3d"; ``solve_batch`` and ``solve_fleet`` refuse "3d"
+  on a spatial mesh.
 """
 import jax
 import jax.numpy as jnp
@@ -45,7 +50,9 @@ from dotsocp_tpu_torch.ops import staggered as tstg
 from dotsocp_tpu_torch.ops.engine import Ops3D, OpsFlat, make_ops
 from dotsocp_tpu_torch.ops.geometry import Geometry
 from dotsocp_tpu_torch.ops.staggered import Staggered
+from dotsocp_tpu_torch.ops.halo_engine import OpsHalo
 from dotsocp_tpu_torch.parallel import batch as tb
+from dotsocp_tpu_torch.parallel.sharding import Mesh
 from dotsocp_tpu_torch.utils.interop import (acc_state_from_numpy,
                                              state_from_numpy,
                                              weight_from_numpy)
@@ -236,11 +243,14 @@ def test_shaped_helpers_match_jax(case):
 
 
 def test_make_ops_by_name():
+    """One process runs the flat engine, a mesh the halo engine; no layout
+    picks another (the shaped engine is built by name, as an oracle)."""
     g = Geometry(5, (7, 9))
-    assert isinstance(make_ops(g, F64, "cpu", layout="3d"), Ops3D)
-    assert isinstance(make_ops(g, F64, "cpu"), OpsFlat)
-    with pytest.raises(ValueError, match="layout='halo'.*'flat', '3d'"):
-        make_ops(g, F64, "cpu", layout="halo")
+    assert type(make_ops(g, F64, "cpu")) is OpsFlat
+    mesh = Mesh(("y", "x"), (2, 1), 0, (0, 1), {}, None, "gloo", "cpu")
+    assert isinstance(make_ops(g, F64, "cpu", mesh), OpsHalo)
+    with pytest.raises(TypeError, match="layout"):
+        make_ops(g, F64, "cpu", layout="3d")
 
 
 # -- Kernels trajectories ---------------------------------------------------------
@@ -268,8 +278,19 @@ def _love_heart(n, nt):
     return r0, r1, jwdot2d.get_weight_by_barrier(n, n, nt, barrier), barrier
 
 
+def _shaped(ops, name, x):
+    """A flat state field of the port in the JAX package's shaped form."""
+    if name in ("q", "alpha"):
+        return ops.stag_from_internal(x)
+    if name == "phi":
+        return ops.phi_from_internal(x)
+    return ops.z_from_internal(x)
+
+
 @pytest.mark.parametrize("name", list(CLASSES))
 def test_kernels_trajectory_matches_jax_3d(name):
+    """The port's flat kernels from the JAX "3d" state, against the JAX
+    kernels on "3d"."""
     jcls, tcls, tau, acc, weighted = CLASSES[name]
     n, nt = 17, 7
     weight = None
@@ -283,18 +304,17 @@ def test_kernels_trajectory_matches_jax_3d(name):
                         dtype=jnp.float64, layout="3d", weighted=weighted,
                         check_prim_dual_feas=not weighted)
     tcfg = LevelConfig(geom=Geometry(nt, lv.geom.space), D=lv.D, E=lv.E,
-                       tau=tau, dtype=F64, device="cpu", layout="3d")
+                       tau=tau, dtype=F64, device="cpu")
     if weighted:
         jk = jcls(jcfg, lv.weight)
         tk = tcls(tcfg, weight_from_numpy(jax.device_get(lv.weight),
                                           device="cpu", dtype=F64))
     else:
         jk, tk = jcls(jcfg), tcls(tcfg)
-    assert tk.ops.layout == "3d" and tk.plain and not tk.segment_ca
+    assert type(tk.ops) is OpsFlat
     js = jk.prep(lv.as_dict(), sigma=0.8)
     conv = acc_state_from_numpy if acc else state_from_numpy
-    ts = conv(jax.device_get(js)._asdict(), device="cpu", dtype=F64,
-              layout="3d")
+    ts = conv(jax.device_get(js)._asdict(), device="cpu", dtype=F64)
     js = jk.run_segment(js, STEPS)
     ts = tk.run_segment(ts, STEPS)
     jres = jax.device_get(jk.kkt(js))
@@ -306,12 +326,13 @@ def test_kernels_trajectory_matches_jax_3d(name):
     js = js.s if acc else js
     ts = ts.s if acc else ts
     for f in ("phi", "z", "beta", "q", "alpha"):
-        for a, b in zip(_np(getattr(ts, f)), _np(getattr(js, f))):
+        for a, b in zip(_np(_shaped(tk.ops, f, getattr(ts, f))),
+                        _np(getattr(js, f))):
             assert a.shape == b.shape, f
             np.testing.assert_allclose(a, b, rtol=0, atol=1e-10, err_msg=f)
 
 
-# -- solve_dot and solve_batch on "3d" ----------------------------------------------
+# -- solve_dot and solve_batch with "3d": flat, the JAX "3d" counts ---------
 
 def _problem(kind):
     """(rho0, rho1, nt, levels, opts, method, weight kwargs)."""
@@ -347,9 +368,10 @@ def test_solve_dot_counts_match_jax_3d(kind, driver):
         tkw = {"weight": weight_from_numpy(jax.device_get(kw["weight"]),
                                            device="cpu", dtype=F64),
                "barrier": kw["barrier"]}
-    tout, th, _ = tsolve.solve_dot(r0, r1, nt, levels, opts, method,
-                                   device="cpu", dtype=F64, verbose=False,
-                                   **tkw)
+    with pytest.warns(UserWarning, match="layout='3d'.*'flat' layout"):
+        tout, th, _ = tsolve.solve_dot(r0, r1, nt, levels, opts, method,
+                                       device="cpu", dtype=F64,
+                                       verbose=False, **tkw)
     assert ([lv["iters"] for lv in tout["levels"]]
             == [lv["iters"] for lv in jout["levels"]])
     np.testing.assert_array_equal(th["iter"], jh["iter"])
@@ -365,8 +387,9 @@ def test_solve_batch_lockstep_matches_jax_3d():
     opts = {"tol": 1e-4, "maxit": 3000, "layout": "3d"}
     jout = jsolve_batch(r0, r1, 5, opts, "inPALM", dtype=jnp.float64,
                         verbose=False)
-    tout = tb.solve_batch(r0, r1, 5, opts, "inPALM", dtype=F64,
-                          verbose=False, device="cpu")
+    with pytest.warns(UserWarning, match="layout='3d'.*'flat' layout"):
+        tout = tb.solve_batch(r0, r1, 5, opts, "inPALM", dtype=F64,
+                              verbose=False, device="cpu")
     np.testing.assert_array_equal(tout["done"], np.asarray(jout["done"]))
     np.testing.assert_array_equal(tout["done_it"],
                                   np.asarray(jout["done_it"]))

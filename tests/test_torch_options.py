@@ -8,12 +8,11 @@ refuse the others with a message that says why; the device driver's
 ``chunk_iters``, ``max_chunks`` and ``checkpoint_dir`` change nothing in a
 run that ends inside one chunk;
 ``layout="halo"`` without a mesh warns and runs the flat solve, as the JAX
-package does; ``layout="3d"`` runs the shaped engine (its iterations and
-check schedule those of the flat solve, its values within rounding), is
-refused under a mesh, naming GSPMD and the halo engine, and with
-``use_pallas=True`` for a method whose step kernels take the flat layout
-only (no option waits in a ROADMAP.md queue any more: ``mesh`` runs, in
-``tests/test_torch_parallel.py``, and takes only a port mesh). The solves
+package does, and so does ``layout="3d"`` (bit-equal to the flat solve,
+``use_pallas=True`` beside it too), which is refused under a mesh, naming
+GSPMD and the halo engine (no option waits in a ROADMAP.md queue any
+more: ``mesh`` runs, in ``tests/test_torch_parallel.py``, and takes only a
+port mesh). The solves
 here hold the host driver, unless a case asks for the device driver (as
 "auto" does). The refine options,
 the NaN tripwire (``debug_nans``) and the profiler trace (``trace_dir``)
@@ -84,27 +83,21 @@ def test_accepted_option_changes_nothing(baseline, key, value, tmp_path):
     """Against the run of its driver without the option ("auto" is the
     device driver here); the 79 iterations end inside one chunk of 100,
     and a chunk of 7 splits segments where the check cadence does not.
-    The "3d" layout runs inPALM's plain step where the flat layout runs
-    the x-carry segment, whose z = (z + beta) - beta rounds otherwise: its
-    iterations and check schedule are the same, rho and the KKT rows
-    within float64 rounding."""
+    The "3d" layout warns and runs the flat engine, bit-equal."""
     if key == "checkpoint_dir":
         value = str(tmp_path / value)
     opts = {key: value}
     if key in DEVICE_OPTS:
         opts["driver"] = "device"
-    out, hist = _solve(opts)
+    if value == "3d":
+        with pytest.warns(UserWarning, match="layout='3d'.*'flat' layout"):
+            out, hist = _solve(opts)
+    else:
+        out, hist = _solve(opts)
     want, want_hist = baseline[
         "host" if opts.get("driver", "host") == "host" else "device"]
     assert [lv["iters"] for lv in out["levels"]] == \
         [lv["iters"] for lv in want["levels"]]
-    if value == "3d":
-        assert np.array_equal(hist["iter"], want_hist["iter"])
-        np.testing.assert_allclose(out["rho"], want["rho"], rtol=0,
-                                   atol=1e-12)
-        np.testing.assert_allclose(hist["kkt"], want_hist["kkt"], rtol=1e-9,
-                                   atol=1e-14)
-        return
     assert torch.equal(out["rho"], want["rho"])
     assert np.array_equal(hist["kkt"], want_hist["kkt"])
 
@@ -146,8 +139,8 @@ def test_halo_without_a_mesh_warns_and_runs_flat(baseline):
 
 @pytest.mark.parametrize("key,item", [("layout", "3d")])
 def test_queued_option_names_its_queue(key, item):
-    """No option waits in a ROADMAP.md queue now (the mesh runs, and so
-    does '3d' on one process); what has no counterpart is '3d' under a
+    """No option waits in a ROADMAP.md queue now (the mesh runs, and '3d'
+    runs flat on one process); what has no counterpart is '3d' under a
     mesh, where the JAX package lets GSPMD partition its shaped engine: it
     is refused by its name, saying what the port runs there."""
     from dotsocp_tpu_torch.parallel.sharding import make_mesh
@@ -157,27 +150,26 @@ def test_queued_option_names_its_queue(key, item):
         _solve({key: item, "mesh": mesh})
 
 
-@pytest.mark.parametrize("method,levels,refused", [
-    ("inPALM", 1, True), ("ALG2", 1, True), ("sGS-inPALM", 1, True),
-    ("acc-sGS-ADMM", 2, True), ("acc-sGS-ADMM", 1, False),
-    ("acc-ADMM", 1, False), ("PALM", 1, False)])
-def test_use_pallas_true_with_3d(method, levels, refused):
-    """use_pallas=True on the shaped engine: refused, with the reason, for
-    a method whose step kernels take the flat layout only (an sGS method's
-    levels before the last run inPALM); taken where every kernel the
-    method runs takes the shaped fields (the sweep, the cone projection)
-    or it has none (PALM)."""
+@pytest.mark.parametrize("method,levels", [
+    ("inPALM", 1), ("ALG2", 1), ("sGS-inPALM", 1), ("acc-sGS-ADMM", 2),
+    ("acc-sGS-ADMM", 1), ("acc-ADMM", 1), ("PALM", 1)])
+def test_use_pallas_true_with_3d(method, levels):
+    """use_pallas=True with "3d": the solve warns and runs the flat engine,
+    where every kernel the method has runs, so True is kept: bit-equal to
+    the flat solve with the same options (an sGS method's levels before
+    the last run inPALM)."""
     r0, r1 = get_example_2d("example2", N, N)
-    opts = {"layout": "3d", "use_pallas": True, "maxit": 5}
-    args = (r0, r1, NT, levels, opts, method)
+    opts = {"use_pallas": True, "maxit": 5}
     kw = dict(device="cpu", dtype=torch.float64, verbose=False)
-    if refused:
-        with pytest.raises(ValueError, match="use_pallas=True with "
-                                             "layout='3d'.*flat layout"):
-            tsolve.solve_dot(*args, **kw)
-    else:
-        out, _, _ = tsolve.solve_dot(*args, **kw)
-        assert out["levels"][-1]["iters"] == 5
+    with pytest.warns(UserWarning, match="layout='3d'.*'flat' layout"):
+        out, _, _ = tsolve.solve_dot(r0, r1, NT, levels,
+                                     dict(opts, layout="3d"), method, **kw)
+    want, _, _ = tsolve.solve_dot(r0, r1, NT, levels,
+                                  dict(opts, layout="flat"), method, **kw)
+    assert out["levels"][-1]["iters"] == 5
+    assert [lv["iters"] for lv in out["levels"]] == \
+        [lv["iters"] for lv in want["levels"]]
+    assert torch.equal(out["rho"], want["rho"])
 
 
 REFINE = {"refine_tol": 1e-4}
