@@ -108,6 +108,17 @@ the device driver (CUDA-graph segments, ``algorithms/device_driver.py``).
    and 20 replays from a captured graph, as the check graph runs them),
    the bytes of the one pass and its bound, the device kernels a battery
    runs (torch.profiler); one JSON line ``kkt_battery``.
+5c. The phi-solve (``DctPoisson.solve``) with its spatial axes on each
+   route, the FFT route (``ops/poisson.py``: cuFFT's rfftn between the
+   kernels of ``csrc/dct_spectral.cu``) and the dense matrices, at
+   ``DCT_SHAPES`` in float32: times by CUDA events (20 solves a side,
+   matrix, FFT, FFT, matrix; and from a captured graph), the solve's bytes
+   (rhs and kernel read, phi written) and bound, each route's largest
+   error against the float64 matrix solve of the same rhs (the FFT route's
+   no more than 1.5 times the matrix route's), the graph's replay bit-equal
+   to the eager solve, each of the route's two kernels alone with its
+   bytes; the crossover behind ``FAST_DCT_MIN``; one JSON line
+   ``dct_routes``.
 7. The device driver. 7a: from one state, 40 iterations replayed from its
    CUDA graphs against the same 40 run eagerly, then again after a
    rescale and after a sigma change, for the CA path at 129^2 x 33, the
@@ -168,7 +179,10 @@ the device driver (CUDA-graph segments, ``algorithms/device_driver.py``).
    residuals below 1e-4, the total within +-10% of the JAX package's 407
    (``SCALE_ANCHOR``); per-level counts, ``solve_dot``'s wall around a
    synchronize, the device busy share of a second, profiled solve, the
-   peak memory, the launches. 9b: the maze (``demo_wdot2d --problem maze14
+   peak memory, the launches; on the 257^2 and 513^2 levels, whose space
+   axes take the FFT route, one ``dct_spectral`` and two
+   ``dct_t_gather`` launches an iteration and ``fast_dct_iters`` equal to
+   the iterations (``dct_launches``). 9b: the maze (``demo_wdot2d --problem maze14
    --barrier maze14``, 129^2 x 129, 3 levels, tol 1e-3): no density in the
    eroded barrier, stop residuals 1, 3, 6 below the tolerance (a level
    short of its pyramid tolerance only at maxit where the JAX run stopped
@@ -1131,17 +1145,18 @@ def check_run_one(torch):
 
 def reset_launch_counts():
     """Every kernel wrapper's launch count set to 0."""
-    from dotsocp_tpu_torch.ops import fused_step, sgs_sweep, shift
+    from dotsocp_tpu_torch.ops import fused_step, poisson, sgs_sweep, shift
 
-    for module in (fused_step, sgs_sweep, shift):
+    for module in (fused_step, sgs_sweep, shift, poisson):
         module.reset_launches()
 
 
 def launch_counts():
     """Every kernel wrapper's launch count, by kernel."""
-    from dotsocp_tpu_torch.ops import fused_step, sgs_sweep, shift
+    from dotsocp_tpu_torch.ops import fused_step, poisson, sgs_sweep, shift
 
-    return dict(fused_step.LAUNCHES, **sgs_sweep.LAUNCHES, **shift.LAUNCHES)
+    return dict(fused_step.LAUNCHES, **sgs_sweep.LAUNCHES, **shift.LAUNCHES,
+                **poisson.LAUNCHES)
 
 
 def add_counts(total, counts):
@@ -2123,6 +2138,116 @@ def time_kkt(torch):
         del s, kern, lv, got, want
         torch.cuda.empty_cache()
     return out
+
+
+# (nt, n) of the phi-solve's routes: the 129 cell's levels, the 513 cell's
+# middle and finest
+DCT_SHAPES = ((17, 129), (33, 129), (33, 257), (65, 513))
+
+
+def dct_route(torch, nt, n, dtype, fast):
+    """``make_dct_poisson`` at nt x n^2 with the spatial axes on the FFT
+    route (``fast``) or on their matrices; the t axis (nt < n) on its
+    matrix."""
+    from dotsocp_tpu_torch.ops import poisson
+    from dotsocp_tpu_torch.ops.geometry import Geometry
+
+    keep = poisson.FAST_DCT_MIN
+    poisson.FAST_DCT_MIN = n if fast else n + 1
+    try:
+        return poisson.make_dct_poisson(Geometry(nt, (n, n)), dtype=dtype,
+                                        device=DEVICE)
+    finally:
+        poisson.FAST_DCT_MIN = keep
+
+
+def time_dct(torch):
+    """Phase 5c: the phi-solve on both routes at ``DCT_SHAPES`` (see the
+    module's docstring), on a seeded normal rhs and the scale a level
+    passes (1/D^2, D = sqrt(2 h_mean))."""
+    from dotsocp_tpu_torch.ops.geometry import Geometry
+    from dotsocp_tpu_torch.ops.poisson import FAST_DCT_MIN
+
+    out = {}
+    for nt, n in DCT_SHAPES:
+        gen = torch.Generator().manual_seed(1000 * nt + n)
+        rhs = torch.randn((nt, n, n), generator=gen).to(DEVICE)
+        scale = 1.0 / (2.0 * Geometry(nt, (n, n)).h_mean)
+        want = dct_route(torch, nt, n, torch.float64, False).solve(
+            rhs.double(), scale)
+        top = float(want.abs().max())
+        mat = dct_route(torch, nt, n, torch.float32, False)
+        fft = dct_route(torch, nt, n, torch.float32, True)
+        got = {name: p.solve(rhs, scale) for name, p in (("matrix", mat),
+                                                         ("fft", fft))}
+        err = {name: float((g.double() - want).abs().max()) / top
+               for name, g in got.items()}
+        f_ms, m_ms = paired(torch, lambda: mat.solve(rhs, scale),
+                            lambda: fft.solve(rhs, scale), 20)
+        fg_ms = graph_ms(torch, lambda: fft.solve(rhs, scale), 20)
+        mg_ms = graph_ms(torch, lambda: mat.solve(rhs, scale), 20)
+        replayed = replay_once(torch, lambda: fft.solve(rhs, scale), rhs)
+        require(torch.equal(replayed, got["fft"]), f"{n}^2 x {nt}: the FFT "
+                f"route's graph replay differs from its eager solve")
+        require(err["fft"] <= 1.5 * err["matrix"], f"{n}^2 x {nt}: the FFT "
+                f"route's error {err['fft']:.2e} is more than 1.5 times the "
+                f"matrix route's {err['matrix']:.2e}")
+        nbytes = 3 * 4 * nt * n * n
+        name = f"{n}^2 x {nt}"
+        out[name] = {"fft_ms": f_ms, "matrix_ms": m_ms, "fft_graph_ms": fg_ms,
+                     "matrix_graph_ms": mg_ms, "bytes": nbytes,
+                     "bound_ms": bound_ms(nbytes), "fft_err": err["fft"],
+                     "matrix_err": err["matrix"],
+                     "route": "fft" if n >= FAST_DCT_MIN else "matrix",
+                     "kernels": dct_kernel_times(torch, fft.fft, rhs, scale)}
+        log(f"  {name}: FFT route {f_ms:.4f} ms (graph {fg_ms:.4f}), matrix "
+            f"route {m_ms:.4f} ms (graph {mg_ms:.4f}); "
+            f"{nbytes / 1e9:.3f} GB, bound {out[name]['bound_ms']} ms; "
+            f"errors {err['fft']:.2e} / {err['matrix']:.2e}; "
+            f"FAST_DCT_MIN {FAST_DCT_MIN} takes the "
+            f"{out[name]['route']} route")
+        for k, row in out[name]["kernels"].items():
+            log(f"    {k}: {row['ms']:.4f} ms, {row['bytes'] / 1e9:.3f} GB "
+                f"({share(row['bytes'], row['ms'])}; bound "
+                f"{row['bound_ms']} ms)")
+        del want, mat, fft, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def dct_kernel_times(torch, plan, rhs, scale):
+    """The FFT route's two kernels alone (20 launches each, CUDA events):
+    ``t_gather`` (x read, y written: 8 bytes a point) and the spectral
+    step on the half spectrum (V read and written, the kernel's pair
+    read: 24 bytes a complex entry)."""
+    from dotsocp_tpu_torch.ops import poisson
+
+    V = torch.fft.rfftn(poisson.t_gather(rhs, plan, 0), dim=(-2, -1))
+    rows = {"dct_t_gather": (lambda: poisson.t_gather(rhs, plan, 0),
+                             8 * rhs.numel()),
+            "dct_spectral": (lambda: poisson.spectral_multiply(V, plan,
+                                                               scale),
+                             24 * V.numel())}
+    return {k: {"ms": event_ms(torch, fn, 20), "bytes": nbytes,
+                "bound_ms": bound_ms(nbytes)}
+            for k, (fn, nbytes) in rows.items()}
+
+
+def replay_once(torch, fn, like):
+    """fn's output (shaped as ``like``) from a graph's replay: the first
+    call eager, the second captured and replayed, the third replayed."""
+    from dotsocp_tpu_torch.algorithms.graphs import SegmentGraphs
+
+    out = torch.empty_like(like)
+    graphs = SegmentGraphs(DEVICE)
+    try:
+        with graphs.context():
+            for _ in range(3):
+                graphs.run("solve", lambda: out.copy_(fn()))
+        torch.cuda.synchronize()
+        return out.clone()
+    finally:
+        graphs.release()
 
 
 def time_dev_entries(torch, kern, s, reps):
@@ -3576,6 +3701,7 @@ def scale_config(torch):
         require(launches[name] > 0, f"scale config: {name} never launched")
     require(launches["qx_step"] == total, f"scale config: qx_step launched "
             f"{launches['qx_step']} times for {total} iterations")
+    dct = dct_launches(out["levels"], launches)
     del out, rho
     r0, r1 = get_example_2d("DOTmark_4stitch", n, n)
 
@@ -3609,7 +3735,31 @@ def scale_config(torch):
     return launches, dict(iters=iters, total=total, wall_s=wall,
                           level_s=level_s, demo_wall_s=demo_wall,
                           busy_pct=busy, kernel_ms=kernel_ms, peak_gib=peak,
-                          mass_ok=True)
+                          mass_ok=True, dct_launches=dct)
+
+
+def dct_launches(levels, launches):
+    """The FFT route's launches in a solve on the card: one phi-solve an
+    iteration, so one ``dct_spectral`` and two ``dct_t_gather`` an
+    iteration of each level whose space axes take the route
+    (``poisson.fast_axis``), and each such level's ``fast_dct_iters``
+    equal to its iterations (0 elsewhere). Returns the counts."""
+    from dotsocp_tpu_torch.ops import poisson
+
+    fast = [lv["iters"] if any(map(poisson.fast_axis, lv["geom"].space))
+            else 0 for lv in levels]
+    counted = [lv["driver"]["fast_dct_iters"] for lv in levels]
+    out = {"fast_solves": sum(fast), "fast_dct_iters": counted,
+           "dct_spectral": launches["dct_spectral"],
+           "dct_t_gather": launches["dct_t_gather"]}
+    log(f"  FFT route: {out}")
+    require(counted == fast, f"fast_dct_iters {counted}, expected {fast}")
+    require(launches["dct_spectral"] == sum(fast)
+            and launches["dct_t_gather"] == 2 * sum(fast),
+            f"the FFT route's kernels launched {launches['dct_spectral']} "
+            f"(spectral) and {launches['dct_t_gather']} (t_gather) times "
+            f"for {sum(fast)} phi-solves on the route")
+    return out
 
 
 def maze_solve(torch):
@@ -4751,6 +4901,9 @@ def main(argv=None):
     times_3d, library_3d, others_3d = time_scale_3d(torch)
     phase("5b", "the KKT battery's sums at 513^2 x 65 and 129^2 x 33")
     print(json.dumps({"kkt_battery": time_kkt(torch)}), flush=True)
+    phase("5c", "the phi-solve on the FFT and the matrix route at "
+          "129^2 x 17, 129^2 x 33, 257^2 x 33 and 513^2 x 65")
+    print(json.dumps({"dct_routes": time_dct(torch)}), flush=True)
     if args.profile is not None:
         phase(6, "profiler window")
         profile_window(torch, args.profile)

@@ -369,6 +369,13 @@ class Kernels:
                            weighted_dinv(self.ops, self.weight, s.D, s.E))
         return self._wdinv[1]
 
+    @property
+    def fast_dct(self) -> bool:
+        """True when the phi-step's DCT solve takes the FFT route on some
+        axis (``ops/poisson.fast_axis``); the halo engine's solve has no
+        FFT route."""
+        return bool(getattr(self.poisson, "fast_axes", ()))
+
     def _poisson_solve(self, s: SolverState, rhs):
         """phi-step DCT solve of D^2 A^T A phi = rhs."""
         return self.poisson.solve(rhs, scale=1.0 / (s.D * s.D))

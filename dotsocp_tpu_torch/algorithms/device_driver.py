@@ -43,7 +43,9 @@ seconds in the record reads, where it waits for the card. The rest of the
 level's ``time`` is the host's schedule and bookkeeping. ``checks`` counts
 the KKT checks, ``kkt_kernel_checks`` those whose battery ran its sums on
 the kernel (``Kernels.kkt_on_kernel``: the flat engine's float32 CUDA
-state), ``syncs`` the record reads. The loop's steps
+state), ``syncs`` the record reads; ``fast_dct_iters`` is the level's
+iterations when its phi-step's DCT solve takes the FFT route on some axis
+(``Kernels.fast_dct``), else 0. The loop's steps
 are spans of ``utils/trace.py`` (``dotsocp.driver.prepare``, ``.segment``,
 ``.check``, ``.record_read``, ``.rescale``, ``.finish``), which a running
 profiler shows.
@@ -752,7 +754,9 @@ class DeviceDriver:
                               eager_runs=self.graphs.eager_runs,
                               graph_kinds=self.graphs.kinds(),
                               eager_s=self.graphs.eager_s,
-                              capture_s=self.graphs.capture_s)
+                              capture_s=self.graphs.capture_s,
+                              fast_dct_iters=(self.h.it if self.k.fast_dct
+                                              else 0))
             if not self.cached:
                 self.graphs.release()
         t0 = time.perf_counter()

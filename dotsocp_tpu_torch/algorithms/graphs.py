@@ -40,9 +40,9 @@ replays, eager runs, the kinds used) restart with each solve
 graph their pool's memory goes back to PyTorch's allocator: at the end of
 a solve whose driver is not kept, and at the cache's eviction.
 
-``LAUNCHES`` of ``ops/fused_step.py`` and ``ops/sgs_sweep.py`` count kernel
-executions: a capture records the launches its function made and takes
-them back (a capture runs nothing). A replay only counts itself, by kind;
+``LAUNCHES`` of ``ops/fused_step.py``, ``ops/sgs_sweep.py`` and
+``ops/poisson.py`` count kernel executions: a capture records the launches
+its function made and takes them back (a capture runs nothing). A replay only counts itself, by kind;
 :meth:`SegmentGraphs.fold_launches` adds the replays' launches to
 ``LAUNCHES``, which the drivers call at the end of a ``segment``, a
 ``solve`` and a ``warm`` (and :meth:`release` before it drops the graphs).
@@ -57,9 +57,9 @@ from typing import Callable
 
 import torch
 
-from ..ops import fused_step, sgs_sweep
+from ..ops import fused_step, poisson, sgs_sweep
 
-COUNTERS = (fused_step.LAUNCHES, sgs_sweep.LAUNCHES)
+COUNTERS = (fused_step.LAUNCHES, sgs_sweep.LAUNCHES, poisson.LAUNCHES)
 # one side stream per card for every driver (cuBLAS keeps a workspace for
 # each stream it has run on)
 _STREAMS = {}

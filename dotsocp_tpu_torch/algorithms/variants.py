@@ -295,6 +295,9 @@ class _SgsPhiStep:
     (primFea1, dualFea1) after each of the first k-1 iterations: the driver
     fetches each in one transfer."""
 
+    # the phi-step is the sweep: no DCT solve, on either route
+    fast_dct = False
+
     def _build_sgs(self):
         # the level's D^2 is passed per sweep; under a mesh the halo sweep
         # (``dotsocp_tpu/algorithms/variants.py:347-356,485-492``)

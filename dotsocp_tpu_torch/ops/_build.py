@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 _F = ctypes.c_float
 # every source, with the argtypes of each C entry point it defines
 SOURCES = {
@@ -81,6 +82,12 @@ SOURCES = {
     },
     "flat_shift.cu": {
         "dotsocp_flat_shift": [_P, _P, _I, _I, _I, _I, _I, _P],
+    },
+    "dct_spectral.cu": {
+        # (V, g, T, R, n1, n2, h3, rows of g, scale)
+        "dotsocp_dct_spectral": [_P] * 3 + [_L, _I, _I, _I, _L, _F, _P],
+        # (x, y, At, src, L, T, TP, S)
+        "dotsocp_dct_t_gather": [_P] * 4 + [_L, _I, _I, _L, _P],
     },
 }
 

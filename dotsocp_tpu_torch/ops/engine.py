@@ -382,12 +382,16 @@ def base_values(D: float, E: float):
 
 class FlatPoisson:
     """DCT Poisson solve on the flat layout: reshape to the shaped axes for
-    the per-axis matmuls and back. Leading axes before ``(nt, S)`` (a
+    the per-axis transforms and back. Leading axes before ``(nt, S)`` (a
     batch of instances) pass through."""
 
     def __init__(self, inner, geom: Geometry):
         self.inner = inner
         self.geom = geom
+
+    @property
+    def fast_axes(self):
+        return self.inner.fast_axes
 
     def solve(self, rhs: torch.Tensor, scale=None) -> torch.Tensor:
         shaped = rhs.reshape(tuple(rhs.shape[:-1]) + self.geom.space)

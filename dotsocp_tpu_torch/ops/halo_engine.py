@@ -59,7 +59,8 @@ import torch.nn.functional as F
 from ..parallel import comm
 from .engine import base_values, diag_values
 from .geometry import Geometry
-from .poisson import _apply_axis, make_dct_poisson
+from .poisson import (_apply_axis, _inverse_kernel, dct_matrix,
+                      full_precision_matmul)
 from .staggered import Staggered
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
@@ -335,9 +336,7 @@ class OpsHalo:
                 "halo layout: fast f64 DCT modes (refine_dct_split="
                 f"{split!r}) are not supported under a mesh; use the plain "
                 "f64 tail (refine_dct_split=False or 'auto')")
-        inner = make_dct_poisson(self.geom, D=D, dtype=self.dtype,
-                                 split=False, device=self.device)
-        return _HaloPoisson(inner, self)
+        return _HaloPoisson(self, D)
 
     def face_interp(self, x, a: int):
         """0.5 (x[j] + x[j+1]) at face slot j."""
@@ -434,15 +433,17 @@ class _HaloPoisson:
     unpadded transform (``halo_engine.py:451-488``). Along an axis the mesh
     splits, the rank gathers the axis's shards and applies its own rows."""
 
-    def __init__(self, inner, ops: OpsHalo):
+    def __init__(self, ops: OpsHalo, D: float):
+        full_precision_matmul()
         geom = ops.geom
+        ns = (geom.nt,) + geom.space
         exts = [(geom.nt, ops.Pt, ops.kt, ops.off_t, ops.Lt)] + [
             (geom.space[a], ops.P[a], ops.k[a], ops.off[a], ops.L[a])
             for a in range(ops.d)]
         self.ops = ops
         self.axes = []
         for ax, (n, Pn, k, off, L) in enumerate(exts):
-            M = inner.mats[ax]
+            M = dct_matrix(n, ops.dtype, ops.device)
             if Pn != n:
                 M = F.pad(M, (0, Pn - n, 0, Pn - n))
             fwd, inv = M, M.T
@@ -451,7 +452,9 @@ class _HaloPoisson:
                 inv = inv[off:off + L].contiguous()
             name = ops.axis_comm(ax)[0] if k > 1 else None
             self.axes.append((ax, name, fwd, inv))
-        ik = ops._pad_space(inner.inv_kernel, value=1.0, t_real=geom.nt)
+        ik = torch.as_tensor(_inverse_kernel(ns, D, None), dtype=ops.dtype,
+                             device=ops.device)
+        ik = ops._pad_space(ik, value=1.0, t_real=geom.nt)
         self.inv_kernel = ops._local(ik, t=True)
 
     def _transform(self, y, which: int):

@@ -1,4 +1,4 @@
-"""Spectral solve of the space-time Neumann Laplacian via matmul-DCT; port of
+"""Spectral solve of the space-time Neumann Laplacian by the DCT; port of
 ``dotsocp_tpu/ops/poisson.py:31-176,217-258``: the plain path and the
 iterative-refinement (IR) f64 solve. The double-word split-f32 path is not
 ported: it works around the TPU's emulated f64.
@@ -7,10 +7,26 @@ Solves  D^2 * (A^T A) phi = rhs  (``oper_poisson3dim.m``) as
 
     phi = C^T_t C^T_y C^T_x [ (C_t C_y C_x rhs) * inv_kernel ]
 
-with one orthonormal DCT-II matrix per axis and inv_kernel = 1 / (D^2 *
-kernel). The per-axis products are ``torch.matmul`` in full precision: the
-JAX package runs them at ``Precision.HIGHEST``, and a TF32 solve loses ~4
-digits, so building a solver switches TF32 off for CUDA matmuls.
+with one orthonormal DCT-II per axis and inv_kernel = 1 / (D^2 * kernel).
+A space axis takes one of two routes, by its length alone
+(:func:`fast_axis`); the t axis always takes the first:
+
+- the matrix route: a product with the dense DCT matrix, ``torch.matmul`` in
+  full precision (the JAX package runs its matmuls at ``Precision.HIGHEST``,
+  and a TF32 solve loses ~4 digits, so building a solver switches TF32 off
+  for CUDA matmuls); 2n flops an element;
+- the FFT route (space axes of ``FAST_DCT_MIN`` points or more): Makhoul's
+  algorithm over all of them at once (:class:`FftPlan`): one pass applies
+  the t axis's matrix and the reorder (x0, x2, x4, ..., x5, x3, x1) along
+  each (:func:`t_pass`), then one ``torch.fft.rfftn`` (cuFFT on the card),
+  the spectral step (:func:`spectral_multiply`: twiddles, the inverse
+  kernel laid out on the half spectrum, inverse twiddles), ``irfftn`` and
+  the inverse pass; O(log n) an element. On float32 CUDA tensors both the
+  passes and the spectral step are kernels (``csrc/dct_spectral.cu``),
+  which launch or raise; on the CPU and in float64 their plain versions
+  run.
+
+Both routes compute the same transform; they differ in rounding only.
 
 An IR build (``split="ir"`` or ``"ir1"``) keeps its matrices and inverse
 kernel in float32 and solves a float64 rhs by refinement: the f32 DCT solve
@@ -51,6 +67,239 @@ def dct_matrix(n: int, dtype: torch.dtype, device) -> torch.Tensor:
     C[0] *= math.sqrt(1.0 / n)
     C[1:] *= math.sqrt(2.0 / n)
     return torch.as_tensor(C, dtype=dtype, device=device)
+
+
+# The shortest space axis that takes the FFT route (the crossover). Measured
+# on the NVIDIA H100 80GB HBM3 in float32 by ``chip_smoke.py`` phase 5c
+# (PERF.md §6): the whole phi-solve with the spatial axes on each route at
+# 129^2 x 17, 129^2 x 33, 257^2 x 33 and 513^2 x 65.
+FAST_DCT_MIN = 257
+
+# the FFT route's kernel launches (``csrc/dct_spectral.cu``), as
+# ``fused_step.LAUNCHES`` counts the step kernels'
+LAUNCHES = {"dct_spectral": 0, "dct_t_gather": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def fast_axis(n: int) -> bool:
+    """The route of a space axis of n points: True for the FFT route,
+    False for the dense matrix. A function of the length alone; the t axis
+    keeps its matrix at any length (the route's passes apply it)."""
+    return n >= FAST_DCT_MIN
+
+
+class FftPlan(NamedTuple):
+    """The FFT route of a solve over its space axes of at least
+    ``FAST_DCT_MIN`` points; the t axis and the shorter space axes keep
+    their matrices. The forward pass (:func:`t_pass`) applies the t axis's
+    matrix and lays the space points out as ``layout``: the shorter space
+    axes first, then the route's m axes, each in Makhoul's order
+    (x0, x2, ..., x3, x1). ``torch.fft.rfftn`` over the route's axes leaves
+    the half spectrum (n_1, ..., n_{m-1}, h_m), h_m = n_m // 2 + 1, on
+    which :func:`spectral_multiply` runs; the inverse pass takes the
+    layout back to the grid's."""
+
+    axes: Tuple[int, ...]          # grid axes on the route (space: >= 1)
+    n: Tuple[int, ...]             # their lengths
+    space: Tuple[int, ...]         # the grid's space shape
+    layout: Tuple[int, ...]        # the space shape between the passes
+    t_matrix: torch.Tensor         # the t axis's DCT matrix (T, T)
+    # the same for ``t_gather_kernel``, forward and inverse, (T, TP) with
+    # At[t, k] = A[k, t], rows padded with zeros to a multiple of 16
+    t_mats: Tuple[torch.Tensor, torch.Tensor]
+    # flat maps over the S space points, int32: point s of the forward
+    # pass's output reads point src[0][s] of its input; of the inverse's,
+    # src[1][s]
+    src: Tuple[torch.Tensor, torch.Tensor]
+    flip: Tuple[torch.Tensor, ...]    # (n - k) mod n, each axis but the last
+    twiddle: torch.Tensor          # prod_a exp(-i pi k_a / (2 n_a))
+    untwiddle: torch.Tensor        # its conjugate
+    # the inverse kernel over (T, shorter space axes, n_1, ..., h_m, 2): at
+    # k_m the modes k_m and n_m - k_m (none for k_m = 0: 0), times
+    # 1 / (n_1 ... n_m) for the unnormalised inverse FFT
+    kernel: torch.Tensor
+
+
+def _fft_plan(inv: np.ndarray, axes: Tuple[int, ...], dtype, device,
+              t_matrix: torch.Tensor) -> FftPlan:
+    """The plan of the FFT route over the space ``axes`` for the
+    phi-shaped inverse kernel ``inv`` (float64); ``t_matrix`` is the t
+    axis's DCT matrix."""
+    m = len(axes)
+    n = tuple(inv.shape[a] for a in axes)
+    space = inv.shape[1:]
+    perm = (0,) + tuple(a for a in range(1, inv.ndim) if a not in axes) + axes
+    g = np.transpose(inv, perm) / math.prod(n)
+    h = n[-1] // 2 + 1
+    k = np.arange(h)
+    im = np.where(k == 0, 0.0, np.take(g, (n[-1] - k) % n[-1], axis=-1))
+    kernel = np.stack([g[..., :h], im], axis=-1)
+    cdtype = torch.complex128 if dtype == torch.float64 else torch.complex64
+    tw = np.ones(n[:-1] + (h,), dtype=complex)
+    for i, na in enumerate(n):
+        ka = np.arange(na if i < m - 1 else h)
+        tw = tw * np.exp(-1j * np.pi * ka / (2 * na)).reshape(
+            (-1,) + (1,) * (m - 1 - i))
+    # the grid's flat space index of each point of the layout
+    idx = np.transpose(np.arange(math.prod(space)).reshape(space),
+                       [a - 1 for a in perm[1:]])
+    for i, na in enumerate(n):
+        order = np.concatenate([np.arange(0, na, 2), np.arange(1, na, 2)[::-1]])
+        idx = np.take(idx, order, axis=idx.ndim - m + i)
+    fwd = idx.reshape(-1)
+    T = inv.shape[0]
+    pad = (0, -(-T // 16) * 16 - T)
+
+    def put(a, dt=None):
+        return torch.as_tensor(a, dtype=dt, device=device)
+
+    return FftPlan(axes=axes, n=n, space=tuple(space), layout=idx.shape,
+                   t_matrix=t_matrix,
+                   t_mats=tuple(torch.nn.functional.pad(A, pad)
+                                for A in (t_matrix.T, t_matrix)),
+                   src=(put(fwd, torch.int32),
+                        put(np.argsort(fwd), torch.int32)),
+                   flip=tuple(put((na - np.arange(na)) % na) for na in n[:-1]),
+                   twiddle=put(tw, cdtype), untwiddle=put(tw.conj(), cdtype),
+                   kernel=put(kernel, dtype))
+
+
+def _pass_shapes(plan: FftPlan, which: int):
+    """The (T, space) shapes a pass reads and writes: ``which`` 0 the
+    forward pass (grid to layout), 1 the inverse."""
+    T = plan.t_matrix.shape[0]
+    grid, layout = (T,) + plan.space, (T,) + plan.layout
+    return (grid, layout) if which == 0 else (layout, grid)
+
+
+def t_gather(x: torch.Tensor, plan: FftPlan, which: int) -> torch.Tensor:
+    """One launch of ``t_gather_kernel`` (``csrc/dct_spectral.cu``) on x
+    (..., T, space), contiguous float32 on the card, into a fresh tensor:
+    ``which`` 0, the t axis's DCT and the space points from the grid's
+    layout to the route's; 1, the inverse DCT and the way back."""
+    from . import _build, fused_step
+
+    At, src = plan.t_mats[which], plan.src[which]
+    T, TP = At.shape
+    into, out = _pass_shapes(plan, which)
+    if (x.dtype != torch.float32 or not x.is_contiguous()
+            or tuple(x.shape[-len(into):]) != into):
+        raise ValueError(f"t_gather: x {x.dtype} {tuple(x.shape)} "
+                         f"(contiguous: {x.is_contiguous()}), expected a "
+                         f"contiguous float32 (..., {into})")
+    lead = tuple(x.shape[:-len(into)])
+    y = torch.empty(lead + out, dtype=x.dtype, device=x.device)
+    S = src.numel()
+    fused_step._launch(LAUNCHES, "dct_t_gather",
+                       _build.library().dotsocp_dct_t_gather, x.device,
+                       x.data_ptr(), y.data_ptr(), At.data_ptr(),
+                       src.data_ptr(), x.numel() // (T * S), T, TP, S)
+    return y
+
+
+def t_gather_plain(x: torch.Tensor, plan: FftPlan, which: int) -> torch.Tensor:
+    """:func:`t_gather`'s plain version: the matrix product along t, then
+    the gather of the space points."""
+    into, out = _pass_shapes(plan, which)
+    M = plan.t_matrix if which == 0 else plan.t_matrix.T
+    lead = tuple(x.shape[:-len(into)])
+    y = torch.matmul(M, x.reshape(-1, into[0], math.prod(into[1:])))
+    return y.index_select(-1, plan.src[which]).reshape(lead + out)
+
+
+def t_pass(x: torch.Tensor, plan: FftPlan, which: int) -> torch.Tensor:
+    """:func:`t_gather` on float32 CUDA tensors (it launches or raises: a
+    non-contiguous x raises), its plain version on the CPU and in
+    float64 (``fused_step._use_kernel``)."""
+    from . import fused_step
+
+    if fused_step._use_kernel(plan.kernel, x):
+        return t_gather(x, plan, which)
+    return t_gather_plain(x, plan, which)
+
+
+def _dims(plan: FftPlan) -> Tuple[int, ...]:
+    return tuple(range(-len(plan.n), 0))
+
+
+def _inverse_fft(V: torch.Tensor, plan: FftPlan) -> torch.Tensor:
+    """Unnormalised (``norm="forward"``): no pass scales by 1/n, the kernel
+    holds it."""
+    return torch.fft.irfftn(V, s=plan.n, dim=_dims(plan), norm="forward")
+
+
+def _unpair(Y: torch.Tensor, dim: int, flip: torch.Tensor) -> torch.Tensor:
+    """(Y(k) + i Y(-k)) / 2 along ``dim``, -k = (n - k) mod n, and Y(0) at
+    0: the two real transforms a complex DFT along that axis holds."""
+    F = (Y + 1j * Y.index_select(dim, flip)) / 2
+    F.select(dim, 0).copy_(Y.select(dim, 0))
+    return F
+
+
+def _pair(F: torch.Tensor, dim: int, flip: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`_unpair`: F(k) - i F(-k), and F(0) at 0."""
+    Y = F - 1j * F.index_select(dim, flip)
+    Y.select(dim, 0).copy_(F.select(dim, 0))
+    return Y
+
+
+def spectral_forward(V: torch.Tensor, plan: FftPlan) -> torch.Tensor:
+    """From the half spectrum V of the reordered field to F: along each of
+    the route's axes but the last, F's index is the DCT-II mode; along the
+    last, Re F holds mode k and -Im F mode n - k (nothing at k = 0)."""
+    F = V * plan.twiddle
+    for i, flip in enumerate(plan.flip):
+        F = _unpair(F, i - len(plan.n), flip)
+    return F
+
+
+def spectral_inverse(F: torch.Tensor, plan: FftPlan) -> torch.Tensor:
+    """The inverse of :func:`spectral_forward`."""
+    for i in reversed(range(len(plan.flip))):
+        F = _pair(F, i - len(plan.n), plan.flip[i])
+    return F * plan.untwiddle
+
+
+def spectral_multiply_plain(V: torch.Tensor, plan: FftPlan,
+                            scale) -> torch.Tensor:
+    """The spectral step of the FFT route: the forward transform's end, the
+    inverse kernel (times ``scale``), the inverse's start, as PyTorch
+    operations (the kernel's plain version)."""
+    F = spectral_forward(V, plan)
+    g = plan.kernel if scale is None else plan.kernel * scale
+    F = torch.view_as_complex(torch.view_as_real(F) * g)
+    return spectral_inverse(F, plan)
+
+
+def spectral_multiply(V: torch.Tensor, plan: FftPlan, scale) -> torch.Tensor:
+    """:func:`spectral_multiply_plain`, in one launch of the kernel of
+    ``csrc/dct_spectral.cu`` (in place on V) where the plan is float32 on
+    the card (``fused_step._use_kernel``: it launches or raises); the plain
+    version on the CPU and in float64."""
+    from . import _build, fused_step
+
+    if not fused_step._use_kernel(plan.kernel):
+        return spectral_multiply_plain(V, plan, scale)
+    half = tuple(plan.twiddle.shape)
+    if (V.dtype != torch.complex64 or not V.is_contiguous()
+            or tuple(V.shape[-len(half):]) != half):
+        raise ValueError(f"dct_spectral: V {V.dtype} {tuple(V.shape)} "
+                         f"(contiguous: {V.is_contiguous()}), expected a "
+                         f"contiguous complex64 (..., {half})")
+    # the route's axes as (n1, n2, h3), ones in front of fewer than three
+    n1, n2, h3 = (1,) * (3 - len(half)) + half
+    fused_step._launch(LAUNCHES, "dct_spectral",
+                       _build.library().dotsocp_dct_spectral, V.device,
+                       V.data_ptr(), plan.kernel.data_ptr(),
+                       plan.twiddle.data_ptr(),
+                       V.numel() // plan.twiddle.numel(), n1, n2, h3,
+                       plan.kernel.numel() // (2 * plan.twiddle.numel()),
+                       1.0 if scale is None else float(scale))
+    return V
 
 
 def neumann_eigenvalues(n: int) -> np.ndarray:
@@ -99,42 +348,66 @@ class IrSpec(NamedTuple):
     steps: int                 # refinement rounds (2 reach ~f64 grade)
 
 
-class DctPoisson(NamedTuple):
-    """Transform matrices + inverse kernel for one geometry."""
+class DctPoisson:
+    """The DCT solve of one geometry: per axis its dense DCT matrix; the
+    space axes of at least ``FAST_DCT_MIN`` points take the FFT route
+    (``fft``, None when none does), the others their matrix.
+    ``inv_kernel`` is the matrix route's phi-shaped inverse kernel (None
+    on the FFT route, whose plan holds it on the half spectrum)."""
 
-    mats: Tuple[torch.Tensor, ...]   # one orthonormal DCT matrix per axis
-    inv_kernel: torch.Tensor         # 1 / (D^2 * kernel), phi-shaped
-    ir: Optional[IrSpec] = None      # f32 solve + f64-residual refinement
+    def __init__(self, mats: Tuple[torch.Tensor, ...],
+                 inv_kernel: Optional[torch.Tensor], fft: Optional[FftPlan],
+                 ir: Optional[IrSpec] = None):
+        self.mats = mats    # one orthonormal DCT matrix per axis
+        self.inv_kernel = inv_kernel
+        self.fft = fft
+        self.ir = ir        # f32 solve + f64-residual refinement
+
+    @property
+    def fast_axes(self) -> Tuple[int, ...]:
+        """The grid axes (0 = t) on the FFT route."""
+        return () if self.fft is None else self.fft.axes
 
     def solve(self, rhs: torch.Tensor, scale=None) -> torch.Tensor:
         """phi = idctn(dctn(rhs) * inv_kernel) (``oper_poisson3dim.m:4``).
         ``scale`` multiplies the inverse kernel at use time (1/D^2 against
         a unit-D build). An IR build solves a float64 rhs by refinement.
-        Leading axes before the grid's (a batch of instances) fold into
-        the batch of each axis's matmul."""
+        Leading axes before the grid's (a batch of instances) pass
+        through."""
         if self.ir is not None and rhs.dtype == torch.float64:
             return self._solve_ir(rhs, scale)
-        lead = rhs.ndim - len(self.mats)
-        y = rhs
-        for ax, C in enumerate(self.mats):
-            y = _apply_axis(C, y, lead + ax)
-        inv_k = self.inv_kernel if scale is None else self.inv_kernel * scale
-        y = y * inv_k
-        for ax, C in enumerate(self.mats):
-            y = _apply_axis(C.T, y, lead + ax)
+        return self._spectral(rhs, scale)
+
+    def _spectral(self, y: torch.Tensor, scale) -> torch.Tensor:
+        """C^T (inv_kernel * scale * (C y)) over the grid's axes, the last
+        of ``y``. On the FFT route the shorter space axes' matrices apply
+        at their place, before and after the route's passes (the two
+        commute), and the spectral step multiplies by the kernel over every
+        axis."""
+        lead = y.ndim - len(self.mats)
+        if self.fft is None:
+            for ax, C in enumerate(self.mats):
+                y = _apply_axis(C, y, lead + ax)
+            y = y * (self.inv_kernel if scale is None
+                     else self.inv_kernel * scale)
+            for ax, C in enumerate(self.mats):
+                y = _apply_axis(C.T, y, lead + ax)
+            return y
+        plan = self.fft
+        short = [ax for ax in range(1, len(self.mats)) if ax not in plan.axes]
+        for ax in short:
+            y = _apply_axis(self.mats[ax], y, lead + ax)
+        V = spectral_multiply(torch.fft.rfftn(t_pass(y, plan, 0),
+                                              dim=_dims(plan)), plan, scale)
+        y = t_pass(_inverse_fft(V, plan), plan, 1)
+        for ax in short:
+            y = _apply_axis(self.mats[ax].T, y, lead + ax)
         return y
 
     def _base32(self, r: torch.Tensor, scale32) -> torch.Tensor:
-        """Plain f32 DCT solve (the IR preconditioner); mats/inv_kernel are
-        f32 in IR builds."""
-        y = r.to(torch.float32)
-        for ax, C in enumerate(self.mats):
-            y = _apply_axis(C, y, ax)
-        y = y * (self.inv_kernel if scale32 is None
-                 else self.inv_kernel * scale32)
-        for ax, C in enumerate(self.mats):
-            y = _apply_axis(C.T, y, ax)
-        return y
+        """Plain f32 DCT solve (the IR preconditioner); the matrices and
+        the kernel are f32 in IR builds."""
+        return self._spectral(r.to(torch.float32), scale32)
 
     def _solve_ir(self, rhs: torch.Tensor, scale=None) -> torch.Tensor:
         """f64 solve by iterative refinement over the f32 DCT solve
@@ -164,26 +437,10 @@ class DctPoisson(NamedTuple):
         return y
 
 
-def make_dct_poisson(geom: Geometry, D=1.0, epsilon=None, dtype=torch.float32,
-                     split=False, ir_steps: int = 2, *,
-                     device) -> DctPoisson:
-    """Build the solver for  D^2 * (A^T A + epsilon I) phi = rhs.
-
-    epsilon=None pins the zero mode's kernel entry to 1 (pure Neumann
-    Poisson, ``initialize_FFTkernel.m:15``); otherwise the Helmholtz shift
-    is added (``initialize_FFTkernel.m:17-22``).
-
-    ``split`` selects the f64 strategy (``SPLITS``): False runs the matmuls
-    in ``dtype``; "ir" builds the matrices and inverse kernel in float32
-    and solves a float64 rhs by ``ir_steps`` refinement rounds; "ir1" is
-    the same with one round."""
-    if not is_split(split):
-        raise ValueError(f"split={split!r}: not one of {SPLITS}")
-    full_precision_matmul()
-    use_ir = split in ("ir", "ir1")
-    if split == "ir1":
-        ir_steps = 1
-    ns = (geom.nt,) + geom.space
+def _inverse_kernel(ns: Tuple[int, ...], D, epsilon) -> np.ndarray:
+    """1 / (D^2 * kernel), phi-shaped, in float64: the sum of each axis's
+    Neumann eigenvalues, the zero mode pinned to 1 (epsilon None) or the
+    Helmholtz shift added."""
     kernel = np.zeros(ns)
     for ax, n in enumerate(ns):
         shape = [1] * len(ns)
@@ -193,14 +450,43 @@ def make_dct_poisson(geom: Geometry, D=1.0, epsilon=None, dtype=torch.float32,
         kernel.flat[0] = 1.0  # zero mode: pass-through (pinned)
     else:
         kernel = kernel + epsilon
+    return 1.0 / (float(D) ** 2 * kernel)
+
+
+def make_dct_poisson(geom: Geometry, D=1.0, epsilon=None, dtype=torch.float32,
+                     split=False, ir_steps: int = 2, *,
+                     device) -> DctPoisson:
+    """Build the solver for  D^2 * (A^T A + epsilon I) phi = rhs.
+
+    epsilon=None pins the zero mode's kernel entry to 1 (pure Neumann
+    Poisson, ``initialize_FFTkernel.m:15``); otherwise the Helmholtz shift
+    is added (``initialize_FFTkernel.m:17-22``). Each space axis takes its
+    route by :func:`fast_axis`; the t axis keeps its matrix.
+
+    ``split`` selects the f64 strategy (``SPLITS``): False runs the
+    transforms in ``dtype``; "ir" builds them and the inverse kernel in
+    float32 and solves a float64 rhs by ``ir_steps`` refinement rounds;
+    "ir1" is the same with one round."""
+    if not is_split(split):
+        raise ValueError(f"split={split!r}: not one of {SPLITS}")
+    full_precision_matmul()
+    use_ir = split in ("ir", "ir1")
+    if split == "ir1":
+        ir_steps = 1
+    ns = (geom.nt,) + geom.space
     mat_dtype = torch.float32 if use_ir else dtype
-    inv_kernel = torch.as_tensor(1.0 / (float(D) ** 2 * kernel),
-                                 dtype=mat_dtype, device=device)
     mats = tuple(dct_matrix(n, mat_dtype, device) for n in ns)
+    inv = _inverse_kernel(ns, D, epsilon)
+    axes = tuple(ax for ax in range(1, len(ns)) if fast_axis(ns[ax]))
+    fft = inv_kernel = None
+    if axes:
+        fft = _fft_plan(inv, axes, mat_dtype, device, mats[0])
+    else:
+        inv_kernel = torch.as_tensor(inv, dtype=mat_dtype, device=device)
     ir = None
     if use_ir:
         ir = IrSpec(coeffs=tuple(float((n - 1) ** 2) for n in ns),
                     d2=float(D) ** 2,
                     epsilon=None if epsilon is None else float(epsilon),
                     steps=int(ir_steps))
-    return DctPoisson(mats=mats, inv_kernel=inv_kernel, ir=ir)
+    return DctPoisson(mats, inv_kernel, fft, ir)

@@ -442,7 +442,9 @@ class BatchedDeviceDriver:
             self.stats.update(captures=self.graphs.captures,
                               replays=self.graphs.replays,
                               eager_runs=self.graphs.eager_runs,
-                              graph_kinds=self.graphs.kinds())
+                              graph_kinds=self.graphs.kinds(),
+                              fast_dct_iters=(self.h_it if self.k.fast_dct
+                                              else 0))
             # the replays' launches go to LAUNCHES here
             self.graphs.release()
         return self.ls, time.monotonic() - self.t0
