@@ -606,6 +606,20 @@ class Kernels:
         return [self._kkt_from_sums(v, dict(zip(keys, row.unbind(0))))
                 for v, row in zip(views, tot.unbind(0))]
 
+    # the weighted q-step runs the hand kernels (``qx_step_w``, ``q_step_w``)
+    # where the route allows; acc-ADMM's is plain
+    weighted_q_kernels = True
+
+    def weighted_on_kernel(self, s: SolverState) -> bool:
+        """Whether a weighted level's q-step and phi-step rhs run the hand
+        kernels: the level is weighted, its q-step is a kernel one, and
+        ``fused_step.on_kernel`` takes the state's tensors and the weight.
+        False for an unweighted level."""
+        if self.weight is None or not self.weighted_q_kernels:
+            return False
+        return on_kernel(self.ops, s.phi, *s.q.tensors(), *s.alpha.tensors(),
+                         s.c, *self.weight.tensors())
+
     def kkt_on_kernel(self, s: SolverState) -> bool:
         """Whether the battery's sums of ``s`` run the kernel
         (``fused_step.kkt_sums``): ``fused_step.on_kernel`` of the state's

@@ -45,7 +45,10 @@ the KKT checks, ``kkt_kernel_checks`` those whose battery ran its sums on
 the kernel (``Kernels.kkt_on_kernel``: the flat engine's float32 CUDA
 state), ``syncs`` the record reads; ``fast_dct_iters`` is the level's
 iterations when its phi-step's DCT solve takes the FFT route on some axis
-(``Kernels.fast_dct``), else 0. The loop's steps
+(``Kernels.fast_dct``), else 0; ``weighted_kernel_iters`` is the
+level's iterations when the level is weighted and its weighted q-step
+(``qx_step_w`` / ``q_step_w``) and phi-step rhs (``phi_rhs_w``) run on the
+hand kernels (``Kernels.weighted_on_kernel``), else 0. The loop's steps
 are spans of ``utils/trace.py`` (``dotsocp.driver.prepare``, ``.segment``,
 ``.check``, ``.record_read``, ``.rescale``, ``.finish``), which a running
 profiler shows.
@@ -647,6 +650,7 @@ class DeviceDriver:
             if kept is not None:
                 self._refill(kept)
             self._kkt_on_kernel = self.k.kkt_on_kernel(self.s)
+            self._weighted_on_kernel = self.k.weighted_on_kernel(self.s)
             if self.checkpoint_path:
                 self._resume()
             self.stats["prepare_s"] = time.perf_counter() - t0
@@ -756,7 +760,10 @@ class DeviceDriver:
                               eager_s=self.graphs.eager_s,
                               capture_s=self.graphs.capture_s,
                               fast_dct_iters=(self.h.it if self.k.fast_dct
-                                              else 0))
+                                              else 0),
+                              weighted_kernel_iters=(
+                                  self.h.it if self._weighted_on_kernel
+                                  else 0))
             if not self.cached:
                 self.graphs.release()
         t0 = time.perf_counter()

@@ -119,6 +119,8 @@ class AccADMMKernels(Kernels):
     change or rescale."""
 
     RESCALED = ("phi", "q", "z")
+    # the q-step is ``_q_solve``, plain PyTorch
+    weighted_q_kernels = False
 
     def __init__(self, cfg: LevelConfig, weight=None, restart: int = 100,
                  rho: float = 2.0):

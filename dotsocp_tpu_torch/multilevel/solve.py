@@ -412,19 +412,22 @@ def clear_solver_cache() -> None:
 def _build_solver(method: str, lv: LevelVar, o: SolveOptions, device, dtype,
                   theta: float = 2.0, dct_split=False, driver: str = "auto",
                   checkpoint_path=None, device_kw=None, mesh=None,
-                  reuse: bool = True):
+                  reuse: bool = True, spans: Optional[dict] = None):
     """The level's solver (:func:`_make_solver`), from the cache when
     ``reuse`` and a solver of the same key is there (the JAX
     ``_build_solver``): a device driver is reused as it is, with ``o`` (its
     runtime options: sigma, tol, the time limit, the label) set; a host
     driver is built afresh around the cached kernels. A miss builds the
     solver and caches it, evicting the least recently used entry beyond
-    ``_SOLVER_CACHE_MAX``."""
+    ``_SOLVER_CACHE_MAX``. The key's formation (a weighted level's is
+    mostly :func:`_weight_digest`) is the span ``solver.key``, whose host
+    seconds add to ``spans["solver.key_s"]`` when ``spans`` is a dict."""
     args = (method, lv, o, device, dtype, theta, dct_split, driver,
             checkpoint_path, device_kw, mesh)
     if not reuse:
         return _make_solver(*args)
-    key = _solver_cache_key(*args)
+    with span("solver.key", spans):
+        key = _solver_cache_key(*args)
     entry = _SOLVER_CACHE.get(key)
     if entry is not None:
         _SOLVER_CACHE.move_to_end(key)
@@ -557,7 +560,9 @@ def solve_dot(
     ``torch.profiler`` runs (``trace_dir``'s too), these steps, the call
     (``dotsocp.solve``) and the device driver's steps
     (``dotsocp.driver.*``) are host ranges ``dotsocp.<name>`` of its trace
-    (``utils/trace.py``).
+    (``utils/trace.py``). Each level's solver-cache key is the range
+    ``dotsocp.solver.key``; a device-driver level's report holds the host
+    seconds of its keys in the call (prewarm's too) as ``driver["key_s"]``.
     """
     opts = dict(opts or {})
     _check_request(rho0, method, weight, opts)
@@ -646,6 +651,9 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
         lv = initialize(rho0s[0], rho1s[0], nts[0], dtype=dtype,
                         device=device, weight=weights[0])
 
+    # per level, the host seconds of its solver-cache keys (prewarm's too)
+    key_spans = [{} for _ in range(level_n)]
+
     def level_solver(lev: int, lv: LevelVar, sigma: float = sigma,
                      time_limit: float = time_limit):
         """Level ``lev``'s solver, through the cache."""
@@ -667,7 +675,8 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
             lev_method, lv, o, device, dtype, theta, driver=driver,
             checkpoint_path=(os.path.join(ckpt_dir, ckpt_name.format(lev + 1))
                              if ckpt_dir else None),
-            device_kw=device_kw, mesh=mesh, reuse=reuse)
+            device_kw=device_kw, mesh=mesh, reuse=reuse,
+            spans=key_spans[lev])
 
     if opts.get("prewarm") and reuse:
         with span("prewarm", spans):
@@ -702,8 +711,13 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
         if hasattr(solver, "stats"):
             # the device driver's: host syncs and checks of the level loop,
             # graph captures and replays, the host's seconds in prepare,
-            # first runs, captures and finish
-            report["driver"] = dict(solver.stats)
+            # first runs, captures and finish. key_s, the host seconds of
+            # the level's solver-cache keys in this call (prewarm's and the
+            # build's), is the solve's and not the driver's, but goes here
+            # because a level report's numbers reach its readers (the
+            # benchmark keeps iters, time, build_s and this dict) through it
+            report["driver"] = dict(solver.stats, key_s=key_spans[lev].get(
+                "solver.key_s", 0.0))
         if profile:
             # per-phase times on the level's final state (the reference's
             # record_time, ``solver_socp_inPALM.m:339-341``); a phase that
@@ -762,11 +776,12 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
                          label=f"level {level_n} (f64 refine)")
         # the tail takes the driver rule and the chunk options, and no
         # checkpoint (as the JAX package's tail)
+        refine_keys = {}
         with span("level.build", spans):
             solver = _build_solver(refine_method, lv, o, device,
                                    refine_dtype, theta, dct_split=split,
                                    driver=driver, device_kw=device_kw,
-                                   mesh=mesh, reuse=reuse)
+                                   mesh=mesh, reuse=reuse, spans=refine_keys)
         with span("level.loop", spans):
             hist, out = solver.solve(lv.as_dict())
         hist["method"] = solver.name + (
@@ -780,7 +795,8 @@ def _solve_dot_impl(rho0, rho1, nt, level_n, opts, method, weight, barrier,
             "refine": True,
             "final_kkt": hist["kkt"][-1] if hist["len"] else None})
         if hasattr(solver, "stats"):
-            level_reports[-1]["driver"] = dict(solver.stats)
+            level_reports[-1]["driver"] = dict(
+                solver.stats, key_s=refine_keys.get("solver.key_s", 0.0))
         if verbose:
             print(f"f64 refine (tol={refine_tol:g}, 1 phase(s)): "
                   f"{out['iters']} iters, {out['solve_time']:.2f}s, final KKT "

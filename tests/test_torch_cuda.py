@@ -38,7 +38,9 @@ counted once an iteration (from graphs too) and
 never in a check; a 129^2 x 33 solve takes the same iterations and gives
 the same rho with the plain rhs forced in its place. ``make_sharded_step``
 over a one-rank ("batch",) mesh launches the single-step kernels for each
-instance, bit-equal to each instance's own ``run_one``.
+instance, bit-equal to each instance's own ``run_one``. A weighted
+inPALM solve counts every level's iterations in ``weighted_kernel_iters``
+and its solver-cache keys' seconds in ``key_s``.
 """
 import math
 
@@ -433,6 +435,33 @@ def test_weighted_solve_on_card_matches_cpu(dev, method):
                    for lv in out["levels"][-1:])
     diff = torch.linalg.norm(gpu["rho"].cpu() - cpu["rho"])
     assert float(diff / torch.linalg.norm(cpu["rho"])) < 5e-2
+
+
+def test_weighted_levels_count_their_kernel_iterations(dev):
+    """A weighted inPALM solve on the card: every level's
+    ``weighted_kernel_iters`` equals its ``iters`` and its ``key_s`` (the
+    weight's digest, prewarm's key too) is above 0; weighted acc-ADMM
+    (plain q-step) and an unweighted solve count 0."""
+    barrier = wdot2d.barrier_love_heart()
+    r0, r1 = wdot2d.get_example_w2d("love-heart", 17, 17)
+    r0, r1, _ = wdot2d.ensure_barrier_validity(r0, r1, barrier)
+    weight = wdot2d.get_weight_by_barrier(17, 17, 9, barrier, dtype=F32,
+                                          device=dev)
+    opts = {"tol": 1e-3, "prewarm": True}
+    levels = {}
+    for method in ("inPALM", "acc-ADMM"):
+        out, _, _ = solve_dot(r0, r1, 9, 2, dict(opts), method, weight,
+                              barrier, device=dev, verbose=False)
+        levels[method] = out["levels"]
+    e0, e1 = get_example_2d("example2", 17, 17)
+    plain, _, _ = solve_dot(e0, e1, 9, 2, dict(opts), "inPALM", device=dev,
+                            verbose=False)
+    for lv in levels["inPALM"]:
+        assert lv["driver"]["weighted_kernel_iters"] == lv["iters"] > 0
+        assert lv["driver"]["key_s"] > 0.0
+    for lv in levels["acc-ADMM"] + plain["levels"]:
+        assert lv["driver"]["weighted_kernel_iters"] == 0
+        assert lv["driver"]["key_s"] >= 0.0
 
 
 # -- the single-step kernels -------------------------------------------------------

@@ -1,7 +1,8 @@
 """The spans of the solve path (``utils/trace.py``), the device driver's
-split of its loop (``launch_s``, ``wait_s``), ``solve_dot``'s ``spans`` and
-the launch counts folded from the replays (``algorithms/graphs.py``), on
-the CPU. The file imports no JAX."""
+split of its loop (``launch_s``, ``wait_s``), ``solve_dot``'s ``spans``,
+the solver-cache key's span and ``key_s``, the drivers'
+``weighted_kernel_iters`` and the launch counts folded from the replays
+(``algorithms/graphs.py``), on the CPU. The file imports no JAX."""
 import os
 import sys
 import time
@@ -9,7 +10,8 @@ import time
 import pytest
 import torch
 
-from dotsocp_tpu_torch.algorithms import graphs
+from dotsocp_tpu_torch.algorithms import core, graphs
+from dotsocp_tpu_torch.models import wdot2d
 from dotsocp_tpu_torch.models.examples import get_example_2d
 from dotsocp_tpu_torch.multilevel.solve import clear_solver_cache, solve_dot
 from dotsocp_tpu_torch.ops import fused_step, sgs_sweep
@@ -146,6 +148,83 @@ def test_loop_split_and_spans(solve17, method):
     assert all(v >= 0.0 for v in spans.values())
     assert sum(spans.values()) <= wall
     assert spans["level.loop_s"] >= sum(lv["time"] for lv in out["levels"])
+
+
+def _loveheart17(method="inPALM", levels=2, opts=None):
+    """A prewarmed love-heart solve at 17^2 x 9 on the CPU (float32)."""
+    barrier = wdot2d.barrier_love_heart()
+    r0, r1 = wdot2d.get_example_w2d("love-heart", 17, 17)
+    r0, r1, _ = wdot2d.ensure_barrier_validity(r0, r1, barrier)
+    weight = wdot2d.get_weight_by_barrier(17, 17, 9, barrier,
+                                          dtype=torch.float32)
+    out, _, _ = solve_dot(r0, r1, 9, levels,
+                          dict({"tol": 1e-3, "prewarm": True}, **(opts or {})),
+                          method, weight, barrier, device="cpu",
+                          dtype=torch.float32, verbose=False)
+    return out
+
+
+def test_solver_key_span_and_key_s():
+    """Each level's solver-cache key is the range ``dotsocp.solver.key``,
+    once in the prewarm and once in the level's build; every level report
+    holds the host seconds of its keys as ``driver["key_s"]``, above 0 for
+    a weighted level (its weight's digest) and within the call."""
+    clear_solver_cache()
+    try:
+        out, events = _profile(_loveheart17)
+    finally:
+        clear_solver_cache()
+    ranges = {}
+    for n, dev, s, e in events:
+        if not dev and n.startswith(trace.PREFIX):
+            ranges.setdefault(n, []).append((s, e))
+    keys = ranges["dotsocp.solver.key"]
+    prewarm, = ranges["dotsocp.prewarm"]
+    builds = ranges["dotsocp.level.build"]
+    assert len(keys) == 4 and len(builds) == 2
+    assert sum(_inside(k, prewarm) for k in keys) == 2
+    assert all(sum(_inside(k, b) for k in keys) == 1 for b in builds)
+    solve, = ranges["dotsocp.solve"]
+    wall_s = (solve[1] - solve[0]) * 1e-9
+    key_s = [lv["driver"]["key_s"] for lv in out["levels"]]
+    assert all(k > 0.0 for k in key_s) and sum(key_s) < wall_s
+    # no profiler: the same numbers, from the spans' clocks alone
+    out = _loveheart17()
+    assert all(lv["driver"]["key_s"] > 0.0 for lv in out["levels"])
+
+
+def test_unweighted_levels_report_key_s(solve17):
+    out, _ = solve17()
+    assert all(lv["driver"]["key_s"] >= 0.0 for lv in out["levels"])
+
+
+@pytest.mark.parametrize("route", ["plain", "kernel"])
+@pytest.mark.parametrize("method", ["inPALM", "acc-ADMM"])
+def test_drivers_count_weighted_kernel_iters(monkeypatch, route, method):
+    """Each level's ``driver`` dict has ``weighted_kernel_iters``: 0 on the
+    CPU; the level's iterations where ``Kernels.weighted_on_kernel`` says
+    the weighted q-step and rhs run the kernels (the route forced here for
+    an inPALM level with a weight); acc-ADMM's q-step is plain, so never;
+    an unweighted level 0 on any route."""
+    if route == "kernel":
+        monkeypatch.setattr(core.Kernels, "weighted_on_kernel",
+                            lambda self, s: (self.weight is not None
+                                             and self.weighted_q_kernels))
+    clear_solver_cache()
+    try:
+        out = _loveheart17(method)
+        r0, r1 = get_example_2d("example2", 9, 9)
+        plain, _, _ = solve_dot(r0, r1, 5, 2, {"tol": 1e-3}, "inPALM",
+                                device="cpu", verbose=False)
+    finally:
+        clear_solver_cache()
+    on = route == "kernel" and method == "inPALM"
+    for lv in out["levels"]:
+        assert lv["iters"] > 0
+        assert lv["driver"]["weighted_kernel_iters"] == (
+            lv["iters"] if on else 0)
+    assert all(lv["driver"]["weighted_kernel_iters"] == 0
+               for lv in plain["levels"])
 
 
 def test_fold_adds_each_kinds_replays():
