@@ -118,7 +118,18 @@ the device driver (CUDA-graph segments, ``algorithms/device_driver.py``).
    no more than 1.5 times the matrix route's), the graph's replay bit-equal
    to the eager solve, each of the route's two kernels alone with its
    bytes; the crossover behind ``FAST_DCT_MIN``; one JSON line
-   ``dct_routes``.
+   ``dct_routes``. Then the matrix route's three passes
+   (``poisson.dense_passes``, ``csrc/dct_dense.cu``) beside the matmuls
+   they replace (``DctPoisson._matmuls``, the library's GEMMs), each
+   replayed from a captured graph (20 solves a side: matmuls, passes,
+   passes, matmuls) at ``DENSE_SHAPES``, the level shapes of the cells'
+   matrix route: the solve's bytes and FP32 FLOPs, its bound (the larger
+   of bytes at the HBM peak and FLOPs at ``FP32_PEAK``) and each time's
+   share of it, the launches a solve (one of each pass), the largest error
+   against the float64 solve (within 2e-6 of its largest entry), the
+   graph's replay bit-equal to the eager solve, each pass's device time
+   from the profiler (a pass starts early and waits for the kernel before
+   it, so its span overstates it); one JSON line ``dense_passes``.
 7. The device driver. 7a: from one state, 40 iterations replayed from its
    CUDA graphs against the same 40 run eagerly, then again after a
    rescale and after a sigma change, for the CA path at 129^2 x 33, the
@@ -182,6 +193,8 @@ the device driver (CUDA-graph segments, ``algorithms/device_driver.py``).
    peak memory, the launches; on the 257^2 and 513^2 levels, whose space
    axes take the FFT route, one ``dct_spectral`` and two
    ``dct_t_gather`` launches an iteration and ``fast_dct_iters`` equal to
+   the iterations, and on the 129^2 level one of each of the matrix
+   route's three passes an iteration and ``dct_kernel_iters`` equal to
    the iterations (``dct_launches``). 9b: the maze (``demo_wdot2d --problem maze14
    --barrier maze14``, 129^2 x 129, 3 levels, tol 1e-3): no density in the
    eroded barrier, stop residuals 1, 3, 6 below the tolerance (a level
@@ -2215,6 +2228,100 @@ def time_dct(torch):
     return out
 
 
+# (nt, n) of the matrix route's levels in the cells: 129's 33^2 x 9,
+# 65^2 x 17 and 129^2 x 33, 513's 129^2 x 17, the love-heart's 33^3, 65^3
+# and 129^3
+DENSE_SHAPES = ((9, 33), (17, 65), (33, 129), (17, 129), (33, 33), (65, 65),
+                (129, 129))
+# the H100's float32 rate outside the tensor cores (NVIDIA's data sheet)
+FP32_PEAK = 67e12
+
+
+def time_dense(torch):
+    """Phase 5c's second part: the three passes against the matmuls at
+    ``DENSE_SHAPES`` (see the module's docstring)."""
+    from dotsocp_tpu_torch.ops import poisson
+    from dotsocp_tpu_torch.ops.geometry import Geometry
+
+    out = {}
+    for nt, n in DENSE_SHAPES:
+        geom = Geometry(nt, (n, n))
+        gen = torch.Generator().manual_seed(1000 * nt + n)
+        rhs = torch.randn((nt, n, n), generator=gen).to(DEVICE)
+        scale = 1.0 / (2.0 * geom.h_mean)
+        p = poisson.make_dct_poisson(geom, dtype=torch.float32, device=DEVICE)
+        want = poisson.make_dct_poisson(geom, dtype=torch.float64,
+                                        device=DEVICE).solve(rhs.double(),
+                                                             scale)
+        top = float(want.abs().max())
+        poisson.reset_launches()
+        got = p.solve(rhs, scale)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in poisson.LAUNCHES.items() if v}
+        name = f"{n}^2 x {nt}"
+        require(launches == {"dct_slab_fwd": 1, "dct_t_spectral": 1,
+                             "dct_slab_inv": 1},
+                f"{name}: a solve launched {launches}, not the three passes")
+        err = float((got.double() - want).abs().max()) / top
+        mat_err = float((p._matmuls(rhs, scale).double() - want).abs().max()
+                        ) / top
+        require(err <= 2e-6, f"{name}: the passes' error {err:.2e} is past "
+                f"2e-6 of the float64 solve's largest entry")
+        replayed = replay_once(torch, lambda: p.solve(rhs, scale), rhs)
+        require(torch.equal(replayed, got), f"{name}: the passes' graph "
+                f"replay differs from their eager solve")
+        m1 = graph_ms(torch, lambda: p._matmuls(rhs, scale), 20)
+        k1 = graph_ms(torch, lambda: p.solve(rhs, scale), 20)
+        k2 = graph_ms(torch, lambda: p.solve(rhs, scale), 20)
+        m2 = graph_ms(torch, lambda: p._matmuls(rhs, scale), 20)
+        pass_ms, mat_ms = (k1 + k2) / 2, (m1 + m2) / 2
+        nbytes = 3 * 4 * nt * n * n
+        flops = 4 * nt * n * n * (2 * n + nt)
+        bound = 1e3 * max(nbytes / (card_peak(torch) or 3.35e12),
+                          flops / FP32_PEAK)
+        out[name] = {"passes_graph_ms": pass_ms, "matmul_graph_ms": mat_ms,
+                     "passes_ms": [k1, k2], "matmul_ms": [m1, m2],
+                     "bytes": nbytes, "flops": flops, "bound_ms": bound,
+                     "passes_pct_of_bound": 100 * bound / pass_ms,
+                     "matmul_pct_of_bound": 100 * bound / mat_ms,
+                     "err": err, "matmul_err": mat_err,
+                     "launches": launches,
+                     "kernels_ms": pass_kernel_ms(torch, lambda: p.solve(
+                         rhs, scale))}
+        log(f"  {name}: passes {pass_ms:.4f} ms ({k1:.4f}, {k2:.4f}), "
+            f"matmuls {mat_ms:.4f} ms ({m1:.4f}, {m2:.4f}) from a graph; "
+            f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP, bound "
+            f"{bound:.4f} ms ({100 * bound / pass_ms:.1f}% / "
+            f"{100 * bound / mat_ms:.1f}%); errors {err:.2e} / "
+            f"{mat_err:.2e}; kernels {out[name]['kernels_ms']}")
+        del want, got, p
+        torch.cuda.empty_cache()
+    return out
+
+
+def pass_kernel_ms(torch, fn, n=20):
+    """Each pass's kernel, its mean device milliseconds a call over n calls
+    of fn, from a torch.profiler window (None where it records no device
+    time); the slab kernel's sums both slab passes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ms = {}
+    for e in prof.key_averages():
+        for kernel in ("slab_kernel", "t_spectral_kernel"):
+            if kernel in e.key:
+                t = getattr(e, "device_time_total", None)
+                if t is None:
+                    t = e.cuda_time_total
+                ms[kernel] = ms.get(kernel, 0.0) + t / 1e3 / n
+    return ms or None
+
+
 def dct_kernel_times(torch, plan, rhs, scale):
     """The FFT route's two kernels alone (20 launches each, CUDA events):
     ``t_gather`` (x read, y written: 8 bytes a point) and the spectral
@@ -3739,26 +3846,40 @@ def scale_config(torch):
 
 
 def dct_launches(levels, launches):
-    """The FFT route's launches in a solve on the card: one phi-solve an
+    """The phi-solve's launches in a solve on the card: one phi-solve an
     iteration, so one ``dct_spectral`` and two ``dct_t_gather`` an
-    iteration of each level whose space axes take the route
-    (``poisson.fast_axis``), and each such level's ``fast_dct_iters``
-    equal to its iterations (0 elsewhere). Returns the counts."""
+    iteration of each level whose space axes take the FFT route
+    (``poisson.fast_axis``), and one of each of the matrix route's three
+    passes an iteration of the others (``poisson.dense_route``: the float32
+    2D levels); each level's ``fast_dct_iters`` and ``dct_kernel_iters``
+    equal to its iterations on that route (0 elsewhere). Returns the
+    counts."""
     from dotsocp_tpu_torch.ops import poisson
 
     fast = [lv["iters"] if any(map(poisson.fast_axis, lv["geom"].space))
             else 0 for lv in levels]
+    dense = [lv["iters"] - f for lv, f in zip(levels, fast)]
     counted = [lv["driver"]["fast_dct_iters"] for lv in levels]
+    on_passes = [lv["driver"]["dct_kernel_iters"] for lv in levels]
+    passes = {k: launches[k] for k in ("dct_slab_fwd", "dct_t_spectral",
+                                       "dct_slab_inv")}
     out = {"fast_solves": sum(fast), "fast_dct_iters": counted,
            "dct_spectral": launches["dct_spectral"],
-           "dct_t_gather": launches["dct_t_gather"]}
-    log(f"  FFT route: {out}")
+           "dct_t_gather": launches["dct_t_gather"],
+           "dense_solves": sum(dense), "dct_kernel_iters": on_passes,
+           **passes}
+    log(f"  phi-solve routes: {out}")
     require(counted == fast, f"fast_dct_iters {counted}, expected {fast}")
+    require(on_passes == dense, f"dct_kernel_iters {on_passes}, expected "
+            f"{dense}")
     require(launches["dct_spectral"] == sum(fast)
             and launches["dct_t_gather"] == 2 * sum(fast),
             f"the FFT route's kernels launched {launches['dct_spectral']} "
             f"(spectral) and {launches['dct_t_gather']} (t_gather) times "
             f"for {sum(fast)} phi-solves on the route")
+    require(all(n == sum(dense) for n in passes.values()),
+            f"the matrix route's passes launched {passes} times for "
+            f"{sum(dense)} phi-solves on them")
     return out
 
 
@@ -4902,8 +5023,10 @@ def main(argv=None):
     phase("5b", "the KKT battery's sums at 513^2 x 65 and 129^2 x 33")
     print(json.dumps({"kkt_battery": time_kkt(torch)}), flush=True)
     phase("5c", "the phi-solve on the FFT and the matrix route at "
-          "129^2 x 17, 129^2 x 33, 257^2 x 33 and 513^2 x 65")
+          "129^2 x 17, 129^2 x 33, 257^2 x 33 and 513^2 x 65; the matrix "
+          "route's passes against the matmuls at its level shapes")
     print(json.dumps({"dct_routes": time_dct(torch)}), flush=True)
+    print(json.dumps({"dense_passes": time_dense(torch)}), flush=True)
     if args.profile is not None:
         phase(6, "profiler window")
         profile_window(torch, args.profile)

@@ -376,6 +376,14 @@ class Kernels:
         FFT route."""
         return bool(getattr(self.poisson, "fast_axes", ()))
 
+    @property
+    def dct_kernel(self) -> bool:
+        """True when the phi-step's DCT solve runs the matrix route's
+        hand-written passes (``ops/poisson.dense_route``) on the level's
+        state; the halo engine's solve has no passes."""
+        on = getattr(self.poisson, "on_passes", None)
+        return on is not None and on(self.cfg.dtype, self.ops.device)
+
     def _poisson_solve(self, s: SolverState, rhs):
         """phi-step DCT solve of D^2 A^T A phi = rhs."""
         return self.poisson.solve(rhs, scale=1.0 / (s.D * s.D))

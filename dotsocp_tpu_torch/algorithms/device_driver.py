@@ -45,7 +45,9 @@ the KKT checks, ``kkt_kernel_checks`` those whose battery ran its sums on
 the kernel (``Kernels.kkt_on_kernel``: the flat engine's float32 CUDA
 state), ``syncs`` the record reads; ``fast_dct_iters`` is the level's
 iterations when its phi-step's DCT solve takes the FFT route on some axis
-(``Kernels.fast_dct``), else 0; ``weighted_kernel_iters`` is the
+(``Kernels.fast_dct``), else 0; ``dct_kernel_iters`` the level's
+iterations when it runs the matrix route's hand-written passes
+(``Kernels.dct_kernel``), else 0; ``weighted_kernel_iters`` is the
 level's iterations when the level is weighted and its weighted q-step
 (``qx_step_w`` / ``q_step_w``) and phi-step rhs (``phi_rhs_w``) run on the
 hand kernels (``Kernels.weighted_on_kernel``), else 0. The loop's steps
@@ -761,6 +763,8 @@ class DeviceDriver:
                               capture_s=self.graphs.capture_s,
                               fast_dct_iters=(self.h.it if self.k.fast_dct
                                               else 0),
+                              dct_kernel_iters=(self.h.it
+                                                if self.k.dct_kernel else 0),
                               weighted_kernel_iters=(
                                   self.h.it if self._weighted_on_kernel
                                   else 0))

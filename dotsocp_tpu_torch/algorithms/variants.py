@@ -297,8 +297,9 @@ class _SgsPhiStep:
     (primFea1, dualFea1) after each of the first k-1 iterations: the driver
     fetches each in one transfer."""
 
-    # the phi-step is the sweep: no DCT solve, on either route
+    # the phi-step is the sweep: no DCT solve, on any route
     fast_dct = False
+    dct_kernel = False
 
     def _build_sgs(self):
         # the level's D^2 is passed per sweep; under a mesh the halo sweep

@@ -89,6 +89,12 @@ SOURCES = {
         # (x, y, At, src, L, T, TP, S)
         "dotsocp_dct_t_gather": [_P] * 4 + [_L, _I, _I, _L, _P],
     },
+    "dct_dense.cu": {
+        # (x, its row stride, y, its row stride, A^T, B, slabs, ny, nx)
+        "dotsocp_dct_slab": [_P, _I, _P, _I, _P, _P, _L, _I, _I, _P],
+        # (v, C_t^T, C_t, inverse kernel, L, T, S, scale)
+        "dotsocp_dct_t_spectral": [_P] * 4 + [_L, _I, _L, _F, _P],
+    },
 }
 
 _LIB = None

@@ -393,6 +393,9 @@ class FlatPoisson:
     def fast_axes(self):
         return self.inner.fast_axes
 
+    def on_passes(self, dtype, device) -> bool:
+        return self.inner.on_passes(dtype, device)
+
     def solve(self, rhs: torch.Tensor, scale=None) -> torch.Tensor:
         shaped = rhs.reshape(tuple(rhs.shape[:-1]) + self.geom.space)
         return self.inner.solve(shaped, scale=scale).reshape(rhs.shape)

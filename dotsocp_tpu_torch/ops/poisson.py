@@ -11,10 +11,17 @@ with one orthonormal DCT-II per axis and inv_kernel = 1 / (D^2 * kernel).
 A space axis takes one of two routes, by its length alone
 (:func:`fast_axis`); the t axis always takes the first:
 
-- the matrix route: a product with the dense DCT matrix, ``torch.matmul`` in
-  full precision (the JAX package runs its matmuls at ``Precision.HIGHEST``,
-  and a TF32 solve loses ~4 digits, so building a solver switches TF32 off
-  for CUDA matmuls); 2n flops an element;
+- the matrix route: a product with the dense DCT matrix, 2n flops an
+  element. On a 2D grid whose axes are all on it, a float32 solve on the
+  card runs as three hand-written passes (:func:`dense_passes`,
+  ``csrc/dct_dense.cu``: each (t) slab's two space transforms, each space
+  column's t transform with the inverse kernel and the inverse t
+  transform, each slab's inverse space transforms), which launch or
+  raise; elsewhere (the CPU, float64, 1D and 3D grids, the FFT route's
+  shorter axes) ``torch.matmul`` in full precision (the JAX package runs
+  its matmuls at ``Precision.HIGHEST``, and a TF32 solve loses ~4 digits,
+  so building a solver switches TF32 off for CUDA matmuls);
+  :func:`dense_route` decides;
 - the FFT route (space axes of ``FAST_DCT_MIN`` points or more): Makhoul's
   algorithm over all of them at once (:class:`FftPlan`): one pass applies
   the t axis's matrix and the reorder (x0, x2, x4, ..., x5, x3, x1) along
@@ -75,9 +82,18 @@ def dct_matrix(n: int, dtype: torch.dtype, device) -> torch.Tensor:
 # 129^2 x 17, 129^2 x 33, 257^2 x 33 and 513^2 x 65.
 FAST_DCT_MIN = 257
 
-# the FFT route's kernel launches (``csrc/dct_spectral.cu``), as
-# ``fused_step.LAUNCHES`` counts the step kernels'
-LAUNCHES = {"dct_spectral": 0, "dct_t_gather": 0}
+# The longest axis the matrix route's passes take (:func:`dense_route`): a
+# block holds a slab of ny x nx points, or the t axis's T x T matrix, in its
+# shared memory (227 KB on the H100: a slab of at most 236 points a side, a
+# t axis of at most 224). A float32 solve on the card with a longer axis
+# runs the matmuls.
+DENSE_PASS_MAX = 192
+
+# the kernel launches of the FFT route (``csrc/dct_spectral.cu``) and of the
+# matrix route's passes (``csrc/dct_dense.cu``), as ``fused_step.LAUNCHES``
+# counts the step kernels'
+LAUNCHES = {"dct_spectral": 0, "dct_t_gather": 0, "dct_slab_fwd": 0,
+            "dct_t_spectral": 0, "dct_slab_inv": 0}
 
 
 def reset_launches() -> None:
@@ -90,6 +106,87 @@ def fast_axis(n: int) -> bool:
     False for the dense matrix. A function of the length alone; the t axis
     keeps its matrix at any length (the route's passes apply it)."""
     return n >= FAST_DCT_MIN
+
+
+def dense_route(grid: Tuple[int, ...], dtype: torch.dtype, device,
+                fast_axes: Tuple[int, ...] = ()) -> bool:
+    """Whether the matrix route of a solve over ``grid`` (the lengths of t
+    and the space axes) of a rhs of ``dtype`` on ``device`` runs the three
+    passes of :func:`dense_passes` (True) or the matmuls: True for a
+    float32 rhs on a CUDA device, a grid of three axes (t, y, x), no space
+    axis on the FFT route (``fast_axes``, the solver's) and no axis longer
+    than ``DENSE_PASS_MAX``. A function of what the solve can see, as
+    :func:`fast_axis` is."""
+    return (torch.device(device).type == "cuda" and dtype == torch.float32
+            and len(grid) == 3 and not fast_axes
+            and max(grid) <= DENSE_PASS_MAX)
+
+
+class DensePlan(NamedTuple):
+    """What the passes read besides the field: each axis's (C^T, C), and
+    the inverse kernel laid out as the intermediate is, (T, ny, nxp), all
+    with zero columns up to a multiple of 4 (nxp = nx rounded up)."""
+
+    mats: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
+    kernel: torch.Tensor
+
+
+def _pad4(a: torch.Tensor) -> torch.Tensor:
+    """a with zero columns (last axis) up to a multiple of 4, contiguous."""
+    return torch.nn.functional.pad(a, (0, -a.shape[-1] % 4)).contiguous()
+
+
+def dense_passes(y: torch.Tensor, p: "DctPoisson", scale) -> torch.Tensor:
+    """The matrix route's solve of y (..., T, ny, nx), contiguous float32 on
+    the card, in three launches of ``csrc/dct_dense.cu``: the forward slab
+    pass (C_y X C_x^T a slab) into one fresh intermediate whose rows are
+    padded to nxp (a multiple of 4) with zeros, the t pass in place on it
+    (a column's C_t, times the inverse kernel times ``scale``, then
+    C_t^T), the inverse slab pass (C_y^T Y C_x) into the fresh output.
+    Leading axes (a stack of instances) fold into the slabs and columns.
+    Raises on any other input."""
+    from . import _build, fused_step
+
+    grid = p.grid
+    if (y.dtype != torch.float32 or p.inv_kernel.dtype != torch.float32
+            or y.device != p.inv_kernel.device or not y.is_contiguous()
+            or tuple(y.shape[-3:]) != grid):
+        raise ValueError(f"dense_passes: y {y.dtype} {tuple(y.shape)} on "
+                         f"{y.device} (contiguous: {y.is_contiguous()}), "
+                         f"expected a contiguous float32 (..., {grid}) on "
+                         f"{p.inv_kernel.device}")
+    T, ny, nx = grid
+    nxp = -(-nx // 4) * 4
+    (Ctt, Ct), (Cyt, Cy), (Cxt, Cx) = p.dense.mats
+    slabs = y.numel() // (ny * nx)
+    lib = _build.library()
+    mid = torch.empty(y.shape[:-1] + (nxp,), dtype=y.dtype, device=y.device)
+    fused_step._launch(LAUNCHES, "dct_slab_fwd", lib.dotsocp_dct_slab,
+                       y.device, y.data_ptr(), nx, mid.data_ptr(), nxp,
+                       Cyt.data_ptr(), Cxt.data_ptr(), slabs, ny, nx)
+    fused_step._launch(LAUNCHES, "dct_t_spectral",
+                       lib.dotsocp_dct_t_spectral, y.device, mid.data_ptr(),
+                       Ctt.data_ptr(), Ct.data_ptr(),
+                       p.dense.kernel.data_ptr(), slabs // T, T, ny * nxp,
+                       1.0 if scale is None else float(scale))
+    out = torch.empty_like(y)
+    fused_step._launch(LAUNCHES, "dct_slab_inv", lib.dotsocp_dct_slab,
+                       y.device, mid.data_ptr(), nxp, out.data_ptr(), nx,
+                       Cy.data_ptr(), Cx.data_ptr(), slabs, ny, nx)
+    return out
+
+
+def dense_passes_plain(y: torch.Tensor, p: "DctPoisson",
+                       scale) -> torch.Tensor:
+    """:func:`dense_passes`' arithmetic as PyTorch operations: the forward
+    slab product, the t axis's transform, kernel and inverse a column, the
+    inverse slab product."""
+    (Ct, Cy, Cx), (T, ny, nx) = p.mats, p.grid
+    z = torch.matmul(torch.matmul(Cy, y), Cx.T)
+    w = torch.matmul(Ct, z.reshape(-1, T, ny * nx))
+    g = p.inv_kernel if scale is None else p.inv_kernel * scale
+    w = torch.matmul(Ct.T, w * g.reshape(T, ny * nx))
+    return torch.matmul(torch.matmul(Cy.T, w.reshape(y.shape)), Cx)
 
 
 class FftPlan(NamedTuple):
@@ -353,7 +450,9 @@ class DctPoisson:
     space axes of at least ``FAST_DCT_MIN`` points take the FFT route
     (``fft``, None when none does), the others their matrix.
     ``inv_kernel`` is the matrix route's phi-shaped inverse kernel (None
-    on the FFT route, whose plan holds it on the half spectrum)."""
+    on the FFT route, whose plan holds it on the half spectrum);
+    ``dense`` the passes' :class:`DensePlan` where they may run (the
+    matrices' dtype and device on :func:`dense_route`), else None."""
 
     def __init__(self, mats: Tuple[torch.Tensor, ...],
                  inv_kernel: Optional[torch.Tensor], fft: Optional[FftPlan],
@@ -362,11 +461,26 @@ class DctPoisson:
         self.inv_kernel = inv_kernel
         self.fft = fft
         self.ir = ir        # f32 solve + f64-residual refinement
+        self.grid = tuple(C.shape[0] for C in mats)
+        self.dense = None
+        if dense_route(self.grid, mats[0].dtype, mats[0].device,
+                       self.fast_axes):
+            self.dense = DensePlan(
+                mats=tuple((_pad4(C.T), _pad4(C)) for C in mats),
+                kernel=_pad4(inv_kernel))
 
     @property
     def fast_axes(self) -> Tuple[int, ...]:
         """The grid axes (0 = t) on the FFT route."""
         return () if self.fft is None else self.fft.axes
+
+    def on_passes(self, dtype: torch.dtype, device) -> bool:
+        """Whether a solve of a ``dtype`` rhs on ``device`` runs the
+        passes (:func:`dense_route`); an IR build's float64 rhs runs its
+        float32 preconditioner there."""
+        if self.ir is not None and dtype == torch.float64:
+            dtype = torch.float32
+        return dense_route(self.grid, dtype, device, self.fast_axes)
 
     def solve(self, rhs: torch.Tensor, scale=None) -> torch.Tensor:
         """phi = idctn(dctn(rhs) * inv_kernel) (``oper_poisson3dim.m:4``).
@@ -380,19 +494,16 @@ class DctPoisson:
 
     def _spectral(self, y: torch.Tensor, scale) -> torch.Tensor:
         """C^T (inv_kernel * scale * (C y)) over the grid's axes, the last
-        of ``y``. On the FFT route the shorter space axes' matrices apply
-        at their place, before and after the route's passes (the two
-        commute), and the spectral step multiplies by the kernel over every
-        axis."""
+        of ``y``. The matrix route runs the passes where :func:`dense_route`
+        says so, else the matmuls. On the FFT route the shorter space axes'
+        matrices apply at their place, before and after the route's passes
+        (the two commute), and the spectral step multiplies by the kernel
+        over every axis."""
         lead = y.ndim - len(self.mats)
         if self.fft is None:
-            for ax, C in enumerate(self.mats):
-                y = _apply_axis(C, y, lead + ax)
-            y = y * (self.inv_kernel if scale is None
-                     else self.inv_kernel * scale)
-            for ax, C in enumerate(self.mats):
-                y = _apply_axis(C.T, y, lead + ax)
-            return y
+            if dense_route(self.grid, y.dtype, y.device):
+                return dense_passes(y, self, scale)
+            return self._matmuls(y, scale)
         plan = self.fft
         short = [ax for ax in range(1, len(self.mats)) if ax not in plan.axes]
         for ax in short:
@@ -402,6 +513,18 @@ class DctPoisson:
         y = t_pass(_inverse_fft(V, plan), plan, 1)
         for ax in short:
             y = _apply_axis(self.mats[ax].T, y, lead + ax)
+        return y
+
+    def _matmuls(self, y: torch.Tensor, scale) -> torch.Tensor:
+        """The matrix route as one matmul an axis each way and the kernel
+        between."""
+        lead = y.ndim - len(self.mats)
+        for ax, C in enumerate(self.mats):
+            y = _apply_axis(C, y, lead + ax)
+        y = y * (self.inv_kernel if scale is None
+                 else self.inv_kernel * scale)
+        for ax, C in enumerate(self.mats):
+            y = _apply_axis(C.T, y, lead + ax)
         return y
 
     def _base32(self, r: torch.Tensor, scale32) -> torch.Tensor:

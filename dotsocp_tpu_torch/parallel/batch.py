@@ -444,7 +444,9 @@ class BatchedDeviceDriver:
                               eager_runs=self.graphs.eager_runs,
                               graph_kinds=self.graphs.kinds(),
                               fast_dct_iters=(self.h_it if self.k.fast_dct
-                                              else 0))
+                                              else 0),
+                              dct_kernel_iters=(self.h_it
+                                                if self.k.dct_kernel else 0))
             # the replays' launches go to LAUNCHES here
             self.graphs.release()
         return self.ls, time.monotonic() - self.t0

@@ -352,7 +352,8 @@ def test_t_gather_kernel_matches_plain(dev, monkeypatch, name):
     poisson.reset_launches()
     got = p.solve(x, 0.5)
     torch.cuda.synchronize()
-    assert poisson.LAUNCHES == {"dct_spectral": 1, "dct_t_gather": 2}
+    assert poisson.LAUNCHES == dict(dict.fromkeys(poisson.LAUNCHES, 0),
+                                    dct_spectral=1, dct_t_gather=2)
     if nt <= 65:
         exact = poisson.make_dct_poisson(geom, D=1.3, dtype=F64,
                                          device="cpu")
